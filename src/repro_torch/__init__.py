@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the ``repro`` ensemble-integration stack.
+
+Module names mirror the JAX package (``repro_torch.core.batched`` is the
+counterpart of ``repro.core.batched``, and so on).  This package imports
+``torch`` and never ``jax`` or anything of ``repro``: what it needs from
+the JAX package it keeps as its own copy.
+
+The hot kernels are CUDA C++ for Hopper (``kernels/csrc/*.cu``), built
+with ``nvcc`` at first use; each has a plain PyTorch version beside it,
+which the wrappers take for tensors that lie on the CPU.
+
+Covered so far: ``core.ivp.integrate(..., "ensemble_bdf")`` with the
+default ``BlockDiagGJ`` linear solver.  Everything else raises
+``NotImplementedError`` naming its ROADMAP item.
+"""

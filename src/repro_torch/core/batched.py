@@ -1,0 +1,302 @@
+"""Ensemble (submodel) BDF integration: many small independent stiff
+systems advanced together, each with its own step size and order.
+
+Counterpart of ``repro.core.batched.ensemble_bdf_integrate``
+(``batched.py:487-977``).  The reference runs its step loop and Newton
+loop as ``lax.while_loop``s on the device; here they are Python loops
+that read each loop condition with ONE device->host sync per trip
+(:func:`_read`, counted in :data:`loop_counts`), and the two
+``lax.cond``s of lsetup become one host branch fed by one sync.  Every
+constant of the reference is kept.
+
+Layout: structure of arrays with the system axis LAST, as in the
+reference: history ``Z (QMAX+1, n, nsys)``, Newton iterate and weights
+``(n, nsys)``, saved inverse ``(n, n, nsys)``.  Each Newton iteration is
+one fused residual, one lsolve (block-diagonal SpMV against the saved
+inverse) and one fused masked update + correction norm; twice a step the
+history is rebuilt by ``history_rescale_soa`` and once a step the error
+test runs ``wrms_soa``; lsetup inverts the Newton blocks.  Those six ops
+are the CUDA kernels of :mod:`repro_torch.kernels` on the card.
+
+The loop owns its state: the counters are updated in place, and each
+step's new history replaces the old one, so PyTorch's caching allocator
+hands the same blocks back from step to step.  Warm-start sessions,
+step telemetry, sparsity patterns and Krylov solvers wait for their
+ROADMAP items and raise here.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from . import controller as ctrl
+from . import cvode as _cv
+from . import dispatch as dv
+from . import status
+from .arkode import ODEOptions
+from .linsol import BlockDiagGJ
+
+#: device->host reads made by the step and Newton loops, and the two
+#: loops' trip counts, summed over every call since the last reset
+loop_counts = {"host_syncs": 0, "step_trips": 0, "newton_trips": 0}
+
+
+def reset_loop_counts() -> None:
+    for key in loop_counts:
+        loop_counts[key] = 0
+
+
+def _read(x: torch.Tensor):
+    """One counted device->host read of a small tensor."""
+    loop_counts["host_syncs"] += 1
+    return x.tolist()
+
+
+def _wrap_soa(f, jac, f_soa, jac_soa):
+    """SoA forms of the AoS batch callables when no native ones are
+    given: a transpose at the call boundary only (made contiguous, as
+    the kernels take contiguous tensors)."""
+    if f_soa is None:
+        f_soa = lambda t, z: f(t, z.T).T.contiguous()
+    if jac_soa is None:
+        jac_soa = lambda t, z: jac(t, z.T).permute(1, 2, 0).contiguous()
+    return f_soa, jac_soa
+
+
+class EnsembleStats(NamedTuple):
+    steps: torch.Tensor       # (nsys,) accepted steps per system
+    attempts: torch.Tensor
+    netf: torch.Tensor
+    nni: torch.Tensor
+    success: torch.Tensor     # (nsys,) bool
+    nsetups: Optional[torch.Tensor] = None   # (nsys,) lsetup count
+    ncfn: Optional[torch.Tensor] = None      # (nsys,) Newton conv failures
+    nli: Optional[torch.Tensor] = None       # (nsys,) linear iterations
+    npsolves: Optional[torch.Tensor] = None  # (nsys,) preconditioner solves
+    retcodes: Optional[torch.Tensor] = None  # (nsys,) int32, 0 == SUCCESS
+    ok: Optional[torch.Tensor] = None        # (nsys,) bool, retcodes == 0
+
+
+def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
+                           t0, tf, *, order: int = 5,
+                           opts: ODEOptions = ODEOptions(),
+                           policy=None, linear_solver=None,
+                           jac_sparsity=None, msbp: int = 20,
+                           dgmax: float = 0.3, mem=None,
+                           f_soa: Optional[Callable] = None,
+                           jac_soa: Optional[Callable] = None,
+                           session=None, return_session: bool = False,
+                           telemetry: Optional[int] = None):
+    """Adaptive batched BDF (orders 1-``order``) over ``nsys`` stiff
+    systems; returns ``(y (nsys, n), EnsembleStats)``.
+
+    f   : (t:(nsys,), y:(nsys,n)) -> (nsys,n)   vectorized RHS
+    jac : (t:(nsys,), y:(nsys,n)) -> (nsys,n,n) per-system Jacobian
+    y0  : (nsys, n) on the device the run uses; t0, tf broadcastable to
+          (nsys,).  ``f_soa``/``jac_soa`` (``y:(n,nsys)``) are native SoA
+          forms that skip the boundary transposes.
+    policy : an ExecPolicy; None takes ``opts.policy``.
+
+    The corrector is CVODE's modified Newton: the Newton matrix is
+    refreshed only on the first step, after a convergence failure,
+    every ``msbp`` attempts, or when gamma drifted by more than
+    ``dgmax``.  A refresh evaluates ``jac`` over ALL systems and merges
+    where needed, as in the reference.  Failed lanes are quarantined
+    with a CV_*-style retcode (:mod:`repro_torch.core.status`).
+    """
+    if session is not None or return_session:
+        raise NotImplementedError("warm-start sessions wait for ROADMAP "
+                                  "queue A item 5")
+    if telemetry is not None:
+        raise NotImplementedError("step telemetry waits for ROADMAP queue A "
+                                  "item 5")
+    if jac_sparsity is not None:
+        raise NotImplementedError("jac_sparsity waits for the sparse "
+                                  "ensemble, ROADMAP queue A item 6")
+    ls = BlockDiagGJ() if linear_solver is None else linear_solver
+    if not isinstance(ls, BlockDiagGJ):
+        raise NotImplementedError(
+            f"linear solver {type(ls).__name__}: only BlockDiagGJ is ported; "
+            "Krylov and sparse solvers wait for ROADMAP queue A item 6")
+    if not 1 <= order <= _cv.QMAX:
+        raise ValueError(f"order must lie in 1..{_cv.QMAX}, got {order}")
+    policy = opts.policy if policy is None else policy
+    QMAX = _cv.QMAX
+    nsys, n = y0.shape
+    dtype, dev = y0.dtype, y0.device
+    f_s, jac_s = _wrap_soa(f, jac, f_soa, jac_soa)
+    if mem is not None:
+        mem.register("ensemble_bdf.history", (QMAX + 1, n, nsys), dtype)
+        for suffix, shape in ls.soa_workspace_shapes(n, nsys):
+            mem.register(f"ensemble_bdf.{suffix}", shape, dtype)
+
+    t = torch.as_tensor(t0, dtype=dtype, device=dev).expand(nsys).clone()
+    tf = torch.as_tensor(tf, dtype=dtype, device=dev).expand(nsys)
+    if opts.h0 > 0:
+        h = torch.full((nsys,), opts.h0, dtype=dtype, device=dev)
+    else:
+        h = torch.clamp(1e-6 * (tf - t), min=1e-12)
+    one = torch.ones((), dtype=dtype, device=dev)
+    alpha_t, beta_t, predp_t = _cv.bdf_tables(dtype, dev)
+    tiny = torch.finfo(dtype).tiny
+    cfg = opts.controller
+    i32 = torch.int32
+
+    def zeros_i32():
+        return torch.zeros((nsys,), dtype=i32, device=dev)
+
+    q = torch.ones((nsys,), dtype=i32, device=dev)
+    Z = torch.zeros((QMAX + 1, n, nsys), dtype=dtype, device=dev)
+    Z[0] = y0.T
+    e1 = torch.ones((nsys,), dtype=dtype, device=dev)
+    e2 = torch.ones((nsys,), dtype=dtype, device=dev)
+    MJ = ls.soa_carry_init(n, nsys, dtype, dev)
+    gam_saved = torch.zeros((nsys,), dtype=dtype, device=dev)
+    ncf_prev = torch.zeros((nsys,), dtype=torch.bool, device=dev)
+    since_jac, steps, att, netf = (zeros_i32() for _ in range(4))
+    nni, nsetups, ncfn, rc, ncf_cur, nef_cur = (zeros_i32() for _ in range(6))
+    nli = nps = 0
+    tf_run = tf * (1 - 1e-12)
+
+    while True:
+        active = (t < tf_run) & (rc == 0)
+        # the integer att backstop never binds (a lane reaching max_steps
+        # quarantines with TOO_MUCH_WORK first), as in the reference
+        if not _read(active.any() & (att <= opts.max_steps).all()):
+            break
+        loop_counts["step_trips"] += 1
+        hs = torch.where(active, torch.minimum(h, tf - t), h)
+        nvalid = torch.clamp(steps, max=QMAX)
+        # h clipped to hit tf: rescale the history.  Unclipped systems
+        # have eta_clip == 1 exactly, where the rebuild is the identity,
+        # so they are masked out and copied through
+        eta_clip = torch.where(active, hs / h, one)
+        Z = dv.history_rescale_soa(_cv.lagrange_matrix_soa(eta_clip, nvalid),
+                                   Z, active & (eta_clip != one), policy)
+        qi = q - 1
+        alphas = alpha_t[:, qi]                      # (QMAX+1, nsys)
+        beta = beta_t[qi]
+        pred_c = predp_t[:, torch.minimum(nvalid, q)]
+        y_pred = (pred_c[:, None, :] * Z).sum(0)     # (n, nsys)
+        psi = -(alphas[1:, None, :] * Z[:-1]).sum(0)
+        gamma = beta * hs
+        t_new = t + hs
+        w = 1.0 / (opts.rtol * Z[0].abs() + opts.atol)
+
+        # ---- lsetup where stale; one sync reads "any" and "all" ----
+        gamrat = gamma / torch.where(gam_saved != 0, gam_saved, gamma)
+        need = active & ((gam_saved == 0) | ncf_prev |
+                         (since_jac >= msbp) | ((gamrat - 1.0).abs() > dgmax))
+        any_need, all_need = _read(torch.stack([need.any(), need.all()]))
+        if any_need:
+            MJ_new = ls.soa_setup(jac_s(t_new, y_pred), gamma, policy)
+            MJ = MJ_new if all_need else torch.where(need, MJ_new, MJ)
+        gam_saved = torch.where(need, gamma, gam_saved)
+        since_jac = torch.where(need, 0, since_jac)
+        gamrat = torch.where(need, 1.0, gamrat)
+
+        # ---- convergence-tested modified Newton ----
+        z = y_pred
+        dn_prev = torch.zeros((nsys,), dtype=dtype, device=dev)
+        crate = torch.ones((nsys,), dtype=dtype, device=dev)
+        conv = ~active
+        div = torch.zeros((nsys,), dtype=torch.bool, device=dev)
+        nni_s = zeros_i32()
+        it = 0
+        while it < opts.newton_max:
+            iterate = active & ~conv & ~div
+            if not _read(iterate.any()):
+                break
+            loop_counts["newton_trips"] += 1
+            rhs = dv.newton_residual_soa(z, f_s(t_new, z), psi, gamma, policy,
+                                         negate=True)
+            dz, nli_inc, nps_inc = ls.soa_solve(MJ, gamma, gamrat, rhs, policy)
+            z, dn = dv.masked_update_wrms_soa(z, dz, w, iterate, policy)
+            crate_new = crate
+            if it > 0:
+                crate_new = torch.maximum(
+                    0.3 * crate, dn / torch.clamp(dn_prev, min=1e-30))
+                div = div | (iterate & (dn > 2.0 * dn_prev))
+            conv = conv | (iterate & (dn * torch.clamp(crate_new, max=1.0) <
+                                      opts.newton_tol_fac))
+            dn_prev = torch.where(iterate, dn, dn_prev)
+            crate = torch.where(iterate, crate_new, crate)
+            nni_s += iterate.to(i32)
+            nli += nli_inc
+            nps += nps_inc
+            it += 1
+
+        # ---- local error test (LTE ~ (z - pred)/(q+1), uniform grid) ----
+        err_raw = dv.wrms_soa(z - y_pred, w, policy) / (q.to(dtype) + 1.0)
+        bad = ~torch.isfinite(err_raw) | ~conv
+        err = torch.where(bad, 2.0, err_raw)
+        accept = (err <= 1.0) & ~bad & active
+
+        eta, cst = ctrl.eta_from_error(cfg, ctrl.ControllerState(e1, e2), err,
+                                       q + 1, after_failure=(~accept) & conv)
+        eta = torch.where(conv | ~active, eta, opts.eta_cf)
+        eta = torch.clamp(eta, 0.1, 10.0)
+        # fold [hmin, hmax] into eta: the history is rescaled onto the
+        # hs*eta grid, so clamping h afterwards would desync the two
+        hs_safe = torch.clamp(hs, min=tiny)
+        eta = torch.clamp(eta, min=opts.hmin / hs_safe, max=opts.hmax / hs_safe)
+        e1 = torch.where(accept, cst.err_prev, e1)
+        e2 = torch.where(accept, cst.err_prev2, e2)
+
+        # accepted systems: shift history, insert z, ramp order
+        Z_acc = torch.roll(Z, 1, 0)
+        Z_acc[0] = z
+        Z_next = torch.where(accept[None, None, :], Z_acc, Z)
+        q_next = torch.where(accept, torch.clamp(q + 1, max=order), q)
+        # rescale each system's history onto its new uniform grid
+        nval_after = torch.clamp(steps + accept.to(i32), max=QMAX)
+        W2 = _cv.lagrange_matrix_soa(torch.where(active, eta, one), nval_after)
+        Z = dv.history_rescale_soa(W2, Z_next, active, policy)
+
+        t_next = torch.where(accept, t_new, t)
+        ncf = active & ~conv
+        etf = (~accept) & conv & active
+        ai = active.to(i32)
+        att += ai
+
+        # ---- per-lane retcode escalation (CVODE CVHandleFailure).
+        # Failure is only decided for active lanes, so a quarantined
+        # lane's retcode is sticky.  Priority (last write wins):
+        # TOO_MUCH_WORK < ERR_FAILURE < CONV_FAILURE < RHSFUNC_FAIL
+        ncf_cur = torch.where(accept, 0, ncf_cur + ncf.to(i32))
+        nef_cur = torch.where(accept, 0, nef_cur + etf.to(i32))
+        # relative step-size underflow: t + h == t
+        hfail = active & (t + hs * eta == t)
+        nanstep = active & conv & ~torch.isfinite(err_raw)
+        unfinished = t_next < tf_run
+        rc = torch.where(active & unfinished & (att >= opts.max_steps),
+                         status.TOO_MUCH_WORK, rc)
+        rc = torch.where(active & ((nef_cur >= status.MXNEF) |
+                                   (hfail & conv)), status.ERR_FAILURE, rc)
+        rc = torch.where(active & ((ncf_cur >= status.MXNCF) |
+                                   (hfail & ~conv)), status.CONV_FAILURE, rc)
+        rc = torch.where(nanstep, status.RHSFUNC_FAIL, rc)
+
+        t = t_next
+        h = torch.where(active, hs * eta, h)
+        q = q_next
+        since_jac += ai
+        ncf_prev = ncf
+        steps += accept.to(i32)
+        netf += etf.to(i32)
+        nni += nni_s
+        nsetups += need.to(i32)
+        ncfn += ncf.to(i32)
+
+    # a lane still marked healthy but short of tf is TOO_MUCH_WORK, so
+    # retcodes == 0 <=> the lane reached tf
+    tf_end = tf * (1 - 1e-10)
+    retcodes = torch.where((rc == 0) & (t < tf_end), status.TOO_MUCH_WORK, rc)
+    st = EnsembleStats(
+        steps=steps, attempts=att, netf=netf, nni=nni, success=t >= tf_end,
+        nsetups=nsetups, ncfn=ncfn,
+        nli=torch.full((nsys,), nli, dtype=i32, device=dev),
+        npsolves=torch.full((nsys,), nps, dtype=i32, device=dev),
+        retcodes=retcodes, ok=retcodes == 0)
+    return Z[0].T.contiguous(), st

@@ -1,0 +1,54 @@
+"""Step-size controllers (SUNAdaptController analogs).
+
+Counterpart of ``repro.core.controller``: the I, PI and PID controllers
+with ARKODE's default constants, on tensors.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class ControllerState(NamedTuple):
+    err_prev: torch.Tensor      # eps_{n-1}
+    err_prev2: torch.Tensor     # eps_{n-2}
+
+
+class ControllerConfig(NamedTuple):
+    kind: str = "pi"           # 'i' | 'pi' | 'pid'
+    safety: float = 0.96       # ARKODE default
+    eta_max_first: float = 10000.0
+    eta_max: float = 20.0      # ARKODE growth clamp
+    eta_min: float = 0.1
+    eta_max_fail: float = 0.3  # shrink cap after an error-test failure
+    small_nef: int = 2
+    # PI gains (ARKODE defaults k1=0.8, k2=0.31 applied with 1/(p+1))
+    k1: float = 0.8
+    k2: float = 0.31
+    k3: float = 0.1
+
+
+def eta_from_error(cfg: ControllerConfig, state: ControllerState,
+                   err: torch.Tensor, order: torch.Tensor,
+                   after_failure: torch.Tensor) -> tuple:
+    """``(eta, new_state)``: eta = h_new/h from the WRMS error ``err``
+    (<= 1 accepts); ``order`` is the method order used in the exponent."""
+    e = torch.clamp(err, min=1e-10)
+    p = order.to(e.dtype)
+    e1 = torch.clamp(state.err_prev, min=1e-10)
+    e2 = torch.clamp(state.err_prev2, min=1e-10)
+
+    if cfg.kind == "i":
+        eta = e ** (-1.0 / p)
+    elif cfg.kind == "pi":
+        eta = e ** (-cfg.k1 / p) * e1 ** (cfg.k2 / p)
+    else:  # pid
+        eta = e ** (-cfg.k1 / p) * e1 ** (cfg.k2 / p) * e2 ** (-cfg.k3 / p)
+
+    eta = cfg.safety * eta
+    eta = torch.clamp(eta, cfg.eta_min, cfg.eta_max)
+    # after an error-test failure only allow shrinking (ARKODE etamxf)
+    eta = torch.where(after_failure, torch.clamp(eta, max=cfg.eta_max_fail),
+                      eta)
+    return eta, ControllerState(err_prev=e, err_prev2=e1)

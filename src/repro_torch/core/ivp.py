@@ -1,0 +1,156 @@
+"""Unified IVP front-end: one problem object, one ``integrate`` call.
+
+Counterpart of ``repro.core.ivp`` (``ivp.py:77-205,364-440``) for the
+``"ensemble_bdf"`` method; every other method string of the reference
+raises ``NotImplementedError`` naming the ROADMAP item it waits for.
+``integrate`` runs on the card unless the call (or the context's
+policy) names another device; without CUDA it raises instead of
+falling back to the CPU.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from . import batched
+from .arkode import ODEOptions
+from .context import Context
+from .policies import resolve_device
+
+_KNOWN_FAMILIES = ("erk", "dirk", "imex", "bdf", "adams",
+                   "ensemble_erk", "ensemble_dirk", "ensemble_bdf")
+
+#: family -> the ROADMAP queue A item its port waits for
+_WAITING = {"erk": 7, "dirk": 7, "imex": 7, "bdf": 7, "adams": 7,
+            "ensemble_erk": 4, "ensemble_dirk": 4}
+
+
+@dataclass(frozen=True)
+class IVP:
+    """An initial-value problem (see ``repro.core.ivp.IVP``).
+
+    f   : full RHS ``f(t, y)`` — exclusive with ``fe``+``fi``
+    fe, fi : explicit / implicit parts for IMEX methods
+    jac : analytic Jacobian (batched ``(t, y) -> (nsys, n, n)``)
+    f_soa, jac_soa : native SoA forms (system axis LAST)
+    jac_sparsity : static per-system sparsity pattern
+    y0  : initial state, ``(nsys, n)`` for ensemble methods
+    """
+
+    f: Optional[Callable] = None
+    fe: Optional[Callable] = None
+    fi: Optional[Callable] = None
+    jac: Optional[Callable] = None
+    f_soa: Optional[Callable] = None
+    jac_soa: Optional[Callable] = None
+    jac_sparsity: Optional[Any] = None
+    y0: Any = None
+
+    def __post_init__(self):
+        if (self.f is None) == (self.fe is None and self.fi is None):
+            raise ValueError("IVP wants either f=... or fe=... and fi=...")
+        if (self.fe is None) != (self.fi is None):
+            raise ValueError("IMEX splittings need BOTH fe and fi")
+        if self.y0 is None:
+            raise ValueError("IVP needs y0")
+
+    @property
+    def full_rhs(self) -> Callable:
+        """``f``, or ``fe + fi`` for split problems."""
+        if self.f is not None:
+            return self.f
+        fe, fi = self.fe, self.fi
+        return lambda t, y: fe(t, y) + fi(t, y)
+
+
+class Solution(NamedTuple):
+    """One result type for every method (fields as in the reference;
+    those of unported features stay None)."""
+
+    y: Any
+    t: torch.Tensor
+    success: torch.Tensor
+    stats: Any
+    method: str
+    lin_solver: str
+    nonlin_solver: str
+    nni: torch.Tensor
+    nli: Optional[torch.Tensor]
+    nsetups: Optional[torch.Tensor]
+    workspace_bytes: int
+    high_water_bytes: int
+    npsolves: Optional[torch.Tensor] = None
+    npsetups: Optional[torch.Tensor] = None
+    session: Optional[Any] = None
+    timings: Optional[dict] = None
+    telemetry: Optional[Any] = None
+    retcodes: Optional[torch.Tensor] = None
+    ok: Optional[torch.Tensor] = None
+    degraded: bool = False
+
+
+def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
+              ctx: Optional[Context] = None,
+              opts: Optional[ODEOptions] = None,
+              lin_solver=None, nonlin_solver=None, order: int = 5,
+              live=None, timed: Optional[bool] = None, device=None,
+              **method_kw) -> Solution:
+    """Integrate ``problem`` from t0 to tf with ``method``.
+
+    ctx    : :class:`~repro_torch.core.context.Context`; a private one
+             is created if omitted.
+    opts   : ODEOptions; defaults to ``ctx.options()``.
+    device : where the run happens; None takes ``opts.policy.device``,
+             and if that is None too, the card.  ``problem.y0`` must
+             already lie there.
+    method_kw : passed to the integrator (``msbp``, ``dgmax``, ...).
+    """
+    fam, _, _ = method.partition(":")
+    if fam not in _KNOWN_FAMILIES:
+        raise ValueError(f"unknown method {method!r}; families: "
+                         f"{', '.join(_KNOWN_FAMILIES)}")
+    if fam in _WAITING:
+        raise NotImplementedError(
+            f"method {method!r} is not ported yet (ROADMAP queue A item "
+            f"{_WAITING[fam]}); the port covers 'ensemble_bdf'")
+    if timed:
+        raise NotImplementedError("integrate(timed=True) waits for the "
+                                  "observability slice, ROADMAP queue A item 10")
+    if live is not None:
+        raise NotImplementedError("live= lane masking waits for the serving "
+                                  "slice, ROADMAP queue A item 9")
+    if nonlin_solver is not None:
+        raise ValueError(f"method {method!r} takes no nonlin_solver")
+    ctx = ctx if ctx is not None else Context()
+    opts = opts if opts is not None else ctx.options()
+    dev = resolve_device(device if device is not None else opts.policy.device)
+    y0 = problem.y0
+    if y0.device.type != dev.type:
+        raise ValueError(f"IVP.y0 lies on {y0.device} but the run is on "
+                         f"{dev}: build the problem there (device=...)")
+    if problem.jac is None:
+        raise ValueError(f"method {method!r} needs IVP.jac")
+    mem = ctx.memory
+    live0 = mem.live_bytes
+    labels0 = set(mem.workspaces)
+
+    y, st = batched.ensemble_bdf_integrate(
+        problem.full_rhs, problem.jac, y0, t0, tf, order=order, opts=opts,
+        policy=opts.policy, linear_solver=lin_solver,
+        jac_sparsity=problem.jac_sparsity, mem=mem, f_soa=problem.f_soa,
+        jac_soa=problem.jac_soa, **method_kw)
+
+    workspace = mem.live_bytes - live0
+    # workspaces are per call: release only the labels this call added
+    for label in set(mem.workspaces) - labels0:
+        mem.release(label)
+    ctx.record(st, int(st.nli[0]))
+    return Solution(
+        y=y, t=torch.as_tensor(tf), success=st.success.all(), stats=st,
+        method=method, lin_solver=getattr(lin_solver, "name", "blockdiag_gj"),
+        nonlin_solver="newton", nni=st.nni.sum(), nli=st.nli[0],
+        nsetups=st.nsetups, workspace_bytes=workspace,
+        high_water_bytes=mem.high_water_bytes, npsolves=st.npsolves[0],
+        retcodes=st.retcodes, ok=st.ok)

@@ -1,0 +1,44 @@
+"""Problem and solver data carried between the JAX package and the port.
+
+The system has no model weights: what must reach the port identically
+is the problem's data (per-system rate constants) and the solver's
+options.  Both cross as plain numbers and numpy arrays, so this module
+imports neither package.  The ``SolverSession`` carry waits for ROADMAP
+queue A item 5.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.arkode import ODEOptions
+from .core.controller import ControllerConfig
+
+
+def params_from_numpy(params: dict, *, device, dtype=torch.float64) -> dict:
+    """``{"k1","k2","k3",...}`` numpy arrays (the reference serving
+    families' per-system params, each ``(nsys,)``) -> tensors."""
+    return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+            for k, v in params.items()}
+
+
+def options_from_reference(fields: dict) -> ODEOptions:
+    """The port's ODEOptions from the reference's
+    ``ODEOptions._asdict()`` values, with ``controller`` as a nested dict
+    (``ControllerConfig._asdict()``).  The reference's ``policy`` is a
+    JAX-side choice with no counterpart here and is refused."""
+    if "policy" in fields:
+        raise ValueError("options_from_reference takes no 'policy': pick the "
+                         "port's ExecPolicy separately")
+    fields = dict(fields)
+    if "controller" in fields:
+        fields["controller"] = ControllerConfig(**fields["controller"])
+    return ODEOptions(**fields)
+
+
+def solution_to_numpy(sol) -> dict:
+    """A Solution's state, status and per-system stats as numpy arrays."""
+    out = {"y": sol.y, "retcodes": sol.retcodes, "ok": sol.ok}
+    out.update({f"stats.{k}": v for k, v in sol.stats._asdict().items()})
+    return {k: v.detach().cpu().numpy() for k, v in out.items()
+            if v is not None}

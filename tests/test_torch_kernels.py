@@ -1,0 +1,212 @@
+"""The port's six ensemble-BDF kernels against the JAX reference.
+
+Each op's plain PyTorch version (what the port's wrappers run for CPU
+tensors) is held to the reference's jnp oracle (``repro.kernels.ref``)
+AND to the reference's Pallas kernel in interpret mode, on the same
+float64 inputs made from a numpy seed, at ragged batch sizes.  The CUDA
+kernels themselves run only on the card (``tests/test_torch_cuda.py``
+and ``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from repro.core import dispatch as rdv
+from repro.core.policies import ExecPolicy as RefPolicy
+from repro.kernels import ref as kref
+from repro_torch import kernels
+from repro_torch.core import dispatch as dv
+from repro_torch.core.policies import ExecPolicy
+from repro_torch.kernels import block_solve, blockdiag_spmv, newton
+
+PALLAS = RefPolicy(backend="pallas", interpret=True, batch_tile=128)
+TORCH = ExecPolicy(backend="torch")
+ATOL = 1e-10
+NBS = [7, 130, 516]
+N, Q1 = 3, 6
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _close(port, *refs, atol=ATOL):
+    for ref in refs:
+        np.testing.assert_allclose(_np(port), _np(ref), rtol=0, atol=atol)
+
+
+def _data(nb, seed=0):
+    rng = np.random.default_rng(seed)
+    return {
+        "z": rng.normal(size=(N, nb)), "f": rng.normal(size=(N, nb)),
+        "psi": rng.normal(size=(N, nb)),
+        "gam": np.abs(rng.normal(size=(nb,))),
+        "w": np.abs(rng.normal(size=(N, nb))) + 0.1,
+        "mask": rng.uniform(size=(nb,)) > 0.4,
+        "W": rng.normal(size=(Q1, Q1, nb)),
+        "Z": rng.normal(size=(Q1, N, nb)),
+        "A": rng.normal(size=(N, N, nb)),
+    }
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("negate", [False, True])
+@pytest.mark.parametrize("nb", NBS)
+def test_newton_residual(nb, negate):
+    d = _data(nb)
+    args = [d[k] for k in ("z", "f", "psi", "gam")]
+    port = newton.newton_residual_plain(*map(_t, args), negate=negate)
+    _close(port, kref.newton_residual_soa_ref(*map(jnp.asarray, args),
+                                              negate=negate),
+           rdv.newton_residual_soa(*map(jnp.asarray, args), PALLAS,
+                                   negate=negate))
+
+
+@pytest.mark.parametrize("nb", NBS)
+def test_blockdiag_spmv(nb):
+    d = _data(nb)
+    port = blockdiag_spmv.blockdiag_spmv_soa_plain(_t(d["A"]), _t(d["z"]))
+    A, x = jnp.asarray(d["A"]), jnp.asarray(d["z"])
+    _close(port, kref.blockdiag_spmv_soa_ref(A, x),
+           rdv.blockdiag_spmv_soa(A, x, PALLAS))
+
+
+@pytest.mark.parametrize("nb", NBS)
+def test_masked_update_wrms(nb):
+    d = _data(nb)
+    z_p, dn_p = newton.masked_update_wrms_plain(
+        _t(d["z"]), _t(d["f"]), _t(d["w"]), _t(d["mask"]))
+    args = [jnp.asarray(d[k]) for k in ("z", "f", "w", "mask")]
+    z_r, dn_r = kref.masked_update_wrms_soa_ref(*args)
+    z_k, dn_k = rdv.masked_update_wrms_soa(*args, PALLAS)
+    _close(z_p, z_r, z_k)
+    _close(dn_p, dn_r, dn_k)
+    # the norm covers masked-out systems too (newton.py:90-91)
+    assert np.all(_np(dn_p)[~d["mask"]] > 0)
+
+
+@pytest.mark.parametrize("nb", NBS)
+def test_history_rescale(nb):
+    d = _data(nb)
+    port = newton.history_rescale_plain(_t(d["W"]), _t(d["Z"]),
+                                        _t(d["mask"]))
+    args = [jnp.asarray(d[k]) for k in ("W", "Z", "mask")]
+    _close(port, kref.history_rescale_soa_ref(*args),
+           rdv.history_rescale_soa(*args, PALLAS))
+    # inactive systems pass through bit-exactly
+    off = ~d["mask"]
+    assert np.array_equal(_np(port)[:, :, off], d["Z"][:, :, off])
+    none = newton.history_rescale_plain(_t(d["W"]), _t(d["Z"]),
+                                        torch.zeros(nb, dtype=torch.bool))
+    assert np.array_equal(_np(none), d["Z"])
+
+
+@pytest.mark.parametrize("nb", NBS)
+def test_wrms_soa(nb):
+    d = _data(nb)
+    port = newton.wrms_soa_plain(_t(d["z"]), _t(d["w"]))
+    v, w = jnp.asarray(d["z"]), jnp.asarray(d["w"])
+    _close(port, kref.wrms_soa_ref(v, w), rdv.wrms_soa(v, w, PALLAS))
+
+
+@pytest.mark.parametrize("nb", NBS)
+@pytest.mark.parametrize("b", [3, 8, 16])
+def test_block_inverse(b, nb):
+    """b <= 8 and b > 8 reach the reference's two Pallas bodies
+    (_gj_inverse_kernel, _gj_tiled_inverse_kernel)."""
+    rng = np.random.default_rng(b * 1000 + nb)
+    A = rng.normal(size=(b, b, nb)) + b * np.eye(b)[:, :, None]
+    port = block_solve.block_inverse_soa_plain(_t(A))
+    _close(port, kref.block_inverse_soa_ref(jnp.asarray(A)),
+           rdv.block_inverse_soa(jnp.asarray(A), PALLAS))
+
+
+def _robertson_newton_blocks(nb, seed=0):
+    """M = I - gamma*J at Robertson states: k3 up to 3e8 and gamma over
+    eight decades make the entries span many decades, the case row
+    scaling exists for."""
+    rng = np.random.default_rng(seed)
+    k1 = np.full(nb, 0.04)
+    k2 = 1e4 * (0.5 + rng.uniform(size=nb))
+    k3 = 3e7 * 10.0 ** rng.uniform(-1, 1, size=nb)
+    b = 10.0 ** rng.uniform(-8, -4, size=nb)
+    c = rng.uniform(size=nb)
+    z = np.zeros(nb)
+    J = np.array([[-k1, k2 * c, k2 * b],
+                  [k1, -k2 * c - 2 * k3 * b, -k2 * b],
+                  [z, 2 * k3 * b, z]])
+    gam = 10.0 ** rng.uniform(-8, 0, size=nb)
+    return np.eye(3)[:, :, None] - gam[None, None, :] * J
+
+
+@pytest.mark.parametrize("nb", NBS)
+def test_block_inverse_stiff_newton_blocks(nb):
+    M = _robertson_newton_blocks(nb)
+    port = _np(block_solve.block_inverse_soa_plain(_t(M)))
+    ref = np.asarray(rdv.block_inverse_soa(jnp.asarray(M), PALLAS))
+    # same algorithm as the Pallas kernel: agree to 1e-10 of the scale
+    np.testing.assert_allclose(port, ref, rtol=0,
+                               atol=1e-10 * max(1.0, np.abs(ref).max()))
+    eye = np.einsum("ijs,jks->iks", M, port)
+    np.testing.assert_allclose(eye, np.broadcast_to(np.eye(3)[:, :, None],
+                                                    eye.shape), atol=1e-8)
+
+
+def test_auto_on_cpu_runs_plain_without_launching():
+    d = _data(130)
+    kernels.reset_counts()
+    out = dv.newton_residual_soa(_t(d["z"]), _t(d["f"]), _t(d["psi"]),
+                                 _t(d["gam"]), ExecPolicy(), negate=True)
+    ref = dv.newton_residual_soa(_t(d["z"]), _t(d["f"]), _t(d["psi"]),
+                                 _t(d["gam"]), TORCH, negate=True)
+    assert torch.equal(out, ref)
+    assert kernels.counts()["newton_residual"] == (0, 2)
+
+
+def _op_calls(d, policy):
+    t = {k: _t(v) for k, v in d.items()}
+    return {
+        "block_inverse_soa": lambda: dv.block_inverse_soa(t["A"], policy),
+        "blockdiag_spmv_soa": lambda: dv.blockdiag_spmv_soa(t["A"], t["z"],
+                                                            policy),
+        "newton_residual_soa": lambda: dv.newton_residual_soa(
+            t["z"], t["f"], t["psi"], t["gam"], policy),
+        "masked_update_wrms_soa": lambda: dv.masked_update_wrms_soa(
+            t["z"], t["f"], t["w"], t["mask"], policy),
+        "history_rescale_soa": lambda: dv.history_rescale_soa(
+            t["W"], t["Z"], t["mask"], policy),
+        "wrms_soa": lambda: dv.wrms_soa(t["z"], t["w"], policy),
+    }
+
+
+@pytest.mark.parametrize("op", sorted(_op_calls(_data(7), TORCH)))
+def test_cuda_backend_rejects_cpu_tensors(op):
+    with pytest.raises(ValueError, match="backend 'cuda'"):
+        _op_calls(_data(7), ExecPolicy(backend="cuda"))[op]()
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    """A wrapper takes its plain version only for CPU tensors."""
+    d = {k: _t(v).to("meta") for k, v in _data(7).items()}
+    calls = [
+        lambda: newton.newton_residual(d["z"], d["f"], d["psi"], d["gam"]),
+        lambda: newton.masked_update_wrms(d["z"], d["f"], d["w"], d["mask"]),
+        lambda: newton.history_rescale(d["W"], d["Z"], d["mask"]),
+        lambda: newton.wrms_soa(d["z"], d["w"]),
+        lambda: blockdiag_spmv.blockdiag_spmv_soa(d["A"], d["z"]),
+        lambda: block_solve.block_inverse_soa(d["A"]),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+            call()
+
+
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError, match="unknown backend"):
+        ExecPolicy(backend="pallas")
