@@ -4,33 +4,46 @@
     python3 chip_smoke.py [--profile] [--ptxas]
 
 Run from the repository root.  It imports nothing of JAX or of the JAX
-package.  Phases, each of which fails the run (non-zero exit):
+package.  Phases, each of which fails the run (non-zero exit), and each
+of which prints the seconds it took:
 
 1. device: prints the card's name and power limit (``nvidia-smi``);
 2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``
    (one process per source, all at once) unless already built;
-3. kernels: each of the six CUDA kernels of the ensemble-BDF path
-   against its plain PyTorch version on the card, at the main-path shape
-   (2**20 systems, n = b = 3) and at ragged batches, in float64 and
-   float32; the block inverse also at b = 8, 16 and on stiff Robertson
-   Newton blocks.  Then each kernel, its plain version and, where one
-   exists, a single PyTorch library call computing the same function are
-   timed with CUDA events (median of 25, L2 flushed before each run);
-4. reference: 256 lanes of the classic Robertson problem through
-   ``integrate`` must match scipy's Radau IIA (rtol 1e-12) at t = 10
-   within 10*(rtol*|y|+atol);
-   main path: ``integrate(IVP(...), 0, 10, "ensemble_bdf")`` over 2**20
-   batched Robertson systems (rates from numpy seed 0), float64, default
-   policy and ``BlockDiagGJ()``: every lane must succeed and every kernel
-   must have launched with no plain version running; then the same run
-   with ``ExecPolicy(backend="torch")`` must agree (retcodes equal, y
-   within 10*(rtol*|y|+atol)), and both conserve y1+y2+y3 = 1;
+3. kernels: each ported kernel body against its plain PyTorch version
+   on the card, in float64 and float32: the six of the ensemble-BDF path
+   at the main-path shape (2**20 systems, n = b = 3) and at ragged
+   batches (7, 130, 516); the two Gauss-Jordan entries at b = 1, 3, 8
+   (register bodies) and 9, 16, 32 (tiled bodies), the solve also at
+   b = 32 over 2**16 systems; both on stiff Robertson Newton blocks.
+   Each comparison also checks that the wrapper launched the body it
+   should.  Then each body, its plain version and, where one exists, a
+   single PyTorch library call computing the same function are timed
+   with CUDA events (median of 25, L2 flushed before each run) at the
+   shape its path gives it;
+4. paths, each driven through ``integrate`` with the launch counts set
+   to 0 just before and read just after; each must launch the kernels
+   of its path and no plain version, and agree with a run of the plain
+   versions (``ExecPolicy(backend="torch")``): equal retcodes and y
+   within 10*(rtol*|y|+atol).  rtol 1e-5, atol 1e-10, float64:
+   - ensemble BDF, the main path: ``"ensemble_bdf"`` with
+     ``BlockDiagGJ()`` over 2**20 batched Robertson systems (rates from
+     numpy seed 0) to t = 10; 256 classic-Robertson lanes must match
+     scipy's Radau IIA (rtol 1e-12) within 10*(rtol*|y|+atol);
+   - path A: ``"ensemble_dirk:sdirk2"`` on the same 2**20 systems (the
+     plain run on the first 2**16 of them: the lanes are independent),
+     and the same Radau check;
+   - path B: ``"ensemble_bdf"`` with ``BlockDiagGJ(factor_once=False)``
+     on ``ensemble_brusselator(2**16, nx=16)`` (n = b = 32) to t = 2;
+   - path C: ``"ensemble_erk:bogacki_shampine"`` on that ensemble;
+   the Robertson paths also conserve y1+y2+y3 = 1 within 10*rtol;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
-``--profile`` adds a third, profiled main-path run and writes the
-busiest device kernels to ``chip_smoke_out/chip_smoke_profile.txt``;
-``--ptxas`` prints what ``nvcc -Xptxas -v`` reports for each kernel
-(registers, spills) when it builds.  The full record goes to
+``--profile`` adds a profiled kernel run to each path and writes its
+busiest device kernels to ``chip_smoke_out/chip_smoke_profile_*.txt``;
+``--ptxas``
+prints what ``nvcc -Xptxas -v`` reports for each kernel (registers,
+spills) when it builds.  The full record goes to
 ``chip_smoke_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -44,7 +57,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chip_smoke_out"
-NSYS = 1 << 20
+NSYS = 1 << 20          # Robertson systems of the main path and path A
+NSUB = 1 << 16          # path A's plain-version run
+NBRUSS = 1 << 16        # Brusselator members of paths B and C (n = 32)
+NX = 16
+RAGGED = (7, 130, 516)
 RTOL, ATOL = 1e-5, 1e-10
 # H100 SXM, NVIDIA data sheet: HBM3 bandwidth; float64 and float32
 # non-tensor-core peaks (the kernels use no tensor cores)
@@ -55,7 +72,19 @@ TOL = {"torch.float64": 1e-10, "torch.float32": 1e-4}
 KERNEL_SYMBOLS = ("newton_residual_kernel", "masked_update_wrms_kernel",
                   "history_rescale_kernel", "wrms_soa_kernel",
                   "spmv_fixed_kernel", "spmv_any_kernel",
-                  "gj_inverse_unrolled_kernel", "gj_inverse_inplace_kernel")
+                  "gj_inverse_unrolled_kernel", "gj_inverse_inplace_kernel",
+                  "gj_solve_unrolled_kernel", "gj_solve_tiled_kernel")
+#: path -> the kernel bodies (registry names) it must launch
+PATH_KERNELS = {
+    "ensemble_bdf": ("newton_residual", "blockdiag_spmv",
+                     "masked_update_wrms", "history_rescale", "wrms_soa",
+                     "block_inverse"),
+    "A: ensemble_dirk": ("newton_residual", "block_solve", "wrms_soa"),
+    "B: ensemble_bdf direct": ("newton_residual", "block_solve_tiled",
+                               "masked_update_wrms", "history_rescale",
+                               "wrms_soa"),
+    "C: ensemble_erk": ("wrms_soa",),
+}
 
 
 def check(cond, msg):
@@ -76,15 +105,32 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def solve_flops(b, nb):
+    """Operations of one no-pivot GJ solve: row scaling (b divisions,
+    b*(b+1) products), then per pivot step one division, the pivot row's
+    columns right of the pivot and r, and a product and a difference for
+    each of them in the other b-1 rows."""
+    return nb * (b * (b + 2) + sum(1 + (b - k) * (2 * b - 1)
+                                   for k in range(b)))
+
+
+def inverse_flops(b, nb):
+    return nb * (b + 2 * b * b + b * (1 + 2 * b + 4 * b * (b - 1)))
+
+
 class Kernel:
-    """One kernel of the path: how to call it, its plain version, an
-    optional library yardstick, and its least time on the card."""
+    """One kernel body: how to call it, its plain version, an optional
+    library yardstick, the shapes it is checked and timed at, and its
+    least time on the card."""
 
     def __init__(self, name, wrapper, plain, replaces, source, args, kw,
-                 flops, library=None, skipped_bytes=lambda d: 0):
+                 flops, cases, timing=(3, NSYS), library=None,
+                 skipped_bytes=lambda d: 0):
         self.name, self.wrapper, self.plain = name, wrapper, plain
         self.replaces, self.source = replaces, source
         self.args, self.kw, self.flops, self.library = args, kw, flops, library
+        #: (b, nb) it is compared at; (b, nb) it is timed at
+        self.cases, self.timing = cases, timing
         # input bytes that this data does not need read (the bound counts
         # what the run's data needs)
         self.skipped_bytes = skipped_bytes
@@ -92,8 +138,12 @@ class Kernel:
 
     def compare(self, d, what):
         import torch
+        from repro_torch import kernels
         args = self.args(d)
+        before = kernels.counts()[self.name][0]
         got = self.wrapper(*args, **self.kw)
+        check(kernels.counts()[self.name][0] == before + 1,
+              f"{self.name} {what}: the wrapper did not launch this body")
         want = self.plain(*args, **self.kw)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -136,7 +186,7 @@ def make_inputs(nb, dtype, gen, dev, b=3):
     return {"z": r(3, nb), "f": r(3, nb), "psi": r(3, nb),
             "gam": r(nb).abs(), "w": r(3, nb).abs() + 0.1,
             "mask": torch.rand(nb, generator=gen, device=dev) > 0.4,
-            "W": r(6, 6, nb), "Z": r(6, 3, nb),
+            "W": r(6, 6, nb), "Z": r(6, 3, nb), "r": r(b, nb),
             "A": r(b, b, nb) + b * torch.eye(b, device=dev,
                                               dtype=dtype)[:, :, None]}
 
@@ -148,10 +198,10 @@ def kernel_table():
     def b_of(d):
         return d["A"].shape[0]
 
-    def inv_flops(d):
-        b, nb = b_of(d), d["A"].shape[2]
-        return nb * (b + 2 * b * b + b * (1 + 2 * b + 4 * b * (b - 1)))
+    def nb_of(d):
+        return d["A"].shape[2]
 
+    b3 = [(3, nb) for nb in (NSYS,) + RAGGED]
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     return [
@@ -159,23 +209,23 @@ def kernel_table():
                newton.newton_residual_plain, ref + "newton.py:40",
                csrc + "newton.cu",
                lambda d: (d["z"], d["f"], d["psi"], d["gam"]),
-               {"negate": True}, lambda d: 3 * d["z"].numel()),
+               {"negate": True}, lambda d: 3 * d["z"].numel(), b3),
         Kernel("blockdiag_spmv", blockdiag_spmv.blockdiag_spmv_soa,
                blockdiag_spmv.blockdiag_spmv_soa_plain,
                ref + "blockdiag_spmv.py:20", csrc + "blockdiag_spmv.cu",
                lambda d: (d["A"], d["z"]), {},
-               lambda d: (2 * b_of(d) - 1) * b_of(d) * d["A"].shape[2],
+               lambda d: (2 * b_of(d) - 1) * b_of(d) * nb_of(d), b3,
                library=lambda d: torch.einsum("ijs,js->is", d["A"], d["z"])),
         Kernel("masked_update_wrms", newton.masked_update_wrms,
                newton.masked_update_wrms_plain, ref + "newton.py:73",
                csrc + "newton.cu",
                lambda d: (d["z"], d["f"], d["w"], d["mask"]), {},
                lambda d: 3 * d["z"].numel() + 3 * int(d["mask"].sum())
-               + 2 * d["mask"].numel()),
+               + 2 * d["mask"].numel(), b3),
         Kernel("history_rescale", newton.history_rescale,
                newton.history_rescale_plain, ref + "newton.py:119",
                csrc + "newton.cu", lambda d: (d["W"], d["Z"], d["mask"]), {},
-               lambda d: 11 * 6 * 3 * int(d["mask"].sum()),
+               lambda d: 11 * 6 * 3 * int(d["mask"].sum()), b3,
                library=lambda d: torch.where(d["mask"], torch.einsum(
                    "jis,iks->jks", d["W"], d["Z"]), d["Z"]),
                # an inactive system copies Z and needs none of its W
@@ -184,13 +234,38 @@ def kernel_table():
         Kernel("wrms_soa", newton.wrms_soa, newton.wrms_soa_plain,
                ref + "newton.py:167", csrc + "newton.cu",
                lambda d: (d["z"], d["w"]), {},
-               lambda d: 3 * d["z"].numel() + 2 * d["z"].shape[1],
+               lambda d: 3 * d["z"].numel() + 2 * d["z"].shape[1], b3,
                library=lambda d: torch.linalg.vector_norm(d["z"] * d["w"],
                                                           dim=0)),
         Kernel("block_inverse", block_solve.block_inverse_soa,
                block_solve.block_inverse_soa_plain, ref + "block_solve.py:92",
-               csrc + "block_solve.cu", lambda d: (d["A"],), {}, inv_flops,
+               csrc + "block_solve.cu", lambda d: (d["A"],), {},
+               lambda d: inverse_flops(b_of(d), nb_of(d)),
+               b3 + [(1, 130), (8, 516), (8, 1 << 16)],
                library=lambda d: torch.linalg.inv(d["A"].permute(2, 0, 1))),
+        Kernel("block_inverse_tiled", block_solve.block_inverse_soa,
+               block_solve.block_inverse_soa_plain,
+               ref + "block_solve.py:161", csrc + "block_solve.cu",
+               lambda d: (d["A"],), {},
+               lambda d: inverse_flops(b_of(d), nb_of(d)),
+               [(9, 130), (16, 516), (16, 1 << 16), (32, 1 << 16)],
+               timing=(32, NBRUSS),
+               library=lambda d: torch.linalg.inv(d["A"].permute(2, 0, 1))),
+        Kernel("block_solve", block_solve.block_solve_soa,
+               block_solve.block_solve_soa_plain, ref + "block_solve.py:55",
+               csrc + "block_solve.cu", lambda d: (d["A"], d["r"]), {},
+               lambda d: solve_flops(b_of(d), nb_of(d)),
+               b3 + [(b, nb) for b in (1, 8) for nb in RAGGED],
+               library=lambda d: torch.linalg.solve(
+                   d["A"].permute(2, 0, 1), d["r"].T[..., None])),
+        Kernel("block_solve_tiled", block_solve.block_solve_soa,
+               block_solve.block_solve_soa_plain, ref + "block_solve.py:132",
+               csrc + "block_solve.cu", lambda d: (d["A"], d["r"]), {},
+               lambda d: solve_flops(b_of(d), nb_of(d)),
+               [(b, nb) for b in (9, 16, 32) for nb in RAGGED]
+               + [(32, NBRUSS)], timing=(32, NBRUSS),
+               library=lambda d: torch.linalg.solve(
+                   d["A"].permute(2, 0, 1), d["r"].T[..., None])),
     ]
 
 
@@ -214,16 +289,22 @@ def time_ms(fn, flush, reps=25):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def phase_kernels(table, dev):
+def phase_compare(table, dev):
+    """Every body against its plain version at each of its (b, nb)
+    cases, float64 and float32, and the GJ bodies on stiff blocks."""
     import torch
     from repro_torch.kernels import block_solve, newton
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    shapes = sorted({c for k in table for c in k.cases})
     for dtype in (torch.float64, torch.float32):
-        for nb in (NSYS, 7, 130, 516):
-            d = make_inputs(nb, dtype, gen, dev)
+        for b, nb in shapes:
+            d = make_inputs(nb, dtype, gen, dev, b=b)
             for k in table:
-                k.compare(d, f"nb={nb} {dtype}")
+                if (b, nb) in k.cases:
+                    k.compare(d, f"b={b} nb={nb} {dtype}")
+            if b != 3:
+                continue
             out = newton.history_rescale(d["W"], d["Z"], d["mask"])
             off = ~d["mask"]
             check(torch.equal(out[:, :, off], d["Z"][:, :, off]),
@@ -231,27 +312,41 @@ def phase_kernels(table, dev):
             none = torch.zeros_like(d["mask"])
             check(torch.equal(newton.history_rescale(d["W"], d["Z"], none),
                               d["Z"]), "history_rescale: all-inactive copy")
-    inverse = table[-1]
-    for b in (8, 16):
-        for nb in (516, 1 << 16):
-            inverse.compare(make_inputs(nb, torch.float64, gen, dev, b=b),
-                            f"b={b} nb={nb}")
-    stiff = {"A": robertson_newton_blocks(NSYS, gen, dev, torch.float64)}
-    inverse.compare(stiff, "Robertson Newton blocks")
-    Minv = block_solve.block_inverse_soa(stiff["A"])
-    eye = torch.einsum("ijs,jks->iks", stiff["A"], Minv)
+    by_name = {k.name: k for k in table}
+    M = robertson_newton_blocks(NSYS, gen, dev, torch.float64)
+    r = torch.randn(3, NSYS, generator=gen, device=dev, dtype=M.dtype)
+    stiff = {"A": M, "r": r}
+    by_name["block_inverse"].compare(stiff, "Robertson Newton blocks")
+    by_name["block_solve"].compare(stiff, "Robertson Newton blocks")
+    Minv = block_solve.block_inverse_soa(M)
+    eye = torch.einsum("ijs,jks->iks", M, Minv)
     resid = (eye - torch.eye(3, device=dev, dtype=eye.dtype)[:, :, None])
     check(resid.abs().max().item() < 1e-8,
           f"M @ inv(M) - I reaches {resid.abs().max().item()}")
-    print(f"kernels: all six agree with their plain versions "
+    x = block_solve.block_solve_soa(M, r)
+    back = (torch.einsum("ijs,js->is", M, x) - r).abs()
+    scale = torch.einsum("ijs,js->is", M.abs(), x.abs()) + r.abs()
+    check(bool((back <= 1e-10 * scale).all()),
+          f"|M x - r| reaches {(back / scale).max().item()} of |M||x|+|r|")
+    print(f"kernels: all {len(table)} bodies agree with their plain versions "
           f"(float64 tol 1e-10, float32 1e-4, relative to max(1,|plain|))",
           flush=True)
 
-    # timings at the main-path shape, float64
-    d = make_inputs(NSYS, torch.float64, gen, dev)
+
+def phase_timings(table, dev):
+    """Each body, its plain version and its library yardstick at the
+    shape its path gives it, float64, against its bound."""
+    import torch
+    from repro_torch.kernels import newton
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    rows = []
+    rows, inputs = [], {}
     for k in table:
+        if k.timing not in inputs:
+            b, nb = k.timing
+            inputs[k.timing] = make_inputs(nb, torch.float64, gen, dev, b=b)
+        d = inputs[k.timing]
         args = k.args(d)
         out = k.wrapper(*args, **k.kw)
         out = out if isinstance(out, tuple) else (out,)
@@ -261,7 +356,7 @@ def phase_kernels(table, dev):
         t_ops = flops / PEAK_FLOPS[str(torch.float64)] * 1e3
         row = {
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces,
+            "replaces": k.replaces, "b": k.timing[0], "nb": k.timing[1],
             "ms": time_ms(lambda: k.wrapper(*args, **k.kw), flush),
             "plain_ms": time_ms(lambda: k.plain(*args, **k.kw), flush),
             "bound_ms": max(t_bytes, t_ops),
@@ -271,12 +366,13 @@ def phase_kernels(table, dev):
             "bytes": moved, "flops": flops,
         }
         rows.append(row)
-        print(f"  {k.name:20s} kernel {row['ms']:.4f} ms  plain "
-              f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})  library {row['library_ms']}",
-              flush=True)
+        print(f"  {k.name:20s} b={row['b']:<2d} nb={row['nb']:<7d} kernel "
+              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  library "
+              f"{row['library_ms']}", flush=True)
     # the step's second rescale finds (nearly) every system active: no
     # divergent warps, and every W is read
+    d = inputs[(3, NSYS)]
     every = torch.ones_like(d["mask"])
     rescale = rows[[k.name for k in table].index("history_rescale")]
     rescale["ms_all_active"] = time_ms(
@@ -289,11 +385,11 @@ def phase_kernels(table, dev):
           f"{rescale['ms_all_active']:.4f} ms  bound "
           f"{rescale['bound_ms_all_active']:.4f} ms  library (einsum) "
           f"{rescale['library_ms_all_active']:.4f} ms", flush=True)
-    del d, flush
+    del d, inputs, flush
     return rows
 
 
-def phase_reference():
+def classic_robertson_reference(method):
     """A small input against an independent reference: 256 lanes of the
     classic Robertson problem (k1 = 0.04, k2 = 1e4, k3 = 3e7) through
     ``integrate`` on the card, against scipy's Radau IIA at rtol 1e-12."""
@@ -319,111 +415,199 @@ def phase_reference():
     rates = {k: np.full(nsys, v) for k, v in (("k1", k1), ("k2", k2),
                                               ("k3", k3))}
     fr, jr, y0 = problems.batched_robertson(nsys, rates=rates)
-    sol = ivp.integrate(ivp.IVP(f=fr, jac=jr, y0=y0), 0.0, 10.0,
-                        "ensemble_bdf", opts=ODEOptions(rtol=RTOL, atol=ATOL))
-    check(bool(sol.ok.all()), "reference problem: a lane failed")
+    sol = ivp.integrate(ivp.IVP(f=fr, jac=jr, y0=y0), 0.0, 10.0, method,
+                        opts=ODEOptions(rtol=RTOL, atol=ATOL))
+    check(bool(sol.ok.all()), f"reference problem, {method}: a lane failed")
     y = sol.y.cpu().numpy()
     ratio = float((np.abs(y - ref) / (10 * (RTOL * np.abs(ref) + ATOL))).max())
-    check(ratio <= 1.0, f"reference problem: y(10) differs from Radau by "
-          f"{ratio} of 10*(rtol*|y|+atol)")
-    print(f"reference problem: y(10) = {y[0].tolist()}, Radau "
+    check(ratio <= 1.0, f"reference problem, {method}: y(10) differs from "
+          f"Radau by {ratio} of 10*(rtol*|y|+atol)")
+    print(f"reference problem, {method}: y(10) = {y[0].tolist()}, Radau "
           f"{ref.tolist()}, max |dy|/(10*(rtol*|y|+atol)) {ratio:.3g}",
           flush=True)
     return {"radau_y10": ref.tolist(), "port_y10": y[0].tolist(),
             "max_diff_over_bound": ratio}
 
 
-def phase_main_path(dev, profile):
+def check_counts(path, counts, kernel_run):
+    """A kernel run launches every body of its path and no plain
+    version; a plain run launches nothing."""
+    if not kernel_run:
+        check(all(v[0] == 0 for v in counts.values()),
+              f"{path}: the torch-backend run launched a kernel")
+        return
+    for name in PATH_KERNELS[path]:
+        check(counts[name][0] > 0, f"{path}: kernel {name} was never "
+              "launched")
+    for name, (_, plain_calls) in counts.items():
+        check(plain_calls == 0, f"{path}: plain {name} ran {plain_calls} "
+              "times")
+
+
+def run_path(path, label, prob, method, t1, opts, **kw):
+    """One ``integrate`` call with the counts zeroed just before it and
+    read just after; ``label`` is "kernels" or "plain versions"."""
     import torch
     from repro_torch import kernels
-    from repro_torch.core import batched, ivp, problems
-    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core import batched, ivp
     from repro_torch.core.context import Context
-    from repro_torch.core.policies import ExecPolicy
-
-    rates = problems.robertson_rates(NSYS, seed=0)
-    f, jac, y0 = problems.batched_robertson(NSYS, rates=rates)
-    f_soa, jac_soa = problems.batched_robertson_soa(NSYS, rates=rates)
-    prob = ivp.IVP(f=f, jac=jac, y0=y0, f_soa=f_soa, jac_soa=jac_soa)
-    opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
-
-    def run(o, label):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_counts()
-        batched.reset_loop_counts()
-        t0 = time.perf_counter()
-        sol = ivp.integrate(prob, 0.0, 10.0, "ensemble_bdf", ctx=Context(),
-                            opts=o)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        st = sol.stats
-        rec = {"wall_s": wall, "counts": kernels.counts(),
-               "loop": dict(batched.loop_counts),
-               "peak_bytes": torch.cuda.max_memory_allocated(),
-               "lanes_ok": int(sol.ok.sum())}
-        for k in ("steps", "nni", "nsetups", "netf"):
-            v = getattr(st, k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    batched.reset_loop_counts()
+    t0 = time.perf_counter()
+    sol = ivp.integrate(prob, 0.0, t1, method, ctx=Context(), opts=opts, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    st = sol.stats
+    ok = sol.ok if sol.ok is not None else st.success
+    rec = {"wall_s": wall, "counts": counts, "loop": dict(batched.loop_counts),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "lanes": int(ok.numel()), "lanes_ok": int(ok.sum())}
+    for k in ("steps", "attempts", "nni", "nsetups", "netf"):
+        v = getattr(st, k)
+        if v is not None:
             rec[k] = {"sum": int(v.sum()), "max": int(v.max())}
-        print(f"main path [{label}]: wall {wall:.3f} s, host syncs "
-              f"{rec['loop']['host_syncs']}, step trips "
-              f"{rec['loop']['step_trips']}, Newton trips "
-              f"{rec['loop']['newton_trips']}, lanes ok {rec['lanes_ok']}/"
-              f"{NSYS}, peak {rec['peak_bytes'] / 2**20:.1f} MiB, "
-              + ", ".join(f"{k} sum {rec[k]['sum']} max {rec[k]['max']}"
-                          for k in ("steps", "nni", "nsetups", "netf")),
-              flush=True)
-        return sol, rec
+    print(f"{path} [{label}]: wall {wall:.3f} s, host syncs "
+          f"{rec['loop']['host_syncs']}, step trips "
+          f"{rec['loop']['step_trips']}, Newton trips "
+          f"{rec['loop']['newton_trips']}, lanes ok {rec['lanes_ok']}/"
+          f"{rec['lanes']}, peak {rec['peak_bytes'] / 2**20:.1f} MiB, "
+          + ", ".join(f"{k} sum {v['sum']} max {v['max']}"
+                      for k, v in rec.items() if isinstance(v, dict)
+                      and "sum" in v), flush=True)
+    check_counts(path, counts, label == "kernels")
+    check(rec["lanes_ok"] == rec["lanes"],
+          f"{path} [{label}]: {rec['lanes'] - rec['lanes_ok']} lanes failed")
+    check(bool(torch.isfinite(sol.y).all()), f"{path}: non-finite y")
+    return sol, rec
 
-    sol, rec = run(opts, "kernels")
-    check(bool(sol.ok.all()), f"{NSYS - rec['lanes_ok']} lanes failed")
-    for name, (launches, plain_calls) in rec["counts"].items():
-        check(launches > 0, f"kernel {name} was never launched")
-        check(plain_calls == 0, f"plain {name} ran {plain_calls} times")
-    y = sol.y
-    check(y.shape == (NSYS, 3) and bool(torch.isfinite(y).all()),
-          "non-finite or misshapen y")
-    ref, ref_rec = run(opts._replace(policy=ExecPolicy(backend="torch")),
-                       "plain versions")
-    check(all(v[0] == 0 for v in ref_rec["counts"].values()),
-          "the torch-backend run launched a kernel")
-    check(torch.equal(sol.retcodes, ref.retcodes), "retcodes differ")
-    bound = 10 * (RTOL * ref.y.abs() + ATOL)
-    diff = (y - ref.y).abs()
-    check(bool((diff <= bound).all()),
-          f"y differs from the plain run by {(diff / bound).max().item()} "
+
+def agree(path, y, ref, retcodes=None, ref_retcodes=None, mass=False):
+    """Kernel run against plain run: equal retcodes, y within
+    10*(rtol*|y|+atol); optionally y1+y2+y3 = 1 within 10*rtol."""
+    import torch
+    if retcodes is not None:
+        check(torch.equal(retcodes, ref_retcodes), f"{path}: retcodes differ")
+    bound = 10 * (RTOL * ref.abs() + ATOL)
+    ratio = ((y - ref).abs() / bound).max().item()
+    check(ratio <= 1.0, f"{path}: y differs from the plain run by {ratio} "
           "of 10*(rtol*|y|+atol)")
-    mass = (y.sum(dim=1) - 1.0).abs().max().item()
-    check(mass <= 10 * RTOL, f"y1+y2+y3 drifts from 1 by {mass}")
-    agree = {"max_diff_over_bound": (diff / bound).max().item(),
-             "mass_drift": mass}
-    print(f"main path agrees with the plain run: max |dy|/bound "
-          f"{agree['max_diff_over_bound']:.3g}, mass drift {mass:.3g}",
-          flush=True)
+    out = {"max_diff_over_bound": ratio}
+    if mass:
+        out["mass_drift"] = (y.sum(dim=1) - 1.0).abs().max().item()
+        check(out["mass_drift"] <= 10 * RTOL,
+              f"{path}: y1+y2+y3 drifts from 1 by {out['mass_drift']}")
+    print(f"{path} agrees with the plain run: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in out.items()), flush=True)
+    return out
+
+
+def robertson_problem(nsys, rates):
+    from repro_torch.core import ivp, problems
+    f, jac, y0 = problems.batched_robertson(nsys, rates=rates)
+    f_soa, jac_soa = problems.batched_robertson_soa(nsys, rates=rates)
+    return ivp.IVP(f=f, jac=jac, y0=y0, f_soa=f_soa, jac_soa=jac_soa)
+
+
+def phase_main_path(profile):
+    """The ensemble-BDF main path, 2**20 Robertson systems."""
+    from repro_torch.core import problems
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.policies import ExecPolicy
+    path = "ensemble_bdf"
+    prob = robertson_problem(NSYS, problems.robertson_rates(NSYS, seed=0))
+    opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
+    sol, rec = run_path(path, "kernels", prob, "ensemble_bdf", 10.0, opts)
+    check(sol.y.shape == (NSYS, 3), "misshapen y")
+    ref, ref_rec = run_path(path, "plain versions", prob, "ensemble_bdf",
+                            10.0, opts._replace(
+                                policy=ExecPolicy(backend="torch")))
+    agreement = agree(path, sol.y, ref.y, sol.retcodes, ref.retcodes,
+                      mass=True)
+    del sol, ref
     prof = None
     if profile:
-        prof = profile_run(prob, opts, rec["wall_s"])
-    return {"kernels_run": rec, "plain_run": ref_rec, "agreement": agree,
+        prof = profile_run(path, prob, "ensemble_bdf", 10.0, opts,
+                           rec["wall_s"])
+        prof["lagrange_alone_ms"] = lagrange_alone_ms()
+    return {"kernels_run": rec, "plain_run": ref_rec,
+            "agreement": agreement, "profile": prof}
+
+
+def phase_path_a(profile):
+    """Path A: ensemble DIRK (SDIRK2) on the main path's 2**20 systems;
+    the plain run covers the first NSUB lanes, which are independent of
+    the rest."""
+    from repro_torch.core import problems
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.policies import ExecPolicy
+    path, method = "A: ensemble_dirk", "ensemble_dirk:sdirk2"
+    rates = problems.robertson_rates(NSYS, seed=0)
+    opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
+    prob = robertson_problem(NSYS, rates)
+    sol, rec = run_path(path, "kernels", prob, method, 10.0, opts)
+    check(sol.y.shape == (NSYS, 3), "misshapen y")
+    sub = {k: v[:NSUB] for k, v in rates.items()}
+    ref, ref_rec = run_path(path, "plain versions",
+                            robertson_problem(NSUB, sub), method, 10.0,
+                            opts._replace(policy=ExecPolicy(backend="torch")))
+    agreement = agree(path, sol.y[:NSUB], ref.y, sol.retcodes[:NSUB],
+                      ref.retcodes)
+    mass = (sol.y.sum(dim=1) - 1.0).abs().max().item()
+    check(mass <= 10 * RTOL, f"{path}: y1+y2+y3 drifts from 1 by {mass}")
+    agreement["mass_drift_all_lanes"] = mass
+    print(f"{path}: mass drift over all {NSYS} lanes {mass:.3g}", flush=True)
+    del sol, ref
+    prof = profile_run(path, prob, method, 10.0, opts, rec["wall_s"]) \
+        if profile else None
+    return {"kernels_run": rec, "plain_run": ref_rec,
+            "agreement": agreement, "profile": prof,
+            "reference": classic_robertson_reference(method)}
+
+
+def phase_brusselator(path, method, t1, kw, profile):
+    """Paths B and C: the Brusselator ensemble, kernel run and a full
+    plain run."""
+    from repro_torch.core import ivp, problems
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.policies import ExecPolicy
+    f, jac, _, y0 = problems.ensemble_brusselator(NBRUSS, nx=NX)
+    f_soa, jac_soa = problems.ensemble_brusselator_soa(NBRUSS, nx=NX)
+    prob = ivp.IVP(f=f, jac=jac, y0=y0, f_soa=f_soa, jac_soa=jac_soa)
+    opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
+    sol, rec = run_path(path, "kernels", prob, method, t1, opts, **kw)
+    check(sol.y.shape == (NBRUSS, 2 * NX), "misshapen y")
+    ref, ref_rec = run_path(path, "plain versions", prob, method, t1,
+                            opts._replace(policy=ExecPolicy(backend="torch")),
+                            **kw)
+    agreement = agree(path, sol.y, ref.y, sol.retcodes, ref.retcodes)
+    del sol, ref
+    prof = profile_run(path, prob, method, t1, opts, rec["wall_s"], kw) \
+        if profile else None
+    return {"kernels_run": rec, "plain_run": ref_rec, "agreement": agreement,
             "profile": prof}
 
 
-def profile_run(prob, opts, plain_wall):
-    """A third main-path run under torch.profiler: device time by kernel
-    name, the device time under the ``lagrange_matrix_soa`` range, and the
-    device's busy share both of the profiled wall time and of
-    ``plain_wall``, the same solve's wall time without the profiler."""
+def profile_run(path, prob, method, t1, opts, plain_wall, kw=None):
+    """One more kernel run of a path under torch.profiler: device time by
+    kernel name, the share of the port's kernels, the device time under
+    the ``lagrange_matrix_soa`` range (BDF paths), and the device's busy
+    share both of the profiled wall time and of ``plain_wall``, the same
+    solve's wall time without the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import cvode, ivp
+    from repro_torch.core import ivp
     from repro_torch.core.context import Context
     lagrange = "lagrange_matrix_soa"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        ivp.integrate(prob, 0.0, 10.0, "ensemble_bdf", ctx=Context(),
-                      opts=opts)
+        ivp.integrate(prob, 0.0, t1, method, ctx=Context(), opts=opts,
+                      **(kw or {}))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name, lagrange_us, lagrange_calls = {}, 0.0, 0
@@ -437,35 +621,48 @@ def profile_run(prob, opts, plain_wall):
             lagrange_us += getattr(e, "device_time_total", None) \
                 or e.cuda_time_total
             lagrange_calls += 1
-    check(lagrange_calls > 0 and lagrange_us > 0,
-          f"the trace holds no device time under {lagrange}")
+    if method == "ensemble_bdf":
+        check(lagrange_calls > 0 and lagrange_us > 0,
+              f"{path}: the trace holds no device time under {lagrange}")
     dev_us = sum(by_name.values())
+    check(dev_us > 0, f"{path}: the trace holds no device time")
     ours_us = sum(v for name, v in by_name.items()
                   if any(sym in name for sym in KERNEL_SYMBOLS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
     OUT.mkdir(exist_ok=True)
-    (OUT / "chip_smoke_profile.txt").write_text(
+    slug = path.split(":")[0].replace(" ", "_")
+    (OUT / f"chip_smoke_profile_{slug}.txt").write_text(
         "\n".join(f"{us / 1e3:12.3f} ms  {name}" for name, us in top) + "\n")
-    # the plain tensor code that builds history_rescale's W, twice a step
+    print(f"{path} profiled: wall {wall:.3f} s, device busy "
+          f"{dev_us / 1e6:.3f} s ({100 * dev_us / 1e6 / wall:.1f} % of the "
+          f"profiled wall, {100 * dev_us / 1e6 / plain_wall:.1f} % of the "
+          f"unprofiled {plain_wall:.3f} s), of which the port's kernels "
+          f"{ours_us / 1e6:.3f} s and {lagrange} {lagrange_us / 1e6:.3f} s "
+          f"in {lagrange_calls} calls (trace); {len(by_name)} kernel names",
+          flush=True)
+    for name, us in top[:6]:
+        print(f"    {us / 1e3:10.3f} ms  {name[:110]}", flush=True)
+    return {"wall_s": wall, "unprofiled_wall_s": plain_wall,
+            "device_busy_s": dev_us / 1e6, "port_kernels_s": ours_us / 1e6,
+            "lagrange_trace_s": lagrange_us / 1e6,
+            "lagrange_calls": lagrange_calls,
+            "top_ms": {name: us / 1e3 for name, us in top}}
+
+
+def lagrange_alone_ms():
+    """One ``lagrange_matrix_soa`` call at the main path's size, timed
+    alone: the plain tensor code that builds history_rescale's W."""
+    import torch
+    from repro_torch.core import cvode
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     eta = 0.1 + 9.9 * torch.rand(NSYS, generator=gen, device="cuda",
                                  dtype=torch.float64)
     q = torch.full((NSYS,), cvode.QMAX, dtype=torch.int32, device="cuda")
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    lagrange_ms = time_ms(lambda: cvode.lagrange_matrix_soa(eta, q), flush)
-    print(f"profiled run: wall {wall:.3f} s, device busy {dev_us / 1e6:.3f} "
-          f"s ({100 * dev_us / 1e6 / wall:.1f} % of the profiled wall, "
-          f"{100 * dev_us / 1e6 / plain_wall:.1f} % of the unprofiled "
-          f"{plain_wall:.3f} s), of which the port's kernels "
-          f"{ours_us / 1e6:.3f} s and {lagrange} {lagrange_us / 1e6:.3f} s "
-          f"in {lagrange_calls} calls (trace); {len(by_name)} kernel names; "
-          f"{lagrange} alone {lagrange_ms:.4f} ms a call", flush=True)
-    return {"wall_s": wall, "unprofiled_wall_s": plain_wall,
-            "device_busy_s": dev_us / 1e6, "port_kernels_s": ours_us / 1e6,
-            "lagrange_trace_s": lagrange_us / 1e6,
-            "lagrange_calls": lagrange_calls, "lagrange_ms": lagrange_ms,
-            "top_ms": {name: us / 1e3 for name, us in top}}
+    ms = time_ms(lambda: cvode.lagrange_matrix_soa(eta, q), flush)
+    print(f"lagrange_matrix_soa alone: {ms:.4f} ms a call", flush=True)
+    return ms
 
 
 def main(argv) -> int:
@@ -475,6 +672,7 @@ def main(argv) -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.linsol import BlockDiagGJ
     from repro_torch.kernels import _build
 
     # 1. device
@@ -489,19 +687,45 @@ def main(argv) -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items()) or 'cached'})",
           flush=True)
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
     # 3. kernels against their plain versions, then timings
     table = kernel_table()
-    rows = phase_kernels(table, dev)
-    # 4. a small input against an independent reference, then the main path
-    ref_rec = phase_reference()
-    main_rec = phase_main_path(dev, "--profile" in argv)
-    launches = main_rec["kernels_run"]["counts"]
-    # 5. kernels line
+    phase("compare", phase_compare, table, dev)
+    rows = phase("timings", phase_timings, table, dev)
+    # 4. the paths, each against its plain run
+    profile = "--profile" in argv
+    paths = {
+        "ensemble_bdf": phase("main path (ensemble_bdf)", phase_main_path,
+                              profile),
+        "A: ensemble_dirk": phase("path A (ensemble_dirk)", phase_path_a,
+                                  profile),
+    }
+    paths["ensemble_bdf"]["reference"] = phase(
+        "reference (ensemble_bdf)", classic_robertson_reference,
+        "ensemble_bdf")
+    paths["B: ensemble_bdf direct"] = phase(
+        "path B (ensemble_bdf, factor_once=False)", phase_brusselator,
+        "B: ensemble_bdf direct", "ensemble_bdf", 2.0,
+        {"lin_solver": BlockDiagGJ(factor_once=False)}, profile)
+    paths["C: ensemble_erk"] = phase(
+        "path C (ensemble_erk)", phase_brusselator, "C: ensemble_erk",
+        "ensemble_erk:bogacki_shampine", 2.0, {}, profile)
+    # 5. kernels line: launches summed over the kernel runs of the paths
     line = []
     for k, row in zip(table, rows):
+        launches = sum(rec["kernels_run"]["counts"][k.name][0]
+                       for rec in paths.values())
         line.append({"name": k.name, "route": row["route"],
                      "source": row["source"], "replaces": row["replaces"],
-                     "launches": launches[k.name][0],
+                     "launches": launches,
                      "max_abs_err": k.max_err, "ms": row["ms"],
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
@@ -509,8 +733,7 @@ def main(argv) -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "timings": rows, "reference": ref_rec, "main_path": main_rec},
-        indent=1))
+         "phase_s": phase_s, "timings": rows, "paths": paths}, indent=1))
     print(json.dumps({"kernels": line}), flush=True)
     # 6. ok line
     print(json.dumps({"ok": True, "device": {

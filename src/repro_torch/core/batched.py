@@ -1,24 +1,39 @@
-"""Ensemble (submodel) BDF integration: many small independent stiff
-systems advanced together, each with its own step size and order.
+"""Ensemble (submodel) integration: many small independent systems
+advanced together, each with its own step size (and, for BDF, order).
 
-Counterpart of ``repro.core.batched.ensemble_bdf_integrate``
-(``batched.py:487-977``).  The reference runs its step loop and Newton
-loop as ``lax.while_loop``s on the device; here they are Python loops
-that read each loop condition with ONE device->host sync per trip
-(:func:`_read`, counted in :data:`loop_counts`), and the two
-``lax.cond``s of lsetup become one host branch fed by one sync.  Every
-constant of the reference is kept.
+Counterpart of ``repro.core.batched`` (``batched.py:204-977``):
 
-Layout: structure of arrays with the system axis LAST, as in the
+* :func:`ensemble_erk_integrate` — adaptive explicit RK (nonstiff);
+* :func:`ensemble_dirk_integrate` — adaptive DIRK whose stage Newton
+  runs a fixed number of iterations, each a batched block solve;
+* :func:`ensemble_bdf_integrate` — CVODE-style adaptive order and step,
+  convergence-tested modified Newton with Jacobian reuse.
+
+The reference runs its step loops and the BDF Newton loop as
+``lax.while_loop``s on the device; here they are Python loops that read
+each loop condition with ONE device->host sync per trip (:func:`_read`,
+counted in :data:`loop_counts`), and the two ``lax.cond``s of the BDF
+lsetup become one host branch fed by one sync.  The DIRK stage Newton
+has a fixed trip count and needs no sync.  Every constant of the
+reference is kept.
+
+The ERK and DIRK loops follow the reference's bodies line for line. The
+DIRK loop keeps its state in SoA layout throughout (its error terms then
+reach ``wrms_soa`` without a transpose); each stage Newton iteration is
+one fused residual and one batched Gauss-Jordan solve
+(``block_solve_soa``), and each stage ends with two ``wrms_soa``.
+
+BDF layout: structure of arrays with the system axis LAST, as in the
 reference: history ``Z (QMAX+1, n, nsys)``, Newton iterate and weights
 ``(n, nsys)``, saved inverse ``(n, n, nsys)``.  Each Newton iteration is
 one fused residual, one lsolve (block-diagonal SpMV against the saved
-inverse) and one fused masked update + correction norm; twice a step the
-history is rebuilt by ``history_rescale_soa`` and once a step the error
-test runs ``wrms_soa``; lsetup inverts the Newton blocks.  Those six ops
-are the CUDA kernels of :mod:`repro_torch.kernels` on the card.
+inverse, or with ``BlockDiagGJ(factor_once=False)`` a block solve) and
+one fused masked update + correction norm; twice a step the history is
+rebuilt by ``history_rescale_soa`` and once a step the error test runs
+``wrms_soa``; lsetup inverts the Newton blocks.  These ops are the CUDA
+kernels of :mod:`repro_torch.kernels` on the card.
 
-The loop owns its state: the counters are updated in place, and each
+The BDF loop owns its state: the counters are updated in place, and each
 step's new history replaces the old one, so PyTorch's caching allocator
 hands the same blocks back from step to step.  Warm-start sessions,
 step telemetry, sparsity patterns and Krylov solvers wait for their
@@ -35,7 +50,8 @@ from . import cvode as _cv
 from . import dispatch as dv
 from . import status
 from .arkode import ODEOptions
-from .linsol import BlockDiagGJ
+from .butcher import ButcherTable
+from .linsol import BlockDiagGJ, newton_blocks_soa
 
 #: device->host reads made by the step and Newton loops, and the two
 #: loops' trip counts, summed over every call since the last reset
@@ -76,6 +92,242 @@ class EnsembleStats(NamedTuple):
     npsolves: Optional[torch.Tensor] = None  # (nsys,) preconditioner solves
     retcodes: Optional[torch.Tensor] = None  # (nsys,) int32, 0 == SUCCESS
     ok: Optional[torch.Tensor] = None        # (nsys,) bool, retcodes == 0
+
+
+def _start(t0, tf, opts: ODEOptions, nsys: int, dtype, dev):
+    """``(t, tf, h)`` per system: ``opts.h0`` seeds the step, else
+    ``max(1e-6*(tf - t0), 1e-12)``."""
+    t = torch.as_tensor(t0, dtype=dtype, device=dev).expand(nsys).clone()
+    tf = torch.as_tensor(tf, dtype=dtype, device=dev).expand(nsys)
+    if opts.h0 > 0:
+        h = torch.full((nsys,), opts.h0, dtype=dtype, device=dev)
+    else:
+        h = torch.clamp(1e-6 * (tf - t), min=1e-12)
+    return t, tf, h
+
+
+def _pi_eta(cfg, err, e1, p: int, accept, active):
+    """The ERK/DIRK per-system PI controller: ``(eta, e)`` with
+    ``e = max(err, 1e-10)``; a rejected active step shrinks by >= 0.3."""
+    e = torch.clamp(err, min=1e-10)
+    eprev = torch.clamp(e1, min=1e-10)
+    eta = cfg.safety * e ** (-cfg.k1 / p) * eprev ** (cfg.k2 / p)
+    eta = torch.clamp(eta, cfg.eta_min, cfg.eta_max)
+    eta = torch.where(accept | ~active, eta, torch.clamp(eta, max=0.3))
+    return eta, e
+
+
+def ensemble_erk_integrate(f: Callable, y0: torch.Tensor, t0, tf,
+                           table: ButcherTable,
+                           opts: ODEOptions = ODEOptions()):
+    """Adaptive ERK over a batch of independent systems; returns
+    ``(y (nsys, n), EnsembleStats)``.
+
+    f  : (t:(nsys,), y:(nsys, n)) -> (nsys, n)   vectorized RHS
+    y0 : (nsys, n);  t0, tf broadcastable to (nsys,)
+
+    Each system carries its own (t, h).  A table without an embedding
+    gives no error estimate, so the step stays fixed (halved only on a
+    non-finite step), as in the reference.  The carry stays in the
+    caller's layout (nsys, n); the error test hands ``wrms_soa``
+    contiguous SoA copies of the error and the weights.
+    """
+    nsys, n = y0.shape
+    has_emb = table.b_emb is not None
+    dtype, dev = y0.dtype, y0.device
+    t, tf, h = _start(t0, tf, opts, nsys, dtype, dev)
+    p = max(table.emb_order + 1, 2)
+    i32 = torch.int32
+    y = y0
+    e1 = torch.ones((nsys,), dtype=dtype, device=dev)
+    steps, att, netf = (torch.zeros((nsys,), dtype=i32, device=dev)
+                        for _ in range(3))
+    stall = torch.zeros((nsys,), dtype=torch.bool, device=dev)
+    tf_run = tf * (1 - 1e-12)
+
+    while True:
+        active = (t < tf_run) & ~stall
+        if not _read(active.any() & (att < opts.max_steps).all()):
+            break
+        loop_counts["step_trips"] += 1
+        hs = torch.minimum(h, tf - t)
+        ks = []
+        for i in range(table.stages):
+            yi = y
+            for j in range(i):
+                if table.A[i][j] != 0.0:
+                    yi = yi + (hs * table.A[i][j])[:, None] * ks[j]
+            ks.append(f(t + table.c[i] * hs, yi))
+        y_new = y
+        for bi, k in zip(table.b, ks):
+            if bi != 0.0:
+                y_new = y_new + (hs * bi)[:, None] * k
+        y_err = torch.zeros_like(y)
+        if has_emb:
+            for bi, bh, k in zip(table.b, table.b_emb, ks):
+                if (bi - bh) != 0.0:
+                    y_err = y_err + (hs * (bi - bh))[:, None] * k
+        w = 1.0 / (opts.rtol * y.abs() + opts.atol)
+        err = dv.wrms_soa(y_err.T.contiguous(), w.T.contiguous(),
+                          opts.policy)
+        bad = ~torch.isfinite(err) | ~torch.isfinite(y_new).all(dim=1)
+        err = torch.where(bad, 2.0, err)
+        accept = (err <= 1.0) & ~bad & active
+        if has_emb:
+            eta, e = _pi_eta(opts.controller, err, e1, p, accept, active)
+        else:
+            # no error signal: keep h, halve it only on a non-finite step
+            e = torch.clamp(err, min=1e-10)
+            eta = torch.ones_like(e).masked_fill_(bad & active, 0.5)
+        t = torch.where(accept, t + hs, t)
+        y = torch.where(accept[:, None], y_new, y)
+        h_next = torch.where(active, torch.clamp(hs * eta, min=1e-14), h)
+        stall = stall | (active & (h_next < 1e-13))
+        e1 = torch.where(accept, e, e1)
+        h = h_next
+        steps += accept.to(i32)
+        att += active.to(i32)
+        netf += (active & ~accept).to(i32)
+
+    return y, EnsembleStats(steps=steps, attempts=att, netf=netf,
+                            nni=torch.zeros_like(steps),
+                            success=t >= tf * (1 - 1e-10))
+
+
+def ensemble_dirk_integrate(fi: Callable, jac: Callable, y0: torch.Tensor,
+                            t0, tf, table: ButcherTable,
+                            opts: ODEOptions = ODEOptions(), policy=None,
+                            newton_iters: int = 4,
+                            f_soa: Optional[Callable] = None,
+                            jac_soa: Optional[Callable] = None,
+                            telemetry: Optional[int] = None):
+    """Adaptive DIRK over a batch of independent stiff systems with the
+    batched block-diagonal Newton solve; returns ``(y (nsys, n),
+    EnsembleStats)``.
+
+    fi  : (t:(nsys,), y:(nsys,n)) -> (nsys,n)
+    jac : (t:(nsys,), y:(nsys,n)) -> (nsys,n,n)   per-system Jacobian
+    ``f_soa``/``jac_soa`` are native SoA forms (``y:(n,nsys)``).
+    policy : an ExecPolicy; None takes ``opts.policy``.
+
+    Each implicit stage runs ``newton_iters`` Newton iterations with no
+    convergence test inside the loop (so no host sync): every iteration
+    re-evaluates the Jacobian, forms ``M = I - h*a_ii*J`` and solves it
+    with ``block_solve_soa``.  The stage is then accepted on the WRMS of
+    its residual.  Failed lanes are quarantined with a CV_*-style
+    retcode, as in the BDF loop.
+    """
+    if telemetry is not None:
+        raise NotImplementedError("step telemetry waits for ROADMAP queue A "
+                                  "item 5")
+    policy = opts.policy if policy is None else policy
+    nsys, n = y0.shape
+    dtype, dev = y0.dtype, y0.device
+    f_s, jac_s = _wrap_soa(fi, jac, f_soa, jac_soa)
+    t, tf, h = _start(t0, tf, opts, nsys, dtype, dev)
+    p = max(table.emb_order + 1, 2)
+    unit_w = torch.ones((n, nsys), dtype=dtype, device=dev)
+    i32 = torch.int32
+
+    def zeros_i32():
+        return torch.zeros((nsys,), dtype=i32, device=dev)
+
+    y = y0.T.contiguous()                        # (n, nsys)
+    e1 = torch.ones((nsys,), dtype=dtype, device=dev)
+    steps, att, netf, nni, rc, ncf_cur, nef_cur = (zeros_i32()
+                                                   for _ in range(7))
+    tf_run = tf * (1 - 1e-12)
+
+    while True:
+        active = (t < tf_run) & (rc == 0)
+        # the integer att backstop never binds, as in the BDF loop
+        if not _read(active.any() & (att <= opts.max_steps).all()):
+            break
+        loop_counts["step_trips"] += 1
+        ai = active.to(i32)
+        hs = torch.minimum(h, tf - t)
+        ks = []
+        nl_ok = torch.ones((nsys,), dtype=torch.bool, device=dev)
+        nni_step = zeros_i32()
+        for i in range(table.stages):
+            r = y
+            for j in range(i):
+                if table.A[i][j] != 0.0:
+                    r = r + (hs * table.A[i][j])[None, :] * ks[j]
+            aii = table.A[i][i]
+            ti = t + table.c[i] * hs
+            if aii == 0.0:
+                ks.append(f_s(ti, r))
+                continue
+            gam = hs * aii
+            z = r
+            for _ in range(newton_iters):
+                loop_counts["newton_trips"] += 1
+                rhs = dv.newton_residual_soa(z, f_s(ti, z), r, gam, policy,
+                                             negate=True)
+                M = newton_blocks_soa(jac_s(ti, z), gam)
+                z = z + dv.block_solve_soa(M, rhs, policy)
+                # nni counts per ACTIVE system
+                nni_step += ai
+            fz = f_s(ti, z)           # final RHS: residual AND stage
+            g = dv.newton_residual_soa(z, fz, r, gam, policy)
+            res = dv.wrms_soa(g, unit_w, policy)
+            tol_nl = opts.newton_tol_fac * (
+                opts.rtol * dv.wrms_soa(z, unit_w, policy) + opts.atol)
+            nl_ok = nl_ok & ((res <= torch.clamp(tol_nl, min=1e-12)) |
+                             ~active)
+            ks.append(fz)
+        y_new = y
+        for bi, k in zip(table.b, ks):
+            if bi != 0.0:
+                y_new = y_new + (hs * bi)[None, :] * k
+        y_err = torch.zeros_like(y)
+        if table.b_emb is not None:
+            for bi, bh, k in zip(table.b, table.b_emb, ks):
+                if (bi - bh) != 0.0:
+                    y_err = y_err + (hs * (bi - bh))[None, :] * k
+        w = 1.0 / (opts.rtol * y.abs() + opts.atol)
+        err_raw = dv.wrms_soa(y_err, w, policy)
+        bad = ~torch.isfinite(err_raw) | ~nl_ok
+        err = torch.where(bad, 2.0, err_raw)
+        accept = (err <= 1.0) & ~bad & active
+        eta, e = _pi_eta(opts.controller, err, e1, p, accept, active)
+        eta = torch.where(nl_ok | ~active, eta, opts.eta_cf)
+        t = torch.where(accept, t + hs, t)
+        y = torch.where(accept[None, :], y_new, y)
+        h_next = torch.where(active, torch.clamp(hs * eta, min=1e-14), h)
+        e1 = torch.where(accept, e, e1)
+
+        # ---- per-lane retcode escalation, same contract as the BDF
+        # loop: decided only for active lanes, sticky once nonzero
+        ncf = active & ~nl_ok
+        etf = active & nl_ok & ~accept & torch.isfinite(err_raw)
+        ncf_cur = torch.where(accept, 0, ncf_cur + ncf.to(i32))
+        nef_cur = torch.where(accept, 0, nef_cur + etf.to(i32))
+        # relative step-size underflow: t + h == t
+        hfail = active & (t + h_next == t)
+        nanstep = active & nl_ok & ~torch.isfinite(err_raw)
+        att += ai
+        unfinished = t < tf_run
+        rc = torch.where(active & unfinished & (att >= opts.max_steps),
+                         status.TOO_MUCH_WORK, rc)
+        rc = torch.where(active & ((nef_cur >= status.MXNEF) |
+                                   (hfail & nl_ok)), status.ERR_FAILURE, rc)
+        rc = torch.where(active & ((ncf_cur >= status.MXNCF) |
+                                   (hfail & ~nl_ok)), status.CONV_FAILURE, rc)
+        rc = torch.where(nanstep, status.RHSFUNC_FAIL, rc)
+
+        h = h_next
+        steps += accept.to(i32)
+        netf += (active & ~accept).to(i32)
+        nni += nni_step
+
+    tf_end = tf * (1 - 1e-10)
+    retcodes = torch.where((rc == 0) & (t < tf_end), status.TOO_MUCH_WORK, rc)
+    st = EnsembleStats(steps=steps, attempts=att, netf=netf, nni=nni,
+                       success=t >= tf_end, retcodes=retcodes,
+                       ok=retcodes == 0)
+    return y.T.contiguous(), st
 
 
 def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
@@ -131,12 +383,7 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
         for suffix, shape in ls.soa_workspace_shapes(n, nsys):
             mem.register(f"ensemble_bdf.{suffix}", shape, dtype)
 
-    t = torch.as_tensor(t0, dtype=dtype, device=dev).expand(nsys).clone()
-    tf = torch.as_tensor(tf, dtype=dtype, device=dev).expand(nsys)
-    if opts.h0 > 0:
-        h = torch.full((nsys,), opts.h0, dtype=dtype, device=dev)
-    else:
-        h = torch.clamp(1e-6 * (tf - t), min=1e-12)
+    t, tf, h = _start(t0, tf, opts, nsys, dtype, dev)
     one = torch.ones((), dtype=dtype, device=dev)
     alpha_t, beta_t, predp_t = _cv.bdf_tables(dtype, dev)
     tiny = torch.finfo(dtype).tiny

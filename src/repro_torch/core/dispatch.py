@@ -1,7 +1,7 @@
 """Policy-routed SoA ops of the ensemble BDF path.
 
-Counterpart of the six ``*_soa`` entries of ``repro.core.dispatch``
-(``dispatch.py:393,672-717``), with the same names and argument order.
+Counterpart of the seven ``*_soa`` entries of ``repro.core.dispatch``
+(``dispatch.py:393,666-717``), with the same names and argument order.
 Each op routes per :class:`~repro_torch.core.policies.ExecPolicy`:
 ``"torch"`` runs the plain version, ``"auto"`` the kernel wrapper (the
 CUDA kernel for a CUDA tensor, the plain version for a CPU tensor), and
@@ -29,6 +29,12 @@ def _route(op: str, policy: Optional[ExecPolicy], plain, wrapper,
         raise ValueError(f"{op}: backend 'cuda' needs CUDA tensors, got one "
                          f"on {lead.device}")
     return wrapper
+
+
+def block_solve_soa(A, r, policy: Optional[ExecPolicy] = None):
+    """Solve every block system: A (b,b,NB), r (b,NB) -> x (b,NB)."""
+    return _route("block_solve_soa", policy, _bs.block_solve_soa_plain,
+                  _bs.block_solve_soa, A)(A, r)
 
 
 def block_inverse_soa(A, policy: Optional[ExecPolicy] = None):

@@ -1,8 +1,10 @@
 """Unified IVP front-end: one problem object, one ``integrate`` call.
 
-Counterpart of ``repro.core.ivp`` (``ivp.py:77-205,364-440``) for the
-``"ensemble_bdf"`` method; every other method string of the reference
-raises ``NotImplementedError`` naming the ROADMAP item it waits for.
+Counterpart of ``repro.core.ivp`` (``ivp.py:59-73,77-205,250-440``) for
+the ensemble families ``"ensemble_erk[:table]"``,
+``"ensemble_dirk[:table]"`` and ``"ensemble_bdf"``; every other method
+string of the reference raises ``NotImplementedError`` naming the
+ROADMAP item it waits for.
 ``integrate`` runs on the card unless the call (or the context's
 policy) names another device; without CUDA it raises instead of
 falling back to the CPU.
@@ -14,17 +16,39 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from . import batched
+from . import batched, butcher
 from .arkode import ODEOptions
 from .context import Context
 from .policies import resolve_device
+
+#: the reference's canonical method strings that the port runs
+METHOD_STRINGS = (
+    "ensemble_erk:bogacki_shampine",
+    "ensemble_dirk:sdirk2",
+    "ensemble_bdf",
+)
+
+_ERK_ALIASES = {"dopri5": "dormand_prince", "bs32": "bogacki_shampine",
+                "heun": "heun_euler"}
+_DIRK_ALIASES = {"esdirk3": "ark324_esdirk"}
 
 _KNOWN_FAMILIES = ("erk", "dirk", "imex", "bdf", "adams",
                    "ensemble_erk", "ensemble_dirk", "ensemble_bdf")
 
 #: family -> the ROADMAP queue A item its port waits for
-_WAITING = {"erk": 7, "dirk": 7, "imex": 7, "bdf": 7, "adams": 7,
-            "ensemble_erk": 4, "ensemble_dirk": 4}
+_WAITING = {"erk": 7, "dirk": 7, "imex": 7, "bdf": 7, "adams": 7}
+
+
+def _erk_table(var):
+    """The table of ``ensemble_erk[:var]``; a bare ``ensemble_erk`` is
+    dormand_prince, as in the reference."""
+    name = _ERK_ALIASES.get(var or "dopri5", var or "dopri5")
+    return butcher.ERK_TABLES[name]
+
+
+def _dirk_table(var):
+    name = _DIRK_ALIASES.get(var or "sdirk2", var or "sdirk2")
+    return butcher.DIRK_TABLES[name]
 
 
 @dataclass(frozen=True)
@@ -105,24 +129,34 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
     device : where the run happens; None takes ``opts.policy.device``,
              and if that is None too, the card.  ``problem.y0`` must
              already lie there.
-    method_kw : passed to the integrator (``msbp``, ``dgmax``, ...).
+    method_kw : passed to the integrator (``msbp``, ``dgmax``, ... for
+             ensemble_bdf, ``newton_iters`` for ensemble_dirk;
+             ensemble_erk takes none).
     """
-    fam, _, _ = method.partition(":")
+    fam, _, var = method.partition(":")
     if fam not in _KNOWN_FAMILIES:
         raise ValueError(f"unknown method {method!r}; families: "
                          f"{', '.join(_KNOWN_FAMILIES)}")
     if fam in _WAITING:
         raise NotImplementedError(
             f"method {method!r} is not ported yet (ROADMAP queue A item "
-            f"{_WAITING[fam]}); the port covers 'ensemble_bdf'")
+            f"{_WAITING[fam]}); the port covers the ensemble families")
     if timed:
         raise NotImplementedError("integrate(timed=True) waits for the "
                                   "observability slice, ROADMAP queue A item 10")
     if live is not None:
         raise NotImplementedError("live= lane masking waits for the serving "
                                   "slice, ROADMAP queue A item 9")
+    # a solver object a family cannot consume is an error, not a silent
+    # no-op (Solution must never report a swap that did not happen)
+    if lin_solver is not None and fam != "ensemble_bdf":
+        raise ValueError(f"method {method!r} takes no lin_solver (of the "
+                         "ported families only ensemble_bdf does)")
     if nonlin_solver is not None:
         raise ValueError(f"method {method!r} takes no nonlin_solver")
+    if fam == "ensemble_erk" and method_kw:
+        raise ValueError(f"method {method!r} takes no "
+                         f"{', '.join(sorted(method_kw))}")
     ctx = ctx if ctx is not None else Context()
     opts = opts if opts is not None else ctx.options()
     dev = resolve_device(device if device is not None else opts.policy.device)
@@ -130,27 +164,42 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
     if y0.device.type != dev.type:
         raise ValueError(f"IVP.y0 lies on {y0.device} but the run is on "
                          f"{dev}: build the problem there (device=...)")
-    if problem.jac is None:
+    if fam != "ensemble_erk" and problem.jac is None:
         raise ValueError(f"method {method!r} needs IVP.jac")
     mem = ctx.memory
     live0 = mem.live_bytes
     labels0 = set(mem.workspaces)
 
-    y, st = batched.ensemble_bdf_integrate(
-        problem.full_rhs, problem.jac, y0, t0, tf, order=order, opts=opts,
-        policy=opts.policy, linear_solver=lin_solver,
-        jac_sparsity=problem.jac_sparsity, mem=mem, f_soa=problem.f_soa,
-        jac_soa=problem.jac_soa, **method_kw)
+    f = problem.full_rhs
+    if fam == "ensemble_erk":
+        y, st = batched.ensemble_erk_integrate(f, y0, t0, tf, _erk_table(var),
+                                               opts)
+    elif fam == "ensemble_dirk":
+        y, st = batched.ensemble_dirk_integrate(
+            f, problem.jac, y0, t0, tf, _dirk_table(var), opts,
+            policy=opts.policy, f_soa=problem.f_soa, jac_soa=problem.jac_soa,
+            **method_kw)
+    else:
+        y, st = batched.ensemble_bdf_integrate(
+            f, problem.jac, y0, t0, tf, order=order, opts=opts,
+            policy=opts.policy, linear_solver=lin_solver,
+            jac_sparsity=problem.jac_sparsity, mem=mem, f_soa=problem.f_soa,
+            jac_soa=problem.jac_soa, **method_kw)
 
     workspace = mem.live_bytes - live0
     # workspaces are per call: release only the labels this call added
     for label in set(mem.workspaces) - labels0:
         mem.release(label)
-    ctx.record(st, int(st.nli[0]))
+    bdf = fam == "ensemble_bdf"
+    nli = st.nli[0] if bdf else None
+    ctx.record(st, None if nli is None else int(nli))
+    lname = "none" if fam == "ensemble_erk" else \
+        getattr(lin_solver, "name", "blockdiag_gj")
     return Solution(
         y=y, t=torch.as_tensor(tf), success=st.success.all(), stats=st,
-        method=method, lin_solver=getattr(lin_solver, "name", "blockdiag_gj"),
-        nonlin_solver="newton", nni=st.nni.sum(), nli=st.nli[0],
-        nsetups=st.nsetups, workspace_bytes=workspace,
-        high_water_bytes=mem.high_water_bytes, npsolves=st.npsolves[0],
-        retcodes=st.retcodes, ok=st.ok)
+        method=method, lin_solver=lname,
+        nonlin_solver="none" if fam == "ensemble_erk" else "newton",
+        nni=st.nni.sum(), nli=nli, nsetups=st.nsetups,
+        workspace_bytes=workspace, high_water_bytes=mem.high_water_bytes,
+        npsolves=st.npsolves[0] if bdf else None, retcodes=st.retcodes,
+        ok=st.ok)

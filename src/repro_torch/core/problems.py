@@ -1,11 +1,12 @@
-"""Batched Robertson kinetics, the ensemble integrator's test problem.
+"""The ensemble integrators' test problems.
 
-Counterpart of ``repro.core.problems.batched_robertson`` and
-``batched_robertson_soa``.  The reference draws its per-cell rate
-constants with ``jax.random``, which PyTorch cannot reproduce, so here
-they come from the caller (``rates=``) or from numpy with the
-reference's distributions (:func:`robertson_rates`); a test hands the
-same numpy arrays to both packages.
+Counterpart of ``repro.core.problems``: batched Robertson kinetics
+(``batched_robertson``, ``batched_robertson_soa``) and the ensemble
+Brusselator (``ensemble_brusselator``).  The reference draws its
+per-cell Robertson rates with ``jax.random``, which PyTorch cannot
+reproduce, so here they come from the caller (``rates=``) or from numpy
+with the reference's distributions (:func:`robertson_rates`); a test
+hands the same numpy arrays to both packages.
 """
 from __future__ import annotations
 
@@ -83,4 +84,99 @@ def batched_robertson_soa(nsys: int, *, rates=None, seed: int = 0,
             torch.stack([k1, -k2 * c - 2 * k3 * b, -k2 * b], dim=0),
             torch.stack([z, 2 * k3 * b, z], dim=0)], dim=0)
 
+    return f_soa, jac_soa
+
+
+def _brusselator(nsys, nx, du, dv, a, device, dtype):
+    """The shared pieces of :func:`ensemble_brusselator`: device, the
+    per-member ``b`` (nsys,), the grid factor and the SoA pair."""
+    dev = resolve_device(device)
+    bpar = torch.linspace(1.8, 3.2, nsys, dtype=dtype, device=dev)
+    h2 = 1.0 / ((1.0 / max(nx, 2)) ** 2)
+    n = 2 * nx
+
+    def lap(w):                       # (nx, nsys), no-flux (reflecting)
+        wl = torch.cat([w[:1], w[:-1]], dim=0)
+        wr = torch.cat([w[1:], w[-1:]], dim=0)
+        return (wl - 2.0 * w + wr) * h2
+
+    def f_soa(t, y):                  # y: (2*nx, nsys)
+        u, v = y[0::2], y[1::2]
+        uv2 = u * u * v
+        fu = a - (bpar + 1.0) * u + uv2 + du * lap(u)
+        fv = bpar * u - uv2 + dv * lap(v)
+        return torch.stack([fu, fv], dim=1).reshape(n, y.shape[1])
+
+    # d(lap)/dw_i: -2, plus 1 at each reflecting boundary
+    c = torch.full((nx, 1), -2.0, dtype=dtype, device=dev)
+    c[0] += 1.0
+    c[-1] += 1.0
+    iu = torch.arange(0, n, 2, device=dev)
+    iv = iu + 1
+
+    def jac_soa(t, y):                # -> (2*nx, 2*nx, nsys), banded
+        u, v = y[0::2], y[1::2]
+        J = torch.zeros((n, n, y.shape[1]), dtype=dtype, device=dev)
+        J[iu, iu] = -(bpar + 1.0) + 2.0 * u * v + du * c * h2
+        J[iu, iv] = u * u
+        J[iv, iu] = bpar - 2.0 * u * v
+        J[iv, iv] = -(u * u) + dv * c * h2
+        for i, d in ((iu, du), (iv, dv)):
+            J[i[1:], i[:-1]] = d * h2             # w_i <- w_{i-1}
+            J[i[:-1], i[1:]] = d * h2             # w_i <- w_{i+1}
+        return J
+
+    return dev, bpar, f_soa, jac_soa
+
+
+def ensemble_brusselator(nsys: int, nx: int = 16, du: float = 0.02,
+                         dv: float = 0.02, a: float = 1.0, *, device=None,
+                         dtype=torch.float64):
+    """An ensemble of 1-D Brusselator reaction-diffusion systems, the
+    banded-Jacobian submodel workload.
+
+    Each of the ``nsys`` members is the 2-species Brusselator on ``nx``
+    cells with no-flux boundaries and its own reaction parameter
+    ``b = linspace(1.8, 3.2, nsys)``.  The state is interleaved
+    ``[u_0, v_0, u_1, v_1, ...]`` (n = 2*nx).
+
+    Returns ``(f, jac, jac_sparsity, y0)`` as the reference does: the
+    batched RHS ``(t:(nsys,), y:(nsys, n)) -> (nsys, n)``, the Jacobian
+    ``-> (nsys, n, n)`` (written out analytically; the reference takes
+    ``jax.jacfwd``), the static ``(n, n)`` boolean pattern and a
+    perturbed near-steady start.  ``f``/``jac`` are views of the native
+    SoA pair of :func:`ensemble_brusselator_soa`, so the integrators'
+    boundary transposes cost nothing.  ``device=None`` means the card.
+    """
+    dev, bpar, f_soa, jac_soa = _brusselator(nsys, nx, du, dv, a, device,
+                                             dtype)
+    n = 2 * nx
+
+    def f(t, y):                      # y: (nsys, n)
+        return f_soa(t, y.T).T
+
+    def jac(t, y):
+        return jac_soa(t, y.T).permute(2, 0, 1)
+
+    P = np.zeros((n, n), bool)
+    for i in range(nx):
+        P[2 * i:2 * i + 2, 2 * i:2 * i + 2] = True    # reaction block
+        for j in (i - 1, i + 1):                      # Laplacian coupling
+            if 0 <= j < nx:
+                P[2 * i, 2 * j] = True                # u_i <- u_j
+                P[2 * i + 1, 2 * j + 1] = True        # v_i <- v_j
+    x = torch.linspace(0.0, 1.0, nx, dtype=dtype, device=dev)
+    u0 = a + 0.1 * torch.sin(2 * torch.pi * x)
+    v0 = (bpar / a)[:, None] + 0.1 * torch.cos(2 * torch.pi * x)[None, :]
+    y0 = torch.stack([u0.expand(nsys, nx), v0], dim=2).reshape(nsys, n)
+    return f, jac, P, y0
+
+
+def ensemble_brusselator_soa(nsys: int, nx: int = 16, du: float = 0.02,
+                             dv: float = 0.02, a: float = 1.0, *,
+                             device=None, dtype=torch.float64):
+    """Native SoA companions of :func:`ensemble_brusselator` for the same
+    arguments, system axis LAST: ``f_soa(t, y:(n,nsys)) -> (n,nsys)``
+    and ``jac_soa -> (n,n,nsys)``."""
+    _, _, f_soa, jac_soa = _brusselator(nsys, nx, du, dv, a, device, dtype)
     return f_soa, jac_soa

@@ -1,9 +1,9 @@
 """Problem and solver data carried between the JAX package and the port.
 
 The system has no model weights: what must reach the port identically
-is the problem's data (per-system rate constants) and the solver's
-options.  Both cross as plain numbers and numpy arrays, so this module
-imports neither package.  The ``SolverSession`` carry waits for ROADMAP
+is the problem's data (per-system rate constants), the solver's options
+and the methods' coefficients (Butcher tables).  All cross as plain
+numbers and numpy arrays, so this module imports neither package.  The ``SolverSession`` carry waits for ROADMAP
 queue A item 5.
 """
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .core.arkode import ODEOptions
+from .core.butcher import ButcherTable
 from .core.controller import ControllerConfig
 
 
@@ -34,6 +35,21 @@ def options_from_reference(fields: dict) -> ODEOptions:
     if "controller" in fields:
         fields["controller"] = ControllerConfig(**fields["controller"])
     return ODEOptions(**fields)
+
+
+def table_from_reference(fields: dict) -> ButcherTable:
+    """The port's ButcherTable from the reference's
+    ``ButcherTable._asdict()`` (nested lists of floats, ints for the
+    orders); every coefficient keeps its float value exactly."""
+    def floats(v):
+        return None if v is None else [
+            floats(x) if isinstance(x, (list, tuple)) else float(x)
+            for x in v]
+
+    return ButcherTable(A=floats(fields["A"]), b=floats(fields["b"]),
+                        c=floats(fields["c"]), order=int(fields["order"]),
+                        b_emb=floats(fields.get("b_emb")),
+                        emb_order=int(fields.get("emb_order", 0)))
 
 
 def solution_to_numpy(sol) -> dict:

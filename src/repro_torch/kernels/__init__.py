@@ -2,37 +2,56 @@
 
 Every wrapper launches its kernel for CUDA tensors and counts the launch
 in its ``launches`` attribute; for CPU tensors it runs the plain PyTorch
-version, which counts its own ``calls``.  :func:`reset_counts` zeroes
-both, so a run can show which implementation its main path went
-through.
+version, which counts its own ``calls``.  The two Gauss-Jordan entries
+have two kernel bodies each (b <= 8 and b > 8) and count per body
+(``launches_unrolled``, ``launches_tiled``, ``calls_unrolled``, ...).
+:func:`reset_counts` zeroes them all, so a run can show which
+implementation, and which body, its path went through.
 """
 from __future__ import annotations
 
 from . import block_solve, blockdiag_spmv, newton
 
-#: name -> (wrapper, plain version) for the six kernels of the ensemble
-#: BDF path
+#: name -> (wrapper, plain version, body) for every ported kernel body;
+#: body "" names a wrapper with one body, else the suffix of its counters
 KERNELS = {
     "newton_residual": (newton.newton_residual,
-                        newton.newton_residual_plain),
+                        newton.newton_residual_plain, ""),
     "blockdiag_spmv": (blockdiag_spmv.blockdiag_spmv_soa,
-                       blockdiag_spmv.blockdiag_spmv_soa_plain),
+                       blockdiag_spmv.blockdiag_spmv_soa_plain, ""),
     "masked_update_wrms": (newton.masked_update_wrms,
-                           newton.masked_update_wrms_plain),
+                           newton.masked_update_wrms_plain, ""),
     "history_rescale": (newton.history_rescale,
-                        newton.history_rescale_plain),
-    "wrms_soa": (newton.wrms_soa, newton.wrms_soa_plain),
+                        newton.history_rescale_plain, ""),
+    "wrms_soa": (newton.wrms_soa, newton.wrms_soa_plain, ""),
     "block_inverse": (block_solve.block_inverse_soa,
-                      block_solve.block_inverse_soa_plain),
+                      block_solve.block_inverse_soa_plain, "unrolled"),
+    "block_inverse_tiled": (block_solve.block_inverse_soa,
+                            block_solve.block_inverse_soa_plain, "tiled"),
+    "block_solve": (block_solve.block_solve_soa,
+                    block_solve.block_solve_soa_plain, "unrolled"),
+    "block_solve_tiled": (block_solve.block_solve_soa,
+                          block_solve.block_solve_soa_plain, "tiled"),
 }
 
 
+def _attrs(body: str) -> tuple:
+    """Names of the launch and call counters of one body."""
+    return ("launches", "calls") if not body else \
+        (f"launches_{body}", f"calls_{body}")
+
+
 def reset_counts() -> None:
-    for wrapper, plain in KERNELS.values():
-        wrapper.launches = 0
-        plain.calls = 0
+    for wrapper, plain, body in KERNELS.values():
+        launches, calls = _attrs(body)
+        setattr(wrapper, launches, 0)
+        setattr(plain, calls, 0)
 
 
 def counts() -> dict:
     """``{name: (kernel launches, plain calls)}`` since the last reset."""
-    return {name: (w.launches, p.calls) for name, (w, p) in KERNELS.items()}
+    out = {}
+    for name, (wrapper, plain, body) in KERNELS.items():
+        launches, calls = _attrs(body)
+        out[name] = (getattr(wrapper, launches), getattr(plain, calls))
+    return out

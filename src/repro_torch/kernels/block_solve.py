@@ -1,16 +1,25 @@
-"""Batched small-block Gauss-Jordan inverse, SoA layout.
+"""Batched small-block Gauss-Jordan inverse and solve, SoA layout.
 
-Counterpart of ``block_inverse_soa`` in ``repro/kernels/block_solve.py``:
-``A (b,b,NB) -> A^{-1} (b,b,NB)``, the lsetup product of
-``BlockDiagGJ(factor_once=True)``.  The reference's algorithm is kept:
-no pivoting (Newton blocks ``I - gamma*J`` of kinetics are diagonally
-dominant for acceptable gamma), row scaling by
-``1/max(max_j |A_ij|, 1e-30)``, and for ``b <= 8`` the
-augmented ``[A | I]`` elimination, for ``b > 8`` the in-place one with
-column post-scaling.  The CUDA kernel is ``csrc/block_solve.cu``.
+Counterpart of ``repro/kernels/block_solve.py``:
 
-``block_solve_soa`` (the ``factor_once=False`` lsolve) waits for ROADMAP
-queue B rows 8-9.
+* :func:`block_inverse_soa` — ``A (b,b,NB) -> A^{-1} (b,b,NB)``, the
+  lsetup product of ``BlockDiagGJ(factor_once=True)``;
+* :func:`block_solve_soa` — ``A (b,b,NB), r (b,NB) -> x (b,NB)``, the
+  lsolve of ``BlockDiagGJ(factor_once=False)`` and the DIRK stage
+  Newton solve.
+
+The reference's algorithm is kept: no pivoting (Newton blocks
+``I - gamma*J`` of kinetics are diagonally dominant for acceptable
+gamma), row scaling by ``1/max(max_j |A_ij|, 1e-30)``, and two kernel
+bodies per entry: for ``b <= 8`` the augmented ``[A | I]`` or
+``[A | r]`` elimination, for ``b > 8`` the inverse in place with column
+post-scaling and the solve on a ``(b, b+1, NB)`` augmented array.  The
+CUDA kernels are ``csrc/block_solve.cu``.
+
+Each body counts its own launches (``launches_unrolled`` for b <= 8,
+``launches_tiled`` for b > 8) and each plain version its own calls
+(``calls_unrolled``, ``calls_tiled``), so a run shows which of the
+reference's four bodies it went through.
 """
 from __future__ import annotations
 
@@ -19,7 +28,7 @@ import torch
 from . import _build
 
 #: largest b eliminated in the augmented form (the reference's
-#: UNROLL_MAX_B); larger blocks invert in place
+#: UNROLL_MAX_B); larger blocks run the tiled bodies
 UNROLL_MAX_B = 8
 
 
@@ -63,8 +72,18 @@ def _inverse_inplace(A):
     return S * inv_m[None, :, :]
 
 
+def _body(b: int) -> str:
+    """Which kernel body a block size runs: 'unrolled' or 'tiled'."""
+    return "unrolled" if b <= UNROLL_MAX_B else "tiled"
+
+
+def _count(fn, prefix: str, b: int) -> None:
+    name = f"{prefix}_{_body(b)}"
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
 def block_inverse_soa_plain(A):
-    block_inverse_soa_plain.calls += 1
+    _count(block_inverse_soa_plain, "calls", A.shape[0])
     if A.shape[0] <= UNROLL_MAX_B:
         return _inverse_augmented(A)
     return _inverse_inplace(A)
@@ -81,9 +100,74 @@ def block_inverse_soa(A):
     _build.launch("block_solve", "block_inverse_" + _build.SUFFIX[A.dtype],
                   "ppilp", A.data_ptr(), X.data_ptr(), b, nb,
                   _build.stream(A.device))
-    block_inverse_soa.launches += 1
+    _count(block_inverse_soa, "launches", b)
     return X
 
 
-block_inverse_soa.launches = 0
-block_inverse_soa_plain.calls = 0
+def _solve_augmented(A, r):
+    """[A | r] eliminated row-vector by row-vector, as ``_gj_kernel``."""
+    b = A.shape[0]
+    inv = _row_scale(A)
+    a, x = A * inv[:, None, :], r * inv
+    for k in range(b):
+        inv_piv = 1.0 / a[k, k]
+        ak, xk = a[k] * inv_piv, x[k] * inv_piv
+        f = a[:, k, :]
+        a_new = a - f[:, None, :] * ak[None]
+        x_new = x - f * xk[None]
+        a_new[k], x_new[k] = ak, xk          # the pivot row is not updated
+        a, x = a_new, x_new
+    return x
+
+
+def _solve_tiled(A, r):
+    """The augmented (b, b+1, NB) array eliminated in place, as
+    ``_gj_tiled_kernel``; column k is read as the factor at step k and
+    never again, so each step updates only the columns right of k."""
+    b = A.shape[0]
+    inv = _row_scale(A)
+    S = torch.cat([A * inv[:, None, :], (r * inv)[:, None, :]], dim=1)
+    for k in range(b):
+        rowk = S[k, k + 1:] * (1.0 / S[k, k])
+        f = S[:, k].clone()
+        f[k] = 0.0
+        S[:, k + 1:] -= f[:, None, :] * rowk[None]
+        S[k, k + 1:] = rowk
+    return S[:, b]
+
+
+def block_solve_soa_plain(A, r):
+    _count(block_solve_soa_plain, "calls", A.shape[0])
+    if A.shape[0] <= UNROLL_MAX_B:
+        return _solve_augmented(A, r)
+    return _solve_tiled(A, r)
+
+
+def block_solve_soa(A, r):
+    """Solve every block system: A (b,b,NB), r (b,NB) -> x (b,NB)."""
+    if _build.on_cpu("block_solve_soa", A):
+        return block_solve_soa_plain(A, r)
+    b, _, nb = A.shape
+    _build.check("block_solve_soa", A.device,
+                 A=(A, (b, b, nb), tuple(_build.SUFFIX)),
+                 r=(r, (b, nb), (A.dtype,)))
+    X = torch.empty_like(r)
+    # the b > 8 body eliminates in this scratch, system axis last; it
+    # returns to PyTorch's stream-ordered cache when the wrapper returns,
+    # and a later use on this stream waits for the kernel
+    S = torch.empty((b, b + 1, nb), dtype=A.dtype, device=A.device) \
+        if b > UNROLL_MAX_B else None
+    _build.launch("block_solve", "block_solve_" + _build.SUFFIX[A.dtype],
+                  "ppppilp", A.data_ptr(), r.data_ptr(), X.data_ptr(),
+                  0 if S is None else S.data_ptr(), b, nb,
+                  _build.stream(A.device))
+    _count(block_solve_soa, "launches", b)
+    return X
+
+
+for _fn, _prefix in ((block_inverse_soa, "launches"),
+                     (block_inverse_soa_plain, "calls"),
+                     (block_solve_soa, "launches"),
+                     (block_solve_soa_plain, "calls")):
+    for _b in ("unrolled", "tiled"):
+        setattr(_fn, f"{_prefix}_{_b}", 0)

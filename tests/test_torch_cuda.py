@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import kernels
 from repro_torch.kernels import block_solve, blockdiag_spmv, newton
 
 NBS = [7, 130, 516]
@@ -31,27 +32,40 @@ def _inputs(nb, dtype):
          "w": np.abs(rng.normal(size=(3, nb))) + 0.1,
          "mask": rng.uniform(size=nb) > 0.4,
          "W": rng.normal(size=(6, 6, nb)), "Z": rng.normal(size=(6, 3, nb))}
-    for b in (3, 8, 16):
+    for b in (3, 8, 9, 16, 32):
         d[f"A{b}"] = rng.normal(size=(b, b, nb)) + b * np.eye(b)[:, :, None]
+        d[f"r{b}"] = rng.normal(size=(b, nb))
     out = {k: torch.from_numpy(v).to("cuda") for k, v in d.items()}
     return {k: v.to(dtype) if v.is_floating_point() else v
             for k, v in out.items()}
 
 
+def _gj(b):
+    return "" if b <= 8 else "_tiled"
+
+
+#: case -> (wrapper, plain version, input keys, registry name)
 CASES = {
     "newton_residual": (newton.newton_residual, newton.newton_residual_plain,
-                        ("z", "f", "psi", "gam")),
+                        ("z", "f", "psi", "gam"), "newton_residual"),
     "masked_update_wrms": (newton.masked_update_wrms,
                            newton.masked_update_wrms_plain,
-                           ("z", "f", "w", "mask")),
+                           ("z", "f", "w", "mask"), "masked_update_wrms"),
     "history_rescale": (newton.history_rescale, newton.history_rescale_plain,
-                        ("W", "Z", "mask")),
-    "wrms_soa": (newton.wrms_soa, newton.wrms_soa_plain, ("z", "w")),
+                        ("W", "Z", "mask"), "history_rescale"),
+    "wrms_soa": (newton.wrms_soa, newton.wrms_soa_plain, ("z", "w"),
+                 "wrms_soa"),
     "blockdiag_spmv": (blockdiag_spmv.blockdiag_spmv_soa,
-                       blockdiag_spmv.blockdiag_spmv_soa_plain, ("A3", "z")),
+                       blockdiag_spmv.blockdiag_spmv_soa_plain, ("A3", "z"),
+                       "blockdiag_spmv"),
     **{f"block_inverse_b{b}": (block_solve.block_inverse_soa,
                                block_solve.block_inverse_soa_plain,
-                               (f"A{b}",)) for b in (3, 8, 16)},
+                               (f"A{b}",), "block_inverse" + _gj(b))
+       for b in (3, 8, 16)},
+    **{f"block_solve_b{b}": (block_solve.block_solve_soa,
+                             block_solve.block_solve_soa_plain,
+                             (f"A{b}", f"r{b}"), "block_solve" + _gj(b))
+       for b in (3, 8, 9, 16, 32)},
 }
 
 
@@ -61,13 +75,14 @@ CASES = {
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_matches_plain_on_card(case, nb, dtype):
     _need_card()
-    kern, plain, keys = CASES[case]
+    kern, plain, keys, name = CASES[case]
     d = _inputs(nb, dtype)
     args = [d[k] for k in keys]
-    before = kern.launches
-    got, want = kern(*args), plain(*args)
+    kernels.reset_counts()
+    got = kern(*args)
+    assert kernels.counts()[name] == (1, 0)
+    want = plain(*args)
     torch.cuda.synchronize()
-    assert kern.launches == before + 1
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):

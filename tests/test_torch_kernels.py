@@ -1,4 +1,4 @@
-"""The port's six ensemble-BDF kernels against the JAX reference.
+"""The port's ensemble-BDF kernels against the JAX reference.
 
 Each op's plain PyTorch version (what the port's wrappers run for CPU
 tensors) is held to the reference's jnp oracle (``repro.kernels.ref``)
@@ -182,6 +182,7 @@ def _op_calls(d, policy):
         "history_rescale_soa": lambda: dv.history_rescale_soa(
             t["W"], t["Z"], t["mask"], policy),
         "wrms_soa": lambda: dv.wrms_soa(t["z"], t["w"], policy),
+        "block_solve_soa": lambda: dv.block_solve_soa(t["A"], t["z"], policy),
     }
 
 
@@ -201,6 +202,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
         lambda: newton.wrms_soa(d["z"], d["w"]),
         lambda: blockdiag_spmv.blockdiag_spmv_soa(d["A"], d["z"]),
         lambda: block_solve.block_inverse_soa(d["A"]),
+        lambda: block_solve.block_solve_soa(d["A"], d["z"]),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="no kernel for tensors on meta"):

@@ -15,7 +15,6 @@ from repro.core.arkode import ODEOptions as RefOptions
 from repro_torch import interop
 from repro_torch.core import ivp, problems, status
 from repro_torch.core.arkode import ODEOptions
-from repro_torch.core.linsol import BlockDiagGJ
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -65,11 +64,12 @@ def test_entry_points_run_on_the_card_by_default():
 def test_unported_paths_raise():
     f, jac, y0 = problems.batched_robertson(4, device="cpu")
     prob = ivp.IVP(f=f, jac=jac, y0=y0)
-    for method in ("bdf", "erk:dopri5", "ensemble_dirk:sdirk2"):
+    for method in ("bdf", "erk:dopri5", "imex:ark324", "adams"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ivp.integrate(prob, 0.0, 1.0, method, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BlockDiagGJ(factor_once=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
+        ivp.integrate(prob, 0.0, 1.0, "ensemble_dirk:sdirk2", device="cpu",
+                      telemetry=8)
     for kw in ({"session": object()}, {"telemetry": 8}, {"timed": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ivp.integrate(prob, 0.0, 1.0, "ensemble_bdf", device="cpu", **kw)
