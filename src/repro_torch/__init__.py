@@ -9,7 +9,10 @@ The hot kernels are CUDA C++ for Hopper (``kernels/csrc/*.cu``), built
 with ``nvcc`` at first use; each has a plain PyTorch version beside it,
 which the wrappers take for tensors that lie on the CPU.
 
-Covered so far: ``core.ivp.integrate(..., "ensemble_bdf")`` with the
-default ``BlockDiagGJ`` linear solver.  Everything else raises
+Covered so far: ``core.ivp.integrate`` with ``"ensemble_erk[:table]"``,
+``"ensemble_dirk[:table]"`` and ``"ensemble_bdf"``, the latter with
+``BlockDiagGJ`` (both modes), ``EnsembleSparseGJ`` or a preconditioned
+Krylov solver (``SPGMR``, ``SPFGMR``, ``SPBCGS``, ``SPTFQMR``, ``PCG``)
+over a ``jac_sparsity`` pattern.  Everything else raises
 ``NotImplementedError`` naming its ROADMAP item.
 """

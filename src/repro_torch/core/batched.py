@@ -35,9 +35,14 @@ kernels of :mod:`repro_torch.kernels` on the card.
 
 The BDF loop owns its state: the counters are updated in place, and each
 step's new history replaces the old one, so PyTorch's caching allocator
-hands the same blocks back from step to step.  Warm-start sessions,
-step telemetry, sparsity patterns and Krylov solvers wait for their
-ROADMAP items and raise here.
+hands the same blocks back from step to step.  Any linear solver of
+:mod:`repro_torch.core.linsol` plugs in (``linear_solver=``); its saved
+object is a tensor or a tuple of tensors, each with the system axis
+last, and a partial lsetup merges it leaf by leaf.  ``jac_sparsity``
+binds a static pattern to the solver (``with_sparsity``), as in the
+reference.  The inner-iteration and psolve counts of the Krylov solvers
+stay device tensors (no read per Newton iteration).  Warm-start
+sessions and step telemetry wait for ROADMAP queue A item 5 and raise.
 """
 from __future__ import annotations
 
@@ -51,22 +56,10 @@ from . import dispatch as dv
 from . import status
 from .arkode import ODEOptions
 from .butcher import ButcherTable
-from .linsol import BlockDiagGJ, newton_blocks_soa
-
-#: device->host reads made by the step and Newton loops, and the two
-#: loops' trip counts, summed over every call since the last reset
-loop_counts = {"host_syncs": 0, "step_trips": 0, "newton_trips": 0}
-
-
-def reset_loop_counts() -> None:
-    for key in loop_counts:
-        loop_counts[key] = 0
-
-
-def _read(x: torch.Tensor):
-    """One counted device->host read of a small tensor."""
-    loop_counts["host_syncs"] += 1
-    return x.tolist()
+from .linsol import BlockDiagGJ, encode_sparsity, newton_blocks_soa
+# the host loops' counted reads and trip counts (shared with krylov)
+from .loops import loop_counts, reset_loop_counts  # noqa: F401
+from .loops import read as _read
 
 
 def _wrap_soa(f, jac, f_soa, jac_soa):
@@ -78,6 +71,14 @@ def _wrap_soa(f, jac, f_soa, jac_soa):
     if jac_soa is None:
         jac_soa = lambda t, z: jac(t, z.T).permute(1, 2, 0).contiguous()
     return f_soa, jac_soa
+
+
+def _merge(need: torch.Tensor, new, old):
+    """``where(need, new, old)`` on every leaf of a saved linear object
+    (a tensor or nested tuples of them, system axis last)."""
+    if isinstance(new, tuple):
+        return tuple(_merge(need, a, b) for a, b in zip(new, old))
+    return torch.where(need, new, old)
 
 
 class EnsembleStats(NamedTuple):
@@ -356,6 +357,14 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
     ``dgmax``.  A refresh evaluates ``jac`` over ALL systems and merges
     where needed, as in the reference.  Failed lanes are quarantined
     with a CV_*-style retcode (:mod:`repro_torch.core.status`).
+
+    linear_solver : any solver of :mod:`repro_torch.core.linsol`;
+    None is ``BlockDiagGJ()``.  jac_sparsity : an (n, n) boolean
+    pattern, bound to the solver; a sparse solver then keeps only the
+    pattern's values.  A Krylov solver runs one global iteration over
+    all systems per Newton iteration, and ``stats.nli`` /
+    ``stats.npsolves`` count its inner iterations and psolves (totals,
+    broadcast over the systems, as in the reference).
     """
     if session is not None or return_session:
         raise NotImplementedError("warm-start sessions wait for ROADMAP "
@@ -363,14 +372,9 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
     if telemetry is not None:
         raise NotImplementedError("step telemetry waits for ROADMAP queue A "
                                   "item 5")
-    if jac_sparsity is not None:
-        raise NotImplementedError("jac_sparsity waits for the sparse "
-                                  "ensemble, ROADMAP queue A item 6")
     ls = BlockDiagGJ() if linear_solver is None else linear_solver
-    if not isinstance(ls, BlockDiagGJ):
-        raise NotImplementedError(
-            f"linear solver {type(ls).__name__}: only BlockDiagGJ is ported; "
-            "Krylov and sparse solvers wait for ROADMAP queue A item 6")
+    if jac_sparsity is not None:
+        ls = ls.with_sparsity(encode_sparsity(jac_sparsity))
     if not 1 <= order <= _cv.QMAX:
         raise ValueError(f"order must lie in 1..{_cv.QMAX}, got {order}")
     policy = opts.policy if policy is None else policy
@@ -403,7 +407,8 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
     ncf_prev = torch.zeros((nsys,), dtype=torch.bool, device=dev)
     since_jac, steps, att, netf = (zeros_i32() for _ in range(4))
     nni, nsetups, ncfn, rc, ncf_cur, nef_cur = (zeros_i32() for _ in range(6))
-    nli = nps = 0
+    nli = torch.zeros((), dtype=i32, device=dev)
+    nps = torch.zeros((), dtype=i32, device=dev)
     tf_run = tf * (1 - 1e-12)
 
     while True:
@@ -438,7 +443,7 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
         any_need, all_need = _read(torch.stack([need.any(), need.all()]))
         if any_need:
             MJ_new = ls.soa_setup(jac_s(t_new, y_pred), gamma, policy)
-            MJ = MJ_new if all_need else torch.where(need, MJ_new, MJ)
+            MJ = MJ_new if all_need else _merge(need, MJ_new, MJ)
         gam_saved = torch.where(need, gamma, gam_saved)
         since_jac = torch.where(need, 0, since_jac)
         gamrat = torch.where(need, 1.0, gamrat)
@@ -458,7 +463,8 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
             loop_counts["newton_trips"] += 1
             rhs = dv.newton_residual_soa(z, f_s(t_new, z), psi, gamma, policy,
                                          negate=True)
-            dz, nli_inc, nps_inc = ls.soa_solve(MJ, gamma, gamrat, rhs, policy)
+            dz, nli_inc, nps_inc = ls.soa_solve(MJ, gamma, gamrat, rhs,
+                                                policy, mem=mem)
             z, dn = dv.masked_update_wrms_soa(z, dz, w, iterate, policy)
             crate_new = crate
             if it > 0:
@@ -470,8 +476,9 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
             dn_prev = torch.where(iterate, dn, dn_prev)
             crate = torch.where(iterate, crate_new, crate)
             nni_s += iterate.to(i32)
-            nli += nli_inc
-            nps += nps_inc
+            if torch.is_tensor(nli_inc):       # direct solvers return 0
+                nli += nli_inc
+                nps += nps_inc
             it += 1
 
         # ---- local error test (LTE ~ (z - pred)/(q+1), uniform grid) ----
@@ -543,7 +550,6 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
     st = EnsembleStats(
         steps=steps, attempts=att, netf=netf, nni=nni, success=t >= tf_end,
         nsetups=nsetups, ncfn=ncfn,
-        nli=torch.full((nsys,), nli, dtype=i32, device=dev),
-        npsolves=torch.full((nsys,), nps, dtype=i32, device=dev),
+        nli=nli.expand(nsys).clone(), npsolves=nps.expand(nsys).clone(),
         retcodes=retcodes, ok=retcodes == 0)
     return Z[0].T.contiguous(), st

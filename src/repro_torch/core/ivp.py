@@ -19,6 +19,7 @@ import torch
 from . import batched, butcher
 from .arkode import ODEOptions
 from .context import Context
+from .linsol import _is_precond_obj
 from .policies import resolve_device
 
 #: the reference's canonical method strings that the port runs
@@ -129,9 +130,19 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
     device : where the run happens; None takes ``opts.policy.device``,
              and if that is None too, the card.  ``problem.y0`` must
              already lie there.
+    lin_solver : ensemble_bdf only: any solver of
+             :mod:`repro_torch.core.linsol` (``BlockDiagGJ``,
+             ``EnsembleSparseGJ``, ``SPGMR``, ``SPFGMR``, ``SPBCGS``,
+             ``SPTFQMR``, ``PCG``); None is ``BlockDiagGJ()``.  The
+             problem's ``jac_sparsity`` is bound to it.
     method_kw : passed to the integrator (``msbp``, ``dgmax``, ... for
              ensemble_bdf, ``newton_iters`` for ensemble_dirk;
              ensemble_erk takes none).
+
+    For ensemble_bdf, ``nli`` and ``npsolves`` are the Krylov solver's
+    inner iterations and psolves, and ``npsetups`` is the lsetup total
+    whenever the solver carries a preconditioner object (psetup rides
+    the lsetup triggers), as in the reference.
     """
     fam, _, var = method.partition(":")
     if fam not in _KNOWN_FAMILIES:
@@ -193,6 +204,9 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
     bdf = fam == "ensemble_bdf"
     nli = st.nli[0] if bdf else None
     ctx.record(st, None if nli is None else int(nli))
+    # psetup rides the lsetup triggers (the reference's accounting)
+    npsetups = st.nsetups.sum() if bdf and _is_precond_obj(
+        getattr(lin_solver, "precond", None)) else None
     lname = "none" if fam == "ensemble_erk" else \
         getattr(lin_solver, "name", "blockdiag_gj")
     return Solution(
@@ -201,5 +215,6 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
         nonlin_solver="none" if fam == "ensemble_erk" else "newton",
         nni=st.nni.sum(), nli=nli, nsetups=st.nsetups,
         workspace_bytes=workspace, high_water_bytes=mem.high_water_bytes,
-        npsolves=st.npsolves[0] if bdf else None, retcodes=st.retcodes,
+        npsolves=st.npsolves[0] if bdf else None, npsetups=npsetups,
+        retcodes=st.retcodes,
         ok=st.ok)

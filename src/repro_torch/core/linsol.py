@@ -1,16 +1,104 @@
 """Linear solvers for the ensemble Newton iteration (SoA batch surface).
 
-Counterpart of ``repro.core.linsol`` lines 116-124 and 466-495:
-``newton_blocks_soa`` and ``BlockDiagGJ``.  The Krylov and sparse
-solvers wait for ROADMAP queue A item 6.
+Counterpart of ``repro.core.linsol`` (``linsol.py:95-124,193-576``),
+the SoA batch surface used by ``batched.ensemble_bdf_integrate`` (the
+CVODE lsetup/lsolve split; the system batch rides the last axis):
+
+* :meth:`LinearSolver.soa_setup` ``(Jsoa, gamma, policy)`` -> the saved
+  per-step linear object, a tensor or a tuple of them whose every leaf
+  keeps the ``nsys`` axis LAST (so the integrator's masked per-system
+  carry update broadcasts);
+* :meth:`LinearSolver.soa_solve` ``(MJ, gamma, gamrat, rhs, policy,
+  mem)`` -> ``(dz, nli, npsolves)``, the counts 0-d int32 tensors on
+  the device (or 0 for the direct solvers);
+* :meth:`LinearSolver.soa_carry_init` / :meth:`soa_workspace_shapes`;
+* :meth:`LinearSolver.with_sparsity` binds a static ``jac_sparsity``
+  (encoded ``(indptr, indices)``); solvers without a sparse path return
+  themselves unchanged.
+
+The scalar ``bind`` surface waits for the scalar integrators, ROADMAP
+queue A item 7, and raises.
+
+================  =======================================================
+SPGMR             restarted GMRES
+SPFGMR            flexible GMRES (stores the preconditioned basis)
+SPBCGS            BiCGStab
+SPTFQMR           transpose-free QMR
+PCG               preconditioned conjugate gradient (SPD systems)
+BlockDiagGJ       batched block-diagonal Gauss-Jordan over the SoA
+                  kernels (``factor_once=True`` inverts at lsetup,
+                  ``False`` re-solves with the current gamma)
+EnsembleSparseGJ  the SUNLINSOL_CUSOLVERSP_BATCHQR analog: shared static
+                  sparsity, symbolic analysis once per pattern (host,
+                  cached), numeric refactor at the lsetup triggers,
+                  O(nnz) storage
+================  =======================================================
+
+A Krylov solver's ``precond=`` takes a bare callable (right
+preconditioning) or a :class:`~repro_torch.core.precond.Preconditioner`
+(psetup at the lsetup triggers, psolve applied LEFT, counted in
+``npsolves``).  With a sparsity pattern bound, a Krylov solver saves
+only the ``(nnz, nsys)`` Jacobian values and its matvec is the
+shared-pattern ``bsr_spmv_soa`` with 1x1 blocks.  The static index
+tensors a pattern needs (CSR rows and columns, diagonal slots, the 1x1
+block pattern) are built once per (pattern, device) and cached.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import dispatch as dv
+from . import krylov
+from . import spsolve
+
+_SCALAR = ("the scalar linear-solver surface (bind) waits for the scalar "
+           "integrators, ROADMAP queue A item 7")
+
+
+def encode_sparsity(pattern) -> tuple:
+    """Normalize a ``jac_sparsity`` to the hashable static encoding the
+    solvers carry: an (n, n) boolean/0-1 array (or an already-encoded
+    ``(indptr, indices)`` pair) -> ``(indptr, indices)`` tuples with
+    the diagonal forced in."""
+    if isinstance(pattern, tuple) and len(pattern) == 2 and \
+            isinstance(pattern[0], tuple):
+        return pattern
+    return spsolve.encode_pattern(pattern)
+
+
+def _csr_rows_cols(indptr, indices):
+    rows = np.repeat(np.arange(len(indptr) - 1),
+                     np.diff(np.asarray(indptr)))
+    return rows, np.asarray(indices, np.int64)
+
+
+def _is_precond_obj(p) -> bool:
+    return p is not None and hasattr(p, "psetup") and hasattr(p, "psolve")
+
+
+class _PatternIndex(NamedTuple):
+    rows: torch.Tensor       # (nnz,) CSR row of each slot
+    cols: torch.Tensor       # (nnz,) CSR column of each slot
+    diag: torch.Tensor       # slots of the diagonal entries
+    blocks: tuple            # the 1x1 block pattern (brows, bcols, n)
+
+
+@functools.lru_cache(maxsize=64)
+def _pattern_index(indptr: tuple, indices: tuple,
+                   device: torch.device) -> _PatternIndex:
+    rows, cols = _csr_rows_cols(indptr, indices)
+    return _PatternIndex(
+        rows=torch.as_tensor(rows, device=device),
+        cols=torch.as_tensor(cols, device=device),
+        diag=torch.as_tensor(np.nonzero(rows == cols)[0], device=device),
+        blocks=(tuple(int(r) for r in rows), tuple(int(c) for c in cols),
+                len(indptr) - 1))
 
 
 def newton_blocks_soa(Jsoa: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
@@ -21,8 +109,227 @@ def newton_blocks_soa(Jsoa: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     return eye[:, :, None] - gamma[None, None, :] * Jsoa
 
 
+def _shape_leaves(tree) -> list:
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in _shape_leaves(t)]
+    return [tuple(tree.shape)]
+
+
+class LinearSolver:
+    """Base protocol; see the module docstring."""
+
+    name = "linear_solver"
+
+    def bind(self, fi, *, policy=None, mem=None):
+        raise NotImplementedError(_SCALAR)
+
+    def soa_setup(self, Jsoa, gamma, policy=None):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no SoA batch path")
+
+    def soa_solve(self, MJ, gamma, gamrat, rhs, policy=None, mem=None):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no SoA batch path")
+
+    def soa_carry_init(self, n, nsys, dtype, device):
+        return torch.zeros((n, n, nsys), dtype=dtype, device=device)
+
+    def soa_workspace_shapes(self, n, nsys):
+        return [("newton_blocks", (n, n, nsys))]
+
+    def with_sparsity(self, enc: tuple) -> "LinearSolver":
+        return self
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free Krylov family
+# ---------------------------------------------------------------------------
+
+
 @dataclass(frozen=True)
-class BlockDiagGJ:
+class _KrylovSolver(LinearSolver):
+    """Shared machinery: the matvec and the SoA global solve.
+
+    Each solve runs ONE Krylov iteration over the flattened
+    block-diagonal system of all ``nsys`` systems, with convergence on
+    the aggregate residual, as the reference does.  The saved object is
+    ``(Jrepr, pdata)``: the Jacobian (dense SoA, or values only when a
+    pattern is bound) and the preconditioner's psetup product (an empty
+    tuple when unpreconditioned)."""
+
+    tol: float = 1e-4
+    atol: float = 0.0
+    precond: Optional[Any] = None
+    sparsity: Optional[tuple] = None
+
+    def _run(self, matvec, b, *, policy=None, mem=None, precond=None,
+             precond_left=None):
+        raise NotImplementedError
+
+    def with_sparsity(self, enc: tuple) -> "_KrylovSolver":
+        new = self
+        if new.sparsity is None:
+            new = dataclasses.replace(new, sparsity=enc)
+        # pattern-needing preconditioners (ILU0) pick the pattern up from
+        # the same jac_sparsity binding
+        p = new.precond
+        if p is not None and hasattr(p, "with_sparsity"):
+            p2 = p.with_sparsity(enc)
+            if p2 is not p:
+                new = dataclasses.replace(new, precond=p2)
+        return new
+
+    def _resolved_precond(self):
+        """-> (legacy_right_callable, precond_object); at most one set."""
+        p = self.precond
+        if _is_precond_obj(p):
+            return None, p
+        return p, None
+
+    def _index(self, device) -> _PatternIndex:
+        return _pattern_index(*self.sparsity, device)
+
+    def _sparse_newton_vals(self, Jvals, gamma):
+        """(nnz, nsys) values of M = I - gamma*J on the static pattern."""
+        mvals = -gamma[None, :] * Jvals
+        mvals[self._index(Jvals.device).diag] += 1.0
+        return mvals
+
+    def soa_setup(self, Jsoa, gamma, policy=None):
+        _, pobj = self._resolved_precond()
+        if self.sparsity is not None:
+            ix = self._index(Jsoa.device)
+            Jrepr = Jsoa[ix.rows, ix.cols]
+            pdata = pobj.soa_psetup(self._sparse_newton_vals(Jrepr, gamma),
+                                    self.sparsity, gamma, policy=policy) \
+                if pobj is not None else ()
+            return (Jrepr, pdata)
+        pdata = pobj.soa_psetup(newton_blocks_soa(Jsoa, gamma), None, gamma,
+                                policy=policy) if pobj is not None else ()
+        return (Jsoa, pdata)
+
+    def soa_solve(self, MJ, gamma, gamrat, rhs, policy=None, mem=None):
+        legacy, pobj = self._resolved_precond()
+        Jrepr, pdata = MJ
+        if self.sparsity is not None:
+            pat = self._index(Jrepr.device).blocks
+            V = self._sparse_newton_vals(Jrepr, gamma)[:, None, None, :]
+
+            def matvec(v):                       # 1x1 blocks
+                return dv.bsr_spmv_soa(V, v[:, None, :], pat,
+                                       policy)[:, 0, :]
+        else:
+            M_cur = newton_blocks_soa(Jrepr, gamma)
+
+            def matvec(v):
+                return dv.blockdiag_spmv_soa(M_cur, v, policy)
+
+        kw = {}
+        if pobj is not None:
+            kw["precond_left"] = \
+                lambda v: pobj.soa_psolve(pdata, v, policy=policy)
+        elif legacy is not None:
+            kw["precond"] = legacy
+        x, st = self._run(matvec, rhs, policy=policy, mem=mem, **kw)
+        return x, st.iters, st.npsolves
+
+    def soa_carry_init(self, n, nsys, dtype, device):
+        _, pobj = self._resolved_precond()
+        shape = (len(self.sparsity[1]), nsys) if self.sparsity is not None \
+            else (n, n, nsys)
+        pdata = pobj.soa_pdata_init(n, nsys, dtype, device) \
+            if pobj is not None else ()
+        return (torch.zeros(shape, dtype=dtype, device=device), pdata)
+
+    def soa_workspace_shapes(self, n, nsys):
+        shapes = [("newton_vals", (len(self.sparsity[1]), nsys))
+                  if self.sparsity is not None
+                  else ("newton_blocks", (n, n, nsys))]
+        _, pobj = self._resolved_precond()
+        if pobj is not None:
+            # shapes only: the meta device allocates nothing
+            leaves = _shape_leaves(pobj.soa_pdata_init(
+                n, nsys, torch.float64, torch.device("meta")))
+            shapes.extend((f"precond{i}", shape)
+                          for i, shape in enumerate(leaves))
+        return shapes
+
+
+@dataclass(frozen=True)
+class SPGMR(_KrylovSolver):
+    name = "spgmr"
+    restart: int = 20
+    max_restarts: int = 2
+
+    def _run(self, matvec, b, *, policy=None, mem=None, precond=None,
+             precond_left=None):
+        return krylov.gmres(matvec, b, tol=self.tol, atol=self.atol,
+                            restart=self.restart,
+                            max_restarts=self.max_restarts,
+                            precond=precond, precond_left=precond_left,
+                            policy=policy, mem=mem)
+
+
+@dataclass(frozen=True)
+class SPFGMR(_KrylovSolver):
+    name = "spfgmr"
+    restart: int = 20
+    max_restarts: int = 2
+
+    def _run(self, matvec, b, *, policy=None, mem=None, precond=None,
+             precond_left=None):
+        return krylov.fgmres(matvec, b, tol=self.tol, atol=self.atol,
+                             restart=self.restart,
+                             max_restarts=self.max_restarts,
+                             precond=precond, precond_left=precond_left,
+                             policy=policy, mem=mem)
+
+
+@dataclass(frozen=True)
+class SPBCGS(_KrylovSolver):
+    name = "spbcgs"
+    maxiter: int = 200
+
+    def _run(self, matvec, b, *, policy=None, mem=None, precond=None,
+             precond_left=None):
+        return krylov.bicgstab(matvec, b, tol=self.tol, atol=self.atol,
+                               maxiter=self.maxiter, precond=precond,
+                               precond_left=precond_left, policy=policy,
+                               mem=mem)
+
+
+@dataclass(frozen=True)
+class SPTFQMR(_KrylovSolver):
+    name = "sptfqmr"
+    maxiter: int = 200
+
+    def _run(self, matvec, b, *, policy=None, mem=None, precond=None,
+             precond_left=None):
+        return krylov.tfqmr(matvec, b, tol=self.tol, atol=self.atol,
+                            maxiter=self.maxiter, precond=precond,
+                            precond_left=precond_left, policy=policy,
+                            mem=mem)
+
+
+@dataclass(frozen=True)
+class PCG(_KrylovSolver):
+    name = "pcg"
+    maxiter: int = 200
+
+    def _run(self, matvec, b, *, policy=None, mem=None, precond=None,
+             precond_left=None):
+        return krylov.pcg(matvec, b, tol=self.tol, atol=self.atol,
+                          maxiter=self.maxiter, precond=precond,
+                          precond_left=precond_left, policy=policy, mem=mem)
+
+
+# ---------------------------------------------------------------------------
+# Direct solvers
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class BlockDiagGJ(LinearSolver):
     """Batched block-diagonal Gauss-Jordan over the SoA dispatch ops.
 
     ``factor_once=True`` (the default, CVODE's lsetup/lsolve split):
@@ -31,6 +338,7 @@ class BlockDiagGJ:
     ``2/(1+gamrat)`` for the gamma drift since lsetup.
     ``factor_once=False`` keeps the bare Jacobian and solves
     ``(I - gamma*J) dz = rhs`` with the current gamma every iteration.
+    A ``jac_sparsity`` is ignored (the blocks stay dense).
     """
 
     name = "blockdiag_gj"
@@ -43,7 +351,7 @@ class BlockDiagGJ:
             return Jsoa
         return dv.block_inverse_soa(newton_blocks_soa(Jsoa, gamma), policy)
 
-    def soa_solve(self, MJ, gamma, gamrat, rhs, policy=None):
+    def soa_solve(self, MJ, gamma, gamrat, rhs, policy=None, mem=None):
         """lsolve: ``(dz, nli, npsolves)``; direct, so both counts are 0."""
         if not self.factor_once:
             return dv.block_solve_soa(newton_blocks_soa(MJ, gamma), rhs,
@@ -51,8 +359,63 @@ class BlockDiagGJ:
         corr = 2.0 / (1.0 + gamrat)
         return corr[None, :] * dv.blockdiag_spmv_soa(MJ, rhs, policy), 0, 0
 
+
+@dataclass(frozen=True)
+class EnsembleSparseGJ(LinearSolver):
+    """Batched sparse direct solver for ensembles sharing one Jacobian
+    sparsity pattern (the SUNLINSOL_CUSOLVERSP_BATCHQR analog).
+
+    * symbolic setup once per pattern (host, cached:
+      :func:`repro_torch.core.spsolve.symbolic_lu`): reverse
+      Cuthill-McKee fill ordering, fill-in, the unrolled schedule;
+    * numeric refactor at the lsetup triggers only: ``soa_setup``
+      gathers the ``(nnzf, nsys)`` Newton values ``M = I - gamma*J`` at
+      the static (filled, permuted) positions and runs the no-pivot LU
+      elementwise across the lanes;
+    * lsolve: two unrolled triangular sweeps on the saved factor, with
+      CVODE's ``2/(1+gamrat)`` correction for the gamma drift.
+
+    The carry and registered workspace are ``(nnzf, nsys)``.  Construct
+    with ``sparsity=`` or let ``integrate(..., "ensemble_bdf")`` bind
+    the problem's ``jac_sparsity`` via :meth:`with_sparsity`.
+    """
+
+    name = "ensemble_sparse_gj"
+    sparsity: Optional[tuple] = None
+    reorder: bool = True
+
+    def __post_init__(self):
+        if self.sparsity is not None:
+            object.__setattr__(self, "sparsity",
+                               encode_sparsity(self.sparsity))
+
+    def with_sparsity(self, enc: tuple) -> "EnsembleSparseGJ":
+        return self if self.sparsity is not None else \
+            dataclasses.replace(self, sparsity=enc)
+
+    def _plan(self) -> spsolve.LUPlan:
+        if self.sparsity is None:
+            raise ValueError(
+                "EnsembleSparseGJ needs a sparsity pattern: pass "
+                "sparsity= or set IVP.jac_sparsity")
+        return spsolve.symbolic_lu(*self.sparsity, order=self.reorder,
+                                   fill=True)
+
+    def soa_setup(self, Jsoa, gamma, policy=None):
+        plan = self._plan()
+        # gather FIRST, then form M = I - gamma*J on the (nnzf, nsys)
+        # values: no O(n^2 * nsys) dense intermediate at lsetup
+        mvals = -gamma[None, :] * spsolve.gather_filled(plan, Jsoa)
+        mvals[spsolve.diag_index(plan, Jsoa.device)] += 1.0
+        return spsolve.numeric_lu(plan, mvals)
+
+    def soa_solve(self, MJ, gamma, gamrat, rhs, policy=None, mem=None):
+        corr = 2.0 / (1.0 + gamrat)
+        return corr[None, :] * spsolve.lu_solve(self._plan(), MJ, rhs), 0, 0
+
     def soa_carry_init(self, n, nsys, dtype, device):
-        return torch.zeros((n, n, nsys), dtype=dtype, device=device)
+        return torch.zeros((self._plan().nnz_factored, nsys), dtype=dtype,
+                           device=device)
 
     def soa_workspace_shapes(self, n, nsys):
-        return [("newton_blocks", (n, n, nsys))]
+        return [("newton_vals", (self._plan().nnz_factored, nsys))]

@@ -3,8 +3,12 @@
 The system has no model weights: what must reach the port identically
 is the problem's data (per-system rate constants), the solver's options
 and the methods' coefficients (Butcher tables).  All cross as plain
-numbers and numpy arrays, so this module imports neither package.  The ``SolverSession`` carry waits for ROADMAP
-queue A item 5.
+numbers and numpy arrays, so this module imports neither package.  A
+``jac_sparsity`` pattern needs nothing here: it is the same (n, n)
+numpy bool array in both packages, and the port encodes it with its
+own copy of the reference's host code (``core/spsolve.py``), so a test
+hands the one array to both.  The ``SolverSession`` carry waits for
+ROADMAP queue A item 5.
 """
 from __future__ import annotations
 

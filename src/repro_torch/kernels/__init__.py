@@ -10,7 +10,7 @@ implementation, and which body, its path went through.
 """
 from __future__ import annotations
 
-from . import block_solve, blockdiag_spmv, newton
+from . import block_solve, blockdiag_spmv, newton, sparse, vecops
 
 #: name -> (wrapper, plain version, body) for every ported kernel body;
 #: body "" names a wrapper with one body, else the suffix of its counters
@@ -32,6 +32,10 @@ KERNELS = {
                     block_solve.block_solve_soa_plain, "unrolled"),
     "block_solve_tiled": (block_solve.block_solve_soa,
                           block_solve.block_solve_soa_plain, "tiled"),
+    "bsr_spmv": (sparse.bsr_spmv_soa, sparse.bsr_spmv_soa_plain, ""),
+    "linear_combination": (vecops.linear_combination,
+                           vecops.linear_combination_plain, ""),
+    "dot": (vecops.dot, vecops.dot_plain, ""),
 }
 
 

@@ -14,7 +14,8 @@ difference, as PyTorch's separate elementwise ops compute it, so a
 kernel and its plain version round alike.  The kernels are bound by
 memory traffic (see each source's note), not by their arithmetic.
 
-Every kernel entry point takes device pointers, sizes and the stream,
+Every kernel entry point takes device pointers (or a host array of
+them), sizes and the stream,
 launches on that stream, does not synchronise, and returns
 ``cudaGetLastError()``; :func:`launch` raises on a nonzero code.
 """
@@ -32,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("newton", "blockdiag_spmv", "block_solve")
+SOURCES = ("newton", "blockdiag_spmv", "block_solve", "sparse", "vecops")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 

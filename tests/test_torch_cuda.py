@@ -13,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels
-from repro_torch.kernels import block_solve, blockdiag_spmv, newton
+from repro_torch.kernels import (block_solve, blockdiag_spmv, newton, sparse,
+                                 vecops)
 
 NBS = [7, 130, 516]
 #: |kernel - plain| <= TOL * max(1, max|plain|)
@@ -103,3 +104,89 @@ def test_wrapper_rejects_bad_inputs_on_card():
         newton.masked_update_wrms(d["z"], d["f"], d["w"], d["z"][0])
     with pytest.raises(ValueError, match="lies on cpu"):
         blockdiag_spmv.blockdiag_spmv_soa(d["A3"], d["z"].cpu())
+
+
+# ---------------------------------------------------------------------------
+# The sparse ensemble's kernels: bsr_spmv_soa, linear_combination, dot
+# ---------------------------------------------------------------------------
+
+
+def _brusselator_pattern(nx):
+    """The 1x1 block pattern of the ensemble Brusselator's Jacobian
+    (n = 2*nx, 124 entries at nx = 16), diagonal included."""
+    n = 2 * nx
+    P = np.zeros((n, n), bool)
+    for i in range(nx):
+        P[2 * i:2 * i + 2, 2 * i:2 * i + 2] = True
+        for j in (i - 1, i + 1):
+            if 0 <= j < nx:
+                P[2 * i, 2 * j] = P[2 * i + 1, 2 * j + 1] = True
+    rows, cols = np.nonzero(P)
+    return tuple(int(r) for r in rows), tuple(int(c) for c in cols), n
+
+
+#: a block pattern out of row order, with a repeated block and an empty
+#: block row (row 2)
+SCRAMBLED = ((3, 0, 1, 0, 3, 1, 0), (0, 1, 1, 0, 3, 1, 3), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", NBS + [1 << 16])
+@pytest.mark.parametrize("b", [1, 2, 3, 9])
+@pytest.mark.parametrize("which", ["brusselator", "scrambled"])
+def test_bsr_spmv_matches_plain_on_card(which, b, nb):
+    _need_card()
+    pattern = _brusselator_pattern(16) if which == "brusselator" \
+        else SCRAMBLED
+    rng = np.random.default_rng(b * nb)
+    values = torch.from_numpy(rng.normal(size=(len(pattern[0]), b, b, nb)))
+    x = torch.from_numpy(rng.normal(size=(pattern[2], b, nb)))
+    values, x = values.cuda(), x.cuda()
+    kernels.reset_counts()
+    got = sparse.bsr_spmv_soa(values, x, pattern)
+    assert kernels.counts()["bsr_spmv"] == (1, 0)
+    want = sparse.bsr_spmv_soa_plain(values, x, pattern)
+    torch.cuda.synchronize()
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-10 * scale
+    if which == "scrambled":
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 8193, 1 << 21])
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 8])
+def test_linear_combination_matches_plain_on_card(K, n):
+    _need_card()
+    rng = np.random.default_rng(K * n)
+    xs = [torch.from_numpy(rng.normal(size=n)).cuda() for _ in range(K)]
+    # device scalars, a (K,) tensor and Python numbers all reach it
+    coeffs = torch.from_numpy(rng.normal(size=K)).cuda()
+    for form in (coeffs, [c for c in coeffs], coeffs.tolist()):
+        kernels.reset_counts()
+        got = vecops.linear_combination(form, xs)
+        assert kernels.counts()["linear_combination"] == (1, 0)
+        want = vecops.linear_combination_plain(form, xs)
+        torch.cuda.synchronize()
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-10 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 1000, 8193, 1 << 21])
+def test_dot_matches_plain_and_repeats_its_bits_on_card(n, dtype):
+    _need_card()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(size=n)).to("cuda", dtype)
+    y = torch.from_numpy(rng.normal(size=n)).to("cuda", dtype)
+    kernels.reset_counts()
+    got = vecops.dot(x, y)
+    assert kernels.counts()["dot"] == (1, 0)
+    assert got.shape == () and got.device.type == "cuda"
+    want = vecops.dot_plain(x.double(), y.double())
+    scale = (x.double() * y.double()).abs().sum().item()
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    assert abs(got.item() - want.item()) <= tol * scale
+    # deterministic: the same input gives the same bits
+    assert torch.equal(vecops.dot(x, y), got)

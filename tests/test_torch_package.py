@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_the_reference():
            for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad
     code = ("import sys, repro_torch.core.ivp, repro_torch.interop, "
-            "repro_torch.kernels\n"
+            "repro_torch.kernels, repro_torch.core.precond, "
+            "repro_torch.core.krylov\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad")
