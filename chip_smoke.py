@@ -18,7 +18,11 @@ of which prints the seconds it took:
    b = 32 over 2**16 systems; both on stiff Robertson Newton blocks;
    the sparse ensemble's three: ``bsr_spmv_soa`` at b = 1, 2, 3 on the
    Brusselator's 124-entry pattern, ``linear_combination`` (K = 3) and
-   ``dot`` over (32, nb) vectors, at nb = 2**16 and ragged.
+   ``dot`` over (32, nb) vectors, at nb = 2**16 and ragged; the four
+   N_Vector bodies of the scalar stack (``wrms_ss``, ``wrms_mask_ss``,
+   ``scale_add_multi``, ``dot_prod_multi``) at N = 1, 130, 8193 and
+   3*2**20 + 5 with K = 1, 3, 5, 8 vectors, the reductions also for
+   repeating their bits.
    Each comparison also checks that the wrapper launched the body it
    should.  Then each body, its plain version and, where one exists, a
    single PyTorch library call computing the same function are timed
@@ -47,12 +51,30 @@ of which prints the seconds it took:
      ``EnsembleSparseGJ()``, F ``SPBCGS(tol=1e-10, maxiter=200,
      precond=ILU0Precond())``;
    the Robertson paths also conserve y1+y2+y3 = 1 within 10*rtol;
+   - paths G and H, the paper's §7 demonstration through
+     ``repro_torch.apps.brusselator.integrate`` (``imex:ark324``,
+     rtol 1e-6, atol 1e-9, float64) on the advection-reaction
+     Brusselator at nx = 2**20 (3*2**20 unknowns): G the task-local
+     Newton (3x3 block solve) to t = 0.2, H the global Newton-GMRES
+     with the block solve as preconditioner to t = 0.05; each held to
+     its plain run with every counter (steps, attempts, Newton
+     iterations, error-test and convergence failures) equal and the
+     difference within 1 in the WRMS norm the integrator's error test
+     controls; H also in the max norm within 10*(rtol*|y|+atol).  G's
+     plain run pivots in its block solve, the kernel does not, and at
+     this mesh the advected kink of the periodic initial state carries a
+     grid-scale oscillation that amplifies such rounding differences, so
+     G's max-norm ratio is printed, and G is also held to a plain run
+     that keeps the kernel's no-pivot Gauss-Jordan (counters equal, WRMS
+     within 1); H to a task-local run to t = 0.05 within the reference
+     test's rtol 1e-7, atol 1e-9 (``tests/test_brusselator.py:14``);
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path and writes its
 busiest device kernels to ``chip_smoke_out/chip_smoke_profile_*.txt``,
 with the device time under the profiler ranges of the plain code
-(``lagrange_matrix_soa``, the sparse LU, GMRES's Hessenberg work);
+(``lagrange_matrix_soa``, the sparse LU, GMRES's Hessenberg work, the
+Brusselator's Jacobian blocks);
 ``--ptxas``
 prints what ``nvcc -Xptxas -v`` reports for each kernel (registers,
 spills) when it builds.  The full record goes to
@@ -74,7 +96,11 @@ NSYS = 1 << 20          # Robertson systems of the main path and path A
 NSUB = 1 << 16          # path A's plain-version run
 NBRUSS = 1 << 16        # Brusselator members of paths B and C (n = 32)
 NX = 16
+NXB = 1 << 20           # mesh points of the Brusselator demonstration (G, H)
 RAGGED = (7, 130, 516)
+#: vector lengths and counts of the scalar stack's N_Vector kernels
+VEC_N = (1, 130, 8193, 3 * NXB + 5)
+VEC_K = (1, 3, 5, 8)
 RTOL, ATOL = 1e-5, 1e-10
 # H100 SXM, NVIDIA data sheet: HBM3 bandwidth; float64 and float32
 # non-tensor-core peaks (the kernels use no tensor cores)
@@ -90,10 +116,12 @@ KERNEL_SYMBOLS = ("newton_residual_kernel", "masked_update_wrms_kernel",
                   "gj_inverse_unrolled_kernel", "gj_inverse_inplace_kernel",
                   "gj_solve_unrolled_kernel", "gj_solve_tiled_kernel",
                   "bsr_spmv_fixed_kernel", "bsr_spmv_any_kernel",
-                  "lincomb_kernel", "dot_partial_kernel", "dot_final_kernel")
+                  "lincomb_kernel", "dot_partial_kernel", "dot_final_kernel",
+                  "scale_add_multi_kernel", "wrms_partial_kernel",
+                  "multi_dot_partial_kernel", "multi_final_kernel")
 #: profiler ranges of plain tensor code whose device time is summed
 RANGES = ("lagrange_matrix_soa", "spsolve.numeric_lu", "spsolve.lu_solve",
-          "gmres.hessenberg")
+          "gmres.hessenberg", "brusselator.jacobian")
 #: the Newton loop's kernels, on every BDF path
 BDF_LOOP = ("newton_residual", "masked_update_wrms", "history_rescale",
             "wrms_soa")
@@ -112,6 +140,8 @@ PATH_KERNELS = {
     "E: ensemble_bdf EnsembleSparseGJ": BDF_LOOP,
     "F: ensemble_bdf SPBCGS": BDF_LOOP + ("bsr_spmv", "linear_combination",
                                           "dot"),
+    "G: imex task-local": ("block_solve", "linear_combination", "wrms_ss"),
+    "H: imex global": ("block_solve", "linear_combination", "wrms_ss", "dot"),
 }
 
 
@@ -277,6 +307,32 @@ def make_sparse_inputs(nb, dtype, gen, dev, b=1):
     return d
 
 
+def make_vec_inputs(n, dtype, gen, dev, b=3):
+    """Inputs of the scalar stack's N_Vector kernels: x, weights w > 0,
+    a 0/1 mask m, K = b vectors ys of n elements and K device
+    coefficients; and the library yardsticks' operands, stacked here,
+    outside any timing: Y (K, n) and the (K,) coefficients."""
+    import torch
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+
+    d = {"x": r(n), "w": r(n).abs() + 0.1,
+         "m": (torch.rand(n, generator=gen, device=dev) > 0.3).to(dtype),
+         "ys": [r(n) for _ in range(b)], "c": list(r(b).unbind(0))}
+    d["Y"] = torch.stack(d["ys"])
+    d["cvec"] = torch.stack(d["c"])
+    return d
+
+
+def sum_abs(*factors):
+    """sum |prod factors| in float64: the scale of a sum's rounding."""
+    prod = factors[0].double()
+    for f in factors[1:]:
+        prod = prod * f.double()
+    return prod.abs().sum().item()
+
+
 def bsr_flops(d):
     """Products and sums of one shared-pattern SpMV: b*(2b-1) a block
     entry, and b sums for each entry after the first of its row."""
@@ -389,7 +445,46 @@ def kernel_table():
                .item(),
                library=lambda d: torch.dot(d["v"][0].reshape(-1),
                                            d["v"][1].reshape(-1))),
+        Kernel("scale_add_multi", vecops.scale_add_multi,
+               vecops.scale_add_multi_plain, ref + "vecops.py:71",
+               csrc + "vecops.cu",
+               lambda d: (d["c"], d["x"], d["ys"]), {},
+               lambda d: 2 * len(d["ys"]) * d["x"].numel(), vec_cases(),
+               timing=(3, 3 * NXB), make=make_vec_inputs,
+               library=lambda d: torch.addcmul(d["Y"], d["cvec"][:, None],
+                                               d["x"])),
+        Kernel("wrms_ss", vecops.wrms_ss, vecops.wrms_ss_plain,
+               ref + "vecops.py:100", csrc + "vecops.cu",
+               lambda d: (d["x"], d["w"]), {},
+               lambda d: 3 * d["x"].numel() - 1, vec_cases((1,)),
+               timing=(1, 3 * NXB), make=make_vec_inputs,
+               err_scale=lambda args, w: sum_abs(*args, *args),
+               library=lambda d: torch.einsum("i,i,i,i->", d["x"], d["w"],
+                                              d["x"], d["w"])),
+        Kernel("wrms_mask_ss", vecops.wrms_mask_ss, vecops.wrms_mask_ss_plain,
+               ref + "vecops.py:125", csrc + "vecops.cu",
+               lambda d: (d["x"], d["w"], d["m"]), {},
+               lambda d: 4 * d["x"].numel() - 1, vec_cases((1,)),
+               timing=(1, 3 * NXB), make=make_vec_inputs,
+               err_scale=lambda args, w: sum_abs(*args, *args),
+               library=lambda d: torch.einsum(
+                   "i,i,i,i,i,i->", d["x"], d["w"], d["m"], d["x"], d["w"],
+                   d["m"])),
+        Kernel("dot_prod_multi", vecops.dot_prod_multi,
+               vecops.dot_prod_multi_plain, ref + "vecops.py:174",
+               csrc + "vecops.cu", lambda d: (d["x"], d["ys"]), {},
+               lambda d: len(d["ys"]) * (2 * d["x"].numel() - 1),
+               vec_cases(), timing=(3, 3 * NXB), make=make_vec_inputs,
+               err_scale=lambda args, w: max(sum_abs(args[0], y)
+                                             for y in args[1]),
+               library=lambda d: torch.mv(d["Y"], d["x"])),
     ]
+
+
+def vec_cases(ks=VEC_K):
+    """(K, N) cases of the scalar stack's N_Vector kernels: K vectors
+    of ragged lengths, up to the Brusselator state's 3*2**20 + 5."""
+    return [(k, n) for k in ks for n in VEC_N]
 
 
 def sparse_cases(bs):
@@ -462,6 +557,16 @@ def phase_compare(table, dev):
     scale = torch.einsum("ijs,js->is", M.abs(), x.abs()) + r.abs()
     check(bool((back <= 1e-10 * scale).all()),
           f"|M x - r| reaches {(back / scale).max().item()} of |M||x|+|r|")
+    # the reductions the integrators decide on repeat their bits
+    from repro_torch.kernels import vecops
+    d = make_vec_inputs(VEC_N[-1], torch.float64, gen, dev, b=VEC_K[-1])
+    for fn, args in ((vecops.dot, (d["x"], d["w"])),
+                     (vecops.wrms_ss, (d["x"], d["w"])),
+                     (vecops.wrms_mask_ss, (d["x"], d["w"], d["m"])),
+                     (vecops.dot_prod_multi, (d["x"], d["ys"]))):
+        check(torch.equal(fn(*args), fn(*args)),
+              f"{fn.__name__}: two runs on one input differ in their bits")
+    del d
     print(f"kernels: all {len(table)} bodies agree with their plain versions "
           f"(float64 tol 1e-10, float32 1e-4, relative to max(1,|plain|))",
           flush=True)
@@ -670,8 +775,8 @@ def phase_main_path(profile):
     del sol, ref
     prof = None
     if profile:
-        prof = profile_run(path, prob, "ensemble_bdf", 10.0, opts,
-                           rec["wall_s"])
+        prof = profile_run(path, integrate_call(prob, "ensemble_bdf", 10.0,
+                                                opts), rec["wall_s"], True)
         prof["lagrange_alone_ms"] = lagrange_alone_ms()
     return {"kernels_run": rec, "plain_run": ref_rec,
             "agreement": agreement, "profile": prof}
@@ -701,8 +806,8 @@ def phase_path_a(profile):
     agreement["mass_drift_all_lanes"] = mass
     print(f"{path}: mass drift over all {NSYS} lanes {mass:.3g}", flush=True)
     del sol, ref
-    prof = profile_run(path, prob, method, 10.0, opts, rec["wall_s"]) \
-        if profile else None
+    prof = profile_run(path, integrate_call(prob, method, 10.0, opts),
+                       rec["wall_s"]) if profile else None
     return {"kernels_run": rec, "plain_run": ref_rec,
             "agreement": agreement, "profile": prof,
             "reference": classic_robertson_reference(method)}
@@ -727,30 +832,197 @@ def phase_brusselator(path, method, t1, kw, profile, sparsity=False, C=10):
                             **kw)
     agreement = agree(path, sol.y, ref.y, sol.retcodes, ref.retcodes, C=C)
     del sol, ref
-    prof = profile_run(path, prob, method, t1, opts, rec["wall_s"], kw) \
+    prof = profile_run(path, integrate_call(prob, method, t1, opts, kw),
+                       rec["wall_s"], method == "ensemble_bdf") \
         if profile else None
     return {"kernels_run": rec, "plain_run": ref_rec, "agreement": agreement,
             "profile": prof}
 
 
-def profile_run(path, prob, method, t1, opts, plain_wall, kw=None):
-    """One more kernel run of a path under torch.profiler: device time by
-    kernel name, the share of the port's kernels, the device time under
-    the ``lagrange_matrix_soa`` range (BDF paths), and the device's busy
-    share both of the profiled wall time and of ``plain_wall``, the same
+def integrate_call(prob, method, t1, opts, kw=None):
+    """A kernel run of an ``integrate`` path, for :func:`profile_run`."""
+    from repro_torch.core import ivp
+    from repro_torch.core.context import Context
+    return lambda: ivp.integrate(prob, 0.0, t1, method, ctx=Context(),
+                                 opts=opts, **(kw or {}))
+
+
+def agree_wrms(path, y, ref, rtol, atol, what="the plain run", limit=1.0,
+               C=10, gate_max=False):
+    """One large system against another run of it: the WRMS norm of
+    the difference, weighted by 1/(rtol*|y|+atol), within ``limit`` (the
+    norm the integrator's error test controls); and the max-norm ratio
+    |dy|/(C*(rtol*|y|+atol)), within 1 where ``gate_max``, else printed
+    with the entries past it."""
+    import torch
+    e = (y - ref).abs() / (rtol * ref.abs() + atol)
+    out = {"wrms_diff": torch.sqrt((e * e).mean()).item(),
+           "max_diff_over_bound": e.max().item() / C,
+           "entries_over_bound": int((e > C).sum())}
+    print(f"{path} against {what}: WRMS of the difference "
+          f"{out['wrms_diff']:.3g} (gate {limit}); max |dy|/({C}*(rtol*|y|+"
+          f"atol)) {out['max_diff_over_bound']:.3g} "
+          f"({'gate 1' if gate_max else 'printed'}), "
+          f"{out['entries_over_bound']} of {e.numel()} entries past it",
+          flush=True)
+    check(out["wrms_diff"] <= limit, f"{path}: y differs from {what} by "
+          f"{out['wrms_diff']} in the WRMS norm, more than {limit}")
+    if gate_max:
+        check(out["max_diff_over_bound"] <= 1.0, f"{path}: y differs from "
+              f"{what} by {out['max_diff_over_bound']} of {C}*(rtol*|y|+"
+              "atol)")
+    return out
+
+
+APP_COUNTERS = ("steps", "attempts", "nni", "netf", "ncfn")
+
+
+def same_counters(path, rec, ref_rec, what):
+    """Two runs of one solve take the same steps: every counter equal."""
+    print(f"{path}: kernel run / {what}: " + ", ".join(
+        f"{k} {rec[k]}/{ref_rec[k]}" for k in APP_COUNTERS), flush=True)
+    check(all(rec[k] == ref_rec[k] for k in APP_COUNTERS),
+          f"{path}: the kernel run's counters differ from {what}'s")
+
+
+def run_app(path, label, run, kernel_run, kernels_of=None):
+    """One Brusselator solve, ``run()`` -> (y, stats), with the counts
+    zeroed just before it and read just after: a kernel run must launch
+    the kernels of path ``kernels_of`` (default ``path``), a plain run
+    none."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import loops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    loops.reset_loop_counts()
+    t0 = time.perf_counter()
+    y, st = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "counts": kernels.counts(),
+           "loop": dict(loops.loop_counts),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "t": st.t.item(), "success": bool(st.success)}
+    rec.update({k: int(getattr(st, k)) for k in
+                ("nfe", "nfi") + APP_COUNTERS})
+    print(f"{path} [{label}]: wall {wall:.3f} s, host syncs "
+          f"{rec['loop']['host_syncs']}, step trips "
+          f"{rec['loop']['step_trips']}, Newton trips "
+          f"{rec['loop']['newton_trips']}, Krylov trips "
+          f"{rec['loop']['krylov_trips']}, peak "
+          f"{rec['peak_bytes'] / 2**20:.1f} MiB, steps {rec['steps']}, "
+          f"attempts {rec['attempts']}, nni {rec['nni']}, netf "
+          f"{rec['netf']}, ncfn {rec['ncfn']}, t {rec['t']}", flush=True)
+    check_counts(kernels_of or path, rec["counts"], kernel_run)
+    check(rec["success"], f"{path} [{label}]: the solve did not reach "
+          f"its t_final (t = {rec['t']})")
+    check(y.shape == (NXB, 3), f"{path}: misshapen y {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), f"{path}: non-finite y")
+    return y, rec
+
+
+def integrate_no_pivot(cfg, t1):
+    """``apps.brusselator.integrate``'s task-local plain run (its default
+    options, every vector op plain) with one change: the block solve is
+    row 8's plain version, ``block_solve_soa_plain`` (the kernel's
+    no-pivot row-scaled Gauss-Jordan), instead of the plain backend's
+    ``gauss_jordan_batched`` (partial pivoting, the reference's jnp
+    route).  So it differs from the kernel run only in which of each
+    kernel's two versions ran: the kernels' order of sums."""
+    from repro_torch.apps import brusselator as br
+    from repro_torch.core import arkode, butcher, dispatch, matrix
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.policies import ExecPolicy
+    plain = ExecPolicy(backend="torch")
+    jac = br.reaction_jacobian(cfg)
+
+    def lin(t, z, gamma, rhs):
+        M = matrix.bd_scale_addi(-gamma, matrix.BlockDiagMatrix(jac(t, z)))
+        x = dispatch.block_solve_soa(M.data.permute(1, 2, 0).contiguous(),
+                                     rhs.reshape(-1, 3).T.contiguous(), plain)
+        return x.T.reshape(rhs.shape)
+
+    opts = ODEOptions(rtol=cfg.rtol, atol=cfg.atol, max_steps=100_000,
+                      newton_max=6, policy=plain)
+    return arkode.imex_integrate(br.advection_rhs(cfg), br.reaction_rhs(cfg),
+                                 br.initial_state(cfg), 0.0, t1,
+                                 butcher.ARK324, opts, lin_solver=lin)
+
+
+def phase_imex(path, solver, t1, profile):
+    """Paths G and H: the paper's §7 Brusselator (``imex:ark324``) at
+    nx = NXB, a kernel run, then a plain run on the same card
+    (``ExecPolicy(backend="torch")``): every counter equal, the WRMS norm
+    of the difference within 1 (G and H) and the max norm within
+    10*(rtol*|y|+atol) (H; printed for G, whose plain run pivots).  G is
+    also held to :func:`integrate_no_pivot`, which isolates the kernels:
+    every counter equal and the WRMS norm within 1.  H is also held to a
+    task-local kernel run over the same interval within the reference
+    test's bound between its two configurations."""
+    from repro_torch.apps import brusselator as br
+    from repro_torch.configs.brusselator import BrusselatorConfig
+    from repro_torch.core.policies import ExecPolicy
+    cfg = BrusselatorConfig(nx=NXB, t_final=t1, solver=solver)
+    plain = ExecPolicy(backend="torch")
+    y, rec = run_app(path, "kernels", lambda: br.integrate(
+        cfg, t_final=t1, policy=ExecPolicy()), True)
+    ref, ref_rec = run_app(path, "plain versions", lambda: br.integrate(
+        cfg, t_final=t1, policy=plain), False)
+    same_counters(path, rec, ref_rec, "the plain run")
+    agreement = agree_wrms(path, y, ref, cfg.rtol, cfg.atol,
+                           gate_max=solver == "global")
+    del ref
+    if solver == "task-local":
+        np_y, np_rec = run_app(path, "plain versions, no pivoting",
+                               lambda: integrate_no_pivot(cfg, t1), False)
+        check(np_rec["counts"]["block_solve"][1] > 0, f"{path}: the "
+              "no-pivot run did not run block_solve_soa's plain version")
+        same_counters(path, rec, np_rec, "the no-pivot plain run")
+        agreement["vs_no_pivot"] = agree_wrms(
+            path, y, np_y, cfg.rtol, cfg.atol, "the no-pivot plain run")
+        agreement["no_pivot_run"] = np_rec
+        del np_y
+    else:
+        # the reference test's bound between its two configurations
+        # (tests/test_brusselator.py:14): |dy| <= 1e-9 + 1e-7*|y_tl|
+        tl, _ = run_app(path, "task-local kernels", lambda: br.integrate(
+            BrusselatorConfig(nx=NXB, t_final=t1, solver="task-local"),
+            t_final=t1, policy=ExecPolicy()), True,
+            kernels_of="G: imex task-local")
+        ratio = ((y - tl).abs() / (1e-9 + 1e-7 * tl.abs())).max().item()
+        print(f"{path} against the task-local run: max |dy|/(1e-9 + "
+              f"1e-7*|y|) {ratio:.3g}", flush=True)
+        agreement["vs_task_local"] = agree_wrms(
+            path, y, tl, cfg.rtol, cfg.atol, "the task-local run")
+        agreement["vs_task_local"]["test_bound_ratio"] = ratio
+        check(ratio <= 1.0, f"{path}: y differs from the task-local run by "
+              f"{ratio} of (1e-9 + 1e-7*|y|)")
+        del tl
+    del y
+    prof = profile_run(path, lambda: br.integrate(cfg, t_final=t1),
+                       rec["wall_s"]) if profile else None
+    return {"kernels_run": rec, "plain_run": ref_rec,
+            "agreement": agreement, "profile": prof}
+
+
+def profile_run(path, run, plain_wall, bdf=False):
+    """One more kernel run of a path (``run()``) under torch.profiler:
+    device time by kernel name, the share of the port's kernels, the
+    device time under the ``lagrange_matrix_soa`` range (``bdf``: it
+    must be there) and the other ranges, and the device's busy share
+    both of the profiled wall time and of ``plain_wall``, the same
     solve's wall time without the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import ivp
-    from repro_torch.core.context import Context
     lagrange = RANGES[0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        ivp.integrate(prob, 0.0, t1, method, ctx=Context(), opts=opts,
-                      **(kw or {}))
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -766,7 +1038,7 @@ def profile_run(path, prob, method, t1, opts, plain_wall, kw=None):
                 or e.cuda_time_total
             range_calls[e.name] += 1
     lagrange_us, lagrange_calls = range_us[lagrange], range_calls[lagrange]
-    if method == "ensemble_bdf":
+    if bdf:
         check(lagrange_calls > 0 and lagrange_us > 0,
               f"{path}: the trace holds no device time under {lagrange}")
     dev_us = sum(by_name.values())
@@ -886,6 +1158,13 @@ def main(argv) -> int:
         paths[path] = phase(f"path {path}", phase_brusselator, path,
                             "ensemble_bdf", 2.0, {"lin_solver": ls}, profile,
                             True, C)
+    # the paper's §7 demonstration: the scalar IMEX stack at nx = 2**20
+    paths["G: imex task-local"] = phase(
+        "path G (imex:ark324, task-local)", phase_imex,
+        "G: imex task-local", "task-local", 0.2, profile)
+    paths["H: imex global"] = phase(
+        "path H (imex:ark324, global)", phase_imex, "H: imex global",
+        "global", 0.05, profile)
     # 5. kernels line: launches summed over the kernel runs of the paths
     line = []
     for k, row in zip(table, rows):

@@ -9,10 +9,13 @@ The hot kernels are CUDA C++ for Hopper (``kernels/csrc/*.cu``), built
 with ``nvcc`` at first use; each has a plain PyTorch version beside it,
 which the wrappers take for tensors that lie on the CPU.
 
-Covered so far: ``core.ivp.integrate`` with ``"ensemble_erk[:table]"``,
+Covered so far: ``core.ivp.integrate`` with the scalar ARKODE families
+``"erk[:table]"``, ``"dirk[:table]"`` and ``"imex[:table]"`` and the
+ensemble families ``"ensemble_erk[:table]"``,
 ``"ensemble_dirk[:table]"`` and ``"ensemble_bdf"``, the latter with
 ``BlockDiagGJ`` (both modes), ``EnsembleSparseGJ`` or a preconditioned
 Krylov solver (``SPGMR``, ``SPFGMR``, ``SPBCGS``, ``SPTFQMR``, ``PCG``)
-over a ``jac_sparsity`` pattern.  Everything else raises
-``NotImplementedError`` naming its ROADMAP item.
+over a ``jac_sparsity`` pattern; and the paper's §7 demonstration,
+``apps.brusselator``.  Everything else raises ``NotImplementedError``
+naming its ROADMAP item.
 """

@@ -1,0 +1,1 @@
+"""Problem configurations of the port (counterparts of ``repro.configs``)."""

@@ -1,11 +1,12 @@
-"""Policy-routed ops of the ensemble paths.
+"""Policy-routed ops of the port.
 
-Counterpart of thirteen entries of ``repro.core.dispatch``
-(``dispatch.py:393,622-643,666-739``), with the same names and argument
-order: the seven ``*_soa`` ops of the ensemble BDF path, the vector ops
-``linear_sum``, ``axpy``, ``linear_combination`` and ``dot`` of the
-Krylov solvers, and the sparse ensemble's ``bsr_spmv_soa`` and
-``bsr_block_jacobi_inverse_soa``.
+Counterpart of eighteen entries of ``repro.core.dispatch``
+(``dispatch.py:393,610-743``), with the same names and argument
+order: the seven ``*_soa`` ops of the ensemble BDF path, the N_Vector
+ops ``linear_sum``, ``axpy``, ``linear_combination``,
+``scale_add_multi``, ``dot``, ``dot_prod_multi``, ``wrms_norm``,
+``wrms_ss`` and ``wrms_norm_mask``, and the sparse ensemble's
+``bsr_spmv_soa`` and ``bsr_block_jacobi_inverse_soa``.
 Each op routes per :class:`~repro_torch.core.policies.ExecPolicy`:
 ``"torch"`` runs the plain version, ``"auto"`` the kernel wrapper (the
 CUDA kernel for a CUDA tensor, the plain version for a CPU tensor), and
@@ -14,8 +15,20 @@ card.  ``linear_sum`` and ``axpy`` go through the linear-combination
 kernel with K = 2, as in the reference (``dispatch.py:107-112``), and
 their ``"torch"`` backend through its plain version, which sums
 ``c_0 x_0 + c_1 x_1`` in that order as the reference's ``a*x + b*y`` and
-``a*x + y`` do (``1*y`` is exact).  The other reference ops wait for
-ROADMAP queue A item 7.
+``a*x + y`` do (``1*y`` is exact).  ``csr_spmv`` waits for ROADMAP queue
+A item 7.
+
+The N_Vector ops take a vector that is a tensor or a tuple of tensors
+(the reference's pytrees) and run leaf by leaf as the reference's
+Pallas wrappers do (``dispatch.py:70-204``): reductions cast every leaf
+to the result type of all leaves and sum the per-leaf results in leaf
+order; ``wrms_norm`` and ``wrms_norm_mask`` divide by the total element
+count, masked entries included.  Reductions return 0-d (or ``(K,)``)
+tensors on the vectors' device, so the host reads a norm only where a
+caller decides on it.  A linear combination of more terms than one
+kernel launch takes is chained: each launch after the first adds
+``1 * (the partial sum)`` first, which is exact, so the sum keeps the
+reference's order and its rounding.
 """
 from __future__ import annotations
 
@@ -29,7 +42,10 @@ from ..kernels import blockdiag_spmv as _sp
 from ..kernels import newton as _nw
 from ..kernels import sparse as _sx
 from ..kernels import vecops as _vo
+from . import vector as _nv
 from .policies import DEFAULT, ExecPolicy
+
+_leaves = _nv.leaves
 
 
 def _route(op: str, policy: Optional[ExecPolicy], plain, wrapper,
@@ -91,35 +107,115 @@ def wrms_soa(v, w, policy: Optional[ExecPolicy] = None):
                   v)(v, w)
 
 
-def linear_combination(coeffs, vecs: Sequence[torch.Tensor],
-                       policy: Optional[ExecPolicy] = None) -> torch.Tensor:
-    """z = sum_k c_k * X_k in one pass; the coefficients are numbers or
-    0-d tensors (or one ``(K,)`` tensor) on the vectors' device."""
-    return _route("linear_combination", policy,
-                  _vo.linear_combination_plain, _vo.linear_combination,
-                  vecs[0])(coeffs, vecs)
+def _like(v, leaves):
+    """``leaves`` in the structure of ``v`` (a tuple or one tensor)."""
+    return tuple(leaves) if isinstance(v, tuple) else leaves[0]
 
 
-def linear_sum(a, x: torch.Tensor, b, y: torch.Tensor,
-               policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+def _result_type(*leaves) -> torch.dtype:
+    return functools.reduce(torch.promote_types, (t.dtype for t in leaves))
+
+
+def _flat(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t.reshape(-1).to(dtype)
+
+
+def _chained(lincomb, coeffs, vecs: list):
+    """sum_k c_k vecs[k] by launches of at most ``LINCOMB_MAX_K`` terms,
+    the partial sum carried in with coefficient 1."""
+    K = _vo.LINCOMB_MAX_K
+    cs = list(coeffs.unbind(0)) if torch.is_tensor(coeffs) else list(coeffs)
+    z = lincomb(cs[:K], vecs[:K])
+    for s in range(K, len(vecs), K - 1):
+        z = lincomb([1.0] + cs[s:s + K - 1], [z] + vecs[s:s + K - 1])
+    return z
+
+
+def linear_combination(coeffs, vecs: Sequence,
+                       policy: Optional[ExecPolicy] = None):
+    """z = sum_k c_k * X_k in one pass per leaf; the coefficients are
+    numbers or 0-d tensors (or one ``(K,)`` tensor) on the vectors'
+    device."""
+    lincomb = _route("linear_combination", policy,
+                     _vo.linear_combination_plain, _vo.linear_combination,
+                     _leaves(vecs[0])[0])
+    # the kernel reads flat contiguous vectors (the reference ravels)
+    rows = [[t.contiguous() for t in _leaves(v)] for v in vecs]
+    return _like(vecs[0], [_chained(lincomb, coeffs, list(leaf))
+                           for leaf in zip(*rows)])
+
+
+def linear_sum(a, x, b, y, policy: Optional[ExecPolicy] = None):
     """z = a*x + b*y."""
-    lincomb = _route("linear_sum", policy, _vo.linear_combination_plain,
-                     _vo.linear_combination, x)
-    return lincomb((a, b), (x, y))
+    return linear_combination((a, b), (x, y), policy)
 
 
-def axpy(a, x: torch.Tensor, y: torch.Tensor,
-         policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+def axpy(a, x, y, policy: Optional[ExecPolicy] = None):
     """z = a*x + y."""
-    lincomb = _route("axpy", policy, _vo.linear_combination_plain,
-                     _vo.linear_combination, x)
-    return lincomb((a, 1.0), (x, y))
+    return linear_combination((a, 1.0), (x, y), policy)
 
 
-def dot(x: torch.Tensor, y: torch.Tensor,
-        policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+def scale_add_multi(coeffs, x, ys: Sequence,
+                    policy: Optional[ExecPolicy] = None) -> list:
+    """Z_k = c_k * x + Y_k for every k, x read once: a list of K
+    vectors shaped as x."""
+    fn = _route("scale_add_multi", policy, _vo.scale_add_multi_plain,
+                _vo.scale_add_multi, _leaves(x)[0])
+    rows = [_leaves(y) for y in ys]
+    per_leaf = []                       # per leaf a (K, *leaf.shape) tensor
+    for pos, xl in enumerate(_leaves(x)):
+        want = _result_type(xl, *(row[pos] for row in rows))
+        per_leaf.append(fn(coeffs, xl.to(want).contiguous(),
+                           [row[pos].to(want).contiguous() for row in rows]))
+    return [_like(x, [Z[k] for Z in per_leaf]) for k in range(len(rows))]
+
+
+def _leafwise_sum(op, policy, plain, wrapper, *vecs) -> torch.Tensor:
+    """sum over leaf positions of the reduction of those leaves, each
+    cast to the result type of every leaf and flattened."""
+    rows = [_leaves(v) for v in vecs]
+    fn = _route(op, policy, plain, wrapper, rows[0][0])
+    want = _result_type(*(leaf for row in rows for leaf in row))
+    return functools.reduce(torch.add, (fn(*(_flat(t, want) for t in leaf))
+                                        for leaf in zip(*rows)))
+
+
+def dot(x, y, policy: Optional[ExecPolicy] = None) -> torch.Tensor:
     """<x, y> over all elements, a 0-d tensor on their device."""
-    return _route("dot", policy, _vo.dot_plain, _vo.dot, x)(x, y)
+    return _leafwise_sum("dot", policy, _vo.dot_plain, _vo.dot, x, y)
+
+
+def dot_prod_multi(x, ys: Sequence,
+                   policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """d_k = <x, Y_k> for every k, x read once: a ``(K,)`` tensor."""
+    lx = _leaves(x)
+    rows = [_leaves(y) for y in ys]
+    fn = _route("dot_prod_multi", policy, _vo.dot_prod_multi_plain,
+                _vo.dot_prod_multi, lx[0])
+    want = _result_type(*lx, *(leaf for row in rows for leaf in row))
+    return functools.reduce(torch.add, (
+        fn(_flat(xl, want), [_flat(row[pos], want) for row in rows])
+        for pos, xl in enumerate(lx)))
+
+
+def wrms_ss(x, w, policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """sum((x*w)^2) over all elements (no sqrt, no /N)."""
+    return _leafwise_sum("wrms_ss", policy, _vo.wrms_ss_plain, _vo.wrms_ss,
+                         x, w)
+
+
+def wrms_norm(x, w, policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """sqrt(sum((x*w)^2) / N), N the element count of every leaf."""
+    return torch.sqrt(wrms_ss(x, w, policy) / _nv.tree_size(x))
+
+
+def wrms_norm_mask(x, w, mask,
+                   policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """sqrt(sum((x*w*m)^2) / N): N counts every entry, masked ones too
+    (the reference's ``vector.py:202``)."""
+    ss = _leafwise_sum("wrms_norm_mask", policy, _vo.wrms_mask_ss_plain,
+                       _vo.wrms_mask_ss, x, w, mask)
+    return torch.sqrt(ss / _nv.tree_size(x))
 
 
 def bsr_spmv_soa(values, x, pattern,

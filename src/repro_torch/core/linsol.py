@@ -1,8 +1,24 @@
-"""Linear solvers for the ensemble Newton iteration (SoA batch surface).
+"""Pluggable linear solvers: the SUNLinearSolver object layer.
 
-Counterpart of ``repro.core.linsol`` (``linsol.py:95-124,193-576``),
-the SoA batch surface used by ``batched.ensemble_bdf_integrate`` (the
-CVODE lsetup/lsolve split; the system batch rides the last axis):
+Counterpart of ``repro.core.linsol`` (``linsol.py:95-576``), with its
+two call surfaces.
+
+**Scalar** (``arkode``'s implicit stages): :meth:`LinearSolver.bind`
+``(fi, policy=..., mem=...)`` returns ``lin_solve(t, z, gamma, rhs) ->
+dz`` solving ``(I - gamma*J_fi(t, z)) dz = rhs``.  The Krylov solvers
+are matrix-free: ``J v`` is ``torch.func.jvp`` of ``fi`` and the matvec
+``v - gamma*J v`` goes through ``dispatch.linear_sum``; a bare callable
+``precond=`` is applied right, as in the reference.  :class:`DenseGJ`
+builds ``J`` with ``torch.func.jacfwd`` and solves with
+``torch.linalg.solve_ex`` (the reference's ``jnp.linalg.solve`` is no
+kernel either).  A tuple state is flattened for the solve.  A
+:class:`~repro_torch.core.precond.Preconditioner` object on this
+surface raises: its scalar ``psetup``/``psolve`` come with
+``core/sunmatrix.py``, ROADMAP queue A item 7.  :func:`as_lin_solve`
+normalizes the integrators' ``lin_solver`` argument.
+
+**SoA batch** (``batched.ensemble_bdf_integrate``, the CVODE
+lsetup/lsolve split; the system batch rides the last axis):
 
 * :meth:`LinearSolver.soa_setup` ``(Jsoa, gamma, policy)`` -> the saved
   per-step linear object, a tensor or a tuple of them whose every leaf
@@ -16,15 +32,13 @@ CVODE lsetup/lsolve split; the system batch rides the last axis):
   (encoded ``(indptr, indices)``); solvers without a sparse path return
   themselves unchanged.
 
-The scalar ``bind`` surface waits for the scalar integrators, ROADMAP
-queue A item 7, and raises.
-
 ================  =======================================================
 SPGMR             restarted GMRES
 SPFGMR            flexible GMRES (stores the preconditioned basis)
 SPBCGS            BiCGStab
 SPTFQMR           transpose-free QMR
 PCG               preconditioned conjugate gradient (SPD systems)
+DenseGJ           dense jacfwd Jacobian + LU solve (scalar surface)
 BlockDiagGJ       batched block-diagonal Gauss-Jordan over the SoA
                   kernels (``factor_once=True`` inverts at lsetup,
                   ``False`` re-solves with the current gamma)
@@ -57,8 +71,9 @@ from . import dispatch as dv
 from . import krylov
 from . import spsolve
 
-_SCALAR = ("the scalar linear-solver surface (bind) waits for the scalar "
-           "integrators, ROADMAP queue A item 7")
+_SCALAR_PRECOND = ("a Preconditioner object on the scalar surface: its "
+                   "psetup/psolve come with core/sunmatrix.py, ROADMAP "
+                   "queue A item 7")
 
 
 def encode_sparsity(pattern) -> tuple:
@@ -115,13 +130,31 @@ def _shape_leaves(tree) -> list:
     return [tuple(tree.shape)]
 
 
+def _ravel(v):
+    """``(flat, unravel)``: a tensor stays as it is; a tuple of tensors
+    becomes one flat vector and ``unravel`` splits it back."""
+    if not isinstance(v, tuple):
+        return v, lambda f: f
+    shapes = [t.shape for t in v]
+    sizes = [t.numel() for t in v]
+
+    def unravel(f):
+        return tuple(part.reshape(shape) for part, shape
+                     in zip(torch.split(f, sizes), shapes))
+
+    return torch.cat([t.reshape(-1) for t in v]), unravel
+
+
 class LinearSolver:
     """Base protocol; see the module docstring."""
 
     name = "linear_solver"
 
     def bind(self, fi, *, policy=None, mem=None):
-        raise NotImplementedError(_SCALAR)
+        """``lin_solve(t, z, gamma, rhs) -> dz`` for ``fi``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} is an ensemble (SoA) solver; scalar "
+            "integrators want DenseGJ or a Krylov solver")
 
     def soa_setup(self, Jsoa, gamma, policy=None):
         raise NotImplementedError(
@@ -185,6 +218,28 @@ class _KrylovSolver(LinearSolver):
         if _is_precond_obj(p):
             return None, p
         return p, None
+
+    # -- scalar surface ----------------------------------------------------
+    def bind(self, fi, *, policy=None, mem=None):
+        legacy, pobj = self._resolved_precond()
+        if pobj is not None:
+            raise NotImplementedError(_SCALAR_PRECOND)
+
+        def lin_solve(t, z, gamma, rhs):
+            _, unravel = _ravel(rhs)
+
+            def matvec(vf):
+                v = unravel(vf)
+                _, jv = torch.func.jvp(lambda zz: fi(t, zz), (z,), (v,))
+                return _ravel(dv.linear_sum(1.0, v, -gamma, jv, policy))[0]
+
+            precond = None if legacy is None else \
+                (lambda vf: _ravel(legacy(unravel(vf)))[0])
+            x, _ = self._run(matvec, _ravel(rhs)[0], policy=policy, mem=mem,
+                             precond=precond)
+            return unravel(x)
+
+        return lin_solve
 
     def _index(self, device) -> _PatternIndex:
         return _pattern_index(*self.sparsity, device)
@@ -329,6 +384,34 @@ class PCG(_KrylovSolver):
 
 
 @dataclass(frozen=True)
+class DenseGJ(LinearSolver):
+    """Dense direct Newton solver: J by ``torch.func.jacfwd`` at the
+    current iterate on every call (full Newton), then one LU solve; for
+    the small systems of the scalar integrators."""
+
+    name = "dense_gj"
+
+    def bind(self, fi, *, policy=None, mem=None):
+        def lin_solve(t, z, gamma, rhs):
+            zf, unravel = _ravel(z)
+            shape = zf.shape
+            zf = zf.reshape(-1)
+            n = zf.numel()
+            if mem is not None:
+                mem.register("densegj.newton_matrix", (n, n), zf.dtype)
+
+            def f_flat(v):
+                return _ravel(fi(t, unravel(v.reshape(shape))))[0].reshape(-1)
+
+            J = torch.func.jacfwd(f_flat)(zf)
+            M = torch.eye(n, dtype=J.dtype, device=J.device) - gamma * J
+            x, _ = torch.linalg.solve_ex(M, _ravel(rhs)[0].reshape(-1))
+            return unravel(x.reshape(shape))
+
+        return lin_solve
+
+
+@dataclass(frozen=True)
 class BlockDiagGJ(LinearSolver):
     """Batched block-diagonal Gauss-Jordan over the SoA dispatch ops.
 
@@ -419,3 +502,16 @@ class EnsembleSparseGJ(LinearSolver):
 
     def soa_workspace_shapes(self, n, nsys):
         return [("newton_vals", (self._plan().nnz_factored, nsys))]
+
+
+def as_lin_solve(lin_solver, fi, *, policy=None, mem=None,
+                 default: Optional[LinearSolver] = None):
+    """The integrators' ``lin_solver`` argument as a callable
+    ``(t, z, gamma, rhs) -> dz``: a :class:`LinearSolver` is bound to
+    ``fi``, a bare callable is returned as it is, None binds ``default``
+    (itself a solver; SPGMR when None too)."""
+    if lin_solver is None:
+        lin_solver = default if default is not None else SPGMR()
+    if hasattr(lin_solver, "bind"):
+        return lin_solver.bind(fi, policy=policy, mem=mem)
+    return lin_solver

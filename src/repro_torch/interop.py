@@ -1,8 +1,9 @@
 """Problem and solver data carried between the JAX package and the port.
 
 The system has no model weights: what must reach the port identically
-is the problem's data (per-system rate constants), the solver's options
-and the methods' coefficients (Butcher tables).  All cross as plain
+is the problem's data (per-system rate constants, the Brusselator's
+configuration), the solver's options and the methods' coefficients
+(Butcher tables, IMEX pairs).  All cross as plain
 numbers and numpy arrays, so this module imports neither package.  A
 ``jac_sparsity`` pattern needs nothing here: it is the same (n, n)
 numpy bool array in both packages, and the port encodes it with its
@@ -15,8 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .configs.brusselator import BrusselatorConfig
 from .core.arkode import ODEOptions
-from .core.butcher import ButcherTable
+from .core.butcher import ButcherTable, IMEXTable
 from .core.controller import ControllerConfig
 
 
@@ -54,6 +56,25 @@ def table_from_reference(fields: dict) -> ButcherTable:
                         c=floats(fields["c"]), order=int(fields["order"]),
                         b_emb=floats(fields.get("b_emb")),
                         emb_order=int(fields.get("emb_order", 0)))
+
+
+def imex_table_from_reference(fields: dict) -> IMEXTable:
+    """The port's IMEXTable from the reference's ``IMEXTable._asdict()``,
+    its ``expl`` and ``impl`` given as ``ButcherTable._asdict()`` dicts
+    (or anything with ``_asdict``)."""
+    def table(t):
+        return table_from_reference(t._asdict() if hasattr(t, "_asdict")
+                                    else t)
+
+    return IMEXTable(expl=table(fields["expl"]), impl=table(fields["impl"]),
+                     order=int(fields["order"]),
+                     emb_order=int(fields["emb_order"]))
+
+
+def brusselator_config_from_reference(fields: dict) -> BrusselatorConfig:
+    """The port's BrusselatorConfig from the reference's, given as
+    ``dataclasses.asdict(cfg)``."""
+    return BrusselatorConfig(**fields)
 
 
 def solution_to_numpy(sol) -> dict:

@@ -36,6 +36,12 @@ KERNELS = {
     "linear_combination": (vecops.linear_combination,
                            vecops.linear_combination_plain, ""),
     "dot": (vecops.dot, vecops.dot_plain, ""),
+    "scale_add_multi": (vecops.scale_add_multi,
+                        vecops.scale_add_multi_plain, ""),
+    "wrms_ss": (vecops.wrms_ss, vecops.wrms_ss_plain, ""),
+    "wrms_mask_ss": (vecops.wrms_mask_ss, vecops.wrms_mask_ss_plain, ""),
+    "dot_prod_multi": (vecops.dot_prod_multi, vecops.dot_prod_multi_plain,
+                       ""),
 }
 
 

@@ -4,7 +4,14 @@
 * :func:`linear_combination` — ``z = sum_k c_k x_k`` in one pass (the
   dispatch ops ``linear_sum``, ``axpy`` and ``linear_combination``);
 * :func:`dot` — ``<x, y>``, a deterministic two-stage reduction that
-  returns a 0-d tensor on the vectors' device.
+  returns a 0-d tensor on the vectors' device;
+* :func:`wrms_ss` — ``sum((x*w)^2)`` and :func:`wrms_mask_ss` —
+  ``sum((x*w*m)^2)``, the weighted norms' sums, reduced as the dot is
+  (the dispatch ops ``wrms_norm``, ``wrms_ss``, ``wrms_norm_mask``);
+* :func:`scale_add_multi` — ``Z_k = c_k*x + Y_k`` for K vectors, x read
+  once, returned as one ``(K, *x.shape)`` tensor;
+* :func:`dot_prod_multi` — ``d_k = <x, Y_k>`` for K vectors, x read
+  once, a ``(K,)`` tensor.
 
 The CUDA kernels are ``csrc/vecops.cu``.  The vectors may have any
 shape; they are read as flat contiguous arrays.  The coefficients stay
@@ -25,7 +32,11 @@ _FLOATS = tuple(_build.SUFFIX)
 #: terms the linear combination takes (``LINCOMB_MAX_K`` in
 #: csrc/vecops.cu); the Krylov solvers use at most 3
 LINCOMB_MAX_K = 8
-#: the dot's partial sums, at most (``DOT_MAX_BLOCKS`` in csrc/vecops.cu)
+#: vectors the multi-vector ops take (``MULTI_MAX_K`` in csrc/vecops.cu);
+#: more raise, as the linear combination's do
+MULTI_MAX_K = 8
+#: a reduction's partial sums per output, at most (``DOT_MAX_BLOCKS``
+#: in csrc/vecops.cu)
 DOT_MAX_BLOCKS = 1024
 
 
@@ -101,21 +112,133 @@ def dot(x, y):
     """<x, y> over all elements: a 0-d tensor on the vectors' device."""
     if _build.on_cpu("dot", x):
         return dot_plain(x, y)
-    shape = tuple(x.shape)
-    _build.check("dot", x.device, x=(x, shape, _FLOATS),
-                 y=(y, shape, (x.dtype,)))
-    # the partial sums return to PyTorch's stream-ordered cache when the
-    # wrapper returns; a later use on this stream waits for the kernel
-    partial = torch.empty((DOT_MAX_BLOCKS,), dtype=x.dtype, device=x.device)
-    out = torch.empty((), dtype=x.dtype, device=x.device)
-    _build.launch("vecops", "dot_" + _build.SUFFIX[x.dtype], "pppplp",
-                  x.data_ptr(), y.data_ptr(), partial.data_ptr(),
-                  out.data_ptr(), x.numel(), _build.stream(x.device))
+    out = _reduce("dot", "dot", x, {"y": y})
     dot.launches += 1
     return out
 
 
-linear_combination.launches = 0
-dot.launches = 0
-linear_combination_plain.calls = 0
-dot_plain.calls = 0
+def _reduce(name, symbol, x, others: dict, extra=()):
+    """Launch one two-stage reduction over ``x`` and the named
+    ``others`` (x's shape and dtype); ``extra`` are pointers passed
+    after theirs."""
+    shape = tuple(x.shape)
+    _build.check(name, x.device, x=(x, shape, _FLOATS),
+                 **{k: (v, shape, (x.dtype,)) for k, v in others.items()})
+    # the partial sums return to PyTorch's stream-ordered cache when the
+    # wrapper returns; a later use on this stream waits for the kernel
+    partial = torch.empty((DOT_MAX_BLOCKS,), dtype=x.dtype, device=x.device)
+    out = torch.empty((), dtype=x.dtype, device=x.device)
+    ptrs = [v.data_ptr() for v in (x, *others.values())] + list(extra)
+    _build.launch("vecops", symbol + "_" + _build.SUFFIX[x.dtype],
+                  "p" * (len(ptrs) + 2) + "lp", *ptrs, partial.data_ptr(),
+                  out.data_ptr(), x.numel(), _build.stream(x.device))
+    return out
+
+
+def wrms_ss_plain(x, w):
+    wrms_ss_plain.calls += 1
+    xw = x * w
+    return (xw * xw).sum()
+
+
+def wrms_ss(x, w):
+    """sum((x*w)^2) over all elements: a 0-d tensor on x's device."""
+    if _build.on_cpu("wrms_ss", x):
+        return wrms_ss_plain(x, w)
+    out = _reduce("wrms_ss", "wrms_ss", x, {"w": w}, extra=(None,))
+    wrms_ss.launches += 1
+    return out
+
+
+def wrms_mask_ss_plain(x, w, m):
+    wrms_mask_ss_plain.calls += 1
+    xm = x * w * m
+    return (xm * xm).sum()
+
+
+def wrms_mask_ss(x, w, m):
+    """sum((x*w*m)^2) over all elements; m is a 0/1 vector of x's
+    dtype (the mask multiplies, as in the reference)."""
+    if _build.on_cpu("wrms_mask_ss", x):
+        return wrms_mask_ss_plain(x, w, m)
+    out = _reduce("wrms_mask_ss", "wrms_ss", x, {"w": w, "m": m})
+    wrms_mask_ss.launches += 1
+    return out
+
+
+def _multi(op, x, ys):
+    """Check the K vectors of a multi-vector op and return them."""
+    ys = list(ys)
+    if not 1 <= len(ys) <= MULTI_MAX_K:
+        raise ValueError(f"{op}: {len(ys)} vectors, want 1 to "
+                         f"{MULTI_MAX_K}")
+    if x.device.type == "cuda":
+        shape = tuple(x.shape)
+        _build.check(op, x.device, x=(x, shape, _FLOATS),
+                     **{f"y{k}": (y, shape, (x.dtype,))
+                        for k, y in enumerate(ys)})
+    return ys
+
+
+def scale_add_multi_plain(coeffs, x, ys):
+    scale_add_multi_plain.calls += 1
+    cs = coefficients(coeffs, x)
+    return torch.stack([c * x + y for c, y in zip(cs, ys)])
+
+
+def scale_add_multi(coeffs, x, ys):
+    """Z[k] = coeffs[k]*x + ys[k] for the K <= ``MULTI_MAX_K`` vectors
+    ``ys`` (x's shape and dtype): a ``(K, *x.shape)`` tensor."""
+    ys = _multi("scale_add_multi", x, ys)
+    if _build.on_cpu("scale_add_multi", x):
+        return scale_add_multi_plain(coeffs, x, ys)
+    cs = coefficients(coeffs, x)
+    if len(cs) != len(ys):
+        raise ValueError(f"scale_add_multi: {len(cs)} coefficients for "
+                         f"{len(ys)} vectors")
+    for c in cs:
+        if c.device != x.device:
+            raise ValueError(f"scale_add_multi: a coefficient lies on "
+                             f"{c.device}, want {x.device}")
+    z = torch.empty((len(ys),) + tuple(x.shape), dtype=x.dtype,
+                    device=x.device)
+    yptr = (ctypes.c_void_p * len(ys))(*(y.data_ptr() for y in ys))
+    cptr = (ctypes.c_void_p * len(cs))(*(c.data_ptr() for c in cs))
+    _build.launch("vecops", "scale_add_multi_" + _build.SUFFIX[x.dtype],
+                  "ipppplp", len(ys), x.data_ptr(),
+                  ctypes.addressof(yptr), ctypes.addressof(cptr),
+                  z.data_ptr(), x.numel(), _build.stream(x.device))
+    scale_add_multi.launches += 1
+    return z
+
+
+def dot_prod_multi_plain(x, ys):
+    dot_prod_multi_plain.calls += 1
+    return torch.stack([(x * y).sum() for y in ys])
+
+
+def dot_prod_multi(x, ys):
+    """d_k = <x, ys[k]> for the K <= ``MULTI_MAX_K`` vectors ``ys``: a
+    ``(K,)`` tensor on x's device."""
+    ys = _multi("dot_prod_multi", x, ys)
+    if _build.on_cpu("dot_prod_multi", x):
+        return dot_prod_multi_plain(x, ys)
+    K = len(ys)
+    partial = torch.empty((K * DOT_MAX_BLOCKS,), dtype=x.dtype,
+                          device=x.device)
+    out = torch.empty((K,), dtype=x.dtype, device=x.device)
+    yptr = (ctypes.c_void_p * K)(*(y.data_ptr() for y in ys))
+    _build.launch("vecops", "dot_prod_multi_" + _build.SUFFIX[x.dtype],
+                  "ipppplp", K, x.data_ptr(), ctypes.addressof(yptr),
+                  partial.data_ptr(), out.data_ptr(), x.numel(),
+                  _build.stream(x.device))
+    dot_prod_multi.launches += 1
+    return out
+
+
+for _fn in (linear_combination, dot, wrms_ss, wrms_mask_ss, scale_add_multi,
+            dot_prod_multi):
+    _fn.launches = 0
+for _fn in (linear_combination_plain, dot_plain, wrms_ss_plain,
+            wrms_mask_ss_plain, scale_add_multi_plain, dot_prod_multi_plain):
+    _fn.calls = 0

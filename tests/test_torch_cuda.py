@@ -190,3 +190,109 @@ def test_dot_matches_plain_and_repeats_its_bits_on_card(n, dtype):
     assert abs(got.item() - want.item()) <= tol * scale
     # deterministic: the same input gives the same bits
     assert torch.equal(vecops.dot(x, y), got)
+
+
+# ---------------------------------------------------------------------------
+# The scalar stack's N_Vector kernels: wrms_ss, wrms_mask_ss,
+# scale_add_multi, dot_prod_multi; and the Brusselator demonstration
+# ---------------------------------------------------------------------------
+
+VEC_NS = [1, 130, 8193, 3 * 4099, 3 * (1 << 20) + 5]
+
+
+def _vec_inputs(n, K, dtype):
+    rng = np.random.default_rng(n + K)
+    d = {"x": rng.normal(size=n), "w": np.abs(rng.normal(size=n)) + 0.1,
+         "m": (rng.uniform(size=n) > 0.3).astype(float),
+         "Y": rng.normal(size=(K, n)), "c": rng.normal(size=K)}
+    return {k: torch.from_numpy(v).to("cuda", dtype) for k, v in d.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", VEC_NS)
+@pytest.mark.parametrize("masked", [False, True])
+def test_wrms_reductions_match_plain_and_repeat_their_bits_on_card(
+        masked, n, dtype):
+    _need_card()
+    d = _vec_inputs(n, 1, dtype)
+    args = (d["x"], d["w"], d["m"]) if masked else (d["x"], d["w"])
+    kern, plain, name = (vecops.wrms_mask_ss, vecops.wrms_mask_ss_plain,
+                         "wrms_mask_ss") if masked else \
+        (vecops.wrms_ss, vecops.wrms_ss_plain, "wrms_ss")
+    kernels.reset_counts()
+    got = kern(*args)
+    assert kernels.counts()[name] == (1, 0)
+    assert got.shape == () and got.device.type == "cuda"
+    want = plain(*(a.double() for a in args))
+    # a sum's rounding scales with the sum of its (nonnegative) terms
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    assert abs(got.item() - want.item()) <= tol * want.item()
+    assert torch.equal(kern(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", VEC_NS)
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 8])
+def test_multi_vector_kernels_match_plain_on_card(K, n, dtype):
+    _need_card()
+    d = _vec_inputs(n, K, dtype)
+    ys = list(d["Y"])
+    # device scalars, a (K,) tensor and Python numbers all reach it
+    for form in (d["c"], list(d["c"]), d["c"].tolist()):
+        kernels.reset_counts()
+        got = vecops.scale_add_multi(form, d["x"], ys)
+        assert kernels.counts()["scale_add_multi"] == (1, 0)
+        want = vecops.scale_add_multi_plain(form, d["x"], ys)
+        torch.cuda.synchronize()
+        assert got.shape == (K, n)
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= TOL[dtype] * scale
+    kernels.reset_counts()
+    got = vecops.dot_prod_multi(d["x"], ys)
+    assert kernels.counts()["dot_prod_multi"] == (1, 0)
+    assert got.shape == (K,)
+    want = vecops.dot_prod_multi_plain(d["x"].double(),
+                                       [y.double() for y in ys])
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    for k in range(K):
+        scale = (d["x"].double() * ys[k].double()).abs().sum().item()
+        assert abs(got[k].item() - want[k].item()) <= tol * scale
+    assert torch.equal(vecops.dot_prod_multi(d["x"], ys), got)
+
+
+@pytest.mark.cuda
+def test_multi_vector_kernels_refuse_more_than_eight_vectors_on_card():
+    _need_card()
+    d = _vec_inputs(16, 9, torch.float64)
+    with pytest.raises(ValueError, match="1 to 8"):
+        vecops.dot_prod_multi(d["x"], list(d["Y"]))
+    with pytest.raises(ValueError, match="1 to 8"):
+        vecops.scale_add_multi(d["c"], d["x"], list(d["Y"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["task-local", "global"])
+def test_brusselator_kernel_run_matches_plain_run_on_card(solver):
+    """A small imex:ark324 Brusselator run through the kernels (rows 8,
+    12, 14 and, for the global configuration, 16) against a run of the
+    plain versions on the card."""
+    _need_card()
+    from repro_torch.apps import brusselator as br
+    from repro_torch.configs.brusselator import BrusselatorConfig
+    from repro_torch.core.policies import ExecPolicy
+    cfg = BrusselatorConfig(nx=4096, solver=solver)
+    kernels.reset_counts()
+    y, st = br.integrate(cfg, t_final=0.05)
+    counts = kernels.counts()
+    want = ("block_solve", "linear_combination", "wrms_ss") + \
+        (("dot",) if solver == "global" else ())
+    assert all(counts[k][0] > 0 for k in want)
+    assert all(c[1] == 0 for c in counts.values())
+    ref, st_ref = br.integrate(cfg, t_final=0.05,
+                               policy=ExecPolicy(backend="torch"))
+    assert bool(st.success) and bool(st_ref.success)
+    bound = 10 * (cfg.rtol * ref.abs() + cfg.atol)
+    assert bool(((y - ref).abs() <= bound).all())
+    assert int(st.steps) == int(st_ref.steps)
