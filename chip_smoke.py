@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--ptxas]
+    python3 chip_smoke.py [--profile[=main,A,...,J]] [--ptxas]
 
 Run from the repository root.  It imports nothing of JAX or of the JAX
 package.  Phases, each of which fails the run (non-zero exit), and each
@@ -22,7 +22,9 @@ of which prints the seconds it took:
    N_Vector bodies of the scalar stack (``wrms_ss``, ``wrms_mask_ss``,
    ``scale_add_multi``, ``dot_prod_multi``) at N = 1, 130, 8193 and
    3*2**20 + 5 with K = 1, 3, 5, 8 vectors, the reductions also for
-   repeating their bits.
+   repeating their bits; the scalar CSR SpMV (``csr_spmv``) on path I's
+   pattern (the §7 Brusselator's Jacobian over 3*2**20 rows, 4 entries a
+   row) and on a ragged banded pattern of 133 rows.
    Each comparison also checks that the wrapper launched the body it
    should.  Then each body, its plain version and, where one exists, a
    single PyTorch library call computing the same function are timed
@@ -68,9 +70,22 @@ of which prints the seconds it took:
      that keeps the kernel's no-pivot Gauss-Jordan (counters equal, WRMS
      within 1); H to a task-local run to t = 0.05 within the reference
      test's rtol 1e-7, atol 1e-9 (``tests/test_brusselator.py:14``);
+   - path I, CVODE with a CSR Newton matrix:
+     ``integrate(IVP(f=fe+fi), 0, 0.005, "bdf", lin_solver=csr_gmres)``
+     on that mesh (one stiff system, the upwind advection implicit too;
+     rtol 1e-6, atol 1e-9, ``newton_max`` 6, order 5), where
+     ``csr_gmres`` builds the Jacobian as a ``SparseCSR`` over a fixed
+     pattern, forms ``J.scale_addI(-gamma)`` and solves with GMRES
+     (restart 16) preconditioned by the 3x3 block solve;
+   - path J: ``integrate(IVP(f=fe), 0, 0.02, "adams")``, the nonstiff
+     advection half of the split on the same mesh;
+   I and J are held to their plain runs as G is: every counter equal
+   and the WRMS norm of the difference within 1, the max-norm ratio
+   printed;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
-``--profile`` adds a profiled kernel run to each path and writes its
+``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
+to the paths named; ``main`` is the main path) and writes its
 busiest device kernels to ``chip_smoke_out/chip_smoke_profile_*.txt``,
 with the device time under the profiler ranges of the plain code
 (``lagrange_matrix_soa``, the sparse LU, GMRES's Hessenberg work, the
@@ -82,6 +97,7 @@ spills) when it builds.  The full record goes to
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -118,7 +134,8 @@ KERNEL_SYMBOLS = ("newton_residual_kernel", "masked_update_wrms_kernel",
                   "bsr_spmv_fixed_kernel", "bsr_spmv_any_kernel",
                   "lincomb_kernel", "dot_partial_kernel", "dot_final_kernel",
                   "scale_add_multi_kernel", "wrms_partial_kernel",
-                  "multi_dot_partial_kernel", "multi_final_kernel")
+                  "multi_dot_partial_kernel", "multi_final_kernel",
+                  "csr_spmv_kernel")
 #: profiler ranges of plain tensor code whose device time is summed
 RANGES = ("lagrange_matrix_soa", "spsolve.numeric_lu", "spsolve.lu_solve",
           "gmres.hessenberg", "brusselator.jacobian")
@@ -142,7 +159,13 @@ PATH_KERNELS = {
                                           "dot"),
     "G: imex task-local": ("block_solve", "linear_combination", "wrms_ss"),
     "H: imex global": ("block_solve", "linear_combination", "wrms_ss", "dot"),
+    "I: bdf csr": ("csr_spmv", "block_solve", "linear_combination", "wrms_ss",
+                   "dot"),
+    "J: adams": ("wrms_ss",),
 }
+#: t_final of paths I and J (each run ~15 s or less on the card; J takes
+#: 20+ steps at nx = 2**20)
+TF_I, TF_J = 0.005, 0.02
 
 
 def check(cond, msg):
@@ -347,6 +370,49 @@ def bsr_index_bytes(d):
     return 4 * (d["pattern"][2] + 1 + 2 * len(d["pattern"][0]))
 
 
+@functools.lru_cache(maxsize=4)
+def csr_pattern(b, n):
+    """Row 11's patterns: b = 4 path I's over n = 3*nx rows, b = 0 the
+    banded |i - j| <= 2 pattern of n rows (``kernels_bench.py:101``)."""
+    import numpy as np
+    from repro_torch.apps.brusselator import jacobian_csr_pattern
+    from repro_torch.core.sunmatrix import CSRPattern
+    if b == 4:
+        indptr, indices, _ = jacobian_csr_pattern(n // 3)
+    else:
+        keep = np.abs(np.arange(n)[:, None] - np.arange(n)) <= 2
+        indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+        indices = np.nonzero(keep)[1]
+    return CSRPattern(indptr, indices, n)
+
+
+def make_csr_inputs(n, dtype, gen, dev, b=4):
+    """Row 11's inputs: values on the pattern of :func:`csr_pattern`,
+    x, and the library yardstick's operands, built here, outside any
+    timing: the same matrix as a ``torch.sparse_csr_tensor`` and x as a
+    column."""
+    import torch
+    pat = csr_pattern(b, n)
+    d = {"pattern": pat,
+         "data": torch.randn(pat.nnz, generator=gen, device=dev,
+                             dtype=dtype),
+         "x": torch.randn(n, generator=gen, device=dev, dtype=dtype)}
+    with warnings.catch_warnings():     # "sparse CSR is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        d["csr"] = torch.sparse_csr_tensor(
+            torch.as_tensor(pat.indptr, device=dev),
+            torch.as_tensor(pat.indices, device=dev), d["data"], (n, n))
+    d["xcol"] = d["x"][:, None]
+    return d
+
+
+def csr_flops(d):
+    """A row of L entries: L products and L - 1 sums."""
+    import numpy as np
+    pat = d["pattern"]
+    return 2 * pat.nnz - int(np.count_nonzero(np.diff(pat.indptr)))
+
+
 def kernel_table():
     import torch
     from repro_torch.kernels import (block_solve, blockdiag_spmv, newton,
@@ -429,6 +495,14 @@ def kernel_table():
                sparse_cases((1, 2, 3)), timing=(1, NBRUSS),
                make=make_sparse_inputs, index_bytes=bsr_index_bytes,
                library=lambda d: torch.sparse.mm(d["csr"], d["xflat"])),
+        Kernel("csr_spmv", sparse.csr_spmv, sparse.csr_spmv_plain,
+               ref + "sparse.py:44", csrc + "sparse.cu",
+               lambda d: (d["data"], d["x"],
+                          *d["pattern"].kernel_plan(d["data"].device)), {},
+               csr_flops,
+               [(4, 3 * NXB), (0, 133)], timing=(4, 3 * NXB),
+               make=make_csr_inputs,
+               library=lambda d: torch.sparse.mm(d["csr"], d["xcol"])),
         Kernel("linear_combination", vecops.linear_combination,
                vecops.linear_combination_plain, ref + "vecops.py:42",
                csrc + "vecops.cu", lambda d: (d["c"], d["v"]), {},
@@ -1007,6 +1081,92 @@ def phase_imex(path, solver, t1, profile):
             "agreement": agreement, "profile": prof}
 
 
+def csr_gmres(cfg, policy):
+    """Path I's linear solver ``(t, z, gamma, rhs) -> dz`` from public
+    API only: the Jacobian of fe + fi as a ``SparseCSR`` over the fixed
+    pattern of ``apps.brusselator.jacobian_csr_pattern`` (the reaction
+    block, -c/dx on the diagonal, +c/dx at the upwind entry), ``M =
+    J.scale_addI(-gamma)``, and GMRES on ``M.matvec`` (row 11) with the
+    3x3 block solve of I - gamma*(B - (c/dx) I) (row 8) as right
+    preconditioner, as the app's global Newton-GMRES does."""
+    import torch
+    from repro_torch.apps import brusselator as br
+    from repro_torch.core import direct, krylov, matrix, sunmatrix
+    nx = cfg.nx
+    pattern = csr_pattern(4, 3 * nx)
+    order_host = torch.as_tensor(br.jacobian_csr_pattern(nx)[2])
+    orders = {}                         # the sort order, once per device
+    cdx = cfg.c / (cfg.b_domain / nx)
+    jac = br.reaction_jacobian(cfg)
+
+    def solve(t, z, gamma, rhs):
+        order = orders.get(z.device)
+        if order is None:
+            order = orders[z.device] = order_host.to(z.device)
+        Bc = jac(t, z) - cdx * torch.eye(3, dtype=z.dtype, device=z.device)
+        natural = torch.cat([Bc, torch.full((nx, 3, 1), cdx, dtype=z.dtype,
+                                            device=z.device)], dim=2)
+        J = sunmatrix.SparseCSR(natural.gather(2, order).reshape(-1),
+                                pattern)
+        M = J.scale_addI(-gamma)
+        P = matrix.bd_scale_addi(-gamma, matrix.BlockDiagMatrix(Bc))
+        dz, _ = krylov.gmres(
+            lambda v: M.matvec(v.reshape(-1), policy).reshape(v.shape), rhs,
+            tol=1e-4, restart=16, max_restarts=2,
+            precond=lambda v: direct.block_solve(P, v, policy), policy=policy)
+        return dz
+
+    return solve
+
+
+def phase_cvode(path, method, t1, profile):
+    """Paths I and J: the scalar CVODE stack on the §7 Brusselator at
+    nx = NXB through ``integrate``: I ``"bdf"`` on fe + fi with
+    :func:`csr_gmres`, J ``"adams"`` on fe; a kernel run, then a plain
+    run (``ExecPolicy(backend="torch")``) on the same card, held to it
+    as G is: every counter equal, the WRMS norm of the difference
+    within 1, the max-norm ratio printed; the one system succeeds (bdf:
+    retcode 0)."""
+    from repro_torch.apps import brusselator as br
+    from repro_torch.configs.brusselator import BrusselatorConfig
+    from repro_torch.core import ivp
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.context import Context
+    from repro_torch.core.policies import ExecPolicy
+    cfg = BrusselatorConfig(nx=NXB)
+    fe, fi = br.advection_rhs(cfg), br.reaction_rhs(cfg)
+    y0 = br.initial_state(cfg)
+    prob = ivp.IVP(f=(lambda t, y: fe(t, y) + fi(t, y)) if method == "bdf"
+                   else fe, y0=y0)
+
+    def runner(policy):
+        opts = ODEOptions(rtol=cfg.rtol, atol=cfg.atol, max_steps=100_000,
+                          newton_max=6, policy=policy)
+        kw = {"lin_solver": csr_gmres(cfg, policy)} if method == "bdf" \
+            else {}
+
+        def run():
+            sol = ivp.integrate(prob, 0.0, t1, method, ctx=Context(),
+                                opts=opts, **kw)
+            if sol.retcodes is not None:
+                check(int(sol.retcodes) == 0, f"{path}: retcode "
+                      f"{int(sol.retcodes)}")
+            return sol.y, sol.stats
+
+        return run
+
+    y, rec = run_app(path, "kernels", runner(ExecPolicy()), True)
+    ref, ref_rec = run_app(path, "plain versions",
+                           runner(ExecPolicy(backend="torch")), False)
+    same_counters(path, rec, ref_rec, "the plain run")
+    agreement = agree_wrms(path, y, ref, cfg.rtol, cfg.atol)
+    del y, ref
+    prof = profile_run(path, runner(ExecPolicy()), rec["wall_s"]) \
+        if profile else None
+    return {"t_final": t1, "kernels_run": rec, "plain_run": ref_rec,
+            "agreement": agreement, "profile": prof}
+
+
 def profile_run(path, run, plain_wall, bdf=False):
     """One more kernel run of a path (``run()``) under torch.profiler:
     device time by kernel name, the share of the port's kernels, the
@@ -1090,6 +1250,15 @@ def lagrange_alone_ms():
     return ms
 
 
+def profiled_paths(argv):
+    """``--profile`` profiles every path, ``--profile=I,J`` only those
+    named (``main`` for the main path): -> path name -> bool."""
+    arg = next((a for a in argv if a.split("=")[0] == "--profile"), None)
+    names = None if arg is None or "=" not in arg else \
+        set(arg.split("=", 1)[1].split(","))
+    return lambda name: arg is not None and (names is None or name in names)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1128,12 +1297,12 @@ def main(argv) -> int:
     phase("compare", phase_compare, table, dev)
     rows = phase("timings", phase_timings, table, dev)
     # 4. the paths, each against its plain run
-    profile = "--profile" in argv
+    profiled = profiled_paths(argv)
     paths = {
         "ensemble_bdf": phase("main path (ensemble_bdf)", phase_main_path,
-                              profile),
+                              profiled("main")),
         "A: ensemble_dirk": phase("path A (ensemble_dirk)", phase_path_a,
-                                  profile),
+                                  profiled("A")),
     }
     paths["ensemble_bdf"]["reference"] = phase(
         "reference (ensemble_bdf)", classic_robertson_reference,
@@ -1141,10 +1310,10 @@ def main(argv) -> int:
     paths["B: ensemble_bdf direct"] = phase(
         "path B (ensemble_bdf, factor_once=False)", phase_brusselator,
         "B: ensemble_bdf direct", "ensemble_bdf", 2.0,
-        {"lin_solver": BlockDiagGJ(factor_once=False)}, profile)
+        {"lin_solver": BlockDiagGJ(factor_once=False)}, profiled("B"))
     paths["C: ensemble_erk"] = phase(
         "path C (ensemble_erk)", phase_brusselator, "C: ensemble_erk",
-        "ensemble_erk:bogacki_shampine", 2.0, {}, profile)
+        "ensemble_erk:bogacki_shampine", 2.0, {}, profiled("C"))
     # the sparse ensemble: one global Krylov iteration couples the lanes,
     # so the plain runs cover the same systems and the Krylov paths are
     # held to 100*(rtol*|y|+atol), the reference's own jnp/Pallas gate
@@ -1156,15 +1325,22 @@ def main(argv) -> int:
             ("F: ensemble_bdf SPBCGS",
              SPBCGS(tol=1e-10, maxiter=200, precond=ILU0Precond()), 100)):
         paths[path] = phase(f"path {path}", phase_brusselator, path,
-                            "ensemble_bdf", 2.0, {"lin_solver": ls}, profile,
-                            True, C)
+                            "ensemble_bdf", 2.0, {"lin_solver": ls},
+                            profiled(path[0]), True, C)
     # the paper's §7 demonstration: the scalar IMEX stack at nx = 2**20
     paths["G: imex task-local"] = phase(
         "path G (imex:ark324, task-local)", phase_imex,
-        "G: imex task-local", "task-local", 0.2, profile)
+        "G: imex task-local", "task-local", 0.2, profiled("G"))
     paths["H: imex global"] = phase(
         "path H (imex:ark324, global)", phase_imex, "H: imex global",
-        "global", 0.05, profile)
+        "global", 0.05, profiled("H"))
+    # the scalar CVODE stack on the same mesh: a CSR Newton matrix
+    # (row 11) under bdf, and adams
+    paths["I: bdf csr"] = phase(
+        "path I (bdf, CSR Newton matrix + GMRES)", phase_cvode, "I: bdf csr",
+        "bdf", TF_I, profiled("I"))
+    paths["J: adams"] = phase("path J (adams)", phase_cvode, "J: adams",
+                              "adams", TF_J, profiled("J"))
     # 5. kernels line: launches summed over the kernel runs of the paths
     line = []
     for k, row in zip(table, rows):

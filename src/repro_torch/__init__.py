@@ -10,12 +10,14 @@ with ``nvcc`` at first use; each has a plain PyTorch version beside it,
 which the wrappers take for tensors that lie on the CPU.
 
 Covered so far: ``core.ivp.integrate`` with the scalar ARKODE families
-``"erk[:table]"``, ``"dirk[:table]"`` and ``"imex[:table]"`` and the
-ensemble families ``"ensemble_erk[:table]"``,
-``"ensemble_dirk[:table]"`` and ``"ensemble_bdf"``, the latter with
-``BlockDiagGJ`` (both modes), ``EnsembleSparseGJ`` or a preconditioned
-Krylov solver (``SPGMR``, ``SPFGMR``, ``SPBCGS``, ``SPTFQMR``, ``PCG``)
-over a ``jac_sparsity`` pattern; and the paper's §7 demonstration,
-``apps.brusselator``.  Everything else raises ``NotImplementedError``
-naming its ROADMAP item.
+``"erk[:table]"``, ``"dirk[:table]"`` and ``"imex[:table]"``, the
+CVODE families ``"bdf"`` and ``"adams"``, and the ensemble families
+``"ensemble_erk[:table]"``, ``"ensemble_dirk[:table]"`` and
+``"ensemble_bdf"``, the latter with ``BlockDiagGJ`` (both modes),
+``EnsembleSparseGJ`` or a preconditioned Krylov solver (``SPGMR``,
+``SPFGMR``, ``SPBCGS``, ``SPTFQMR``, ``PCG``) over a ``jac_sparsity``
+pattern; the sparse matrices ``core.sunmatrix.SparseCSR`` and
+``EnsembleBSR``; event detection (``core.events``); and the paper's §7
+demonstration, ``apps.brusselator``.  Everything else raises
+``NotImplementedError`` naming its ROADMAP item.
 """

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..configs.brusselator import BrusselatorConfig
@@ -77,6 +78,22 @@ def reaction_jacobian(cfg: BrusselatorConfig):
         return torch.stack([row0, row1, row2], dim=1)
 
     return jac
+
+
+def jacobian_csr_pattern(nx: int):
+    """The CSR pattern of the Jacobian of fe + fi over the flat state
+    (row 3*i + s): the columns (i, 0..2) and the upwind ((i-1) mod nx,
+    s), sorted within the row (4 entries a row, 12*nx in all), as numpy
+    ``(indptr, indices)``; and ``order (nx, 3, 4)``, which sorts a row's
+    natural entries [block row..., upwind] into the pattern's order."""
+    i = np.arange(nx)
+    blk = np.broadcast_to((3 * i[:, None] + np.arange(3))[:, None, :],
+                          (nx, 3, 3))
+    up = (3 * ((i - 1) % nx)[:, None] + np.arange(3))[:, :, None]
+    natural = np.concatenate([blk, up], axis=2)
+    order = np.argsort(natural, axis=2, kind="stable")
+    return (np.arange(0, 12 * nx + 1, 4),
+            np.take_along_axis(natural, order, 2).reshape(-1), order)
 
 
 #: profiler range of the plain code that builds the Newton blocks

@@ -39,12 +39,18 @@ def eta_from_error(cfg: ControllerConfig, state: ControllerState,
     e1 = torch.clamp(state.err_prev, min=1e-10)
     e2 = torch.clamp(state.err_prev2, min=1e-10)
 
+    def over_p(k):
+        # k / p rounded once: PyTorch's ``number / tensor`` multiplies by
+        # the reciprocal and rounds twice (-0.8 / 5 loses an ulp)
+        return torch.full_like(p, k) / p
+
     if cfg.kind == "i":
-        eta = e ** (-1.0 / p)
+        eta = e ** over_p(-1.0)
     elif cfg.kind == "pi":
-        eta = e ** (-cfg.k1 / p) * e1 ** (cfg.k2 / p)
+        eta = e ** over_p(-cfg.k1) * e1 ** over_p(cfg.k2)
     else:  # pid
-        eta = e ** (-cfg.k1 / p) * e1 ** (cfg.k2 / p) * e2 ** (-cfg.k3 / p)
+        eta = e ** over_p(-cfg.k1) * e1 ** over_p(cfg.k2) * \
+            e2 ** over_p(-cfg.k3)
 
     eta = cfg.safety * eta
     eta = torch.clamp(eta, cfg.eta_min, cfg.eta_max)

@@ -1,12 +1,13 @@
 """Policy-routed ops of the port.
 
-Counterpart of eighteen entries of ``repro.core.dispatch``
+Counterpart of the nineteen entries of ``repro.core.dispatch``
 (``dispatch.py:393,610-743``), with the same names and argument
 order: the seven ``*_soa`` ops of the ensemble BDF path, the N_Vector
 ops ``linear_sum``, ``axpy``, ``linear_combination``,
 ``scale_add_multi``, ``dot``, ``dot_prod_multi``, ``wrms_norm``,
-``wrms_ss`` and ``wrms_norm_mask``, and the sparse ensemble's
-``bsr_spmv_soa`` and ``bsr_block_jacobi_inverse_soa``.
+``wrms_ss`` and ``wrms_norm_mask``, and the sparse ops ``csr_spmv``
+(``SparseCSR.matvec``), ``bsr_spmv_soa`` and
+``bsr_block_jacobi_inverse_soa``.
 Each op routes per :class:`~repro_torch.core.policies.ExecPolicy`:
 ``"torch"`` runs the plain version, ``"auto"`` the kernel wrapper (the
 CUDA kernel for a CUDA tensor, the plain version for a CPU tensor), and
@@ -15,8 +16,7 @@ card.  ``linear_sum`` and ``axpy`` go through the linear-combination
 kernel with K = 2, as in the reference (``dispatch.py:107-112``), and
 their ``"torch"`` backend through its plain version, which sums
 ``c_0 x_0 + c_1 x_1`` in that order as the reference's ``a*x + b*y`` and
-``a*x + y`` do (``1*y`` is exact).  ``csr_spmv`` waits for ROADMAP queue
-A item 7.
+``a*x + y`` do (``1*y`` is exact).
 
 The N_Vector ops take a vector that is a tensor or a tuple of tensors
 (the reference's pytrees) and run leaf by leaf as the reference's
@@ -44,6 +44,7 @@ from ..kernels import sparse as _sx
 from ..kernels import vecops as _vo
 from . import vector as _nv
 from .policies import DEFAULT, ExecPolicy
+from .sunmatrix import CSRPattern
 
 _leaves = _nv.leaves
 
@@ -216,6 +217,24 @@ def wrms_norm_mask(x, w, mask,
     ss = _leafwise_sum("wrms_norm_mask", policy, _vo.wrms_mask_ss_plain,
                        _vo.wrms_mask_ss, x, w, mask)
     return torch.sqrt(ss / _nv.tree_size(x))
+
+
+def csr_spmv(data, x, pattern,
+             policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """y = A @ x for a CSR matrix: data (nnz,), x (ncols,); pattern a
+    :class:`~repro_torch.core.sunmatrix.CSRPattern` (pass the object on
+    a hot path: it holds the device arrays) or an ``(indptr, indices)``
+    pair, checked and laid out anew each call."""
+    pat = pattern if isinstance(pattern, CSRPattern) else \
+        CSRPattern(*pattern, x.shape[0])
+    if data.shape != (pat.nnz,):
+        raise ValueError(f"csr_spmv: data has shape {tuple(data.shape)}, "
+                         f"want ({pat.nnz},)")
+    if x.shape != (pat.ncols,):
+        raise ValueError(f"csr_spmv: x has shape {tuple(x.shape)}, want "
+                         f"({pat.ncols},)")
+    return _route("csr_spmv", policy, _sx.csr_spmv_plain, _sx.csr_spmv,
+                  data)(data, x, *pat.kernel_plan(data.device))
 
 
 def bsr_spmv_soa(values, x, pattern,

@@ -1,11 +1,11 @@
 """Unified IVP front-end: one problem object, one ``integrate`` call.
 
 Counterpart of ``repro.core.ivp`` (``ivp.py:59-73,77-205,250-440``) for
-the scalar families ``"erk[:table]"``, ``"dirk[:table]"`` and
-``"imex[:table]"`` (``repro_torch.core.arkode``) and the ensemble
-families ``"ensemble_erk[:table]"``, ``"ensemble_dirk[:table]"`` and
-``"ensemble_bdf"``; ``"bdf"`` and ``"adams"`` raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+every family of the reference: the scalar ``"erk[:table]"``,
+``"dirk[:table]"``, ``"imex[:table]"`` (``repro_torch.core.arkode``),
+``"bdf"`` and ``"adams"`` (``repro_torch.core.cvode``), and the ensemble
+``"ensemble_erk[:table]"``, ``"ensemble_dirk[:table]"`` and
+``"ensemble_bdf"``.
 ``integrate`` runs on the card unless the call (or the context's
 policy) names another device; without CUDA it raises instead of
 falling back to the CPU.
@@ -17,7 +17,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from . import arkode, batched, butcher
+from . import arkode, batched, butcher, cvode
 from . import vector as nv
 from .arkode import ODEOptions
 from .context import Context
@@ -31,6 +31,8 @@ METHOD_STRINGS = (
     "dirk:sdirk2",
     "dirk:sdirk33",
     "imex:ark324",
+    "bdf",
+    "adams",
     "ensemble_erk:bogacki_shampine",
     "ensemble_dirk:sdirk2",
     "ensemble_bdf",
@@ -42,9 +44,6 @@ _DIRK_ALIASES = {"esdirk3": "ark324_esdirk"}
 
 _KNOWN_FAMILIES = ("erk", "dirk", "imex", "bdf", "adams",
                    "ensemble_erk", "ensemble_dirk", "ensemble_bdf")
-
-#: family -> the ROADMAP queue A item its port waits for
-_WAITING = {"bdf": 7, "adams": 7}
 
 
 def _erk_table(var):
@@ -139,15 +138,21 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
     device : where the run happens; None takes ``opts.policy.device``,
              and if that is None too, the card.  ``problem.y0`` must
              already lie there.
-    lin_solver : dirk, imex: a solver of :mod:`repro_torch.core.linsol`
-             (``DenseGJ`` or a Krylov solver; None is matrix-free
-             ``SPGMR``) or a callable ``(t, z, gamma, rhs) -> dz``;
+    lin_solver : dirk, imex, bdf: a solver of
+             :mod:`repro_torch.core.linsol` (``DenseGJ`` or a Krylov
+             solver, with or without a preconditioner object; None is
+             matrix-free ``SPGMR``, or ``DenseGJ`` for bdf with
+             ``dense_jac=True``) or a callable ``(t, z, gamma, rhs) ->
+             dz``;
              ensemble_bdf: ``BlockDiagGJ`` (None), ``EnsembleSparseGJ``,
              ``SPGMR``, ``SPFGMR``, ``SPBCGS``, ``SPTFQMR``, ``PCG``, with
              the problem's ``jac_sparsity`` bound to it.
-    nonlin_solver : dirk, imex: a
-             :class:`~repro_torch.core.nonlinsol.NewtonSolver`.
-    method_kw : passed to the integrator (``msbp``, ``dgmax``, ... for
+    nonlin_solver : dirk, imex, bdf: a
+             :class:`~repro_torch.core.nonlinsol.NewtonSolver`; adams: a
+             :class:`~repro_torch.core.nonlinsol.FixedPointSolver`.
+    order  : the largest BDF order (bdf, ensemble_bdf).
+    method_kw : passed to the integrator (``dense_jac`` for bdf,
+             ``m_aa`` for adams, ``msbp``, ``dgmax``, ... for
              ensemble_bdf, ``newton_iters`` for ensemble_dirk; the
              other families take none).
 
@@ -155,17 +160,14 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
     inner iterations and psolves, and ``npsetups`` is the lsetup total
     whenever the solver carries a preconditioner object (psetup rides
     the lsetup triggers), as in the reference.  A scalar family's
-    ``t`` is the time reached and its ``retcodes``/``ok`` are None, as
-    in the reference's ARKODE integrators.
+    ``t`` is the time reached; bdf's ``retcodes`` is its 0-d CV_* code
+    and ``ok`` whether it is 0; the other scalar families' are None, as
+    in the reference.
     """
     fam, _, var = method.partition(":")
     if fam not in _KNOWN_FAMILIES:
         raise ValueError(f"unknown method {method!r}; families: "
                          f"{', '.join(_KNOWN_FAMILIES)}")
-    if fam in _WAITING:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP queue A item "
-            f"{_WAITING[fam]})")
     if timed:
         raise NotImplementedError("integrate(timed=True) waits for the "
                                   "observability slice, ROADMAP queue A item 10")
@@ -177,13 +179,15 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
                                   "slice, ROADMAP queue A item 9")
     # a solver object a family cannot consume is an error, not a silent
     # no-op (Solution must never report a swap that did not happen)
-    if lin_solver is not None and fam not in ("dirk", "imex",
+    if lin_solver is not None and fam not in ("dirk", "imex", "bdf",
                                               "ensemble_bdf"):
-        raise ValueError(f"method {method!r} takes no lin_solver (of the "
-                         "ported families dirk, imex and ensemble_bdf do)")
-    if nonlin_solver is not None and fam not in ("dirk", "imex"):
-        raise ValueError(f"method {method!r} takes no nonlin_solver (of "
-                         "the ported families dirk and imex do)")
+        raise ValueError(f"method {method!r} takes no lin_solver (the "
+                         "pluggable families are dirk, imex, bdf, "
+                         "ensemble_bdf)")
+    if nonlin_solver is not None and fam not in ("dirk", "imex", "bdf",
+                                                 "adams"):
+        raise ValueError(f"method {method!r} takes no nonlin_solver (the "
+                         "pluggable families are dirk, imex, bdf, adams)")
     if fam in ("erk", "dirk", "imex", "ensemble_erk") and method_kw:
         raise ValueError(f"method {method!r} takes no "
                          f"{', '.join(sorted(method_kw))}")
@@ -217,6 +221,15 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
             problem.fe, problem.fi, y0, t0, tf,
             butcher.IMEX_TABLES[var or "ark324"], opts,
             lin_solver=lin_solver, nonlin_solver=nonlin_solver, mem=mem)
+    elif fam == "bdf":         # the full RHS, treated implicitly
+        y, st = cvode.bdf_integrate(f, y0, t0, tf, order=order, opts=opts,
+                                    lin_solver=lin_solver,
+                                    nonlin_solver=nonlin_solver, mem=mem,
+                                    **method_kw)
+    elif fam == "adams":
+        y, st = cvode.adams_integrate(f, y0, t0, tf, opts,
+                                      nonlin_solver=nonlin_solver, mem=mem,
+                                      **method_kw)
     elif fam == "ensemble_erk":
         y, st = batched.ensemble_erk_integrate(f, y0, t0, tf, _erk_table(var),
                                                opts)
@@ -242,20 +255,26 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
     # psetup rides the lsetup triggers (the reference's accounting)
     npsetups = st.nsetups.sum() if bdf and _is_precond_obj(
         getattr(lin_solver, "precond", None)) else None
-    if fam in ("erk", "ensemble_erk"):
+    if fam in ("erk", "adams", "ensemble_erk"):
         lname = "none"
     elif lin_solver is None:
-        lname = "spgmr" if fam in ("dirk", "imex") else "blockdiag_gj"
+        lname = "blockdiag_gj" if fam.startswith("ensemble") else \
+            "dense_gj" if method_kw.get("dense_jac") else "spgmr"
     else:
         lname = getattr(lin_solver, "name", "custom")
+    nlname = "none" if fam in ("erk", "ensemble_erk") else \
+        "fixed_point" if fam == "adams" else "newton"
     ens = fam.startswith("ensemble")
+    # CV_*-style status: per lane for the ensembles, one code for bdf
+    retcodes = st.retcodes if ens else st.retcode
     return Solution(
         y=y, t=st.t if not ens else torch.as_tensor(tf),
         success=st.success.all() if ens else st.success, stats=st,
         method=method, lin_solver=lname,
-        nonlin_solver="none" if fam in ("erk", "ensemble_erk") else "newton",
+        nonlin_solver=nlname,
         nni=st.nni.sum() if ens else st.nni, nli=nli,
         nsetups=st.nsetups if ens else None,
         workspace_bytes=workspace, high_water_bytes=mem.high_water_bytes,
         npsolves=st.npsolves[0] if bdf else None, npsetups=npsetups,
-        retcodes=st.retcodes if ens else None, ok=st.ok if ens else None)
+        retcodes=retcodes, ok=st.ok if ens else
+        None if retcodes is None else retcodes == 0)

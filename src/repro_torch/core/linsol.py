@@ -8,14 +8,15 @@ two call surfaces.
 dz`` solving ``(I - gamma*J_fi(t, z)) dz = rhs``.  The Krylov solvers
 are matrix-free: ``J v`` is ``torch.func.jvp`` of ``fi`` and the matvec
 ``v - gamma*J v`` goes through ``dispatch.linear_sum``; a bare callable
-``precond=`` is applied right, as in the reference.  :class:`DenseGJ`
-builds ``J`` with ``torch.func.jacfwd`` and solves with
-``torch.linalg.solve_ex`` (the reference's ``jnp.linalg.solve`` is no
-kernel either).  A tuple state is flattened for the solve.  A
-:class:`~repro_torch.core.precond.Preconditioner` object on this
-surface raises: its scalar ``psetup``/``psolve`` come with
-``core/sunmatrix.py``, ROADMAP queue A item 7.  :func:`as_lin_solve`
-normalizes the integrators' ``lin_solver`` argument.
+``precond=`` is applied right, and a
+:class:`~repro_torch.core.precond.Preconditioner` object runs its
+scalar ``psetup`` at each ``lin_solve`` and its ``psolve`` LEFT (counted
+in the Krylov stats' ``npsolves``), as in the reference.
+:class:`DenseGJ` builds ``J`` with ``torch.func.jacfwd`` and solves
+with ``torch.linalg.solve_ex`` (the reference's ``jnp.linalg.solve`` is
+no kernel either).  A tuple state is flattened for the solve.
+:func:`as_lin_solve` normalizes the integrators' ``lin_solver``
+argument.
 
 **SoA batch** (``batched.ensemble_bdf_integrate``, the CVODE
 lsetup/lsolve split; the system batch rides the last axis):
@@ -70,10 +71,6 @@ import torch
 from . import dispatch as dv
 from . import krylov
 from . import spsolve
-
-_SCALAR_PRECOND = ("a Preconditioner object on the scalar surface: its "
-                   "psetup/psolve come with core/sunmatrix.py, ROADMAP "
-                   "queue A item 7")
 
 
 def encode_sparsity(pattern) -> tuple:
@@ -222,8 +219,6 @@ class _KrylovSolver(LinearSolver):
     # -- scalar surface ----------------------------------------------------
     def bind(self, fi, *, policy=None, mem=None):
         legacy, pobj = self._resolved_precond()
-        if pobj is not None:
-            raise NotImplementedError(_SCALAR_PRECOND)
 
         def lin_solve(t, z, gamma, rhs):
             _, unravel = _ravel(rhs)
@@ -233,10 +228,15 @@ class _KrylovSolver(LinearSolver):
                 _, jv = torch.func.jvp(lambda zz: fi(t, zz), (z,), (v,))
                 return _ravel(dv.linear_sum(1.0, v, -gamma, jv, policy))[0]
 
-            precond = None if legacy is None else \
-                (lambda vf: _ravel(legacy(unravel(vf)))[0])
+            kw = {}
+            if pobj is not None:
+                pdata = pobj.psetup(t, z, gamma, policy=policy)
+                kw["precond_left"] = lambda vf: pobj.psolve(
+                    pdata, vf.reshape(-1), policy=policy).reshape(vf.shape)
+            elif legacy is not None:
+                kw["precond"] = lambda vf: _ravel(legacy(unravel(vf)))[0]
             x, _ = self._run(matvec, _ravel(rhs)[0], policy=policy, mem=mem,
-                             precond=precond)
+                             **kw)
             return unravel(x)
 
         return lin_solve

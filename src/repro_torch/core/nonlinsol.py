@@ -3,9 +3,9 @@
 Counterpart of ``repro.core.nonlinsol``: :class:`NewtonSolver` (wraps
 :func:`repro_torch.core.kinsol.newton_solve`; tolerances from
 :meth:`NewtonSolver.from_options`, the one place they are defined) and
-:class:`FixedPointSolver`, which can be built and passed around but
-whose ``solve`` waits for the ``adams`` family (ROADMAP queue A item 7)
-and raises.
+:class:`FixedPointSolver` (wraps
+:func:`repro_torch.core.kinsol.fixed_point_solve`, Anderson acceleration;
+the ``adams`` family's solver).
 """
 from __future__ import annotations
 

@@ -1,7 +1,18 @@
-"""Preconditioners: the PSetup/PSolve plug-in point, ensemble surface.
+"""Preconditioners: the PSetup/PSolve plug-in point.
 
-Counterpart of ``repro.core.precond`` (``precond.py:57-272``), SoA
-surface only (used by the ``ensemble_bdf`` Krylov path; setup runs at
+Counterpart of ``repro.core.precond`` (``precond.py:57-272``).  A
+:class:`Preconditioner` has two surfaces, as the linear solvers do.
+
+**Scalar** (one system; the scalar ``bind`` of the Krylov solvers):
+
+* ``psetup(t, y, gamma, policy=None) -> pdata`` for the Newton matrix
+  ``M = I - gamma*J`` at the current iterate (called at each lin_solve,
+  the PSetup moment), from the user's ``jac_diag`` (Jacobi) or dense
+  ``jac`` (block Jacobi, ILU0);
+* ``psolve(pdata, r, policy=None) -> z``: ``P^{-1} r`` on the raveled
+  ``(n,)`` residual.
+
+**Ensemble SoA** (the ``ensemble_bdf`` Krylov path; setup runs at
 CVODE's lsetup triggers, so psetup counts ride ``nsetups``):
 
 * ``soa_psetup(vals, pattern, gamma, policy=None) -> pdata`` where the
@@ -12,15 +23,14 @@ CVODE's lsetup triggers, so psetup counts ride ``nsetups``):
 * ``soa_pdata_init(n, nsys, dtype, device)`` — zero pdata for the
   integrator carry (every leaf keeps the ``nsys`` lane axis LAST).
 
-The scalar surface (``psetup``/``psolve``) waits for the scalar
-integrators, ROADMAP queue A item 7, and raises.
-
 =================  ========================================================
 JacobiPrecond      diagonal of M
-BlockJacobiPrecond b x b diagonal blocks of M, inverted once per psetup by
-                   ``bsr_block_jacobi_inverse_soa`` (the Gauss-Jordan
-                   inverse over the flattened nblk*nsys batch); psolve is
-                   one block-diagonal SpMV
+BlockJacobiPrecond b x b diagonal blocks of M, inverted once per psetup
+                   (ensemble: by ``bsr_block_jacobi_inverse_soa``, the
+                   Gauss-Jordan inverse over the flattened nblk*nsys
+                   batch; scalar: ``torch.linalg.inv``, as the reference
+                   uses ``jnp.linalg.inv``); psolve is one block-diagonal
+                   product
 ILU0Precond        incomplete LU with zero fill on the shared CSR pattern
 =================  ========================================================
 
@@ -31,31 +41,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from . import dispatch as dv
 from . import spsolve
-
-_SCALAR = ("the scalar preconditioner surface waits for the scalar "
-           "integrators, ROADMAP queue A item 7")
-
-
-def csr_diag_positions(indptr, indices) -> tuple:
-    """Static nnz slot of entry (i, i) per row of a CSR pattern; raises
-    if any diagonal entry is absent (``repro.core.sunmatrix``'s helper,
-    which moves with that module to ROADMAP queue A item 7)."""
-    pos = []
-    for i in range(len(indptr) - 1):
-        hits = [k for k in range(indptr[i], indptr[i + 1])
-                if indices[k] == i]
-        if not hits:
-            raise ValueError(
-                f"CSR pattern lacks diagonal entry ({i},{i}); build "
-                "with ensure_diag=True for SUNMatScaleAddI use")
-        pos.append(hits[0])
-    return tuple(pos)
+from .sunmatrix import csr_diag_positions
 
 
 @functools.lru_cache(maxsize=64)
@@ -70,10 +62,11 @@ class Preconditioner:
     name = "precond"
 
     def psetup(self, t, y, gamma, policy=None):
-        raise NotImplementedError(_SCALAR)
+        raise NotImplementedError(
+            f"{type(self).__name__} has no scalar psetup")
 
     def psolve(self, pdata, r, policy=None):
-        raise NotImplementedError(_SCALAR)
+        raise NotImplementedError
 
     def soa_psetup(self, vals, pattern, gamma, policy=None):
         raise NotImplementedError(
@@ -88,11 +81,22 @@ class Preconditioner:
 
 @dataclass(frozen=True)
 class JacobiPrecond(Preconditioner):
-    """Diagonal (point-Jacobi) preconditioner: P = diag(M), read from
-    the Newton matrix.  (The reference's ``jac_diag=`` serves its scalar
-    surface and comes with it, ROADMAP A.7.)"""
+    """Diagonal (point-Jacobi) preconditioner: P = diag(M).
+
+    ``jac_diag(t, y) -> (n,)`` supplies the Jacobian diagonal on the
+    scalar surface (a matrix-free integrator cannot extract it); the
+    ensemble surface reads it from the Newton matrix."""
 
     name = "jacobi"
+    jac_diag: Optional[Callable] = None
+
+    def psetup(self, t, y, gamma, policy=None):
+        if self.jac_diag is None:
+            raise ValueError("scalar JacobiPrecond needs jac_diag=")
+        return 1.0 / (1.0 - gamma * self.jac_diag(t, y))
+
+    def psolve(self, pdata, r, policy=None):
+        return pdata * r
 
     def soa_psetup(self, vals, pattern, gamma, policy=None):
         if pattern is None:
@@ -136,11 +140,28 @@ class BlockJacobiPrecond(Preconditioner):
 
     The carry layout is the reference's: ``inv.reshape(b, b, nblk,
     nsys)`` reads the flattened batch as block I of system s at
-    ``I*nsys + s`` (a reshape, not a transpose).  (The reference's
-    ``jac=`` serves its scalar surface, ROADMAP A.7.)"""
+    ``I*nsys + s`` (a reshape, not a transpose).  ``jac(t, y) -> (n,
+    n)`` supplies the dense Jacobian on the scalar surface."""
 
     name = "block_jacobi"
     block_size: int = 1
+    jac: Optional[Callable] = None
+
+    def psetup(self, t, y, gamma, policy=None):
+        if self.jac is None:
+            raise ValueError("scalar BlockJacobiPrecond needs jac=")
+        J = self.jac(t, y)
+        b = self.block_size
+        nblk = J.shape[0] // b
+        ar = torch.arange(nblk, device=J.device)
+        D = torch.eye(b, dtype=J.dtype, device=J.device)[None] - \
+            gamma * J.reshape(nblk, b, nblk, b)[ar, :, ar, :]
+        return torch.linalg.inv(D)                   # (nblk, b, b)
+
+    def psolve(self, pdata, r, policy=None):
+        nblk, b, _ = pdata.shape
+        return torch.einsum("nij,nj->ni", pdata,
+                            r.reshape(nblk, b)).reshape(-1)
 
     def _diag_block_values(self, vals, pattern, n, nsys):
         """(nblk, b, b, nsys) diagonal-block values of M."""
@@ -196,11 +217,12 @@ class ILU0Precond(Preconditioner):
     left unset, ``integrate`` binds the problem's ``jac_sparsity``
     (:meth:`with_sparsity`).  The symbolic phase runs once per pattern
     (host, cached); each psetup is a numeric refactor unrolled over the
-    pattern, elementwise across the ensemble lanes.  (The reference's
-    ``jac=`` serves its scalar surface, ROADMAP A.7.)"""
+    pattern, elementwise across the ensemble lanes.  ``jac(t, y) ->
+    (n, n)`` supplies the dense Jacobian on the scalar surface."""
 
     name = "ilu0"
     sparsity: Optional[tuple] = None
+    jac: Optional[Callable] = None
 
     def __post_init__(self):
         if self.sparsity is not None and not (
@@ -219,6 +241,17 @@ class ILU0Precond(Preconditioner):
             raise ValueError("ILU0Precond needs sparsity= (or a "
                              "jac_sparsity on the problem)")
         return _ilu0_plan(*self.sparsity)
+
+    def psetup(self, t, y, gamma, policy=None):
+        if self.jac is None:
+            raise ValueError("scalar ILU0Precond needs jac=")
+        plan = self._plan()
+        J = self.jac(t, y)
+        M = torch.eye(J.shape[0], dtype=J.dtype, device=J.device) - gamma * J
+        return spsolve.numeric_lu(plan, spsolve.gather_filled(plan, M))
+
+    def psolve(self, pdata, r, policy=None):
+        return spsolve.lu_solve(self._plan(), pdata, r)
 
     def soa_psetup(self, vals, pattern, gamma, policy=None):
         plan = self._plan()

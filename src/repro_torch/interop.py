@@ -8,8 +8,9 @@ numbers and numpy arrays, so this module imports neither package.  A
 ``jac_sparsity`` pattern needs nothing here: it is the same (n, n)
 numpy bool array in both packages, and the port encodes it with its
 own copy of the reference's host code (``core/spsolve.py``), so a test
-hands the one array to both.  The ``SolverSession`` carry waits for
-ROADMAP queue A item 5.
+hands the one array to both; a ``SparseCSR`` crosses as its values and
+pattern (:func:`csr_from_reference`).  The ``SolverSession`` carry waits
+for ROADMAP queue A item 5.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from .configs.brusselator import BrusselatorConfig
 from .core.arkode import ODEOptions
 from .core.butcher import ButcherTable, IMEXTable
 from .core.controller import ControllerConfig
+from .core.sunmatrix import SparseCSR
 
 
 def params_from_numpy(params: dict, *, device, dtype=torch.float64) -> dict:
@@ -75,6 +77,16 @@ def brusselator_config_from_reference(fields: dict) -> BrusselatorConfig:
     """The port's BrusselatorConfig from the reference's, given as
     ``dataclasses.asdict(cfg)``."""
     return BrusselatorConfig(**fields)
+
+
+def csr_from_reference(data, indptr, indices, shape, *,
+                       device) -> SparseCSR:
+    """The port's :class:`~repro_torch.core.sunmatrix.SparseCSR` from
+    the reference's, given as its ``data`` (a numpy array) and its
+    ``indptr``, ``indices`` (tuples or integer arrays) and ``shape``."""
+    return SparseCSR.from_pattern(indptr, indices, shape,
+                                  data=torch.tensor(np.asarray(data)),
+                                  device=device)
 
 
 def solution_to_numpy(sol) -> dict:

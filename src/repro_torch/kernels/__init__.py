@@ -33,6 +33,7 @@ KERNELS = {
     "block_solve_tiled": (block_solve.block_solve_soa,
                           block_solve.block_solve_soa_plain, "tiled"),
     "bsr_spmv": (sparse.bsr_spmv_soa, sparse.bsr_spmv_soa_plain, ""),
+    "csr_spmv": (sparse.csr_spmv, sparse.csr_spmv_plain, ""),
     "linear_combination": (vecops.linear_combination,
                            vecops.linear_combination_plain, ""),
     "dot": (vecops.dot, vecops.dot_plain, ""),

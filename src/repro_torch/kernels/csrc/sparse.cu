@@ -137,3 +137,71 @@ extern "C" int bsr_spmv_f64(const void* values, const void* x, void* y,
   return bsr_spmv<double>(values, x, y, row_ptr, cols, slots, b, nblk, nb,
                           stream);
 }
+
+// ---------------------------------------------------------------------------
+// Scalar CSR SpMV: y = A x for one matrix, data (nnz,), x (ncols,),
+// y (nrows,), with the pattern as int32 row pointer (nrows+1,) and
+// columns (nnz,), built once per pattern on the device.
+//
+// Replaces src/repro/kernels/sparse.py:_csr_ell_kernel (entry
+// csr_spmv_ell; SparseCSR.matvec, the Newton-Krylov matvec of a CSR
+// Newton matrix).
+//
+// The TPU kernel pads the pattern to ELL form, (kmax, rows) with rows
+// on the 128 lanes and padded slots (data 0, column 0), and gathers
+// from a VMEM-resident x.  ELL is a TPU layout device and is not
+// carried over: here one thread owns one row and reads the row's
+// entries straight from the CSR arrays, so every value and index is
+// read once and no gather pass to ELL runs on each call; the row count
+// is bounds-checked instead of padded, and a row with no entries gives
+// 0.  The sum keeps the TPU kernel's order: slot 0 first, then
+// acc + d*x slot by slot (with -fmad=false a rounded product and a
+// rounded sum, as the plain version's separate ops round).
+//
+// Bound: memory.  2 flops per entry against 12-16 bytes of data and
+// column, plus the row pointer, x and y.  Neighbouring threads own
+// neighbouring rows, so the row pointer and y are coalesced; data and
+// columns are read in strides of the row length (4 entries a row on
+// the Brusselator's pattern), which sectors serve only partly, and x
+// is gathered (from L2 where rows are local).  A warp per row with
+// vectorised loads is later work.
+template <typename T>
+__global__ void csr_spmv_kernel(const T* __restrict__ data,
+                                const T* __restrict__ x, T* __restrict__ y,
+                                const int* __restrict__ indptr,
+                                const int* __restrict__ indices,
+                                long long nrows) {
+  const long long i = system_index();
+  if (i >= nrows) return;
+  const int k0 = indptr[i], k1 = indptr[i + 1];
+  T acc = T(0);
+  if (k0 < k1) {
+    acc = data[k0] * x[indices[k0]];
+    for (int k = k0 + 1; k < k1; ++k) acc = acc + data[k] * x[indices[k]];
+  }
+  y[i] = acc;
+}
+
+template <typename T>
+static int csr_spmv(const void* data, const void* x, void* y,
+                    const void* indptr, const void* indices, long long nrows,
+                    void* stream) {
+  if (nrows < 1) return (int)cudaErrorInvalidValue;
+  csr_spmv_kernel<T><<<system_grid(nrows), REPRO_THREADS, 0,
+                       (cudaStream_t)stream>>>(
+      (const T*)data, (const T*)x, (T*)y, (const int*)indptr,
+      (const int*)indices, nrows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int csr_spmv_f32(const void* data, const void* x, void* y,
+                            const void* indptr, const void* indices,
+                            long long nrows, void* stream) {
+  return csr_spmv<float>(data, x, y, indptr, indices, nrows, stream);
+}
+
+extern "C" int csr_spmv_f64(const void* data, const void* x, void* y,
+                            const void* indptr, const void* indices,
+                            long long nrows, void* stream) {
+  return csr_spmv<double>(data, x, y, indptr, indices, nrows, stream);
+}

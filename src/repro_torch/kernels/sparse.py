@@ -1,16 +1,25 @@
-"""Ensemble block-sparse SpMV with one shared pattern, SoA layout
-(counterpart of ``repro/kernels/sparse.py:bsr_spmv_soa``):
-``values (nnzb, b, b, NB), x (nblk, b, NB) -> y (nblk, b, NB)`` with
-``y_I = sum_{e: brows[e] = I} A_e x_{bcols[e]}``, the matvec of the
-sparse ensemble's Krylov solvers (1x1 blocks over the Jacobian
-pattern).  The CUDA kernel is ``csrc/sparse.cu``.
+"""Sparse SpMV kernels (counterpart of ``repro/kernels/sparse.py``),
+each beside its plain PyTorch version; the CUDA kernels are
+``csrc/sparse.cu``.
 
-The pattern ``(brows, bcols, nblk)`` is a tuple of ints, as in the
-reference.  The kernel reads it from three small int32 device arrays
-and the plain version from per-position index tensors; both are built
-once per (pattern, device) and cached.  Both sum in the reference's
-order: per entry the inner j sum, then added to the row's running
-total, entries in pattern order; a block row with no entries is zero.
+* :func:`bsr_spmv_soa` — ensemble block-sparse SpMV with one shared
+  pattern, SoA layout: ``values (nnzb, b, b, NB), x (nblk, b, NB) -> y
+  (nblk, b, NB)`` with ``y_I = sum_{e: brows[e] = I} A_e x_{bcols[e]}``,
+  the matvec of the sparse ensemble's Krylov solvers (1x1 blocks over
+  the Jacobian pattern).  The pattern ``(brows, bcols, nblk)`` is a
+  tuple of ints, as in the reference.  The kernel reads it from three
+  small int32 device arrays and the plain version from per-position
+  index tensors; both are built once per (pattern, device) and cached.
+  Both sum in the reference's order: per entry the inner j sum, then
+  added to the row's running total, entries in pattern order; a block
+  row with no entries is zero.
+* :func:`csr_spmv` — ``y = A x`` for one CSR matrix, ``data (nnz,)``,
+  ``x (ncols,)`` -> ``y (nrows,)`` (``SparseCSR.matvec``), given the
+  int32 row pointer and columns on the device (the matrix layer,
+  :mod:`repro_torch.core.sunmatrix`, builds them once per pattern).
+  Both versions sum each row in pattern order, slot 0 first, then
+  ``acc + d*x`` (the reference's ELL kernel's order); a row with no
+  entries is zero in the kernel.
 """
 from __future__ import annotations
 
@@ -110,3 +119,60 @@ def bsr_spmv_soa(values, x, pattern):
 
 bsr_spmv_soa.launches = 0
 bsr_spmv_soa_plain.calls = 0
+
+
+def _check_csr(data, x, indptr, indices) -> None:
+    if data.dim() != 1 or indices.shape != data.shape:
+        raise ValueError(f"csr_spmv: data has shape {tuple(data.shape)}, "
+                         f"the columns {tuple(indices.shape)}")
+    if indptr.dim() != 1 or indptr.numel() < 1 or x.dim() != 1:
+        raise ValueError("csr_spmv: indptr and x must be vectors")
+
+
+def csr_spmv_plain(data, x, indptr, indices):
+    """kmax elementwise passes over the rows' slots (ELL form), slot 0
+    first, then ``acc + d*x[c]``; a padded slot adds ``0*x[0]``."""
+    csr_spmv_plain.calls += 1
+    _check_csr(data, x, indptr, indices)
+    ip, ci = indptr.long(), indices.long()
+    lens = ip[1:] - ip[:-1]
+    if ci.numel() == 0:
+        return torch.zeros(lens.shape, dtype=data.dtype, device=data.device)
+    k = torch.arange(int(lens.max()), device=data.device)[:, None]
+    valid = k < lens[None, :]
+    src = torch.where(valid, ip[:-1][None, :] + k, 0)
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    d = torch.where(valid, data[src], zero)
+    xs = x[torch.where(valid, ci[src], 0)]
+    acc = d[0] * xs[0]
+    for j in range(1, d.shape[0]):
+        acc = acc + d[j] * xs[j]
+    return acc
+
+
+def csr_spmv(data, x, indptr, indices):
+    """y = A @ x for CSR A: data (nnz,), x (ncols,) -> y (nrows,), with
+    the int32 row pointer and columns on data's device (built once per
+    pattern by :class:`repro_torch.core.sunmatrix.CSRPattern`, which
+    also checks the columns against ``ncols``)."""
+    if _build.on_cpu("csr_spmv", data):
+        return csr_spmv_plain(data, x, indptr, indices)
+    _check_csr(data, x, indptr, indices)
+    _build.check("csr_spmv", data.device, data=(data, data.shape, _FLOATS),
+                 x=(x, x.shape, (data.dtype,)),
+                 indptr=(indptr, indptr.shape, (torch.int32,)),
+                 indices=(indices, indices.shape, (torch.int32,)))
+    nrows = indptr.numel() - 1
+    y = torch.empty((nrows,), dtype=data.dtype, device=data.device)
+    if nrows == 0:
+        return y
+    _build.launch("sparse", "csr_spmv_" + _build.SUFFIX[data.dtype],
+                  "ppppplp", data.data_ptr(), x.data_ptr(), y.data_ptr(),
+                  indptr.data_ptr(), indices.data_ptr(), nrows,
+                  _build.stream(data.device))
+    csr_spmv.launches += 1
+    return y
+
+
+csr_spmv.launches = 0
+csr_spmv_plain.calls = 0

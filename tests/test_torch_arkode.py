@@ -201,10 +201,20 @@ def test_newton_reads_its_test_once_an_iteration():
 
 
 def test_waiting_solvers_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        nonlinsol.FixedPointSolver().solve(lambda y: y, torch.ones(2))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        linsol.SPGMR(precond=precond.JacobiPrecond()).bind(lambda t, y: y)
+    # the fixed point and the scalar preconditioner surface are ported:
+    # y = y/2 + 1 converges to 2; a Jacobi preconditioner needs jac_diag
+    y, st = nonlinsol.FixedPointSolver(tol=1e-12).solve(
+        lambda y: 0.5 * y + 1.0, torch.ones(2, dtype=torch.float64))
+    assert st.converged and float((y - 2.0).abs().max()) < 1e-10
+    z = torch.ones(3, dtype=torch.float64)
+    rhs = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64)
+    lin = linsol.SPGMR(precond=precond.JacobiPrecond()).bind(lambda t, y: -y)
+    with pytest.raises(ValueError, match="jac_diag"):
+        lin(torch.tensor(0.0), z, 0.5, rhs)
+    lin = linsol.SPGMR(precond=precond.JacobiPrecond(
+        jac_diag=lambda t, y: -torch.ones_like(y))).bind(lambda t, y: -y)
+    np.testing.assert_allclose(lin(torch.tensor(0.0), z, 0.5, rhs).numpy(),
+                               rhs.numpy() / 1.5, rtol=1e-12)
     with pytest.raises(NotImplementedError, match="ensemble"):
         linsol.BlockDiagGJ().bind(lambda t, y: y)
     prob = ivp.IVP(f=lambda t, y: -y, y0=torch.ones(2, dtype=torch.float64))

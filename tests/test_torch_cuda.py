@@ -13,6 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels
+from repro_torch.apps.brusselator import jacobian_csr_pattern
+from repro_torch.core import dispatch as dv
+from repro_torch.core.sunmatrix import CSRPattern
 from repro_torch.kernels import (block_solve, blockdiag_spmv, newton, sparse,
                                  vecops)
 
@@ -296,3 +299,50 @@ def test_brusselator_kernel_run_matches_plain_run_on_card(solver):
     bound = 10 * (cfg.rtol * ref.abs() + cfg.atol)
     assert bool(((y - ref).abs() <= bound).all())
     assert int(st.steps) == int(st_ref.steps)
+
+
+# ---------------------------------------------------------------------------
+# Row 11: the scalar CSR SpMV of SparseCSR.matvec
+# ---------------------------------------------------------------------------
+
+
+def _csr_case(which, n, rng):
+    """(indptr, indices, ncols): the §7 Brusselator's Jacobian pattern
+    over n = 3*nx rows (4 sorted entries a row), or a ragged banded
+    pattern of n rows with row lengths 0..9 (empty rows included)."""
+    if which == "brusselator":
+        indptr, indices, _ = jacobian_csr_pattern(n // 3)
+        return indptr, indices, n
+    lens = rng.integers(0, 10, size=n)
+    cols = [np.unique(np.clip(r + rng.integers(-6, 7, size=k), 0, n - 1))
+            for r, k in enumerate(lens)]
+    indptr = np.concatenate([[0], np.cumsum([len(c) for c in cols])])
+    return indptr, np.concatenate(cols).astype(np.int64), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("which,n", [("brusselator", 3 * 64),
+                                     ("brusselator", 3 << 16),
+                                     ("ragged", 133), ("ragged", 5000)])
+def test_csr_spmv_matches_plain_on_card(which, n, dtype):
+    _need_card()
+    rng = np.random.default_rng(n)
+    indptr, indices, ncols = _csr_case(which, n, rng)
+    pattern = CSRPattern(indptr, indices, ncols)
+    data = torch.from_numpy(rng.normal(size=pattern.nnz)).to(dtype).cuda()
+    x = torch.from_numpy(rng.normal(size=ncols)).to(dtype).cuda()
+    plan = pattern.kernel_plan(data.device)
+    kernels.reset_counts()
+    got = sparse.csr_spmv(data, x, *plan)
+    assert kernels.counts()["csr_spmv"] == (1, 0)
+    want = sparse.csr_spmv_plain(data, x, *plan)
+    torch.cuda.synchronize()
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= TOL[dtype] * scale
+    empty = np.diff(indptr) == 0
+    assert torch.equal(got[torch.from_numpy(empty).cuda()],
+                       torch.zeros(int(empty.sum()), dtype=dtype,
+                                   device="cuda"))
+    with pytest.raises(ValueError, match="x has shape"):
+        dv.csr_spmv(data, x[:-1], pattern)

@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 from repro.core import status as ref_status
 from repro.core.arkode import ODEOptions as RefOptions
 from repro_torch import interop
-from repro_torch.core import ivp, problems, status
+from repro_torch.core import ivp, problems, status, sunmatrix
 from repro_torch.core.arkode import ODEOptions
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +44,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch.core.ivp, repro_torch.interop, "
             "repro_torch.kernels, repro_torch.core.precond, "
             "repro_torch.core.krylov, repro_torch.apps.brusselator, "
-            "repro_torch.core.vector\n"
+            "repro_torch.core.vector, repro_torch.core.sunmatrix, "
+            "repro_torch.core.events, repro_torch.core.cvode\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad")
@@ -61,14 +62,33 @@ def test_entry_points_run_on_the_card_by_default():
     f, jac, y0 = problems.batched_robertson(4, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ivp.integrate(ivp.IVP(f=f, jac=jac, y0=y0), 0.0, 1.0, "ensemble_bdf")
+    # the sparse matrices' constructors, unless handed a tensor
+    sm = sunmatrix
+    for make in (lambda: sm.SparseCSR.from_pattern((0, 1, 2), (0, 1), (2, 2)),
+                 lambda: sm.SparseCSR.from_dense(np.eye(2)),
+                 lambda: sm.EnsembleBSR.from_sparsity(np.eye(2) > 0, 1, 3)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    eye = torch.eye(2, dtype=torch.float64)
+    assert sm.SparseCSR.from_dense(eye).data.device == eye.device
+    assert sm.SparseCSR.from_pattern((0, 1, 2), (0, 1), (2, 2),
+                                     data=eye[0]).data.device == eye.device
 
 
 def test_unported_paths_raise():
     f, jac, y0 = problems.batched_robertson(4, device="cpu")
     prob = ivp.IVP(f=f, jac=jac, y0=y0)
+    # bdf and adams are ported (tests/test_torch_cvode.py holds them to
+    # the reference); bdf's step telemetry still waits and raises
+    decay = ivp.IVP(f=lambda t, y: -y, y0=torch.ones(2, dtype=torch.float64))
     for method in ("bdf", "adams"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ivp.integrate(prob, 0.0, 1.0, method, device="cpu")
+        sol = ivp.integrate(decay, 0.0, 1.0, method, device="cpu")
+        assert bool(sol.success) and sol.method == method
+        assert abs(float(sol.y[0]) - np.exp(-1.0)) < 1e-4
+    assert int(ivp.integrate(decay, 0.0, 1.0, "bdf",
+                             device="cpu").retcodes) == status.SUCCESS
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
+        ivp.integrate(decay, 0.0, 1.0, "bdf", device="cpu", telemetry=8)
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
         ivp.integrate(prob, 0.0, 1.0, "ensemble_dirk:sdirk2", device="cpu",
                       telemetry=8)

@@ -203,15 +203,21 @@ def test_krylov_loops_are_counted():
 
 
 def test_scalar_surfaces_wait_for_the_scalar_stack():
-    # the scalar Krylov surface exists now; a preconditioner object on it
-    # waits for the scalar psetup/psolve, and the ensemble-only solver
+    # the scalar surfaces exist now: a preconditioner object binds to a
+    # scalar Krylov solver, and its scalar psetup wants the user's
+    # jac_diag / jac, as the reference's; the ensemble-only solver
     # refuses the scalar surface, as the reference's does
     assert callable(linsol.SPGMR().bind(lambda t, y: y))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        linsol.SPGMR(precond=precond.JacobiPrecond()).bind(lambda t, y: y)
+    assert callable(linsol.SPGMR(precond=precond.JacobiPrecond())
+                    .bind(lambda t, y: y))
     with pytest.raises(NotImplementedError, match="ensemble"):
         linsol.EnsembleSparseGJ().bind(lambda t, y: y)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="jac_diag"):
         precond.JacobiPrecond().psetup(0.0, None, 1.0)
+    with pytest.raises(ValueError, match="jac="):
+        precond.BlockJacobiPrecond(2).psetup(0.0, None, 1.0)
+    y = torch.tensor([1.0, 2.0], dtype=torch.float64)
+    pdata = precond.JacobiPrecond(jac_diag=lambda t, y: -y).psetup(0.0, y, 0.5)
+    assert torch.equal(pdata, 1.0 / (1.0 + 0.5 * y))
     with pytest.raises(ValueError, match="sparsity"):
         linsol.EnsembleSparseGJ().soa_carry_init(3, 4, torch.float64, "cpu")
