@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile[=main,A,...,J]] [--ptxas]
+    python3 chip_smoke.py [--profile[=main,A,...,K]] [--ptxas]
 
 Run from the repository root.  It imports nothing of JAX or of the JAX
 package.  Phases, each of which fails the run (non-zero exit), and each
@@ -13,9 +13,14 @@ of which prints the seconds it took:
 3. kernels: each ported kernel body against its plain PyTorch version
    on the card, in float64 and float32: the six of the ensemble-BDF path
    at the main-path shape (2**20 systems, n = b = 3) and at ragged
-   batches (7, 130, 516); the two Gauss-Jordan entries at b = 1, 3, 8
-   (register bodies) and 9, 16, 32 (tiled bodies), the solve also at
-   b = 32 over 2**16 systems; both on stiff Robertson Newton blocks;
+   batches (7, 130, 516), ``blockdiag_spmv`` also at b = 32 over 2**16
+   systems (path K's shape); the two Gauss-Jordan entries at b = 1, 3,
+   8 (register bodies), and their tiled bodies at b = 9, 16, 24, 32
+   (the warp-per-system form) and 33 (the device-memory form) over 7,
+   130, 516 and 2**16 systems; both entries on stiff Robertson Newton
+   blocks, the tiled bodies also on path B's Brusselator Newton blocks
+   (I - gamma*J at its initial states, gamma over 1e-4..1e-1), with
+   |M x - r| within 1e-10*(|M||x|+|r|);
    the sparse ensemble's three: ``bsr_spmv_soa`` at b = 1, 2, 3 on the
    Brusselator's 124-entry pattern, ``linear_combination`` (K = 3) and
    ``dot`` over (32, nb) vectors, at nb = 2**16 and ragged; the four
@@ -29,7 +34,8 @@ of which prints the seconds it took:
    should.  Then each body, its plain version and, where one exists, a
    single PyTorch library call computing the same function are timed
    with CUDA events (median of 25, L2 flushed before each run) at the
-   shape its path gives it;
+   shape its path gives it, the tiled Gauss-Jordan bodies also at
+   b = 16 and 24 over 2**16 systems;
 4. paths, each driven through ``integrate`` with the launch counts set
    to 0 just before and read just after; each must launch the kernels
    of its path and no plain version, and agree with a run of the plain
@@ -46,6 +52,11 @@ of which prints the seconds it took:
      and the same Radau check;
    - path B: ``"ensemble_bdf"`` with ``BlockDiagGJ(factor_once=False)``
      on ``ensemble_brusselator(2**16, nx=16)`` (n = b = 32) to t = 2;
+   - path K: ``"ensemble_bdf"`` with the default ``BlockDiagGJ()`` on
+     B's systems (the b = 32 inverse once a lsetup, ``blockdiag_spmv``
+     at b = 32 once a Newton iteration, which it checks); K's and B's
+     final states, the same problem under two lsolves, are compared in
+     the max norm over rtol*|y|+atol (printed);
    - path C: ``"ensemble_erk:bogacki_shampine"`` on that ensemble;
    - paths D, E, F: ``"ensemble_bdf"`` on that ensemble with its
      ``jac_sparsity`` (124 entries): D ``SPGMR(tol=1e-10, restart=10,
@@ -129,8 +140,9 @@ SPIN_CYCLES = 1_000_000
 KERNEL_SYMBOLS = ("newton_residual_kernel", "masked_update_wrms_kernel",
                   "history_rescale_kernel", "wrms_soa_kernel",
                   "spmv_fixed_kernel", "spmv_any_kernel",
-                  "gj_inverse_unrolled_kernel", "gj_inverse_inplace_kernel",
-                  "gj_solve_unrolled_kernel", "gj_solve_tiled_kernel",
+                  "gj_inverse_unrolled_kernel", "gj_inverse_warp_kernel",
+                  "gj_inverse_inplace_kernel", "gj_solve_unrolled_kernel",
+                  "gj_solve_warp_kernel", "gj_solve_tiled_kernel",
                   "bsr_spmv_fixed_kernel", "bsr_spmv_any_kernel",
                   "lincomb_kernel", "dot_partial_kernel", "dot_final_kernel",
                   "scale_add_multi_kernel", "wrms_partial_kernel",
@@ -151,6 +163,9 @@ PATH_KERNELS = {
     "B: ensemble_bdf direct": ("newton_residual", "block_solve_tiled",
                                "masked_update_wrms", "history_rescale",
                                "wrms_soa"),
+    "K: ensemble_bdf BlockDiagGJ": ("newton_residual", "block_inverse_tiled",
+                                    "blockdiag_spmv", "masked_update_wrms",
+                                    "history_rescale", "wrms_soa"),
     "C: ensemble_erk": ("wrms_soa",),
     "D: ensemble_bdf SPGMR": BDF_LOOP + ("bsr_spmv", "dot", "block_inverse",
                                          "blockdiag_spmv"),
@@ -210,12 +225,14 @@ class Kernel:
     def __init__(self, name, wrapper, plain, replaces, source, args, kw,
                  flops, cases, timing=(3, NSYS), library=None,
                  skipped_bytes=lambda d: 0, make=None, index_bytes=None,
-                 err_scale=None):
+                 err_scale=None, more_timings=()):
         self.name, self.wrapper, self.plain = name, wrapper, plain
         self.replaces, self.source = replaces, source
         self.args, self.kw, self.flops, self.library = args, kw, flops, library
-        #: (b, nb) it is compared at; (b, nb) it is timed at
+        #: (b, nb) it is compared at; (b, nb) it is timed at (the path's
+        #: shape, in the kernels line) and more (b, nb) it is timed at
         self.cases, self.timing = cases, timing
+        self.more_timings = more_timings
         # input bytes that this data does not need read (the bound counts
         # what the run's data needs)
         self.skipped_bytes = skipped_bytes
@@ -268,6 +285,23 @@ def robertson_newton_blocks(nb, gen, dev, dtype):
                      torch.stack([z, 2 * k3 * b, z])])
     gam = 10.0 ** u(-8, 0)
     return torch.eye(3, device=dev, dtype=dtype)[:, :, None] - gam * J
+
+
+def brusselator_newton_blocks(gen, dev):
+    """Path B's Newton blocks M = I - gamma*J, J the Jacobian of
+    ``ensemble_brusselator(NBRUSS, nx=NX)`` at its initial states (b =
+    32), gamma over 1e-4..1e-1; and a right-hand side r, float64."""
+    import torch
+    from repro_torch.core import problems
+    y0 = problems.ensemble_brusselator(NBRUSS, nx=NX, device=dev)[3]
+    jac = problems.ensemble_brusselator_soa(NBRUSS, nx=NX, device=dev)[1]
+    J = jac(torch.zeros(NBRUSS, device=dev, dtype=y0.dtype), y0.T.contiguous())
+    gam = 10.0 ** (-4 + 3 * torch.rand(NBRUSS, generator=gen, device=dev,
+                                       dtype=y0.dtype))
+    n = J.shape[0]
+    M = torch.eye(n, device=dev, dtype=J.dtype)[:, :, None] - gam * J
+    return M.contiguous(), torch.randn(n, NBRUSS, generator=gen, device=dev,
+                                       dtype=J.dtype)
 
 
 def make_inputs(nb, dtype, gen, dev, b=3):
@@ -436,9 +470,10 @@ def kernel_table():
         Kernel("blockdiag_spmv", blockdiag_spmv.blockdiag_spmv_soa,
                blockdiag_spmv.blockdiag_spmv_soa_plain,
                ref + "blockdiag_spmv.py:20", csrc + "blockdiag_spmv.cu",
-               lambda d: (d["A"], d["z"]), {},
-               lambda d: (2 * b_of(d) - 1) * b_of(d) * nb_of(d), b3,
-               library=lambda d: torch.einsum("ijs,js->is", d["A"], d["z"])),
+               lambda d: (d["A"], d["r"]), {},
+               lambda d: (2 * b_of(d) - 1) * b_of(d) * nb_of(d),
+               b3 + [(32, NBRUSS)], more_timings=[(32, NBRUSS)],
+               library=lambda d: torch.einsum("ijs,js->is", d["A"], d["r"])),
         Kernel("masked_update_wrms", newton.masked_update_wrms,
                newton.masked_update_wrms_plain, ref + "newton.py:73",
                csrc + "newton.cu",
@@ -470,9 +505,8 @@ def kernel_table():
                block_solve.block_inverse_soa_plain,
                ref + "block_solve.py:161", csrc + "block_solve.cu",
                lambda d: (d["A"],), {},
-               lambda d: inverse_flops(b_of(d), nb_of(d)),
-               [(9, 130), (16, 516), (16, 1 << 16), (32, 1 << 16)],
-               timing=(32, NBRUSS),
+               lambda d: inverse_flops(b_of(d), nb_of(d)), tiled_gj_cases(),
+               timing=(32, NBRUSS), more_timings=TILED_GJ_TIMINGS,
                library=lambda d: torch.linalg.inv(d["A"].permute(2, 0, 1))),
         Kernel("block_solve", block_solve.block_solve_soa,
                block_solve.block_solve_soa_plain, ref + "block_solve.py:55",
@@ -484,9 +518,8 @@ def kernel_table():
         Kernel("block_solve_tiled", block_solve.block_solve_soa,
                block_solve.block_solve_soa_plain, ref + "block_solve.py:132",
                csrc + "block_solve.cu", lambda d: (d["A"], d["r"]), {},
-               lambda d: solve_flops(b_of(d), nb_of(d)),
-               [(b, nb) for b in (9, 16, 32) for nb in RAGGED]
-               + [(32, NBRUSS)], timing=(32, NBRUSS),
+               lambda d: solve_flops(b_of(d), nb_of(d)), tiled_gj_cases(),
+               timing=(32, NBRUSS), more_timings=TILED_GJ_TIMINGS,
                library=lambda d: torch.linalg.solve(
                    d["A"].permute(2, 0, 1), d["r"].T[..., None])),
         Kernel("bsr_spmv", sparse.bsr_spmv_soa, sparse.bsr_spmv_soa_plain,
@@ -553,6 +586,17 @@ def kernel_table():
                                              for y in args[1]),
                library=lambda d: torch.mv(d["Y"], d["x"])),
     ]
+
+
+#: (b, nb) the tiled Gauss-Jordan bodies are also timed at
+TILED_GJ_TIMINGS = ((16, NBRUSS), (24, NBRUSS))
+
+
+def tiled_gj_cases():
+    """(b, nb) cases of the tiled Gauss-Jordan bodies: the warp form at
+    b = 9 (its smallest), 16, 24 and 32 (its largest, path B's and K's),
+    the device-memory form at b = 33; ragged batches and 2**16."""
+    return [(b, nb) for b in (9, 16, 24, 32, 33) for nb in RAGGED + (NBRUSS,)]
 
 
 def vec_cases(ks=VEC_K):
@@ -631,6 +675,21 @@ def phase_compare(table, dev):
     scale = torch.einsum("ijs,js->is", M.abs(), x.abs()) + r.abs()
     check(bool((back <= 1e-10 * scale).all()),
           f"|M x - r| reaches {(back / scale).max().item()} of |M||x|+|r|")
+    del M, r, stiff, Minv, eye, resid, x, back, scale
+    # the tiled bodies on path B's (and K's) Newton blocks
+    M, r = brusselator_newton_blocks(gen, dev)
+    blocks = {"A": M, "r": r}
+    by_name["block_inverse_tiled"].compare(blocks, "Brusselator Newton blocks")
+    by_name["block_solve_tiled"].compare(blocks, "Brusselator Newton blocks")
+    for what, x in (("block_solve_soa", block_solve.block_solve_soa(M, r)),
+                    ("block_inverse_soa", torch.einsum(
+                        "ijs,js->is", block_solve.block_inverse_soa(M), r))):
+        back = (torch.einsum("ijs,js->is", M, x) - r).abs()
+        scale = torch.einsum("ijs,js->is", M.abs(), x.abs()) + r.abs()
+        check(bool((back <= 1e-10 * scale).all()),
+              f"{what}, Brusselator Newton blocks: |M x - r| reaches "
+              f"{(back / scale).max().item()} of |M||x|+|r|")
+    del M, r, blocks, x, back, scale
     # the reductions the integrators decide on repeat their bits
     from repro_torch.kernels import vecops
     d = make_vec_inputs(VEC_N[-1], torch.float64, gen, dev, b=VEC_K[-1])
@@ -654,11 +713,12 @@ def phase_timings(table, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    rows, inputs = [], {}
-    for k in table:
-        key = (k.make.__name__, k.timing)
+    rows, more, inputs = [], [], {}
+    for k, shape in [(k, k.timing) for k in table] + [
+            (k, shape) for k in table for shape in k.more_timings]:
+        key = (k.make.__name__, shape)
         if key not in inputs:
-            b, nb = k.timing
+            b, nb = shape
             inputs[key] = k.make(nb, torch.float64, gen, dev, b=b)
         d = inputs[key]
         args = k.args(d)
@@ -670,7 +730,7 @@ def phase_timings(table, dev):
         t_ops = flops / PEAK_FLOPS[str(torch.float64)] * 1e3
         row = {
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "b": k.timing[0], "nb": k.timing[1],
+            "replaces": k.replaces, "b": shape[0], "nb": shape[1],
             "ms": time_ms(lambda: k.wrapper(*args, **k.kw), flush),
             "plain_ms": time_ms(lambda: k.plain(*args, **k.kw), flush),
             "bound_ms": max(t_bytes, t_ops),
@@ -679,7 +739,7 @@ def phase_timings(table, dev):
                            if k.library is not None else None),
             "bytes": moved, "flops": flops,
         }
-        rows.append(row)
+        (rows if shape == k.timing else more).append(row)
         print(f"  {k.name:20s} b={row['b']:<2d} nb={row['nb']:<7d} kernel "
               f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})  library "
@@ -700,7 +760,7 @@ def phase_timings(table, dev):
           f"{rescale['bound_ms_all_active']:.4f} ms  library (einsum) "
           f"{rescale['library_ms_all_active']:.4f} ms", flush=True)
     del d, inputs, flush
-    return rows
+    return rows, more
 
 
 def classic_robertson_reference(method):
@@ -887,10 +947,13 @@ def phase_path_a(profile):
             "reference": classic_robertson_reference(method)}
 
 
-def phase_brusselator(path, method, t1, kw, profile, sparsity=False, C=10):
-    """Paths B-F: the Brusselator ensemble (with its ``jac_sparsity``
-    for D-F), kernel run and a plain run over the same systems; y held
-    to C*(rtol*|y|+atol)."""
+def phase_brusselator(path, method, t1, kw, profile, sparsity=False, C=10,
+                      per_newton=(), keep_y=False):
+    """Paths B-F and K: the Brusselator ensemble (with its
+    ``jac_sparsity`` for D-F), kernel run and a plain run over the same
+    systems; y held to C*(rtol*|y|+atol).  The kernels ``per_newton``
+    must launch once a Newton iteration of the kernel run; ``keep_y``
+    returns its final state under "y"."""
     from repro_torch.core import ivp, problems
     from repro_torch.core.arkode import ODEOptions
     from repro_torch.core.policies import ExecPolicy
@@ -901,16 +964,24 @@ def phase_brusselator(path, method, t1, kw, profile, sparsity=False, C=10):
     opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
     sol, rec = run_path(path, "kernels", prob, method, t1, opts, **kw)
     check(sol.y.shape == (NBRUSS, 2 * NX), "misshapen y")
+    for name in per_newton:
+        launched, trips = rec["counts"][name][0], rec["loop"]["newton_trips"]
+        check(launched == trips, f"{path}: {name} launched {launched} times "
+              f"in {trips} Newton iterations")
     ref, ref_rec = run_path(path, "plain versions", prob, method, t1,
                             opts._replace(policy=ExecPolicy(backend="torch")),
                             **kw)
     agreement = agree(path, sol.y, ref.y, sol.retcodes, ref.retcodes, C=C)
+    y = sol.y if keep_y else None
     del sol, ref
     prof = profile_run(path, integrate_call(prob, method, t1, opts, kw),
                        rec["wall_s"], method == "ensemble_bdf") \
         if profile else None
-    return {"kernels_run": rec, "plain_run": ref_rec, "agreement": agreement,
-            "profile": prof}
+    out = {"kernels_run": rec, "plain_run": ref_rec, "agreement": agreement,
+           "profile": prof}
+    if keep_y:
+        out["y"] = y
+    return out
 
 
 def integrate_call(prob, method, t1, opts, kw=None):
@@ -1285,9 +1356,9 @@ def main(argv) -> int:
           flush=True)
     phase_s = {"build": time.perf_counter() - t0}
 
-    def phase(name, fn, *args):
+    def phase(name, fn, *args, **kw):
         t = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         phase_s[name] = time.perf_counter() - t
         print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
         return out
@@ -1295,7 +1366,7 @@ def main(argv) -> int:
     # 3. kernels against their plain versions, then timings
     table = kernel_table()
     phase("compare", phase_compare, table, dev)
-    rows = phase("timings", phase_timings, table, dev)
+    rows, more_rows = phase("timings", phase_timings, table, dev)
     # 4. the paths, each against its plain run
     profiled = profiled_paths(argv)
     paths = {
@@ -1310,7 +1381,23 @@ def main(argv) -> int:
     paths["B: ensemble_bdf direct"] = phase(
         "path B (ensemble_bdf, factor_once=False)", phase_brusselator,
         "B: ensemble_bdf direct", "ensemble_bdf", 2.0,
-        {"lin_solver": BlockDiagGJ(factor_once=False)}, profiled("B"))
+        {"lin_solver": BlockDiagGJ(factor_once=False)}, profiled("B"),
+        keep_y=True)
+    # B's systems under the default lsolve: the saved b = 32 inverse
+    # (row 7) and one blockdiag_spmv a Newton iteration
+    paths["K: ensemble_bdf BlockDiagGJ"] = phase(
+        "path K (ensemble_bdf, BlockDiagGJ())", phase_brusselator,
+        "K: ensemble_bdf BlockDiagGJ", "ensemble_bdf", 2.0,
+        {"lin_solver": BlockDiagGJ()}, profiled("K"),
+        per_newton=("blockdiag_spmv",), keep_y=True)
+    y_b = paths["B: ensemble_bdf direct"].pop("y")
+    y_k = paths["K: ensemble_bdf BlockDiagGJ"].pop("y")
+    k_vs_b = ((y_k - y_b).abs() / (RTOL * y_b.abs() + ATOL)).max().item()
+    paths["K: ensemble_bdf BlockDiagGJ"]["agreement"]["vs_b_max_over_tol"] = \
+        k_vs_b
+    print(f"K against B (two lsolves of one problem): max |y_K - y_B|/"
+          f"(rtol*|y_B|+atol) {k_vs_b:.3g}", flush=True)
+    del y_b, y_k
     paths["C: ensemble_erk"] = phase(
         "path C (ensemble_erk)", phase_brusselator, "C: ensemble_erk",
         "ensemble_erk:bogacki_shampine", 2.0, {}, profiled("C"))
@@ -1356,7 +1443,8 @@ def main(argv) -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "phase_s": phase_s, "timings": rows, "paths": paths}, indent=1))
+         "phase_s": phase_s, "timings": rows, "more_timings": more_rows,
+         "paths": paths}, indent=1))
     print(json.dumps({"kernels": line}), flush=True)
     # 6. ok line
     print(json.dumps({"ok": True, "device": {

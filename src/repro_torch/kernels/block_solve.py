@@ -14,7 +14,16 @@ gamma), row scaling by ``1/max(max_j |A_ij|, 1e-30)``, and two kernel
 bodies per entry: for ``b <= 8`` the augmented ``[A | I]`` or
 ``[A | r]`` elimination, for ``b > 8`` the inverse in place with column
 post-scaling and the solve on a ``(b, b+1, NB)`` augmented array.  The
-CUDA kernels are ``csrc/block_solve.cu``.
+CUDA kernels are ``csrc/block_solve.cu``, in three forms by block size:
+
+* ``b <= 8``: one thread per system, the augmented system in registers;
+* ``9 <= b <= 32`` (``WARP_MAX_B``): one warp per system, row i in lane
+  i, the block's systems staged through a shared-memory tile;
+* ``b > 32``: one thread per system eliminating in device memory (the
+  solve in a ``(b, b+1, NB)`` scratch tensor).
+
+The last two are the same body (the reference's tiled one) for the
+counts below, chosen by size.
 
 Each body counts its own launches (``launches_unrolled`` for b <= 8,
 ``launches_tiled`` for b > 8) and each plain version its own calls
@@ -30,6 +39,9 @@ from . import _build
 #: largest b eliminated in the augmented form (the reference's
 #: UNROLL_MAX_B); larger blocks run the tiled bodies
 UNROLL_MAX_B = 8
+#: largest b of the tiled bodies' warp-per-system CUDA form; larger
+#: blocks take the form that works in device memory
+WARP_MAX_B = 32
 
 
 def _row_scale(A):
@@ -152,11 +164,12 @@ def block_solve_soa(A, r):
                  A=(A, (b, b, nb), tuple(_build.SUFFIX)),
                  r=(r, (b, nb), (A.dtype,)))
     X = torch.empty_like(r)
-    # the b > 8 body eliminates in this scratch, system axis last; it
+    # the b > 32 form eliminates in this scratch, system axis last (the
+    # 9 <= b <= 32 form works in shared memory and needs none); it
     # returns to PyTorch's stream-ordered cache when the wrapper returns,
     # and a later use on this stream waits for the kernel
     S = torch.empty((b, b + 1, nb), dtype=A.dtype, device=A.device) \
-        if b > UNROLL_MAX_B else None
+        if b > WARP_MAX_B else None
     _build.launch("block_solve", "block_solve_" + _build.SUFFIX[A.dtype],
                   "ppppilp", A.data_ptr(), r.data_ptr(), X.data_ptr(),
                   0 if S is None else S.data_ptr(), b, nb,

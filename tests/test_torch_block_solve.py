@@ -55,10 +55,12 @@ def _newton_blocks(b, nb, seed):
 
 
 @pytest.mark.parametrize("nb", NBS)
-@pytest.mark.parametrize("b", [1, 3, 8, 9, 16, 32])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 16, 24, 32, 33])
 def test_block_solve_matches_reference(b, nb):
     """b <= 8 reaches the reference's _gj_kernel, b > 8 its
-    _gj_tiled_kernel; the port's plain version picks the same body."""
+    _gj_tiled_kernel; the port's plain version picks the same body
+    (b = 9 to 32 run the CUDA warp-per-system form on the card, b = 33
+    the form that works in device memory)."""
     A, r = _newton_blocks(b, nb, seed=b * 1000 + nb)
     body = "unrolled" if b <= 8 else "tiled"
     before = getattr(block_solve.block_solve_soa_plain, f"calls_{body}")

@@ -20,6 +20,10 @@ from repro_torch.kernels import (block_solve, blockdiag_spmv, newton, sparse,
                                  vecops)
 
 NBS = [7, 130, 516]
+#: block sizes of the Gauss-Jordan cases: the register bodies (b <= 8),
+#: the warp-per-system form of the tiled bodies (9 <= b <= 32, its edges
+#: and path B's 32) and their device-memory form (33)
+GJ_BS = (3, 8, 9, 16, 24, 32, 33)
 #: |kernel - plain| <= TOL * max(1, max|plain|)
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
@@ -36,7 +40,7 @@ def _inputs(nb, dtype):
          "w": np.abs(rng.normal(size=(3, nb))) + 0.1,
          "mask": rng.uniform(size=nb) > 0.4,
          "W": rng.normal(size=(6, 6, nb)), "Z": rng.normal(size=(6, 3, nb))}
-    for b in (3, 8, 9, 16, 32):
+    for b in GJ_BS:
         d[f"A{b}"] = rng.normal(size=(b, b, nb)) + b * np.eye(b)[:, :, None]
         d[f"r{b}"] = rng.normal(size=(b, nb))
     out = {k: torch.from_numpy(v).to("cuda") for k, v in d.items()}
@@ -65,11 +69,11 @@ CASES = {
     **{f"block_inverse_b{b}": (block_solve.block_inverse_soa,
                                block_solve.block_inverse_soa_plain,
                                (f"A{b}",), "block_inverse" + _gj(b))
-       for b in (3, 8, 16)},
+       for b in GJ_BS},
     **{f"block_solve_b{b}": (block_solve.block_solve_soa,
                              block_solve.block_solve_soa_plain,
                              (f"A{b}", f"r{b}"), "block_solve" + _gj(b))
-       for b in (3, 8, 9, 16, 32)},
+       for b in GJ_BS},
 }
 
 
@@ -95,6 +99,66 @@ def test_kernel_matches_plain_on_card(case, nb, dtype):
     if case == "history_rescale":
         off = ~d["mask"]
         assert torch.equal(got[0][:, :, off], d["Z"][:, :, off])
+
+
+@pytest.mark.cuda
+def test_gauss_jordan_on_brusselator_newton_blocks_on_card():
+    """Path B's Newton blocks, I - gamma*J at the Brusselator ensemble's
+    initial states (2**16 systems, b = 32), gamma over 1e-4..1e-1: both
+    tiled bodies agree with their plain versions and solve M x = r to
+    |M x - r| <= 1e-10*(|M||x| + |r|)."""
+    _need_card()
+    from repro_torch.core import problems
+    nb = 1 << 16
+    y0 = problems.ensemble_brusselator(nb, nx=16, device="cuda")[3]
+    jac = problems.ensemble_brusselator_soa(nb, nx=16, device="cuda")[1]
+    J = jac(torch.zeros(nb, device="cuda", dtype=y0.dtype), y0.T.contiguous())
+    rng = np.random.default_rng(16)
+    gam = torch.from_numpy(10.0 ** rng.uniform(-4, -1, size=nb)).cuda()
+    M = (torch.eye(32, device="cuda", dtype=J.dtype)[:, :, None]
+         - gam * J).contiguous()
+    r = torch.from_numpy(rng.normal(size=(32, nb))).cuda()
+    kernels.reset_counts()
+    inv = block_solve.block_inverse_soa(M)
+    x = block_solve.block_solve_soa(M, r)
+    assert kernels.counts()["block_inverse_tiled"] == (1, 0)
+    assert kernels.counts()["block_solve_tiled"] == (1, 0)
+    for got, want in ((inv, block_solve.block_inverse_soa_plain(M)),
+                      (x, block_solve.block_solve_soa_plain(M, r))):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-10 * scale
+    for sol in (x, torch.einsum("ijs,js->is", inv, r)):
+        back = (torch.einsum("ijs,js->is", M, sol) - r).abs()
+        scale = torch.einsum("ijs,js->is", M.abs(), sol.abs()) + r.abs()
+        assert bool((back <= 1e-10 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [9, 32, 33])
+def test_gauss_jordan_singular_and_nan_blocks_on_card(b):
+    """A zero block, a zero row, a zero pivot, a NaN and an inf entry
+    give the plain version's inf/NaN pattern and its finite values (the
+    integrator's convergence-failure path reads them)."""
+    _need_card()
+    rng = np.random.default_rng(b)
+    A = rng.normal(size=(b, b, 6)) + b * np.eye(b)[:, :, None]
+    A[:, :, 0] = 0.0
+    A[0, :, 1] = 0.0
+    A[2, :, 3] = 0.0
+    A[2, 4, 3] = 1.0
+    A[3, 5, 2] = np.nan
+    A[1, 1, 4] = np.inf
+    A = torch.from_numpy(A).cuda()
+    r = torch.from_numpy(rng.normal(size=(b, 6))).cuda()
+    for got, want in ((block_solve.block_inverse_soa(A),
+                       block_solve.block_inverse_soa_plain(A)),
+                      (block_solve.block_solve_soa(A, r),
+                       block_solve.block_solve_soa_plain(A, r))):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.isinf(), want.isinf())
+        fin = want.isfinite()
+        scale = max(1.0, want[fin].abs().max().item())
+        assert (got[fin] - want[fin]).abs().max().item() <= 1e-10 * scale
 
 
 @pytest.mark.cuda

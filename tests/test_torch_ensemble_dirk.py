@@ -156,6 +156,27 @@ def test_bdf_factor_once_false_matches_reference():
     assert c["block_inverse_tiled"] == c["blockdiag_spmv"] == (0, 0)
 
 
+def test_bdf_factor_once_true_matches_reference():
+    """The default BlockDiagGJ() at n = b = 16: each lsetup inverts the
+    Newton blocks (the tiled inverse) and each Newton iteration is one
+    block-diagonal SpMV against the saved inverse."""
+    ref_prob, port_prob = _brusselator(8, nx=8)
+    ref = rivp.integrate(ref_prob, 0.0, 0.5, "ensemble_bdf",
+                         opts=RefOptions(rtol=RTOL, atol=ATOL),
+                         lin_solver=rlinsol.BlockDiagGJ())
+    kernels.reset_counts()
+    sol = ivp.integrate(port_prob, 0.0, 0.5, "ensemble_bdf",
+                        opts=ODEOptions(rtol=RTOL, atol=ATOL), device="cpu",
+                        lin_solver=linsol.BlockDiagGJ())
+    c = kernels.counts()
+    _agree(ref, sol)
+    y_ref = np.asarray(ref.y)
+    assert np.all(np.abs(sol.y.numpy() - y_ref)
+                  <= 10 * (RTOL * np.abs(y_ref) + ATOL)), _report(ref, sol)
+    assert c["block_inverse_tiled"][1] > 0 and c["blockdiag_spmv"][1] > 0
+    assert c["block_solve_tiled"] == (0, 0)
+
+
 def test_bdf_factor_once_false_agrees_with_factor_once():
     """Both lsolves of BlockDiagGJ integrate the same problem within the
     controller's bound (the saved inverse lags gamma by up to dgmax)."""

@@ -116,10 +116,12 @@ def test_wrms_soa(nb):
 
 
 @pytest.mark.parametrize("nb", NBS)
-@pytest.mark.parametrize("b", [3, 8, 16])
+@pytest.mark.parametrize("b", [3, 8, 9, 16, 24, 32, 33])
 def test_block_inverse(b, nb):
     """b <= 8 and b > 8 reach the reference's two Pallas bodies
-    (_gj_inverse_kernel, _gj_tiled_inverse_kernel)."""
+    (_gj_inverse_kernel, _gj_tiled_inverse_kernel); b = 9 and 32 are
+    the edges of the CUDA warp-per-system form, 33 the first b of the
+    form that works in device memory."""
     rng = np.random.default_rng(b * 1000 + nb)
     A = rng.normal(size=(b, b, nb)) + b * np.eye(b)[:, :, None]
     port = block_solve.block_inverse_soa_plain(_t(A))
