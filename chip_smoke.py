@@ -27,7 +27,10 @@ of which prints the seconds it took:
    N_Vector bodies of the scalar stack (``wrms_ss``, ``wrms_mask_ss``,
    ``scale_add_multi``, ``dot_prod_multi``) at N = 1, 130, 8193 and
    3*2**20 + 5 with K = 1, 3, 5, 8 vectors, the reductions also for
-   repeating their bits; the scalar CSR SpMV (``csr_spmv``) on path I's
+   repeating their bits, and the one-launch reductions (``dot``,
+   ``wrms_ss``, ``wrms_mask_ss``) at those N on views at every offset
+   from a 16-byte boundary, each input at its own, for the aligned
+   copies' bits; the scalar CSR SpMV (``csr_spmv``) on path I's
    pattern (the §7 Brusselator's Jacobian over 3*2**20 rows, 4 entries a
    row) and on a ragged banded pattern of 133 rows.
    Each comparison also checks that the wrapper launched the body it
@@ -35,7 +38,8 @@ of which prints the seconds it took:
    single PyTorch library call computing the same function are timed
    with CUDA events (median of 25, L2 flushed before each run) at the
    shape its path gives it, the tiled Gauss-Jordan bodies also at
-   b = 16 and 24 over 2**16 systems;
+   b = 16 and 24 over 2**16 systems, the dot also at 3*2**20 elements
+   (paths H and I) and at 32 (the floor of one timed launch);
 4. paths, each driven through ``integrate`` with the launch counts set
    to 0 just before and read just after; each must launch the kernels
    of its path and no plain version, and agree with a run of the plain
@@ -144,10 +148,9 @@ KERNEL_SYMBOLS = ("newton_residual_kernel", "masked_update_wrms_kernel",
                   "gj_inverse_inplace_kernel", "gj_solve_unrolled_kernel",
                   "gj_solve_warp_kernel", "gj_solve_tiled_kernel",
                   "bsr_spmv_fixed_kernel", "bsr_spmv_any_kernel",
-                  "lincomb_kernel", "dot_partial_kernel", "dot_final_kernel",
-                  "scale_add_multi_kernel", "wrms_partial_kernel",
-                  "multi_dot_partial_kernel", "multi_final_kernel",
-                  "csr_spmv_kernel")
+                  "lincomb_kernel", "onepass_reduce_kernel",
+                  "scale_add_multi_kernel", "multi_dot_partial_kernel",
+                  "multi_final_kernel", "csr_spmv_kernel")
 #: profiler ranges of plain tensor code whose device time is summed
 RANGES = ("lagrange_matrix_soa", "spsolve.numeric_lu", "spsolve.lu_solve",
           "gmres.hessenberg", "brusselator.jacobian")
@@ -546,6 +549,7 @@ def kernel_table():
                csrc + "vecops.cu", lambda d: (d["v"][0], d["v"][1]), {},
                lambda d: 2 * d["v"][0].numel() - 1, sparse_cases((1,)),
                timing=(1, NBRUSS), make=make_sparse_inputs,
+               more_timings=DOT_TIMINGS,
                # a sum's rounding scales with sum |x*y|, not with |sum|
                err_scale=lambda args, w: (args[0].double()
                                           * args[1].double()).abs().sum()
@@ -590,6 +594,10 @@ def kernel_table():
 
 #: (b, nb) the tiled Gauss-Jordan bodies are also timed at
 TILED_GJ_TIMINGS = ((16, NBRUSS), (24, NBRUSS))
+#: (b, nb) the dot is also timed at: (32, 3*2**15), the 3*2**20
+#: elements of paths H's and I's GMRES (88 % of its launches), and
+#: (32, 1), whose work is nil: the floor of a timed launch
+DOT_TIMINGS = ((1, 3 * NXB // 32), (1, 1))
 
 
 def tiled_gj_cases():
@@ -700,9 +708,54 @@ def phase_compare(table, dev):
         check(torch.equal(fn(*args), fn(*args)),
               f"{fn.__name__}: two runs on one input differ in their bits")
     del d
+    compare_misaligned_reductions(gen, dev)
     print(f"kernels: all {len(table)} bodies agree with their plain versions "
           f"(float64 tol 1e-10, float32 1e-4, relative to max(1,|plain|))",
           flush=True)
+
+
+def placed(t, off):
+    """t's values in a fresh buffer, ``off`` elements past its start: a
+    view ``off`` elements from a 16-byte boundary."""
+    import torch
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[off:off + t.numel()]
+    view.copy_(t)
+    return view
+
+
+def compare_misaligned_reductions(gen, dev):
+    """The one-launch reductions (dot, wrms_ss, wrms_mask_ss) on views at
+    every offset from a 16-byte boundary, each input at its own: within
+    the tolerance of the plain version, and the same bits as on the
+    aligned copies of the same values."""
+    import torch
+    from repro_torch.kernels import vecops
+    for dtype in (torch.float64, torch.float32):
+        step = 16 // dtype.itemsize
+        for n in VEC_N:
+            d = make_vec_inputs(n, dtype, gen, dev, b=1)
+            for fn, plain, args in (
+                    (vecops.dot, vecops.dot_plain, (d["x"], d["ys"][0])),
+                    (vecops.wrms_ss, vecops.wrms_ss_plain, (d["x"], d["w"])),
+                    (vecops.wrms_mask_ss, vecops.wrms_mask_ss_plain,
+                     (d["x"], d["w"], d["m"]))):
+                want = fn(*args)
+                ref = plain(*args)
+                scale = sum_abs(*args) if fn is vecops.dot else \
+                    sum_abs(*args, *args)
+                tol = TOL[str(dtype)] * scale
+                err = abs(want.item() - ref.item())
+                check(err <= tol, f"{fn.__name__} n={n} {dtype}: |kernel-"
+                      f"plain| {err} > {tol}")
+                for shift in range(step):
+                    offs = [(shift + i) % step for i in range(len(args))]
+                    got = fn(*(placed(a, o) for a, o in zip(args, offs)))
+                    check(torch.equal(got, want),
+                          f"{fn.__name__} n={n} {dtype}: inputs at offsets "
+                          f"{offs} give other bits than aligned "
+                          f"({got.item()!r} against {want.item()!r})")
+            del d
 
 
 def phase_timings(table, dev):

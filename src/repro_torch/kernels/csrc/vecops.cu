@@ -4,11 +4,12 @@
 //   _lincomb_kernel         -> lincomb_kernel       (z = sum_k c_k x_k)
 //   _scale_add_multi_kernel -> scale_add_multi_kernel
 //                                                (z_k = c_k x + y_k)
-//   _wrms_kernel            -> wrms_partial_kernel<T, false>, then
-//                              dot_final_kernel   (sum (x w)^2)
-//   _wrms_mask_kernel       -> wrms_partial_kernel<T, true>, then
-//                              dot_final_kernel   (sum (x w m)^2)
-//   _dot_kernel             -> dot_partial_kernel, then dot_final_kernel
+//   _wrms_kernel            -> onepass_reduce_kernel<T, 2, RED_WRMS>
+//                                                (sum (x w)^2)
+//   _wrms_mask_kernel       -> onepass_reduce_kernel<T, 3, RED_WRMS_MASK>
+//                                                (sum (x w m)^2)
+//   _dot_kernel             -> onepass_reduce_kernel<T, 2, RED_DOT>
+//                                                (<x, y>)
 //   _multidot_kernel        -> multi_dot_partial_kernel, then
 //                              multi_final_kernel  (d_k = <x, y_k>)
 //
@@ -27,21 +28,46 @@
 // read once per thread, so no host read and no stacking copy is needed.
 // The sum runs in the reference's order, c_0 x_0 + c_1 x_1 + ... .
 //
-// The reductions are deterministic: the partition of the n elements
-// over blocks depends only on n, each thread sums its elements in a
-// fixed order, a block reduces its 256 sums in a fixed tree (warp
-// shuffles, then the eight warp sums in order), and a second launch of
-// one block sums the partials the same way.  No floating-point atomics:
-// the same input gives the same bits on every run, so an integrator's
-// host decisions (the Newton convergence test, the error test) repeat.
+// The reductions are deterministic: the same values give the same bits
+// on every run and wherever they lie in memory, so an integrator's host
+// decisions (the Newton convergence test, the error test) repeat.  No
+// floating-point atomics.
+//
+// The dot and the weighted sums of squares (onepass_reduce_kernel) take
+// one launch.  The caller's plan (kernels/vecops.py reduction_plan, from
+// n and the dtype alone) gives each of at most RED_MAX_BLOCKS blocks
+// (two a SM on the H100's 132) one chunk of `chunk` elements, the last
+// block the rest.  Thread t sums the chunk's elements t, t+256, t+512,
+// ... in increasing order, RED_UNROLL of them a trip, every input's
+// loads of the trip issued before the first add (eight 8-byte loads an
+// input in flight a thread, any alignment, so views at any offset need
+// no special case).  The loads are streaming (ld.global.cs): in GMRES,
+// where the vector op before each dot leaves L2 full of dirty lines,
+// the dot ran faster with them than with plain loads by more than the
+// plain product after it, which reads V[i] again, lost (device time on
+// the Arnoldi cycle of tools/reduction_variants.py and on paths H and I
+// of chip_smoke.py; PERF.md).  Then the warp-shuffle tree and the eight
+// warp sums in order (block_sum): the order depends on n alone, so the
+// same values give the same bits wherever they lie.  Each block writes
+// its partial, fences, and takes a ticket; the last to arrive sums the
+// partials in index order (the same thread-strided sum and tree),
+// writes the result and resets the ticket counter to 0 for the next
+// launch on the stream.
 #include "common.cuh"
 
 #define LINCOMB_MAX_K 8
 // vectors the fused multi-vector ops take (scale_add_multi, multi-dot)
 #define MULTI_MAX_K 8
-// the most partial sums a reduction writes per output: the size of the
-// caller's scratch (times K for the multi-dot)
+// the most partial sums the multi-dot writes per output: the size of
+// the caller's scratch over K
 #define DOT_MAX_BLOCKS 1024
+// blocks of a one-launch reduction, at most: two a SM on the H100's 132
+// (a constant, not read from the device, so the bits repeat on any
+// card); the size of the caller's partial sums (RED_MAX_BLOCKS in
+// kernels/vecops.py)
+#define RED_MAX_BLOCKS 264
+// elements a thread loads from each input before it adds them
+#define RED_UNROLL 8
 
 template <typename T>
 struct LincombArgs {
@@ -121,44 +147,83 @@ __device__ T block_sum(T v) {
   return a[0];
 }
 
-template <typename T>
-__global__ void dot_partial_kernel(const T* __restrict__ x,
-                                   const T* __restrict__ y,
-                                   T* __restrict__ partial, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  T acc = T(0);
-  for (long long i = system_index(); i < n; i += stride)
-    acc = acc + x[i] * y[i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) partial[blockIdx.x] = acc;
+enum { RED_DOT = 0, RED_WRMS = 1, RED_WRMS_MASK = 2 };
+
+// one element's term: x*y; (x*w)^2; (x*w*m)^2, rounded as the plain
+// versions round them
+template <typename T, int OP>
+__device__ __forceinline__ T red_term(const T (&v)[3]) {
+  if (OP == RED_DOT) return v[0] * v[1];
+  T u = v[0] * v[1];
+  if (OP == RED_WRMS_MASK) u = u * v[2];
+  return u * u;
 }
 
-// sum of (x w)^2, or with MASK of (x w m)^2, per block: the products
-// stay in registers
-template <typename T, bool MASK>
-__global__ void wrms_partial_kernel(const T* __restrict__ x,
-                                    const T* __restrict__ w,
-                                    const T* __restrict__ m,
-                                    T* __restrict__ partial, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  T acc = T(0);
-  for (long long i = system_index(); i < n; i += stride) {
-    T v = x[i] * w[i];
-    if (MASK) v = v * m[i];
-    acc = acc + v * v;
+// the end of a one-launch reduction: the block's sum of acc goes to
+// partial[blockIdx.x]; the last block to take a ticket sums the
+// gridDim.x partials in index order (thread-strided, then block_sum),
+// writes out[0] and sets the counter back to 0
+template <typename T>
+__device__ void finish_reduce(T acc, T* __restrict__ partial,
+                              unsigned* __restrict__ ticket,
+                              T* __restrict__ out) {
+  __shared__ int is_last;
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = acc;
+    __threadfence();
+    is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) partial[blockIdx.x] = acc;
+  __syncthreads();
+  if (!is_last) return;
+  // every other block's partial is written and fenced
+  __threadfence();
+  T sum = T(0);
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += REPRO_THREADS)
+    sum = sum + __ldcg(partial + i);
+  sum = block_sum(sum);
+  if (threadIdx.x == 0) {
+    out[0] = sum;
+    *ticket = 0u;
+  }
 }
 
 template <typename T>
-__global__ void dot_final_kernel(const T* __restrict__ partial, int nparts,
-                                 T* __restrict__ out) {
+struct RedArgs {
+  const T* p[3];
+};
+
+// sum over all n elements of red_term<T, OP> of the NIN inputs, into
+// out[0]; partial holds gridDim.x block sums, ticket is 0 at entry and
+// is left 0.  Block b owns elements [b*chunk, min((b+1)*chunk, n)).
+template <typename T, int NIN, int OP>
+__global__ void __launch_bounds__(REPRO_THREADS, 2)
+    onepass_reduce_kernel(RedArgs<T> a, T* __restrict__ partial,
+                          unsigned* __restrict__ ticket,
+                          T* __restrict__ out, long long n,
+                          long long chunk) {
+  const long long c0 = (long long)blockIdx.x * chunk;
+  const long long len = n - c0 < chunk ? n - c0 : chunk;
+  const T* p[NIN];
+#pragma unroll
+  for (int v = 0; v < NIN; ++v) p[v] = a.p[v] + c0;
   T acc = T(0);
-  for (int i = threadIdx.x; i < nparts; i += blockDim.x)
-    acc = acc + partial[i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) out[0] = acc;
+  for (long long base = threadIdx.x; base < len;
+       base += (long long)RED_UNROLL * REPRO_THREADS) {
+    T val[RED_UNROLL][3];
+#pragma unroll
+    for (int u = 0; u < RED_UNROLL; ++u) {
+      const long long i = base + (long long)u * REPRO_THREADS;
+#pragma unroll
+      for (int v = 0; v < NIN; ++v)
+        val[u][v] = i < len ? __ldcs(p[v] + i) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < RED_UNROLL; ++u)
+      if (base + (long long)u * REPRO_THREADS < len)
+        acc = acc + red_term<T, OP>(val[u]);
+  }
+  finish_reduce(acc, partial, ticket, out);
 }
 
 // partial[k*gridDim.x + block] = this block's share of <x, y_k>; x read
@@ -270,37 +335,45 @@ static int scale_add_multi(int K, const void* x, const void* const* ys,
   });
 }
 
-template <typename T>
-static int dot(const void* x, const void* y, void* partial, void* out,
-               long long n, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const unsigned g = stream_blocks(n, DOT_MAX_BLOCKS);
-  dot_partial_kernel<T><<<g, REPRO_THREADS, 0, st>>>(
-      (const T*)x, (const T*)y, (T*)partial, n);
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  dot_final_kernel<T><<<1, REPRO_THREADS, 0, st>>>((const T*)partial, (int)g,
-                                                   (T*)out);
+// one onepass_reduce_kernel launch over the plan (blocks, chunk); a plan
+// that does not cover [0, n) with whole 16-byte chunks is refused
+template <typename T, int NIN, int OP>
+static int reduce(const void* const* ps, void* partial, void* ticket,
+                  void* out, long long n, int blocks, long long chunk,
+                  void* stream) {
+  const long long align = 16 / (long long)sizeof(T);
+  if (n < 0 || blocks < 1 || blocks > RED_MAX_BLOCKS || chunk < 1 ||
+      chunk % align != 0 || (long long)blocks * chunk < n ||
+      (long long)(blocks - 1) * chunk >= (n > 0 ? n : 1))
+    return (int)cudaErrorInvalidValue;
+  RedArgs<T> a;
+  for (int v = 0; v < 3; ++v) a.p[v] = v < NIN ? (const T*)ps[v] : nullptr;
+  onepass_reduce_kernel<T, NIN, OP>
+      <<<(unsigned)blocks, REPRO_THREADS, 0, (cudaStream_t)stream>>>(
+          a, (T*)partial, (unsigned*)ticket, (T*)out, n, chunk);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int dot(const void* x, const void* y, void* partial, void* ticket,
+               void* out, long long n, int blocks, long long chunk,
+               void* stream) {
+  const void* ps[2] = {x, y};
+  return reduce<T, 2, RED_DOT>(ps, partial, ticket, out, n, blocks, chunk,
+                               stream);
 }
 
 // m == nullptr: the plain weighted sum of squares
 template <typename T>
 static int wrms_ss(const void* x, const void* w, const void* m,
-                   void* partial, void* out, long long n, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const unsigned g = stream_blocks(n, DOT_MAX_BLOCKS);
+                   void* partial, void* ticket, void* out, long long n,
+                   int blocks, long long chunk, void* stream) {
+  const void* ps[3] = {x, w, m};
   if (m == nullptr)
-    wrms_partial_kernel<T, false><<<g, REPRO_THREADS, 0, st>>>(
-        (const T*)x, (const T*)w, nullptr, (T*)partial, n);
-  else
-    wrms_partial_kernel<T, true><<<g, REPRO_THREADS, 0, st>>>(
-        (const T*)x, (const T*)w, (const T*)m, (T*)partial, n);
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  dot_final_kernel<T><<<1, REPRO_THREADS, 0, st>>>((const T*)partial, (int)g,
-                                                   (T*)out);
-  return (int)cudaGetLastError();
+    return reduce<T, 2, RED_WRMS>(ps, partial, ticket, out, n, blocks, chunk,
+                                  stream);
+  return reduce<T, 3, RED_WRMS_MASK>(ps, partial, ticket, out, n, blocks,
+                                     chunk, stream);
 }
 
 template <typename T>
@@ -348,25 +421,31 @@ extern "C" int scale_add_multi_f64(int K, const void* x,
 }
 
 extern "C" int dot_f32(const void* x, const void* y, void* partial,
-                       void* out, long long n, void* stream) {
-  return dot<float>(x, y, partial, out, n, stream);
+                       void* ticket, void* out, long long n, int blocks,
+                       long long chunk, void* stream) {
+  return dot<float>(x, y, partial, ticket, out, n, blocks, chunk, stream);
 }
 
 extern "C" int dot_f64(const void* x, const void* y, void* partial,
-                       void* out, long long n, void* stream) {
-  return dot<double>(x, y, partial, out, n, stream);
+                       void* ticket, void* out, long long n, int blocks,
+                       long long chunk, void* stream) {
+  return dot<double>(x, y, partial, ticket, out, n, blocks, chunk, stream);
 }
 
 extern "C" int wrms_ss_f32(const void* x, const void* w, const void* m,
-                           void* partial, void* out, long long n,
+                           void* partial, void* ticket, void* out,
+                           long long n, int blocks, long long chunk,
                            void* stream) {
-  return wrms_ss<float>(x, w, m, partial, out, n, stream);
+  return wrms_ss<float>(x, w, m, partial, ticket, out, n, blocks, chunk,
+                      stream);
 }
 
 extern "C" int wrms_ss_f64(const void* x, const void* w, const void* m,
-                           void* partial, void* out, long long n,
+                           void* partial, void* ticket, void* out,
+                           long long n, int blocks, long long chunk,
                            void* stream) {
-  return wrms_ss<double>(x, w, m, partial, out, n, stream);
+  return wrms_ss<double>(x, w, m, partial, ticket, out, n, blocks, chunk,
+                      stream);
 }
 
 extern "C" int dot_prod_multi_f32(int K, const void* x,

@@ -3,7 +3,7 @@
 
 * :func:`linear_combination` — ``z = sum_k c_k x_k`` in one pass (the
   dispatch ops ``linear_sum``, ``axpy`` and ``linear_combination``);
-* :func:`dot` — ``<x, y>``, a deterministic two-stage reduction that
+* :func:`dot` — ``<x, y>``, a deterministic one-launch reduction that
   returns a 0-d tensor on the vectors' device;
 * :func:`wrms_ss` — ``sum((x*w)^2)`` and :func:`wrms_mask_ss` —
   ``sum((x*w*m)^2)``, the weighted norms' sums, reduced as the dot is
@@ -35,9 +35,17 @@ LINCOMB_MAX_K = 8
 #: vectors the multi-vector ops take (``MULTI_MAX_K`` in csrc/vecops.cu);
 #: more raise, as the linear combination's do
 MULTI_MAX_K = 8
-#: a reduction's partial sums per output, at most (``DOT_MAX_BLOCKS``
+#: the multi-dot's partial sums per output, at most (``DOT_MAX_BLOCKS``
 #: in csrc/vecops.cu)
 DOT_MAX_BLOCKS = 1024
+#: blocks of a one-launch reduction (dot, the weighted sums of squares),
+#: at most (``RED_MAX_BLOCKS`` in csrc/vecops.cu): two a SM on the
+#: H100's 132, a constant, so the partition and the bits repeat on any
+#: card
+RED_MAX_BLOCKS = 264
+#: a block's least share of a reduction, in bytes of one input: shorter
+#: vectors take fewer blocks, down to one
+RED_MIN_CHUNK_BYTES = 16384
 
 
 @functools.lru_cache(maxsize=256)
@@ -117,21 +125,58 @@ def dot(x, y):
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def reduction_plan(n: int, dtype) -> tuple:
+    """``(blocks, chunk)`` of a one-launch reduction over ``n`` elements
+    of ``dtype``: block b sums elements ``[b*chunk, min((b+1)*chunk,
+    n))``.  ``chunk`` is a multiple of 16 bytes' worth of elements, so
+    every chunk starts at the vector's own offset from a 16-byte
+    boundary; at most ``RED_MAX_BLOCKS`` blocks, and vectors shorter than
+    ``RED_MAX_BLOCKS`` chunks of ``RED_MIN_CHUNK_BYTES`` take fewer.  It
+    depends on ``n`` and the dtype alone (not on the device or the
+    vectors' addresses), so the sum's order, and its bits, do too."""
+    size = dtype.itemsize
+    align = 16 // size
+    per = -(-n // RED_MAX_BLOCKS)
+    chunk = max(-(-per // align) * align, RED_MIN_CHUNK_BYTES // size)
+    return max(1, -(-n // chunk)), chunk
+
+
+#: (device, stream, dtype) -> (partial sums, ticket counter)
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, stream: int, dtype) -> tuple:
+    """A reduction's ``RED_MAX_BLOCKS`` partial sums and its int32 ticket
+    counter for launches on ``stream`` (``device``'s current stream):
+    made once (the counter zeroed on that stream), reused by every launch
+    there, which leaves the counter at 0.  Launches on one stream are
+    ordered, so they never share them at once; another stream gets its
+    own pair."""
+    key = (device, stream, dtype)
+    pair = _SCRATCH.get(key)
+    if pair is None:
+        pair = _SCRATCH[key] = (
+            torch.empty((RED_MAX_BLOCKS,), dtype=dtype, device=device),
+            torch.zeros((1,), dtype=torch.int32, device=device))
+    return pair
+
+
 def _reduce(name, symbol, x, others: dict, extra=()):
-    """Launch one two-stage reduction over ``x`` and the named
-    ``others`` (x's shape and dtype); ``extra`` are pointers passed
-    after theirs."""
+    """Launch one reduction over ``x`` and the named ``others`` (x's
+    shape and dtype); ``extra`` are pointers passed after theirs."""
     shape = tuple(x.shape)
     _build.check(name, x.device, x=(x, shape, _FLOATS),
                  **{k: (v, shape, (x.dtype,)) for k, v in others.items()})
-    # the partial sums return to PyTorch's stream-ordered cache when the
-    # wrapper returns; a later use on this stream waits for the kernel
-    partial = torch.empty((DOT_MAX_BLOCKS,), dtype=x.dtype, device=x.device)
+    stream = _build.stream(x.device)
+    partial, ticket = _scratch(x.device, stream, x.dtype)
     out = torch.empty((), dtype=x.dtype, device=x.device)
+    blocks, chunk = reduction_plan(x.numel(), x.dtype)
     ptrs = [v.data_ptr() for v in (x, *others.values())] + list(extra)
     _build.launch("vecops", symbol + "_" + _build.SUFFIX[x.dtype],
-                  "p" * (len(ptrs) + 2) + "lp", *ptrs, partial.data_ptr(),
-                  out.data_ptr(), x.numel(), _build.stream(x.device))
+                  "p" * (len(ptrs) + 3) + "lilp", *ptrs, partial.data_ptr(),
+                  ticket.data_ptr(), out.data_ptr(), x.numel(), blocks, chunk,
+                  stream)
     return out
 
 

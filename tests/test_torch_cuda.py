@@ -239,9 +239,26 @@ def test_linear_combination_matches_plain_on_card(K, n):
         assert (got - want).abs().max().item() <= 1e-10 * scale
 
 
+def _placed(t, off):
+    """t's values in a fresh buffer, ``off`` elements past its start
+    (a view at that many elements from a 16-byte boundary)."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[off:off + t.numel()]
+    view.copy_(t)
+    return view
+
+
+def _offsets(dtype, k):
+    """Offsets (in elements) for k inputs: all aligned, then each shift
+    with the inputs misaligned differently from each other."""
+    step = 16 // dtype.itemsize
+    return [(0,) * k] + [tuple((s + i) % step for i in range(k))
+                         for s in range(step)] + [(1,) * k]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n", [1, 1000, 8193, 1 << 21])
+@pytest.mark.parametrize("n", [1, 1000, 8193, 1 << 21, 3 << 20])
 def test_dot_matches_plain_and_repeats_its_bits_on_card(n, dtype):
     _need_card()
     rng = np.random.default_rng(n)
@@ -255,8 +272,12 @@ def test_dot_matches_plain_and_repeats_its_bits_on_card(n, dtype):
     scale = (x.double() * y.double()).abs().sum().item()
     tol = 1e-10 if dtype == torch.float64 else 1e-5
     assert abs(got.item() - want.item()) <= tol * scale
-    # deterministic: the same input gives the same bits
+    # deterministic: the same input gives the same bits, also when the
+    # same values lie elsewhere, x and y misaligned differently
     assert torch.equal(vecops.dot(x, y), got)
+    for ox, oy in _offsets(dtype, 2):
+        assert torch.equal(vecops.dot(_placed(x, ox), _placed(y, oy)), got), \
+            (ox, oy)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +285,7 @@ def test_dot_matches_plain_and_repeats_its_bits_on_card(n, dtype):
 # scale_add_multi, dot_prod_multi; and the Brusselator demonstration
 # ---------------------------------------------------------------------------
 
-VEC_NS = [1, 130, 8193, 3 * 4099, 3 * (1 << 20) + 5]
+VEC_NS = [1, 130, 8193, 3 * 4099, 3 << 20, 3 * (1 << 20) + 5]
 
 
 def _vec_inputs(n, K, dtype):
@@ -296,6 +317,74 @@ def test_wrms_reductions_match_plain_and_repeat_their_bits_on_card(
     tol = 1e-10 if dtype == torch.float64 else 1e-5
     assert abs(got.item() - want.item()) <= tol * want.item()
     assert torch.equal(kern(*args), got)
+    # the same values elsewhere, each input at its own offset: same bits
+    for offs in _offsets(dtype, len(args)):
+        placed = [_placed(a, o) for a, o in zip(args, offs)]
+        assert torch.equal(kern(*placed), got), offs
+
+
+@pytest.mark.cuda
+def test_reductions_back_to_back_leave_their_counter_at_zero_on_card():
+    """1000 reductions in a row on one stream, alternating lengths (one
+    block, several, all 264) and kinds, each right: every launch finds
+    its ticket counter at 0, as the last block of the one before left
+    it.  The 3*2**20 cases (GMRES's vectors on the mesh) lie at 8 bytes
+    from a 16-byte boundary, x and m, not w: looped misaligned launches
+    give the aligned copies' bits."""
+    _need_card()
+    cases, aligned = [], {}
+    for n in (130, 8193, (1 << 21) + 3, 3 << 20):
+        d = _vec_inputs(n, 1, torch.float64)
+        if n == 3 << 20:
+            aligned = {vecops.dot: vecops.dot(d["x"], d["w"]),
+                       vecops.wrms_ss: vecops.wrms_ss(d["x"], d["w"]),
+                       vecops.wrms_mask_ss: vecops.wrms_mask_ss(
+                           d["x"], d["w"], d["m"])}
+            d = {k: _placed(d[k], 1 if k != "w" else 0)
+                 for k in ("x", "w", "m")}
+        cases.append((vecops.dot, (d["x"], d["w"])))
+        cases.append((vecops.wrms_ss, (d["x"], d["w"])))
+        cases.append((vecops.wrms_mask_ss, (d["x"], d["w"], d["m"])))
+    want = [fn(*args) for fn, args in cases]
+    torch.cuda.synchronize()
+    got = [cases[i % len(cases)][0](*cases[i % len(cases)][1])
+           for i in range(1000)]
+    torch.cuda.synchronize()
+    for i, g in enumerate(got):
+        assert torch.equal(g, want[i % len(cases)]), i
+    for (fn, _), w in zip(cases[-3:], want[-3:]):
+        assert torch.equal(w, aligned[fn])
+    for (fn, args), w in zip(cases, want):
+        plain = getattr(vecops, fn.__name__ + "_plain")(*args)
+        scale = args[0].abs().mul(args[1].abs()).sum().item()
+        if fn is not vecops.dot:
+            scale = plain.item()
+        assert abs(w.item() - plain.item()) <= 1e-10 * scale
+
+
+@pytest.mark.cuda
+def test_reductions_on_a_second_stream_on_card():
+    """A reduction on another stream gets its own partial sums and
+    counter, and the same bits; launches on both streams at once stay
+    right."""
+    _need_card()
+    d = _vec_inputs((1 << 21) + 1, 1, torch.float64)
+    x, w, m = d["x"], d["w"], d["m"]
+    main = torch.cuda.current_stream()
+    want = (vecops.dot(x, w), vecops.wrms_ss(x, w), vecops.wrms_mask_ss(x, w, m))
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        on_side = [(vecops.dot(x, w), vecops.wrms_ss(x, w),
+                    vecops.wrms_mask_ss(x, w, m)) for _ in range(50)]
+    on_main = [(vecops.dot(x, w), vecops.wrms_ss(x, w),
+                vecops.wrms_mask_ss(x, w, m)) for _ in range(50)]
+    torch.cuda.synchronize()
+    for got in on_side + on_main:
+        for g, v in zip(got, want):
+            assert torch.equal(g, v)
+    keys = {k for k in vecops._SCRATCH if k[2] == torch.float64}
+    assert {k[1] for k in keys} >= {main.cuda_stream, side.cuda_stream}
 
 
 @pytest.mark.cuda
