@@ -13,8 +13,10 @@ of which prints the seconds it took:
 3. kernels: each ported kernel body against its plain PyTorch version
    on the card, in float64 and float32: the six of the ensemble-BDF path
    at the main-path shape (2**20 systems, n = b = 3) and at ragged
-   batches (7, 130, 516), ``blockdiag_spmv`` also at b = 32 over 2**16
-   systems (path K's shape); the two Gauss-Jordan entries at b = 1, 3,
+   batches (7, 130, 516), ``blockdiag_spmv`` also at b = 9, 16, 24, 32
+   (its row form; 32 is path K's) and 33 over 7, 130, 516 and 2**16
+   systems, equal to its plain version bit for bit at every b (it sums
+   in the plain version's order); the two Gauss-Jordan entries at b = 1, 3,
    8 (register bodies), and their tiled bodies at b = 9, 16, 24, 32
    (the warp-per-system form) and 33 (the device-memory form) over 7,
    130, 516 and 2**16 systems; both entries on stiff Robertson Newton
@@ -37,9 +39,14 @@ of which prints the seconds it took:
    should.  Then each body, its plain version and, where one exists, a
    single PyTorch library call computing the same function are timed
    with CUDA events (median of 25, L2 flushed before each run) at the
-   shape its path gives it, the tiled Gauss-Jordan bodies also at
-   b = 16 and 24 over 2**16 systems, the dot also at 3*2**20 elements
-   (paths H and I) and at 32 (the floor of one timed launch);
+   shape its path gives it, the tiled Gauss-Jordan bodies and
+   ``blockdiag_spmv`` also at b = 16 and 24 over 2**16 systems,
+   ``blockdiag_spmv`` also at b = 32 over 2**16 (path K) and b = 2 over
+   2**20 (path D's ``BlockJacobiPrecond(2)``), the Newton loop's four
+   (``newton_residual``, ``masked_update_wrms``, ``history_rescale``,
+   ``wrms_soa``) also at n = 32 over 2**16 (paths B, K, D, E, F), the
+   dot also at 3*2**20 elements (paths H and I) and at 32 (the floor of
+   one timed launch);
 4. paths, each driven through ``integrate`` with the launch counts set
    to 0 just before and read just after; each must launch the kernels
    of its path and no plain version, and agree with a run of the plain
@@ -143,7 +150,8 @@ SPIN_CYCLES = 1_000_000
 #: the __global__ functions of kernels/csrc, as the profiler names them
 KERNEL_SYMBOLS = ("newton_residual_kernel", "masked_update_wrms_kernel",
                   "history_rescale_kernel", "wrms_soa_kernel",
-                  "spmv_fixed_kernel", "spmv_any_kernel",
+                  "spmv_fixed_kernel", "spmv_rows_kernel",
+                  "spmv_any_kernel",
                   "gj_inverse_unrolled_kernel", "gj_inverse_warp_kernel",
                   "gj_inverse_inplace_kernel", "gj_solve_unrolled_kernel",
                   "gj_solve_warp_kernel", "gj_solve_tiled_kernel",
@@ -228,7 +236,7 @@ class Kernel:
     def __init__(self, name, wrapper, plain, replaces, source, args, kw,
                  flops, cases, timing=(3, NSYS), library=None,
                  skipped_bytes=lambda d: 0, make=None, index_bytes=None,
-                 err_scale=None, more_timings=()):
+                 err_scale=None, more_timings=(), exact=False):
         self.name, self.wrapper, self.plain = name, wrapper, plain
         self.replaces, self.source = replaces, source
         self.args, self.kw, self.flops, self.library = args, kw, flops, library
@@ -246,6 +254,8 @@ class Kernel:
         # the scale of the comparison's tolerance: max(1, |plain|) unless
         # given (args, plain) -> float
         self.err_scale = err_scale
+        #: the body sums in its plain version's order: equal bit for bit
+        self.exact = exact
         self.max_err = 0.0
 
     def compare(self, d, what):
@@ -262,6 +272,9 @@ class Kernel:
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(got, want):
             err = (g - w).abs().max().item()
+            check(not self.exact or torch.equal(g, w),
+                  f"{self.name} {what}: kernel and plain version differ in "
+                  f"their bits (max |kernel-plain| {err})")
             scale = max(1.0, w.abs().max().item()) if self.err_scale is None \
                 else self.err_scale(args, w)
             tol = TOL[str(w.dtype)] * scale
@@ -308,15 +321,19 @@ def brusselator_newton_blocks(gen, dev):
 
 
 def make_inputs(nb, dtype, gen, dev, b=3):
+    """Inputs of the ensemble kernels over nb systems of n = b
+    components (each path's state size is its block size): the Newton
+    loop's vectors, weights, mask, W and history Z (6, n, nb); blocks A
+    (b, b, nb), diagonally dominant, and r."""
     import torch
 
     def r(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
 
-    return {"z": r(3, nb), "f": r(3, nb), "psi": r(3, nb),
-            "gam": r(nb).abs(), "w": r(3, nb).abs() + 0.1,
+    return {"z": r(b, nb), "f": r(b, nb), "psi": r(b, nb),
+            "gam": r(nb).abs(), "w": r(b, nb).abs() + 0.1,
             "mask": torch.rand(nb, generator=gen, device=dev) > 0.4,
-            "W": r(6, 6, nb), "Z": r(6, 3, nb), "r": r(b, nb),
+            "W": r(6, 6, nb), "Z": r(6, b, nb), "r": r(b, nb),
             "A": r(b, b, nb) + b * torch.eye(b, device=dev,
                                               dtype=dtype)[:, :, None]}
 
@@ -462,6 +479,8 @@ def kernel_table():
         return d["A"].shape[2]
 
     b3 = [(3, nb) for nb in (NSYS,) + RAGGED]
+    # the Newton loop's state on paths B, K, D, E, F: n = 32, 2**16 systems
+    n32 = [(32, NBRUSS)]
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     return [
@@ -469,24 +488,30 @@ def kernel_table():
                newton.newton_residual_plain, ref + "newton.py:40",
                csrc + "newton.cu",
                lambda d: (d["z"], d["f"], d["psi"], d["gam"]),
-               {"negate": True}, lambda d: 3 * d["z"].numel(), b3),
+               {"negate": True}, lambda d: 3 * d["z"].numel(), b3,
+               more_timings=n32),
         Kernel("blockdiag_spmv", blockdiag_spmv.blockdiag_spmv_soa,
                blockdiag_spmv.blockdiag_spmv_soa_plain,
                ref + "blockdiag_spmv.py:20", csrc + "blockdiag_spmv.cu",
                lambda d: (d["A"], d["r"]), {},
                lambda d: (2 * b_of(d) - 1) * b_of(d) * nb_of(d),
-               b3 + [(32, NBRUSS)], more_timings=[(32, NBRUSS)],
+               b3 + tiled_gj_cases(), exact=True,
+               more_timings=SPMV_TIMINGS,
                library=lambda d: torch.einsum("ijs,js->is", d["A"], d["r"])),
         Kernel("masked_update_wrms", newton.masked_update_wrms,
                newton.masked_update_wrms_plain, ref + "newton.py:73",
                csrc + "newton.cu",
                lambda d: (d["z"], d["f"], d["w"], d["mask"]), {},
-               lambda d: 3 * d["z"].numel() + 3 * int(d["mask"].sum())
-               + 2 * d["mask"].numel(), b3),
+               lambda d: 3 * d["z"].numel()
+               + d["z"].shape[0] * int(d["mask"].sum())
+               + 2 * d["mask"].numel(), b3, more_timings=n32),
         Kernel("history_rescale", newton.history_rescale,
                newton.history_rescale_plain, ref + "newton.py:119",
                csrc + "newton.cu", lambda d: (d["W"], d["Z"], d["mask"]), {},
-               lambda d: 11 * 6 * 3 * int(d["mask"].sum()), b3,
+               # per active system, history row and component: 6
+               # products and 5 sums
+               lambda d: 11 * 6 * d["Z"].shape[1] * int(d["mask"].sum()),
+               b3, more_timings=n32,
                library=lambda d: torch.where(d["mask"], torch.einsum(
                    "jis,iks->jks", d["W"], d["Z"]), d["Z"]),
                # an inactive system copies Z and needs none of its W
@@ -496,6 +521,7 @@ def kernel_table():
                ref + "newton.py:167", csrc + "newton.cu",
                lambda d: (d["z"], d["w"]), {},
                lambda d: 3 * d["z"].numel() + 2 * d["z"].shape[1], b3,
+               more_timings=n32,
                library=lambda d: torch.linalg.vector_norm(d["z"] * d["w"],
                                                           dim=0)),
         Kernel("block_inverse", block_solve.block_inverse_soa,
@@ -594,6 +620,10 @@ def kernel_table():
 
 #: (b, nb) the tiled Gauss-Jordan bodies are also timed at
 TILED_GJ_TIMINGS = ((16, NBRUSS), (24, NBRUSS))
+#: (b, nb) blockdiag_spmv is also timed at: path K's b = 32, the row
+#: form's templated 16 and 24, and path D's BlockJacobiPrecond(2) psolve
+#: (2**16 systems of 16 blocks of 2)
+SPMV_TIMINGS = ((32, NBRUSS),) + TILED_GJ_TIMINGS + ((2, NSYS),)
 #: (b, nb) the dot is also timed at: (32, 3*2**15), the 3*2**20
 #: elements of paths H's and I's GMRES (88 % of its launches), and
 #: (32, 1), whose work is nil: the floor of a timed launch
@@ -710,7 +740,8 @@ def phase_compare(table, dev):
     del d
     compare_misaligned_reductions(gen, dev)
     print(f"kernels: all {len(table)} bodies agree with their plain versions "
-          f"(float64 tol 1e-10, float32 1e-4, relative to max(1,|plain|))",
+          f"(float64 tol 1e-10, float32 1e-4, relative to max(1,|plain|); "
+          + ", ".join(k.name for k in table if k.exact) + " bit for bit)",
           flush=True)
 
 

@@ -2,8 +2,9 @@
 //
 // Layout: structure of arrays with the system axis LAST, as in the JAX
 // package; entry (i, j) of system s of a (b, b, nb) tensor lives at
-// (i*b + j)*nb + s.  In every kernel but the 9 <= b <= 32 Gauss-Jordan
-// form of block_solve.cu (a warp per system, its note says how) one
+// (i*b + j)*nb + s.  In every kernel but the 9 <= b <= 32 forms of
+// block_solve.cu (a warp per system) and blockdiag_spmv.cu (a lane per
+// system and a warp per row group; each source's note says how) one
 // thread owns one system, so the threads of a warp read neighbouring
 // addresses and every load is coalesced.  For those the grid is
 // ceil(nb / 256) blocks of 256 threads and each kernel bounds-checks s,

@@ -20,12 +20,15 @@ from repro_torch.kernels import (block_solve, blockdiag_spmv, newton, sparse,
                                  vecops)
 
 NBS = [7, 130, 516]
-#: block sizes of the Gauss-Jordan cases: the register bodies (b <= 8),
-#: the warp-per-system form of the tiled bodies (9 <= b <= 32, its edges
-#: and path B's 32) and their device-memory form (33)
+#: block sizes of the Gauss-Jordan and SpMV cases: the register bodies
+#: (b <= 8), the warp forms (9 <= b <= 32: its edges, the SpMV's
+#: templated 16 and 24, and path B's and K's 32) and the forms above (33)
 GJ_BS = (3, 8, 9, 16, 24, 32, 33)
 #: |kernel - plain| <= TOL * max(1, max|plain|)
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+#: bodies that sum in their plain version's order, each product and sum
+#: rounded alone: equal to it bit for bit
+EXACT = ("blockdiag_spmv",)
 
 
 def _need_card():
@@ -63,9 +66,10 @@ CASES = {
                         ("W", "Z", "mask"), "history_rescale"),
     "wrms_soa": (newton.wrms_soa, newton.wrms_soa_plain, ("z", "w"),
                  "wrms_soa"),
-    "blockdiag_spmv": (blockdiag_spmv.blockdiag_spmv_soa,
-                       blockdiag_spmv.blockdiag_spmv_soa_plain, ("A3", "z"),
-                       "blockdiag_spmv"),
+    **{f"blockdiag_spmv_b{b}": (blockdiag_spmv.blockdiag_spmv_soa,
+                                blockdiag_spmv.blockdiag_spmv_soa_plain,
+                                (f"A{b}", f"r{b}"), "blockdiag_spmv")
+       for b in GJ_BS},
     **{f"block_inverse_b{b}": (block_solve.block_inverse_soa,
                                block_solve.block_inverse_soa_plain,
                                (f"A{b}",), "block_inverse" + _gj(b))
@@ -94,6 +98,9 @@ def test_kernel_matches_plain_on_card(case, nb, dtype):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
+        if name in EXACT:
+            assert torch.equal(g, w)
+            continue
         scale = max(1.0, w.abs().max().item())
         assert (g - w).abs().max().item() <= TOL[dtype] * scale
     if case == "history_rescale":

@@ -68,11 +68,18 @@ def test_newton_residual(nb, negate):
                                    negate=negate))
 
 
-@pytest.mark.parametrize("nb", NBS)
-def test_blockdiag_spmv(nb):
-    d = _data(nb)
-    port = blockdiag_spmv.blockdiag_spmv_soa_plain(_t(d["A"]), _t(d["z"]))
-    A, x = jnp.asarray(d["A"]), jnp.asarray(d["z"])
+#: (b, nb) of the SpMV: the Robertson block (b = 3, its ids nb alone),
+#: the CUDA row form's edges (9, 32) and a width between; ragged batches
+SPMV_CASES = [pytest.param(b, nb, id=str(nb) if b == N else f"b{b}-{nb}")
+              for b in (N, 9, 16, 32) for nb in NBS]
+
+
+@pytest.mark.parametrize("b, nb", SPMV_CASES)
+def test_blockdiag_spmv(b, nb):
+    rng = np.random.default_rng([b, nb])
+    A, x = rng.normal(size=(b, b, nb)), rng.normal(size=(b, nb))
+    port = blockdiag_spmv.blockdiag_spmv_soa_plain(_t(A), _t(x))
+    A, x = jnp.asarray(A), jnp.asarray(x)
     _close(port, kref.blockdiag_spmv_soa_ref(A, x),
            rdv.blockdiag_spmv_soa(A, x, PALLAS))
 
