@@ -12,8 +12,12 @@ of which prints the seconds it took:
    (one process per source, all at once) unless already built;
 3. kernels: each ported kernel body against its plain PyTorch version
    on the card, in float64 and float32: the six of the ensemble-BDF path
-   at the main-path shape (2**20 systems, n = b = 3) and at ragged
-   batches (7, 130, 516), ``blockdiag_spmv`` also at b = 9, 16, 24, 32
+   and the fused history rebuild ``lagrange_rescale`` (W formed from
+   eta and q) at the main-path shape (2**20 systems, n = b = 3) and at
+   ragged batches (7, 130, 516), both rebuild entries and ``wrms_soa``
+   also at n = 32 over those and 2**16 systems, both rebuild entries
+   bit for bit (also with no system and with every system active),
+   ``blockdiag_spmv`` also at b = 9, 16, 24, 32
    (its row form; 32 is path K's) and 33 over 7, 130, 516 and 2**16
    systems, equal to its plain version bit for bit at every b (it sums
    in the plain version's order); the two Gauss-Jordan entries at b = 1, 3,
@@ -42,15 +46,19 @@ of which prints the seconds it took:
    shape its path gives it, the tiled Gauss-Jordan bodies and
    ``blockdiag_spmv`` also at b = 16 and 24 over 2**16 systems,
    ``blockdiag_spmv`` also at b = 32 over 2**16 (path K) and b = 2 over
-   2**20 (path D's ``BlockJacobiPrecond(2)``), the Newton loop's four
+   2**20 (path D's ``BlockJacobiPrecond(2)``), the Newton loop's five
    (``newton_residual``, ``masked_update_wrms``, ``history_rescale``,
-   ``wrms_soa``) also at n = 32 over 2**16 (paths B, K, D, E, F), the
+   ``lagrange_rescale``, ``wrms_soa``) also at n = 32 over 2**16 (paths
+   B, K, D, E, F), the two rebuild entries also with every system
+   active, the
    dot also at 3*2**20 elements (paths H and I) and at 32 (the floor of
    one timed launch);
 4. paths, each driven through ``integrate`` with the launch counts set
    to 0 just before and read just after; each must launch the kernels
    of its path and no plain version, and agree with a run of the plain
-   versions (``ExecPolicy(backend="torch")``): equal retcodes and y
+   versions (``ExecPolicy(backend="torch")``; on the BDF paths that run
+   builds W with ``lagrange_matrix_soa``, the kernel run never): equal
+   retcodes and y
    within 10*(rtol*|y|+atol) (100*(...) for the Krylov paths D and F,
    whose one global iteration couples the lanes: their plain run covers
    the same systems).  rtol 1e-5, atol 1e-10, float64:
@@ -110,8 +118,9 @@ of which prints the seconds it took:
 to the paths named; ``main`` is the main path) and writes its
 busiest device kernels to ``chip_smoke_out/chip_smoke_profile_*.txt``,
 with the device time under the profiler ranges of the plain code
-(``lagrange_matrix_soa``, the sparse LU, GMRES's Hessenberg work, the
-Brusselator's Jacobian blocks);
+(``lagrange_matrix_soa``, which a BDF path's kernel run must not reach,
+the sparse LU, GMRES's Hessenberg work, the Brusselator's Jacobian
+blocks) and, for the main path, one plain W build timed alone;
 ``--ptxas``
 prints what ``nvcc -Xptxas -v`` reports for each kernel (registers,
 spills) when it builds.  The full record goes to
@@ -149,7 +158,8 @@ TOL = {"torch.float64": 1e-10, "torch.float32": 1e-4}
 SPIN_CYCLES = 1_000_000
 #: the __global__ functions of kernels/csrc, as the profiler names them
 KERNEL_SYMBOLS = ("newton_residual_kernel", "masked_update_wrms_kernel",
-                  "history_rescale_kernel", "wrms_soa_kernel",
+                  "history_rescale_kernel", "history_rescale_loop_kernel",
+                  "wrms_soa_kernel",
                   "spmv_fixed_kernel", "spmv_rows_kernel",
                   "spmv_any_kernel",
                   "gj_inverse_unrolled_kernel", "gj_inverse_warp_kernel",
@@ -163,20 +173,20 @@ KERNEL_SYMBOLS = ("newton_residual_kernel", "masked_update_wrms_kernel",
 RANGES = ("lagrange_matrix_soa", "spsolve.numeric_lu", "spsolve.lu_solve",
           "gmres.hessenberg", "brusselator.jacobian")
 #: the Newton loop's kernels, on every BDF path
-BDF_LOOP = ("newton_residual", "masked_update_wrms", "history_rescale",
+BDF_LOOP = ("newton_residual", "masked_update_wrms", "lagrange_rescale",
             "wrms_soa")
 #: path -> the kernel bodies (registry names) it must launch
 PATH_KERNELS = {
     "ensemble_bdf": ("newton_residual", "blockdiag_spmv",
-                     "masked_update_wrms", "history_rescale", "wrms_soa",
+                     "masked_update_wrms", "lagrange_rescale", "wrms_soa",
                      "block_inverse"),
     "A: ensemble_dirk": ("newton_residual", "block_solve", "wrms_soa"),
     "B: ensemble_bdf direct": ("newton_residual", "block_solve_tiled",
-                               "masked_update_wrms", "history_rescale",
+                               "masked_update_wrms", "lagrange_rescale",
                                "wrms_soa"),
     "K: ensemble_bdf BlockDiagGJ": ("newton_residual", "block_inverse_tiled",
                                     "blockdiag_spmv", "masked_update_wrms",
-                                    "history_rescale", "wrms_soa"),
+                                    "lagrange_rescale", "wrms_soa"),
     "C: ensemble_erk": ("wrms_soa",),
     "D: ensemble_bdf SPGMR": BDF_LOOP + ("bsr_spmv", "dot", "block_inverse",
                                          "blockdiag_spmv"),
@@ -323,17 +333,25 @@ def brusselator_newton_blocks(gen, dev):
 def make_inputs(nb, dtype, gen, dev, b=3):
     """Inputs of the ensemble kernels over nb systems of n = b
     components (each path's state size is its block size): the Newton
-    loop's vectors, weights, mask, W and history Z (6, n, nb); blocks A
-    (b, b, nb), diagonally dominant, and r."""
+    loop's vectors, weights, mask, W and history Z (6, n, nb); the
+    fused rebuild's step ratios eta over [0.1, 10] (every fifth exactly
+    1) and valid history counts q over 0..5 (int32); blocks A (b, b,
+    nb), diagonally dominant, and r."""
     import torch
 
     def r(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
 
+    eta = 10.0 ** (2 * torch.rand(nb, generator=gen, device=dev,
+                                  dtype=dtype) - 1)
+    eta[::5] = 1.0
+    q = torch.randint(0, 6, (nb,), generator=gen, device=dev,
+                      dtype=torch.int32)
     return {"z": r(b, nb), "f": r(b, nb), "psi": r(b, nb),
             "gam": r(nb).abs(), "w": r(b, nb).abs() + 0.1,
             "mask": torch.rand(nb, generator=gen, device=dev) > 0.4,
             "W": r(6, 6, nb), "Z": r(6, b, nb), "r": r(b, nb),
+            "eta": eta, "q": q,
             "A": r(b, b, nb) + b * torch.eye(b, device=dev,
                                               dtype=dtype)[:, :, None]}
 
@@ -467,6 +485,17 @@ def csr_flops(d):
     return 2 * pat.nnz - int(np.count_nonzero(np.diff(pat.indptr)))
 
 
+def lagrange_flops(d):
+    """Operations of the fused rebuild on the active systems: to form W,
+    per system of q + 1 valid rows the q + 1 products (-j)*eta and, for
+    each of the (q + 1)**2 entries, q factors of a sum (p + k), a
+    quotient (one operation) and a product; then as ``history_rescale``
+    6 products and 5 sums per history row and component."""
+    q = d["q"][d["mask"]].double()
+    form = ((q + 1) ** 2 * 3 * q + q + 1).sum().item()
+    return int(form) + 11 * 6 * d["Z"].shape[1] * int(d["mask"].sum())
+
+
 def kernel_table():
     import torch
     from repro_torch.kernels import (block_solve, blockdiag_spmv, newton,
@@ -481,6 +510,7 @@ def kernel_table():
     b3 = [(3, nb) for nb in (NSYS,) + RAGGED]
     # the Newton loop's state on paths B, K, D, E, F: n = 32, 2**16 systems
     n32 = [(32, NBRUSS)]
+    n32_cases = [(32, nb) for nb in RAGGED + (NBRUSS,)]
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     return [
@@ -511,17 +541,24 @@ def kernel_table():
                # per active system, history row and component: 6
                # products and 5 sums
                lambda d: 11 * 6 * d["Z"].shape[1] * int(d["mask"].sum()),
-               b3, more_timings=n32,
+               b3 + n32_cases, more_timings=n32, exact=True,
                library=lambda d: torch.where(d["mask"], torch.einsum(
                    "jis,iks->jks", d["W"], d["Z"]), d["Z"]),
                # an inactive system copies Z and needs none of its W
                skipped_bytes=lambda d: 36 * d["W"].element_size()
                * int((~d["mask"]).sum())),
+        # the same TPU kernel with W formed in the kernel from (eta, q):
+        # the BDF loop's rebuild; no single PyTorch call builds W
+        Kernel("lagrange_rescale", newton.lagrange_rescale,
+               newton.lagrange_rescale_plain, ref + "newton.py:119",
+               csrc + "newton.cu",
+               lambda d: (d["eta"], d["q"], d["Z"], d["mask"]), {},
+               lagrange_flops, b3 + n32_cases, more_timings=n32, exact=True),
         Kernel("wrms_soa", newton.wrms_soa, newton.wrms_soa_plain,
                ref + "newton.py:167", csrc + "newton.cu",
                lambda d: (d["z"], d["w"]), {},
-               lambda d: 3 * d["z"].numel() + 2 * d["z"].shape[1], b3,
-               more_timings=n32,
+               lambda d: 3 * d["z"].numel() + 2 * d["z"].shape[1],
+               b3 + n32_cases, more_timings=n32,
                library=lambda d: torch.linalg.vector_norm(d["z"] * d["w"],
                                                           dim=0)),
         Kernel("block_inverse", block_solve.block_inverse_soa,
@@ -677,7 +714,7 @@ def phase_compare(table, dev):
     """Every body against its plain version at each of its (b, nb)
     cases, float64 and float32, and the GJ bodies on stiff blocks."""
     import torch
-    from repro_torch.kernels import block_solve, newton
+    from repro_torch.kernels import block_solve
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = sorted({(k.make.__name__, c) for k in table for c in k.cases})
@@ -688,15 +725,8 @@ def phase_compare(table, dev):
             for k in table:
                 if k.make.__name__ == maker and (b, nb) in k.cases:
                     k.compare(d, f"b={b} nb={nb} {dtype}")
-            if maker != "make_inputs" or b != 3:
-                continue
-            out = newton.history_rescale(d["W"], d["Z"], d["mask"])
-            off = ~d["mask"]
-            check(torch.equal(out[:, :, off], d["Z"][:, :, off]),
-                  f"history_rescale nb={nb}: inactive lanes not bit-exact")
-            none = torch.zeros_like(d["mask"])
-            check(torch.equal(newton.history_rescale(d["W"], d["Z"], none),
-                              d["Z"]), "history_rescale: all-inactive copy")
+            if maker == "make_inputs" and b in (3, 32):
+                compare_rescale_masks(d, f"n={b} nb={nb} {dtype}")
     by_name = {k.name: k for k in table}
     M = robertson_newton_blocks(NSYS, gen, dev, torch.float64)
     r = torch.randn(3, NSYS, generator=gen, device=dev, dtype=M.dtype)
@@ -743,6 +773,29 @@ def phase_compare(table, dev):
           f"(float64 tol 1e-10, float32 1e-4, relative to max(1,|plain|); "
           + ", ".join(k.name for k in table if k.exact) + " bit for bit)",
           flush=True)
+
+
+def compare_rescale_masks(d, what):
+    """Both rebuild entries: inactive lanes copied bit-exactly, and bit
+    for bit their plain versions with no system and with every system
+    active."""
+    import torch
+    from repro_torch.kernels import newton
+    off = ~d["mask"]
+    none, every = torch.zeros_like(d["mask"]), torch.ones_like(d["mask"])
+    for name, kern, plain, args in (
+            ("history_rescale", newton.history_rescale,
+             newton.history_rescale_plain, (d["W"], d["Z"])),
+            ("lagrange_rescale", newton.lagrange_rescale,
+             newton.lagrange_rescale_plain, (d["eta"], d["q"], d["Z"]))):
+        out = kern(*args, d["mask"])
+        check(torch.equal(out[:, :, off], d["Z"][:, :, off]),
+              f"{name} {what}: inactive lanes not bit-exact")
+        check(torch.equal(kern(*args, none), d["Z"]),
+              f"{name} {what}: all-inactive copy")
+        check(torch.equal(kern(*args, every), plain(*args, every)),
+              f"{name} {what}: all active, kernel and plain version differ "
+              "in their bits")
 
 
 def placed(t, off):
@@ -793,7 +846,6 @@ def phase_timings(table, dev):
     """Each body, its plain version and its library yardstick at the
     shape its path gives it, float64, against its bound."""
     import torch
-    from repro_torch.kernels import newton
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
@@ -828,22 +880,26 @@ def phase_timings(table, dev):
               f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})  library "
               f"{row['library_ms']}", flush=True)
-    # the step's second rescale finds (nearly) every system active: no
-    # divergent warps, and every W is read
-    d = inputs[("make_inputs", (3, NSYS))]
-    every = torch.ones_like(d["mask"])
-    rescale = rows[[k.name for k in table].index("history_rescale")]
-    rescale["ms_all_active"] = time_ms(
-        lambda: newton.history_rescale(d["W"], d["Z"], every), flush)
-    rescale["library_ms_all_active"] = time_ms(
-        lambda: torch.einsum("jis,iks->jks", d["W"], d["Z"]), flush)
-    rescale["bound_ms_all_active"] = nbytes(d["W"], d["Z"], every, d["Z"]) \
-        / HBM_BYTES_PER_S * 1e3
-    print(f"  history_rescale, all systems active: kernel "
-          f"{rescale['ms_all_active']:.4f} ms  bound "
-          f"{rescale['bound_ms_all_active']:.4f} ms  library (einsum) "
-          f"{rescale['library_ms_all_active']:.4f} ms", flush=True)
-    del d, inputs, flush
+    # the step's second rescale finds (nearly) every system active: every
+    # W is read (or formed)
+    for row in rows + more:
+        k = next(k for k in table if k.name == row["name"])
+        if k.name not in ("history_rescale", "lagrange_rescale"):
+            continue
+        d = dict(inputs[("make_inputs", (row["b"], row["nb"]))])
+        d["mask"] = torch.ones_like(d["mask"])
+        args = k.args(d)
+        t_bytes = nbytes(*args, d["Z"]) / HBM_BYTES_PER_S * 1e3
+        t_ops = k.flops(d) / PEAK_FLOPS[str(torch.float64)] * 1e3
+        row["ms_all_active"] = time_ms(lambda: k.wrapper(*args), flush)
+        row["bound_ms_all_active"] = max(t_bytes, t_ops)
+        row["library_ms_all_active"] = (time_ms(lambda: k.library(d), flush)
+                                        if k.library is not None else None)
+        print(f"  {k.name}, n={row['b']}, all systems active: kernel "
+              f"{row['ms_all_active']:.4f} ms  bound "
+              f"{row['bound_ms_all_active']:.4f} ms  library "
+              f"{row['library_ms_all_active']}", flush=True)
+    del inputs, flush
     return rows, more
 
 
@@ -893,6 +949,9 @@ def check_counts(path, counts, kernel_run):
     if not kernel_run:
         check(all(v[0] == 0 for v in counts.values()),
               f"{path}: the torch-backend run launched a kernel")
+        if "lagrange_rescale" in PATH_KERNELS[path]:
+            check(counts["lagrange_rescale"][1] > 0, f"{path}: the plain "
+                  "run did not build W (lagrange_rescale_plain)")
         return
     for name in PATH_KERNELS[path]:
         check(counts[name][0] > 0, f"{path}: kernel {name} was never "
@@ -1325,8 +1384,9 @@ def phase_cvode(path, method, t1, profile):
 def profile_run(path, run, plain_wall, bdf=False):
     """One more kernel run of a path (``run()``) under torch.profiler:
     device time by kernel name, the share of the port's kernels, the
-    device time under the ``lagrange_matrix_soa`` range (``bdf``: it
-    must be there) and the other ranges, and the device's busy share
+    device time under the ``lagrange_matrix_soa`` range (``bdf``: an
+    ensemble BDF run forms W in its kernel, so the range must not be
+    there) and the other ranges, and the device's busy share
     both of the profiled wall time and of ``plain_wall``, the same
     solve's wall time without the profiler."""
     import torch
@@ -1354,8 +1414,9 @@ def profile_run(path, run, plain_wall, bdf=False):
             range_calls[e.name] += 1
     lagrange_us, lagrange_calls = range_us[lagrange], range_calls[lagrange]
     if bdf:
-        check(lagrange_calls > 0 and lagrange_us > 0,
-              f"{path}: the trace holds no device time under {lagrange}")
+        check(lagrange_calls == 0 and lagrange_us == 0,
+              f"{path}: the kernel run built W in plain code ({lagrange}: "
+              f"{lagrange_calls} calls, {lagrange_us / 1e6:.3f} s)")
     dev_us = sum(by_name.values())
     check(dev_us > 0, f"{path}: the trace holds no device time")
     ours_us = sum(v for name, v in by_name.items()
@@ -1391,7 +1452,8 @@ def profile_run(path, run, plain_wall, bdf=False):
 
 def lagrange_alone_ms():
     """One ``lagrange_matrix_soa`` call at the main path's size, timed
-    alone: the plain tensor code that builds history_rescale's W."""
+    alone: the plain tensor code that builds W in the plain run (the
+    kernel run forms it inside ``lagrange_rescale``)."""
     import torch
     from repro_torch.core import cvode
     gen = torch.Generator(device="cuda")

@@ -29,8 +29,10 @@ reference: history ``Z (QMAX+1, n, nsys)``, Newton iterate and weights
 one fused residual, one lsolve (block-diagonal SpMV against the saved
 inverse, or with ``BlockDiagGJ(factor_once=False)`` a block solve) and
 one fused masked update + correction norm; twice a step the history is
-rebuilt by ``history_rescale_soa`` and once a step the error test runs
-``wrms_soa``; lsetup inverts the Newton blocks.  These ops are the CUDA
+rebuilt by ``lagrange_rescale_soa`` (``history_rescale_soa`` with its
+Lagrange matrix formed from each system's eta and history count inside
+the kernel) and once a step the error test runs ``wrms_soa``; lsetup
+inverts the Newton blocks.  These ops are the CUDA
 kernels of :mod:`repro_torch.kernels` on the card.
 
 The BDF loop owns its state: the counters are updated in place, and each
@@ -424,8 +426,8 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
         # have eta_clip == 1 exactly, where the rebuild is the identity,
         # so they are masked out and copied through
         eta_clip = torch.where(active, hs / h, one)
-        Z = dv.history_rescale_soa(_cv.lagrange_matrix_soa(eta_clip, nvalid),
-                                   Z, active & (eta_clip != one), policy)
+        Z = dv.lagrange_rescale_soa(eta_clip, nvalid, Z,
+                                    active & (eta_clip != one), policy)
         qi = q - 1
         alphas = alpha_t[:, qi]                      # (QMAX+1, nsys)
         beta = beta_t[qi]
@@ -505,8 +507,8 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
         q_next = torch.where(accept, torch.clamp(q + 1, max=order), q)
         # rescale each system's history onto its new uniform grid
         nval_after = torch.clamp(steps + accept.to(i32), max=QMAX)
-        W2 = _cv.lagrange_matrix_soa(torch.where(active, eta, one), nval_after)
-        Z = dv.history_rescale_soa(W2, Z_next, active, policy)
+        Z = dv.lagrange_rescale_soa(torch.where(active, eta, one), nval_after,
+                                    Z_next, active, policy)
 
         t_next = torch.where(accept, t_new, t)
         ncf = active & ~conv

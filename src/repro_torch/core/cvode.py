@@ -5,10 +5,11 @@ ensemble BDF.
 Counterpart of ``repro.core.cvode``:
 
 * the uniform-grid BDF coefficients and the Lagrange rebuild matrix
-  (``cvode.py:36-87``): :func:`lagrange_matrix_soa` builds one matrix
-  per system with the system axis LAST, so it feeds
-  ``history_rescale_soa`` without a transpose; :func:`_lagrange_matrix`
-  is the scalar one, built from it;
+  (``cvode.py:36-87``): :func:`lagrange_matrix_soa` (from
+  :mod:`repro_torch.kernels.newton`, where it is the plain version of
+  ``lagrange_rescale``'s W) builds one matrix per system with the
+  system axis LAST; :func:`_lagrange_matrix` is the scalar one, built
+  from it;
 * :func:`bdf_integrate` — fixed-leading-coefficient BDF on a uniform
   history window, Newton corrector, order ramped 1 -> ``order``, the
   CV_* retcodes and their escalation (``cvode.py:90-274``);
@@ -41,6 +42,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..kernels.newton import LAGRANGE_Q1, lagrange_matrix_soa
 from . import controller as ctrl
 from . import dispatch as dv
 from . import status
@@ -52,7 +54,9 @@ from .loops import loop_counts, read
 from .nonlinsol import FixedPointSolver, NewtonSolver
 from .policies import ExecPolicy
 
-QMAX = 5
+#: highest BDF order: the history holds QMAX + 1 rows, the rows of the
+#: Lagrange rebuild matrix that ``lagrange_rescale`` forms
+QMAX = LAGRANGE_Q1 - 1
 
 # Uniform-grid BDF coefficients, normalized alpha_0 = 1:
 #   sum_j alpha_j y_{n+1-j} = h * beta * f_{n+1}
@@ -82,41 +86,6 @@ def bdf_tables(dtype, device):
     predp = torch.tensor(_PREDP, dtype=torch.float64).T
     return tuple(x.to(dtype=dtype, device=device).contiguous()
                  for x in (alpha, beta, predp))
-
-
-def lagrange_matrix_soa(eta: torch.Tensor,
-                        q_cur: torch.Tensor) -> torch.Tensor:
-    """Per-system rebuild matrices ``W (QMAX+1, QMAX+1, nsys)`` with
-    ``Z_new[j] = sum_i W[j,i] Z_old[i]``.
-
-    Old nodes sit at x_i = -i (units of h_old); new nodes at -j*eta.
-    Rows/cols beyond ``q_cur`` are masked to identity so stale history
-    slots stay untouched.  The product over k runs as a loop of
-    ``(j, i, nsys)`` updates, so no ``(j, i, k, nsys)`` temporary is
-    ever held.  The work runs under a profiler range of the function's
-    name, so a trace can sum its device time.
-    """
-    with torch.profiler.record_function("lagrange_matrix_soa"):
-        q1 = QMAX + 1
-        dtype, dev = eta.dtype, eta.device
-        idx = torch.arange(q1, dtype=dtype, device=dev)
-        pts = -idx[:, None] * eta[None, :]                  # (j, nsys)
-        ii = torch.arange(q1, device=dev)
-        W = torch.ones((q1, q1, eta.shape[0]), dtype=dtype, device=dev)
-        for k in range(q1):
-            # Lagrange basis L_i(p) = prod_{k != i} (p + k) / (k - i),
-            # over k <= q_cur only
-            den = (k - idx).clone()
-            den[k] = 1.0
-            ratio = (pts + k)[:, None, :] / den[None, :, None]
-            skip = (ii == k)[None, :, None] | (k > q_cur)[None, None, :]
-            W.mul_(torch.where(skip, torch.ones((), dtype=dtype, device=dev),
-                               ratio))
-        valid_i = ii[None, :, None] <= q_cur[None, None, :]
-        W = torch.where(valid_i, W, torch.zeros((), dtype=dtype, device=dev))
-        valid_j = ii[:, None, None] <= q_cur[None, None, :]
-        eye = torch.eye(q1, dtype=dtype, device=dev)[:, :, None]
-        return torch.where(valid_j, W, eye)
 
 
 def _lagrange_matrix(eta: torch.Tensor, q_cur) -> torch.Tensor:

@@ -8,6 +8,11 @@ ops ``linear_sum``, ``axpy``, ``linear_combination``,
 ``wrms_ss`` and ``wrms_norm_mask``, and the sparse ops ``csr_spmv``
 (``SparseCSR.matvec``), ``bsr_spmv_soa`` and
 ``bsr_block_jacobi_inverse_soa``.
+One route is the port's own, not one of the nineteen:
+``lagrange_rescale_soa``, the ensemble BDF's history rebuild with its
+Lagrange matrix formed inside the kernel (the reference builds W in
+its jitted step, where XLA fuses the build; eager PyTorch would spend
+some 60 launches on it).
 Each op routes per :class:`~repro_torch.core.policies.ExecPolicy`:
 ``"torch"`` runs the plain version, ``"auto"`` the kernel wrapper (the
 CUDA kernel for a CUDA tensor, the plain version for a CPU tensor), and
@@ -100,6 +105,15 @@ def history_rescale_soa(W, Z, active, policy: Optional[ExecPolicy] = None):
     Z (q1,n,nsys)."""
     return _route("history_rescale_soa", policy, _nw.history_rescale_plain,
                   _nw.history_rescale, Z)(W, Z, active)
+
+
+def lagrange_rescale_soa(eta, q, Z, active,
+                         policy: Optional[ExecPolicy] = None):
+    """``history_rescale_soa(lagrange_matrix_soa(eta, q), Z, active)``:
+    eta (nsys,), q (nsys,) int32, Z (6, n, nsys); the kernel forms W
+    from (eta, q) and never stores it."""
+    return _route("lagrange_rescale_soa", policy, _nw.lagrange_rescale_plain,
+                  _nw.lagrange_rescale, Z)(eta, q, Z, active)
 
 
 def wrms_soa(v, w, policy: Optional[ExecPolicy] = None):

@@ -23,6 +23,8 @@ KERNELS = {
                            newton.masked_update_wrms_plain, ""),
     "history_rescale": (newton.history_rescale,
                         newton.history_rescale_plain, ""),
+    "lagrange_rescale": (newton.lagrange_rescale,
+                         newton.lagrange_rescale_plain, ""),
     "wrms_soa": (newton.wrms_soa, newton.wrms_soa_plain, ""),
     "block_inverse": (block_solve.block_inverse_soa,
                       block_solve.block_inverse_soa_plain, "unrolled"),

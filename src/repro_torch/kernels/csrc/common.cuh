@@ -7,8 +7,9 @@
 // system and a warp per row group; each source's note says how) one
 // thread owns one system, so the threads of a warp read neighbouring
 // addresses and every load is coalesced.  For those the grid is
-// ceil(nb / 256) blocks of 256 threads and each kernel bounds-checks s,
-// which replaces the TPU wrapper's batch padding.
+// ceil(nb / 256) blocks of 256 threads (128 for newton.cu's n <= 4
+// history rescale) and each kernel bounds-checks s, which replaces the
+// TPU wrapper's batch padding.
 #pragma once
 
 #include <cuda_runtime.h>

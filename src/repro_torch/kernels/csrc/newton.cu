@@ -1,21 +1,68 @@
-// Ensemble Newton hot-loop kernels, SoA layout, one thread per system.
+// Ensemble Newton hot-loop kernels, SoA layout.
 //
 // Replaces src/repro/kernels/newton.py:
 //   _newton_residual_kernel     -> newton_residual_kernel
 //   _masked_update_wrms_kernel  -> masked_update_wrms_kernel
-//   _history_rescale_kernel     -> history_rescale_kernel
+//   _history_rescale_kernel     -> history_rescale_kernel (n <= 4),
+//                                  history_rescale_loop_kernel (n > 4)
 //   _wrms_soa_kernel            -> wrms_soa_kernel
 //
 // Bound: memory.  Each kernel does a handful of flops per element it
-// streams (at most 2*q1 per output of history_rescale), far below the
+// streams (at most 2*q1 per output of the history rescale, and about
+// 550 a system to form its rebuild matrix, see below), far below the
 // H100's ~10 flops per byte of float64 balance, so the least time is
 // the bytes moved over 3.35 TB/s.  The design moves each byte once:
 // every input element is read once and every output element written
-// once, in coalesced warp-wide accesses (thread s touches column s),
-// with the per-system reduction of the WRMS kernels kept in a register
-// instead of a second pass.  The TPU kernels' whole-bundle short-circuit
-// of history_rescale becomes a per-thread branch: an inactive system
-// copies its history column and never reads its W.
+// once, in coalesced warp-wide accesses, with the per-system reduction
+// of the WRMS kernels kept in registers instead of a second pass.
+// Residual, masked update and WRMS: thread s owns system s.  (A block
+// of 8 warps over 32 systems for the WRMS at n > 4, warp g summing
+// components g, g+8, ..., times the same and sums in another order:
+// tools/rescale_variants.py, wrms_rows.)
+//
+// The history rescale Z'[j] = sum_i W[j,i] Z[i] (Z (q1, n, nb)) takes W
+// from one of two sources (RescaleSource):
+//
+// * W_FROM_MEMORY: the (q1, q1, nb) tensor W, entry history_rescale
+//   (the reference's op history_rescale_soa);
+// * W_FROM_ETA: the BDF's Lagrange rebuild matrix (q1 = 6), formed in
+//   the kernel from each system's step ratio eta and valid history
+//   count q, entry lagrange_rescale.  Its plain version builds W with
+//   lagrange_matrix_soa, some 60 launches over (6, 6, nb) tensors; the
+//   kernel reads 13 bytes a system instead of W's 288 and never writes
+//   W.  Each entry takes the plain build's arithmetic in its order
+//   (lagrange_entry), so the two give the same bits.  Forming W is the
+//   kernel's only real arithmetic (about 550 operations a system at
+//   q = 5): of its 180 quotients by k - i only the 48 by +-3 and +-5
+//   take a division, the others are products with exact reciprocals.
+//
+// Every system loads its Z column and writes its output, active ? acc
+// : Z[j], selected without a branch (the TPU kernel's jnp.where), so
+// the active and inactive systems of a warp do not diverge (a branch to
+// a copy loop for the inactive ones took 2.5x the all-active time at
+// n = 32 with 60 % of the systems active).  An inactive system never
+// reads W, and a warp without an active system forms none.  Each
+// output sums acc = W[j,0]*Z[0], then acc + W[j,i]*Z[i], product and sum
+// rounded alone (-fmad=false), the plain version's order: both entries
+// equal their plain versions bit for bit.  One thread a system, in two
+// forms by state size n:
+//
+// * n <= 4 (the main path's n = 3 over 2**20 systems): the system's Z
+//   column (q1 x n values) is loaded first, then W is formed or loaded a
+//   row at a time while those loads are in flight.  Blocks of
+//   SMALL_THREADS = 128: at 94 registers (float64, W formed) five fit a
+//   SM against two of 256, which the fused entry, bound by forming W as
+//   much as by memory, needs: it takes 8 % longer in blocks of 256 and
+//   12 % longer in the n > 4 form (tools/rescale_variants.py, b256 and
+//   loop_all).
+//
+// * n > 4 (paths B, K, D, E, F: n = 32 over 2**16): W is formed or
+//   loaded once into registers (36 values), then the components go in
+//   chunks of LOOP_CHUNK = 2 whose 12 loads issue together; built for
+//   two blocks a SM (at most 128 registers).  A block of 8 warps over 32
+//   systems, W staged in shared memory and warp g rescaling components
+//   g, g+8, ..., takes 31 % longer in the fused entry and 19 % longer
+//   in path K's rescales (tools/rescale_variants.py, block).
 #include "common.cuh"
 
 // g = z - gamma*f - psi over (n, nb); negate -> -g, the sign applied to
@@ -63,37 +110,148 @@ __global__ void masked_update_wrms_kernel(const T* __restrict__ z,
   dn[s] = sqrt(acc / T(n));
 }
 
+#define SMALL_N 4          // widest state of the n <= 4 rescale
+#define SMALL_THREADS 128  // block of the n <= 4 rescale
+#define LOOP_CHUNK 2       // components the n > 4 rescale loads together
+#define LAGRANGE_Q1 6      // BDF history rows (orders 1-5): W of W_FROM_ETA
+
+enum RescaleSource { W_FROM_MEMORY, W_FROM_ETA };
+
+// p / d for d = k - i in [-5, 5] \ {0}: a division by +-1, +-2 or +-4
+// is a product with its exact reciprocal (the same bits), so only
+// d = +-3 and +-5 take a division.
+template <typename T>
+__device__ __forceinline__ T lagrange_quotient(T p, int d) {
+  switch (d) {
+    case 1: return p;
+    case -1: return -p;
+    case 2: return p * T(0.5);
+    case -2: return p * T(-0.5);
+    case 4: return p * T(0.25);
+    case -4: return p * T(-0.25);
+    default: return p / T(d);
+  }
+}
+
+// W[j][i] of the rebuild onto the grid of step ratio eta from the q + 1
+// valid history rows: rows j > q are the identity's, columns i > q zero;
+// else 1 times, for k = 0..5 with k != i and k <= q, the factor
+// ((-j)*eta + k) / (k - i) -- lagrange_matrix_soa's arithmetic, each
+// product, sum and quotient rounded alone, in its k order.
+template <typename T>
+__device__ __forceinline__ T lagrange_entry(int j, int i, T eta, int q) {
+  const T p = -T(j) * eta;  // -0 * eta at j = 0, as the plain -idx * eta
+  T w = T(1);
+#pragma unroll
+  for (int k = 0; k < LAGRANGE_Q1; ++k) {
+    if (k == i) continue;
+    const T f = lagrange_quotient(p + T(k), k - i);
+    w = k <= q ? w * f : w;
+  }
+  return j > q ? T(i == j) : (i > q ? T(0) : w);
+}
+
 // Z'[j,k,s] = sum_i W[j,i,s] Z[i,k,s] where active[s], else Z[j,k,s]
-// (copied bit-exactly).  W (Q1,Q1,nb), Z (Q1,n,nb).  Out of place, so a
-// thread may write Z'[j] while other rows of its column are unread.
-template <typename T, int Q1>
+// (bit-exactly), n <= SMALL_N, one thread a system.  Out of place, so
+// a thread may write Z'[j] while other rows of its column are unread.
+template <typename T, int Q1, int SRC>
 __global__ void history_rescale_kernel(const T* __restrict__ W,
+                                       const T* __restrict__ eta,
+                                       const int* __restrict__ q,
                                        const T* __restrict__ Z,
                                        const unsigned char* __restrict__ active,
                                        T* __restrict__ out, int n,
                                        long long nb) {
   const long long s = system_index();
-  if (s >= nb) return;
-  if (!active[s]) {
-    for (int r = 0; r < Q1 * n; ++r) out[r * nb + s] = Z[r * nb + s];
-    return;
-  }
-  T w[Q1][Q1];
+  const bool live = s < nb;   // every lane stays for the warp vote
+  const bool a = live && active[s] != 0;
+  T z[Q1][SMALL_N];
 #pragma unroll
-  for (int j = 0; j < Q1; ++j)
+  for (int i = 0; i < Q1; ++i)
 #pragma unroll
-    for (int i = 0; i < Q1; ++i) w[j][i] = W[(j * Q1 + i) * nb + s];
-  for (int k = 0; k < n; ++k) {
-    T zc[Q1];
-#pragma unroll
-    for (int i = 0; i < Q1; ++i) zc[i] = Z[((long long)i * n + k) * nb + s];
-#pragma unroll
-    for (int j = 0; j < Q1; ++j) {
-      T acc = w[j][0] * zc[0];
-#pragma unroll
-      for (int i = 1; i < Q1; ++i) acc = acc + w[j][i] * zc[i];
-      out[((long long)j * n + k) * nb + s] = acc;
+    for (int k = 0; k < SMALL_N; ++k)
+      z[i][k] = live && k < n ? Z[((long long)i * n + k) * nb + s] : T(0);
+  T e = T(0);
+  int qs = 0;
+  bool form = false;
+  if constexpr (SRC == W_FROM_ETA) {
+    if (live) {
+      e = eta[s];
+      qs = q[s];
     }
+    form = __any_sync(0xffffffffu, a);
+  }
+#pragma unroll
+  for (int j = 0; j < Q1; ++j) {
+    T w[Q1];
+#pragma unroll
+    for (int i = 0; i < Q1; ++i) {
+      if constexpr (SRC == W_FROM_ETA)
+        w[i] = form ? lagrange_entry(j, i, e, qs) : T(0);
+      else
+        w[i] = a ? W[(long long)(j * Q1 + i) * nb + s] : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < SMALL_N; ++k) {
+      if (!live || k >= n) continue;
+      T acc = w[0] * z[0][k];
+#pragma unroll
+      for (int i = 1; i < Q1; ++i) acc = acc + w[i] * z[i][k];
+      out[((long long)j * n + k) * nb + s] = a ? acc : z[j][k];
+    }
+  }
+}
+
+// The same for n > SMALL_N, one thread a system: W formed or loaded once
+// into registers, then the components in chunks of LOOP_CHUNK whose
+// loads issue together.
+template <typename T, int Q1, int SRC>
+__global__ void __launch_bounds__(REPRO_THREADS, 2)
+history_rescale_loop_kernel(const T* __restrict__ W,
+                            const T* __restrict__ eta,
+                            const int* __restrict__ q,
+                            const T* __restrict__ Z,
+                            const unsigned char* __restrict__ active,
+                            T* __restrict__ out, int n, long long nb) {
+  const long long s = system_index();
+  const bool live = s < nb;   // every lane stays for the warp vote
+  const bool a = live && active[s] != 0;
+  T w[Q1][Q1];
+  if constexpr (SRC == W_FROM_ETA) {
+    const T e = live ? eta[s] : T(0);
+    const int qs = live ? q[s] : 0;
+    const bool form = __any_sync(0xffffffffu, a);
+#pragma unroll
+    for (int j = 0; j < Q1; ++j)
+#pragma unroll
+      for (int i = 0; i < Q1; ++i)
+        w[j][i] = form ? lagrange_entry(j, i, e, qs) : T(0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < Q1; ++j)
+#pragma unroll
+      for (int i = 0; i < Q1; ++i)
+        w[j][i] = a ? W[(long long)(j * Q1 + i) * nb + s] : T(0);
+  }
+  if (!live) return;
+  for (int k0 = 0; k0 < n; k0 += LOOP_CHUNK) {
+    T z[Q1][LOOP_CHUNK];
+#pragma unroll
+    for (int i = 0; i < Q1; ++i)
+#pragma unroll
+      for (int c = 0; c < LOOP_CHUNK; ++c)
+        z[i][c] = k0 + c < n ? Z[((long long)i * n + k0 + c) * nb + s]
+                             : T(0);
+#pragma unroll
+    for (int j = 0; j < Q1; ++j)
+#pragma unroll
+      for (int c = 0; c < LOOP_CHUNK; ++c) {
+        if (k0 + c >= n) continue;
+        T acc = w[j][0] * z[0][c];
+#pragma unroll
+        for (int i = 1; i < Q1; ++i) acc = acc + w[j][i] * z[i][c];
+        out[((long long)j * n + k0 + c) * nb + s] = a ? acc : z[j][c];
+      }
   }
 }
 
@@ -113,11 +271,23 @@ __global__ void wrms_soa_kernel(const T* __restrict__ v,
   out[s] = sqrt(acc / T(n));
 }
 
-template <typename T, int Q1>
-static void launch_rescale(const void* W, const void* Z, const void* a,
-                           void* out, int n, long long nb, cudaStream_t st) {
-  history_rescale_kernel<T, Q1><<<system_grid(nb), REPRO_THREADS, 0, st>>>(
-      (const T*)W, (const T*)Z, (const unsigned char*)a, (T*)out, n, nb);
+template <typename T, int Q1, int SRC>
+static void launch_rescale(const void* W, const void* eta, const void* q,
+                           const void* Z, const void* a, void* out, int n,
+                           long long nb, cudaStream_t st) {
+  const T* w = (const T*)W;
+  const T* e = (const T*)eta;
+  const int* qv = (const int*)q;
+  const T* z = (const T*)Z;
+  const unsigned char* av = (const unsigned char*)a;
+  if (n <= SMALL_N)
+    history_rescale_kernel<T, Q1, SRC><<<
+        dim3((unsigned)((nb + SMALL_THREADS - 1) / SMALL_THREADS)),
+        SMALL_THREADS, 0, st>>>(w, e, qv, z, av, (T*)out, n, nb);
+  else
+    history_rescale_loop_kernel<T, Q1, SRC><<<system_grid(nb), REPRO_THREADS,
+                                              0, st>>>(w, e, qv, z, av,
+                                                       (T*)out, n, nb);
 }
 
 template <typename T>
@@ -126,14 +296,14 @@ static int history_rescale(const void* W, const void* Z, const void* a,
                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (q1) {
-    case 1: launch_rescale<T, 1>(W, Z, a, out, n, nb, st); break;
-    case 2: launch_rescale<T, 2>(W, Z, a, out, n, nb, st); break;
-    case 3: launch_rescale<T, 3>(W, Z, a, out, n, nb, st); break;
-    case 4: launch_rescale<T, 4>(W, Z, a, out, n, nb, st); break;
-    case 5: launch_rescale<T, 5>(W, Z, a, out, n, nb, st); break;
-    case 6: launch_rescale<T, 6>(W, Z, a, out, n, nb, st); break;
-    case 7: launch_rescale<T, 7>(W, Z, a, out, n, nb, st); break;
-    case 8: launch_rescale<T, 8>(W, Z, a, out, n, nb, st); break;
+#define REPRO_CASE(Q1)                                                      \
+  case Q1:                                                                  \
+    launch_rescale<T, Q1, W_FROM_MEMORY>(W, nullptr, nullptr, Z, a, out, n, \
+                                         nb, st);                           \
+    break;
+    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
+    REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
+#undef REPRO_CASE
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -164,6 +334,15 @@ static int history_rescale(const void* W, const void* Z, const void* a,
                                        const void* active, void* out, int q1, \
                                        int n, long long nb, void* stream) {   \
     return history_rescale<T>(W, Z, active, out, q1, n, nb, stream);          \
+  }                                                                           \
+  extern "C" int lagrange_rescale_##SUF(const void* eta, const void* q,       \
+                                        const void* Z, const void* active,    \
+                                        void* out, int n, long long nb,       \
+                                        void* stream) {                       \
+    launch_rescale<T, LAGRANGE_Q1, W_FROM_ETA>(nullptr, eta, q, Z, active,    \
+                                               out, n, nb,                    \
+                                               (cudaStream_t)stream);         \
+    return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int wrms_soa_##SUF(const void* v, const void* w, void* out,      \
                                 int n, long long nb, void* stream) {          \

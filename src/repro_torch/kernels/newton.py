@@ -1,21 +1,26 @@
 """Ensemble Newton hot-loop ops, SoA layout (system axis LAST).
 
-Counterpart of ``repro/kernels/newton.py``.  Four ops, each a CUDA
+Counterpart of ``repro/kernels/newton.py``.  Five ops, each a CUDA
 kernel in ``csrc/newton.cu`` with its plain PyTorch version beside it:
 
 * :func:`newton_residual` — ``g = z - gamma*f - psi`` (``negate=True``
   returns ``-g``, the Newton right-hand side), every Newton iteration;
 * :func:`masked_update_wrms` — ``z' = where(mask, z+dz, z)`` fused with
   the per-system WRMS of ``dz``, every Newton iteration;
-* :func:`history_rescale` — the Lagrange history rebuild
-  ``Z'[j] = sum_i W[j,i] Z[i]`` for active systems, a bit-exact copy
-  for the others, twice a step;
+* :func:`history_rescale` — the history rebuild ``Z'[j] = sum_i
+  W[j,i] Z[i]`` for active systems, a bit-exact copy for the others
+  (the reference's op ``history_rescale_soa``);
+* :func:`lagrange_rescale` — the same rebuild with W the Lagrange
+  matrix of each system's step ratio and history count
+  (:func:`lagrange_matrix_soa`), which the kernel forms in registers
+  and never stores, twice a step;
 * :func:`wrms_soa` — per-system WRMS ``(n, NB) -> (NB,)``, the BDF error
   test every step.
 
 A wrapper launches its kernel for CUDA tensors (and raises if it cannot)
 and runs the plain version for CPU tensors.  The plain versions
-accumulate in the kernels' order, so on the card the two round alike.
+accumulate in the kernels' order, so on the card the two round alike
+(both rescales give the same bits).
 """
 from __future__ import annotations
 
@@ -79,12 +84,57 @@ def masked_update_wrms(z, dz, w, mask):
     return z_new, dn
 
 
-def history_rescale_plain(W, Z, active):
-    history_rescale_plain.calls += 1
+#: rows of the BDF history (orders 1-5): the order of the Lagrange W
+LAGRANGE_Q1 = 6
+
+
+def lagrange_matrix_soa(eta: torch.Tensor,
+                        q_cur: torch.Tensor) -> torch.Tensor:
+    """Per-system rebuild matrices ``W (6, 6, nsys)`` with
+    ``Z_new[j] = sum_i W[j,i] Z_old[i]``.
+
+    Old nodes sit at x_i = -i (units of h_old); new nodes at -j*eta.
+    Rows/cols beyond ``q_cur`` are masked to identity so stale history
+    slots stay untouched.  The product over k runs as a loop of
+    ``(j, i, nsys)`` updates, so no ``(j, i, k, nsys)`` temporary is
+    ever held.  The work runs under a profiler range of the function's
+    name, so a trace can sum its device time.  The plain tensor code of
+    :func:`lagrange_rescale`'s W (some 60 launches on the card); the
+    kernel forms each entry with this arithmetic in this order.
+    """
+    with torch.profiler.record_function("lagrange_matrix_soa"):
+        q1 = LAGRANGE_Q1
+        dtype, dev = eta.dtype, eta.device
+        idx = torch.arange(q1, dtype=dtype, device=dev)
+        pts = -idx[:, None] * eta[None, :]                  # (j, nsys)
+        ii = torch.arange(q1, device=dev)
+        W = torch.ones((q1, q1, eta.shape[0]), dtype=dtype, device=dev)
+        for k in range(q1):
+            # Lagrange basis L_i(p) = prod_{k != i} (p + k) / (k - i),
+            # over k <= q_cur only
+            den = (k - idx).clone()
+            den[k] = 1.0
+            ratio = (pts + k)[:, None, :] / den[None, :, None]
+            skip = (ii == k)[None, :, None] | (k > q_cur)[None, None, :]
+            W.mul_(torch.where(skip, torch.ones((), dtype=dtype, device=dev),
+                               ratio))
+        valid_i = ii[None, :, None] <= q_cur[None, None, :]
+        W = torch.where(valid_i, W, torch.zeros((), dtype=dtype, device=dev))
+        valid_j = ii[:, None, None] <= q_cur[None, None, :]
+        eye = torch.eye(q1, dtype=dtype, device=dev)[:, :, None]
+        return torch.where(valid_j, W, eye)
+
+
+def _rescale(W, Z, active):
     acc = W[:, 0, None, :] * Z[0][None]
     for i in range(1, W.shape[0]):
         acc = acc + W[:, i, None, :] * Z[i][None]
     return torch.where(active.bool()[None, None, :], acc, Z)
+
+
+def history_rescale_plain(W, Z, active):
+    history_rescale_plain.calls += 1
+    return _rescale(W, Z, active)
 
 
 def history_rescale(W, Z, active):
@@ -103,6 +153,34 @@ def history_rescale(W, Z, active):
                   "ppppiilp", W.data_ptr(), Z.data_ptr(), active.data_ptr(),
                   out.data_ptr(), q1, n, nb, _build.stream(Z.device))
     history_rescale.launches += 1
+    return out
+
+
+def lagrange_rescale_plain(eta, q, Z, active):
+    lagrange_rescale_plain.calls += 1
+    return _rescale(lagrange_matrix_soa(eta, q), Z, active)
+
+
+def lagrange_rescale(eta, q, Z, active):
+    """``history_rescale(lagrange_matrix_soa(eta, q), Z, active)`` with
+    W formed in the kernel: eta (NB,) step ratios, q (NB,) int32 valid
+    history counts, Z (6,n,NB), active (NB,) bool/uint8.  Equal to the
+    plain version bit for bit."""
+    if _build.on_cpu("lagrange_rescale", Z):
+        return lagrange_rescale_plain(eta, q, Z, active)
+    q1, n, nb = Z.shape
+    if q1 != LAGRANGE_Q1:
+        raise ValueError(f"lagrange_rescale: Z has {q1} history rows, the "
+                         f"Lagrange matrix {LAGRANGE_Q1}")
+    _build.check("lagrange_rescale", Z.device, eta=(eta, (nb,), (Z.dtype,)),
+                 q=(q, (nb,), (torch.int32,)), Z=(Z, (q1, n, nb), _FLOATS),
+                 active=(active, (nb,), _MASKS))
+    out = torch.empty_like(Z)
+    _build.launch("newton", "lagrange_rescale_" + _build.SUFFIX[Z.dtype],
+                  "pppppilp", eta.data_ptr(), q.data_ptr(), Z.data_ptr(),
+                  active.data_ptr(), out.data_ptr(), n, nb,
+                  _build.stream(Z.device))
+    lagrange_rescale.launches += 1
     return out
 
 
@@ -127,8 +205,9 @@ def wrms_soa(v, w):
     return out
 
 
-for _fn in (newton_residual, masked_update_wrms, history_rescale, wrms_soa):
+for _fn in (newton_residual, masked_update_wrms, history_rescale,
+            lagrange_rescale, wrms_soa):
     _fn.launches = 0
 for _fn in (newton_residual_plain, masked_update_wrms_plain,
-            history_rescale_plain, wrms_soa_plain):
+            history_rescale_plain, lagrange_rescale_plain, wrms_soa_plain):
     _fn.calls = 0

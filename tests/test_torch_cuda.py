@@ -28,12 +28,21 @@ GJ_BS = (3, 8, 9, 16, 24, 32, 33)
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 #: bodies that sum in their plain version's order, each product and sum
 #: rounded alone: equal to it bit for bit
-EXACT = ("blockdiag_spmv",)
+EXACT = ("blockdiag_spmv", "history_rescale", "lagrange_rescale")
 
 
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+
+
+def _eta_q(nb, rng):
+    """Step ratios over [0.1, 10] (every fifth exactly 1) and valid
+    history counts q over 0..5 (int32), each q at least once when nb >=
+    6: the fused rebuild's inputs."""
+    eta = 10.0 ** rng.uniform(-1, 1, size=nb)
+    eta[::5] = 1.0
+    return eta, rng.permutation(np.arange(nb) % 6).astype(np.int32)
 
 
 def _inputs(nb, dtype):
@@ -43,6 +52,7 @@ def _inputs(nb, dtype):
          "w": np.abs(rng.normal(size=(3, nb))) + 0.1,
          "mask": rng.uniform(size=nb) > 0.4,
          "W": rng.normal(size=(6, 6, nb)), "Z": rng.normal(size=(6, 3, nb))}
+    d["eta"], d["q"] = _eta_q(nb, rng)
     for b in GJ_BS:
         d[f"A{b}"] = rng.normal(size=(b, b, nb)) + b * np.eye(b)[:, :, None]
         d[f"r{b}"] = rng.normal(size=(b, nb))
@@ -64,6 +74,9 @@ CASES = {
                            ("z", "f", "w", "mask"), "masked_update_wrms"),
     "history_rescale": (newton.history_rescale, newton.history_rescale_plain,
                         ("W", "Z", "mask"), "history_rescale"),
+    "lagrange_rescale": (newton.lagrange_rescale,
+                         newton.lagrange_rescale_plain,
+                         ("eta", "q", "Z", "mask"), "lagrange_rescale"),
     "wrms_soa": (newton.wrms_soa, newton.wrms_soa_plain, ("z", "w"),
                  "wrms_soa"),
     **{f"blockdiag_spmv_b{b}": (blockdiag_spmv.blockdiag_spmv_soa,
@@ -103,9 +116,72 @@ def test_kernel_matches_plain_on_card(case, nb, dtype):
             continue
         scale = max(1.0, w.abs().max().item())
         assert (g - w).abs().max().item() <= TOL[dtype] * scale
-    if case == "history_rescale":
+    if case in ("history_rescale", "lagrange_rescale"):
         off = ~d["mask"]
         assert torch.equal(got[0][:, :, off], d["Z"][:, :, off])
+
+
+#: state sizes of the rescale's two forms (n <= 4, the main path's 3;
+#: n > 4 in chunks of two components: its first width, 12, paths B-F's
+#: 32, and 33, whose last chunk holds one component), also the WRMS's
+STATE_NS = (3, 5, 12, 32, 33)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nb", NBS + [1 << 16])
+@pytest.mark.parametrize("n", STATE_NS)
+@pytest.mark.parametrize("mask", ["mixed", "none", "all"])
+def test_history_rescale_entries_bit_for_bit_on_card(mask, n, nb, dtype):
+    """Both rebuild entries, W read from memory (``history_rescale``) and
+    W formed from (eta, q) (``lagrange_rescale``), equal their plain
+    versions bit for bit, each one launch of its kernel: every q from 0
+    to 5, eta = 1 lanes, inactive lanes copied bit-exactly; a mixed
+    mask, no system active and every system active."""
+    _need_card()
+    rng = np.random.default_rng([n, nb])
+    eta, q = _eta_q(nb, rng)
+    active = {"mixed": rng.uniform(size=nb) > 0.4,
+              "none": np.zeros(nb, bool), "all": np.ones(nb, bool)}[mask]
+    W = rng.normal(size=(6, 6, nb))
+    Z = rng.normal(size=(6, n, nb))
+    eta, W, Z = (torch.from_numpy(a).to("cuda", dtype) for a in (eta, W, Z))
+    q, active = torch.from_numpy(q).cuda(), torch.from_numpy(active).cuda()
+    for name, kern, plain, args in (
+            ("history_rescale", newton.history_rescale,
+             newton.history_rescale_plain, (W, Z, active)),
+            ("lagrange_rescale", newton.lagrange_rescale,
+             newton.lagrange_rescale_plain, (eta, q, Z, active))):
+        kernels.reset_counts()
+        got = kern(*args)
+        assert kernels.counts()[name] == (1, 0)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        assert torch.equal(got[:, :, ~active], Z[:, :, ~active]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nb", NBS + [1 << 16])
+@pytest.mark.parametrize("n", STATE_NS)
+def test_wrms_soa_state_sizes_on_card(n, nb, dtype):
+    """The per-system WRMS at the main path's n = 3 and paths B-F's
+    n = 32 (and 5, 12, 33) against its plain version within TOL of
+    max(1, |plain|): ``torch.mean`` may sum in another order."""
+    _need_card()
+    rng = np.random.default_rng([n, nb, 5])
+    v = torch.from_numpy(rng.normal(size=(n, nb))).to("cuda", dtype)
+    w = torch.from_numpy(np.abs(rng.normal(size=(n, nb))) + 0.1).to(
+        "cuda", dtype)
+    kernels.reset_counts()
+    got = newton.wrms_soa(v, w)
+    assert kernels.counts()["wrms_soa"] == (1, 0)
+    want = newton.wrms_soa_plain(v, w)
+    torch.cuda.synchronize()
+    assert got.shape == (nb,)
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= TOL[dtype] * scale
 
 
 @pytest.mark.cuda
@@ -178,6 +254,11 @@ def test_wrapper_rejects_bad_inputs_on_card():
         newton.masked_update_wrms(d["z"], d["f"], d["w"], d["z"][0])
     with pytest.raises(ValueError, match="lies on cpu"):
         blockdiag_spmv.blockdiag_spmv_soa(d["A3"], d["z"].cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        newton.lagrange_rescale(d["eta"], d["q"].long(), d["Z"], d["mask"])
+    with pytest.raises(ValueError, match="history rows"):
+        newton.lagrange_rescale(d["eta"], d["q"], d["Z"][:5].contiguous(),
+                                d["mask"])
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
+from repro.core import cvode as rcv
 from repro.core import dispatch as rdv
 from repro.core.policies import ExecPolicy as RefPolicy
 from repro.kernels import ref as kref
@@ -38,18 +40,25 @@ def _close(port, *refs, atol=ATOL):
         np.testing.assert_allclose(_np(port), _np(ref), rtol=0, atol=atol)
 
 
-def _data(nb, seed=0):
+def _data(nb, seed=0, n=N):
     rng = np.random.default_rng(seed)
     return {
-        "z": rng.normal(size=(N, nb)), "f": rng.normal(size=(N, nb)),
-        "psi": rng.normal(size=(N, nb)),
+        "z": rng.normal(size=(n, nb)), "f": rng.normal(size=(n, nb)),
+        "psi": rng.normal(size=(n, nb)),
         "gam": np.abs(rng.normal(size=(nb,))),
-        "w": np.abs(rng.normal(size=(N, nb))) + 0.1,
+        "w": np.abs(rng.normal(size=(n, nb))) + 0.1,
         "mask": rng.uniform(size=(nb,)) > 0.4,
         "W": rng.normal(size=(Q1, Q1, nb)),
-        "Z": rng.normal(size=(Q1, N, nb)),
-        "A": rng.normal(size=(N, N, nb)),
+        "Z": rng.normal(size=(Q1, n, nb)),
+        "A": rng.normal(size=(n, n, nb)),
     }
+
+
+#: (n, nb) of the history rescale and the per-system WRMS: the Robertson
+#: state (n = 3, its ids nb alone) and the Brusselator ensemble's n = 32
+#: (the CUDA kernels' second layout); ragged batches
+STATE_CASES = [pytest.param(n, nb, id=str(nb) if n == N else f"n{n}-{nb}")
+               for n in (N, 32) for nb in NBS]
 
 
 def _t(a):
@@ -98,9 +107,9 @@ def test_masked_update_wrms(nb):
     assert np.all(_np(dn_p)[~d["mask"]] > 0)
 
 
-@pytest.mark.parametrize("nb", NBS)
-def test_history_rescale(nb):
-    d = _data(nb)
+@pytest.mark.parametrize("n, nb", STATE_CASES)
+def test_history_rescale(n, nb):
+    d = _data(nb, n=n)
     port = newton.history_rescale_plain(_t(d["W"]), _t(d["Z"]),
                                         _t(d["mask"]))
     args = [jnp.asarray(d[k]) for k in ("W", "Z", "mask")]
@@ -114,9 +123,84 @@ def test_history_rescale(nb):
     assert np.array_equal(_np(none), d["Z"])
 
 
-@pytest.mark.parametrize("nb", NBS)
-def test_wrms_soa(nb):
-    d = _data(nb)
+def _eta_q(nb, rng):
+    """Step ratios over [0.1, 10] (every fifth exactly 1) and valid
+    history counts q over 0..5, each q at least once."""
+    eta = 10.0 ** rng.uniform(-1, 1, size=nb)
+    eta[::5] = 1.0
+    q = rng.permutation(np.arange(nb) % (Q1))[:nb].astype(np.int32)
+    return eta, q
+
+
+@pytest.mark.parametrize("n, nb", STATE_CASES)
+def test_lagrange_rescale(n, nb):
+    """The fused rebuild's plain version against the reference: W
+    (``lagrange_matrix_soa``) equal to ``vmap(cvode._lagrange_matrix)``
+    bit for bit, and the rescale with it against the reference's oracle
+    and Pallas kernel fed the reference's W; inactive systems (the eta =
+    1 lanes among them) pass through bit-exactly."""
+    rng = np.random.default_rng([n, nb])
+    eta, q = _eta_q(nb, rng)
+    Z = rng.normal(size=(Q1, n, nb))
+    active = (rng.uniform(size=nb) > 0.4) & (eta != 1.0)
+    W_ref = np.asarray(jax.vmap(rcv._lagrange_matrix)(
+        jnp.asarray(eta), jnp.asarray(q))).transpose(1, 2, 0)
+    W = newton.lagrange_matrix_soa(_t(eta), _t(q))
+    assert np.array_equal(_np(W), W_ref)
+    assert np.array_equal(np.signbit(_np(W)), np.signbit(W_ref))
+    kernels.reset_counts()
+    port = dv.lagrange_rescale_soa(_t(eta), _t(q), _t(Z), _t(active))
+    assert kernels.counts()["lagrange_rescale"] == (0, 1)
+    args = [jnp.asarray(a) for a in (W_ref, Z, active)]
+    ref = kref.history_rescale_soa_ref(*args)
+    # W reaches ~1e7 at eta = 10, q = 5 (the new nodes lie up to 50 old
+    # steps out): 1e-10 of the output's scale, as the card tests hold
+    _close(port, ref, rdv.history_rescale_soa(*args, PALLAS),
+           atol=ATOL * max(1.0, float(np.abs(ref).max())))
+    off = ~active
+    assert np.array_equal(_np(port)[:, :, off], Z[:, :, off])
+    assert torch.equal(port, newton.history_rescale_plain(W, _t(Z),
+                                                          _t(active)))
+
+
+def _lagrange_quotient(p, d):
+    """The CUDA kernel's p / d (``newton.cu`` ``lagrange_quotient``): a
+    product with the exact reciprocal for d = +-1, +-2, +-4."""
+    return p / d if abs(d) in (3, 5) else p * (1.0 / d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lagrange_matrix_in_kernel_order(dtype):
+    """The CUDA kernel's W entry by entry (``newton.cu``
+    ``lagrange_entry``: (-j)*eta + k, the quotient, the running product
+    under k <= q, then the identity rows and zero columns), written out
+    in PyTorch, equals ``lagrange_matrix_soa`` bit for bit, signed zeros
+    included: what lets the fused kernel equal its plain version."""
+    rng = np.random.default_rng(7)
+    eta, q = _eta_q(516, rng)
+    eta = torch.from_numpy(eta).to(dtype)
+    q = torch.from_numpy(q)
+    want = newton.lagrange_matrix_soa(eta, q)
+    got = torch.empty_like(want)
+    one = torch.ones((), dtype=dtype)
+    for j in range(Q1):
+        p = -torch.tensor(float(j), dtype=dtype) * eta
+        for i in range(Q1):
+            w = torch.ones_like(eta)
+            for k in range(Q1):
+                if k != i:
+                    f = _lagrange_quotient(p + k, k - i)
+                    w = torch.where(k <= q, w * f, w)
+            ident = one if i == j else torch.zeros((), dtype=dtype)
+            got[j, i] = torch.where(j > q, ident,
+                                    torch.where(i > q, 0.0 * one, w))
+    assert torch.equal(got, want)
+    assert torch.equal(got.signbit(), want.signbit())
+
+
+@pytest.mark.parametrize("n, nb", STATE_CASES)
+def test_wrms_soa(n, nb):
+    d = _data(nb, n=n)
     port = newton.wrms_soa_plain(_t(d["z"]), _t(d["w"]))
     v, w = jnp.asarray(d["z"]), jnp.asarray(d["w"])
     _close(port, kref.wrms_soa_ref(v, w), rdv.wrms_soa(v, w, PALLAS))
@@ -190,6 +274,9 @@ def _op_calls(d, policy):
             t["z"], t["f"], t["w"], t["mask"], policy),
         "history_rescale_soa": lambda: dv.history_rescale_soa(
             t["W"], t["Z"], t["mask"], policy),
+        "lagrange_rescale_soa": lambda: dv.lagrange_rescale_soa(
+            t["gam"], torch.full((t["gam"].shape[0],), 5, dtype=torch.int32),
+            t["Z"], t["mask"], policy),
         "wrms_soa": lambda: dv.wrms_soa(t["z"], t["w"], policy),
         "block_solve_soa": lambda: dv.block_solve_soa(t["A"], t["z"], policy),
     }
@@ -208,6 +295,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
         lambda: newton.newton_residual(d["z"], d["f"], d["psi"], d["gam"]),
         lambda: newton.masked_update_wrms(d["z"], d["f"], d["w"], d["mask"]),
         lambda: newton.history_rescale(d["W"], d["Z"], d["mask"]),
+        lambda: newton.lagrange_rescale(d["gam"], d["gam"].int(), d["Z"],
+                                        d["mask"]),
         lambda: newton.wrms_soa(d["z"], d["w"]),
         lambda: blockdiag_spmv.blockdiag_spmv_soa(d["A"], d["z"]),
         lambda: block_solve.block_inverse_soa(d["A"]),

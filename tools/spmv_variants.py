@@ -33,92 +33,20 @@ from __future__ import annotations
 
 import ctypes
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
+from variants import build, candidate_sources, time_ms
+
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "src/repro_torch/kernels/csrc/blockdiag_spmv.cu"
-BUILD = ROOT / "build" / "tools"
-#: name -> (text that occurs once in the port's source, its replacement)
-CANDIDATES = {"port": None,
-              "ldcs": ("__ldg(", "__ldcs("),
-              "chunk4": ("#define SPMV_CHUNK 8", "#define SPMV_CHUNK 4")}
+#: name -> [(text that occurs once in the port's source, its
+#: replacement)]
+CANDIDATES = {"port": [],
+              "ldcs": [("__ldg(", "__ldcs(")],
+              "chunk4": [("#define SPMV_CHUNK 8", "#define SPMV_CHUNK 4")]}
 NB = 1 << 16
 TIMED_B = (32, 24, 16)
-
-
-def build(sources: dict) -> dict:
-    """{name: (.cu path, include dir)} -> {name: loaded library}, all
-    nvcc at once; prints ptxas's report for the row form."""
-    from repro_torch.kernels import _build
-    BUILD.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (src, inc) in sources.items():
-        out = BUILD / f"libspmv_{name}.so"
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-               str(inc), "-o", str(out), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       out)
-    libs = {}
-    for name, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        entry = None
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif ("Used" in line or "spill" in line) and entry \
-                    and "spmv" in entry:
-                print(f"ptxas {name} {entry[:48]}: "
-                      f"{line.split(':', 1)[-1].strip()}", flush=True)
-        libs[name] = ctypes.CDLL(str(out))
-    return libs
-
-
-def candidate_sources(parent):
-    """Write each candidate's source beside the build: {name: (path,
-    include dir)}."""
-    text = SOURCE.read_text()
-    out = {}
-    for name, change in CANDIDATES.items():
-        if change is None:
-            out[name] = (SOURCE, SOURCE.parent)
-            continue
-        old, new = change
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} does not occur once in "
-                               f"{SOURCE.name}")
-        BUILD.mkdir(parents=True, exist_ok=True)
-        path = BUILD / f"blockdiag_spmv_{name}.cu"
-        path.write_text(text.replace(old, new))
-        out[name] = (path, SOURCE.parent)
-    if parent:
-        csrc = Path(parent) / "src/repro_torch/kernels/csrc"
-        out["parent"] = (csrc / "blockdiag_spmv.cu", csrc)
-    return out
-
-
-def time_ms(fn, flush_fn, reps, spin):
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        flush_fn()
-        torch.cuda._sleep(spin)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def main(argv) -> int:
@@ -143,7 +71,8 @@ def main(argv) -> int:
     card = cs.card_line()
     print(card, flush=True)
     _build.build_all()
-    libs = build(candidate_sources(parent))
+    libs = build(candidate_sources(SOURCE, CANDIDATES, parent), "spmv",
+                 lambda entry: "spmv" in entry)
     for lib in libs.values():
         for sym in (lib.blockdiag_spmv_f32, lib.blockdiag_spmv_f64):
             sym.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
