@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile[=main,A,...,K]] [--ptxas]
+    python3 chip_smoke.py [--profile[=main,A,...,L]] [--ptxas]
 
 Run from the repository root.  It imports nothing of JAX or of the JAX
 package.  Phases, each of which fails the run (non-zero exit), and each
@@ -112,6 +112,24 @@ of which prints the seconds it took:
    I and J are held to their plain runs as G is: every counter equal
    and the WRMS norm of the difference within 1, the max-norm ratio
    printed;
+   - path L, coupled legs, run right after the main path on its
+     problem, through one ``Context`` with a 256-slot step-telemetry
+     ring, the profiler and the INFO logger on: y0 made on the host
+     and moved by ``ctx.memory``; leg 1 to t = 10 (``timed=True``,
+     ``return_session=True``) equal to the main path's kernel run bit
+     for bit with its host syncs; leg 2 to t = 20 warm from that
+     session, twice from one handle (the same bits, the handle
+     unchanged), cold from leg 1's y, and warm on the plain versions
+     (the warm kernel leg held to it as the main path is); each leg
+     conserves mass, launches the main path's kernels (none in the
+     plain leg), and its ring reconciles exactly, per lane, with its
+     steps, attempts, Newton iterations and lsetups; the final y goes
+     back to the host through ``ctx.memory`` (one copy each way, 2 *
+     2**20 * 3 * 8 bytes); one ``integrate.done`` a call and no
+     ``integrate.lane_failed``, the profiler's build and execute spans
+     of leg 1, and ``context_metrics`` counting the calls; it prints
+     each leg's wall, syncs, trips and peak memory, warm against cold
+     steps, and leg 1's order occupancy and log10 h histogram;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
@@ -198,7 +216,13 @@ PATH_KERNELS = {
     "I: bdf csr": ("csr_spmv", "block_solve", "linear_combination", "wrms_ss",
                    "dot"),
     "J: adams": ("wrms_ss",),
+    "L: coupled legs": ("newton_residual", "blockdiag_spmv",
+                        "masked_update_wrms", "lagrange_rescale", "wrms_soa",
+                        "block_inverse"),
 }
+#: path L: slots of the step-telemetry ring, and the legs' intervals
+L_RING = 256
+L_LEG1, L_LEG2 = (0.0, 10.0), (10.0, 20.0)
 #: t_final of paths I and J (each run ~15 s or less on the card; J takes
 #: 20+ steps at nx = 2**20)
 TF_I, TF_J = 0.005, 0.02
@@ -961,9 +985,11 @@ def check_counts(path, counts, kernel_run):
               "times")
 
 
-def run_path(path, label, prob, method, t1, opts, **kw):
-    """One ``integrate`` call with the counts zeroed just before it and
-    read just after; ``label`` is "kernels" or "plain versions"."""
+def run_path(path, label, prob, method, t1, opts, ctx=None, t0=0.0, **kw):
+    """One ``integrate`` call from t0 to t1 with the counts zeroed just
+    before it and read just after; ``label`` "plain versions" marks the
+    plain run (any other, a kernel run); ``ctx`` None is a fresh
+    Context."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import batched, ivp
@@ -972,10 +998,11 @@ def run_path(path, label, prob, method, t1, opts, **kw):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     batched.reset_loop_counts()
-    t0 = time.perf_counter()
-    sol = ivp.integrate(prob, 0.0, t1, method, ctx=Context(), opts=opts, **kw)
+    start = time.perf_counter()
+    sol = ivp.integrate(prob, t0, t1, method,
+                        ctx=Context() if ctx is None else ctx, opts=opts, **kw)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - start
     counts = kernels.counts()
     st = sol.stats
     ok = sol.ok if sol.ok is not None else st.success
@@ -1000,7 +1027,7 @@ def run_path(path, label, prob, method, t1, opts, **kw):
                       for k, v in rec.items() if isinstance(v, dict)
                       and "sum" in v)
           + "".join(f", {k} {v}" for k, v in krylov.items()), flush=True)
-    check_counts(path, counts, label == "kernels")
+    check_counts(path, counts, label != "plain versions")
     check(rec["lanes_ok"] == rec["lanes"],
           f"{path} [{label}]: {rec['lanes'] - rec['lanes_ok']} lanes failed")
     check(bool(torch.isfinite(sol.y).all()), f"{path}: non-finite y")
@@ -1049,6 +1076,7 @@ def phase_main_path(profile):
                                 policy=ExecPolicy(backend="torch")))
     agreement = agree(path, sol.y, ref.y, sol.retcodes, ref.retcodes,
                       mass=True)
+    y = sol.y
     del sol, ref
     prof = None
     if profile:
@@ -1056,7 +1084,148 @@ def phase_main_path(profile):
                                                 opts), rec["wall_s"], True)
         prof["lagrange_alone_ms"] = lagrange_alone_ms()
     return {"kernels_run": rec, "plain_run": ref_rec,
-            "agreement": agreement, "profile": prof}
+            "agreement": agreement, "profile": prof, "y": y}
+
+
+def run_leg(path, label, ctx, prob, t_span, opts, summarise=False, **kw):
+    """One leg of path L: :func:`run_path` with the path's context
+    (telemetry, profiler and logger on), then Robertson's mass, and the
+    leg's ring reconciled exactly, per lane, with its counters.
+    ``summarise`` adds the ring's ``summary()``; the ring itself does not
+    outlive the call (36 B a system a slot)."""
+    import torch
+    sol, rec = run_path(path, label, prob, "ensemble_bdf", t_span[1], opts,
+                        ctx=ctx, t0=t_span[0], **kw)
+    st, tel = sol.stats, sol.telemetry
+    rec["timings"] = sol.timings
+    rec["mass_drift"] = (sol.y.sum(dim=1) - 1.0).abs().max().item()
+    check(rec["mass_drift"] <= 10 * RTOL, f"{path} [{label}]: y1+y2+y3 "
+          f"drifts from 1 by {rec['mass_drift']}")
+    check(tel.t.device.type == "cuda", f"{path} [{label}]: the ring lies "
+          f"on {tel.t.device}")
+    check(not tel.truncated, f"{path} [{label}]: the ring wrapped "
+          f"({tel.total_records} records in {tel.capacity} slots)")
+    for name, got, want in (("steps", tel.steps(), st.steps),
+                            ("attempts", tel.attempts(), st.attempts),
+                            ("nni", tel.newton_iters_total(), st.nni),
+                            ("nsetups", tel.lsetups(), st.nsetups)):
+        check(torch.equal(got.to(want.dtype), want), f"{path} [{label}]: "
+              f"the ring's {name} differ from the Solution's")
+    if summarise:
+        rec["telemetry_summary"] = tel.summary()
+    return sol._replace(telemetry=None), rec
+
+
+def phase_path_l(y_main, main_syncs, profile):
+    """Path L, coupled legs: the main path's problem integrated as a
+    reacting-flow code calls it once a coupling step, through one
+    Context with telemetry, profiler and logger on.  y0 is made on the
+    host and moved by ``ctx.memory``; leg 1 to t = 10 (timed, exporting
+    a session), leg 2 to t = 20 warm from it (twice from one handle),
+    cold from leg 1's y, and plain versions warm; the final y goes back
+    to the host through ``ctx.memory``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ivp, problems
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.context import Context
+    from repro_torch.core.memory import MemoryType
+    from repro_torch.core.policies import ExecPolicy
+    from repro_torch.observability import (MetricsRegistry,
+                                           ObservabilityConfig,
+                                           context_metrics)
+    path = "L: coupled legs"
+    rates = problems.robertson_rates(NSYS, seed=0)
+    f, jac, _ = problems.batched_robertson(NSYS, rates=rates)
+    f_soa, jac_soa = problems.batched_robertson_soa(NSYS, rates=rates)
+
+    def prob(y):
+        return ivp.IVP(f=f, jac=jac, y0=y, f_soa=f_soa, jac_soa=jac_soa)
+
+    ctx = Context(observability=ObservabilityConfig(
+        profile=True, log_level="INFO", telemetry=True,
+        telemetry_capacity=L_RING))
+    mem = ctx.memory
+    y0_host = np.zeros((NSYS, 3))
+    y0_host[:, 0] = 1.0
+    y0 = mem.copy(mem.alloc((NSYS, 3), torch.float64, MemoryType.DEVICE),
+                  mem.wrap(torch.from_numpy(y0_host), MemoryType.HOST)).data
+    opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
+    legs = {}
+    sol1, legs["leg1"] = run_leg(
+        path, "leg 1", ctx, prob(y0), L_LEG1, opts, summarise=True,
+        return_session=True, timed=True)
+    spans = [s.name for s in ctx.profiler.spans]
+    check(spans == ["integrate.build", "integrate.execute"],
+          f"{path}: leg 1's profiler spans are {spans}")
+    check(torch.equal(sol1.y, y_main), f"{path}: leg 1 is not the main "
+          "path's kernel run bit for bit")
+    check(legs["leg1"]["loop"]["host_syncs"] == main_syncs,
+          f"{path}: leg 1 made {legs['leg1']['loop']['host_syncs']} host "
+          f"syncs with telemetry on, the main path {main_syncs}")
+    summary = legs["leg1"]["telemetry_summary"]
+    sess, y1 = sol1.session, sol1.y
+    before = [x.clone() for x in sess]
+    warm, legs["leg2 warm"] = run_leg(
+        path, "leg 2 warm", ctx, prob(y1), L_LEG2, opts, session=sess)
+    warm2, legs["leg2 warm again"] = run_leg(
+        path, "leg 2 warm again", ctx, prob(y1), L_LEG2, opts, session=sess)
+    check(all(torch.equal(a, b) for a, b in zip(before, sess)),
+          f"{path}: the call changed the caller's session")
+    check(torch.equal(warm.y, warm2.y) and torch.equal(
+        warm.stats.steps, warm2.stats.steps),
+        f"{path}: two warm legs from one session differ")
+    del warm2, before
+    cold, legs["leg2 cold"] = run_leg(path, "leg 2 cold", ctx, prob(y1),
+                                         L_LEG2, opts)
+    plain, legs["leg2 plain"] = run_leg(
+        path, "plain versions", ctx, prob(y1), L_LEG2,
+        opts._replace(policy=ExecPolicy(backend="torch")), session=sess)
+    agreement = agree(path, warm.y, plain.y, warm.retcodes, plain.retcodes,
+                      mass=True)
+    warm_vs_cold = ((warm.y - cold.y).abs() /
+                    (RTOL * cold.y.abs() + ATOL)).max().item()
+    agreement["warm_vs_cold_max_over_tol"] = warm_vs_cold
+    print(f"{path}: leg 2 steps warm {legs['leg2 warm']['steps']['sum']} "
+          f"against cold {legs['leg2 cold']['steps']['sum']}; max |y_warm - "
+          f"y_cold|/(rtol*|y_cold|+atol) {warm_vs_cold:.3g}", flush=True)
+    y_host = mem.copy(mem.alloc((NSYS, 3), torch.float64, MemoryType.HOST),
+                      mem.wrap(warm.y, MemoryType.DEVICE)).data
+    check(torch.equal(y_host.to(warm.y.device), warm.y),
+          f"{path}: the host copy of y differs")
+    stats = dict(mem.stats)
+    check(stats["copies_h2d"] == 1 and stats["copies_d2h"] == 1
+          and stats["copy_bytes"] == 2 * NSYS * 3 * 8,
+          f"{path}: memory helper stats {stats}")
+    calls = len(legs)
+    done = [e for e in ctx.logger.events if e["event"] == "integrate.done"]
+    failed = [e for e in ctx.logger.events
+              if e["event"] == "integrate.lane_failed"]
+    check(len(done) == calls and not failed,
+          f"{path}: {len(done)} integrate.done and {len(failed)} "
+          f"integrate.lane_failed events for {calls} calls")
+    reg = MetricsRegistry()
+    context_metrics(reg, ctx)
+    check(f"repro_context_integrations_total {calls}" in reg.render(),
+          f"{path}: the metrics do not count {calls} integrations")
+    print(f"{path}: memory helper {stats}; leg 1 timings "
+          f"{legs['leg1']['timings']}; telemetry of leg 1: order occupancy "
+          f"{summary['order_occupancy']}, log10 h histogram "
+          f"{summary['h_hist_log10']}", flush=True)
+    kernels_run = {"counts": {
+        name: (sum(legs[k]["counts"][name][0] for k in legs
+                   if k != "leg2 plain"), 0)
+        for name in legs["leg1"]["counts"]}}
+    prof = None
+    if profile:
+        prof = profile_run(path, integrate_call(
+            prob(y1), "ensemble_bdf", L_LEG2[1], opts, {"session": sess},
+            t0=L_LEG2[0], obs=ctx.observability),
+            legs["leg2 warm"]["wall_s"], True)
+    del warm, cold, plain, sol1, sess
+    return {"legs": legs, "kernels_run": kernels_run,
+            "agreement": agreement, "memory_stats": stats,
+            "profiler": ctx.profiler.summary(), "profile": prof}
 
 
 def phase_path_a(profile):
@@ -1127,11 +1296,13 @@ def phase_brusselator(path, method, t1, kw, profile, sparsity=False, C=10,
     return out
 
 
-def integrate_call(prob, method, t1, opts, kw=None):
-    """A kernel run of an ``integrate`` path, for :func:`profile_run`."""
+def integrate_call(prob, method, t1, opts, kw=None, t0=0.0, obs=None):
+    """A kernel run of an ``integrate`` path, for :func:`profile_run`
+    (``obs``: the context's ObservabilityConfig)."""
     from repro_torch.core import ivp
     from repro_torch.core.context import Context
-    return lambda: ivp.integrate(prob, 0.0, t1, method, ctx=Context(),
+    ctx_kw = {} if obs is None else {"observability": obs}
+    return lambda: ivp.integrate(prob, t0, t1, method, ctx=Context(**ctx_kw),
                                  opts=opts, **(kw or {}))
 
 
@@ -1515,12 +1686,17 @@ def main(argv) -> int:
     rows, more_rows = phase("timings", phase_timings, table, dev)
     # 4. the paths, each against its plain run
     profiled = profiled_paths(argv)
-    paths = {
-        "ensemble_bdf": phase("main path (ensemble_bdf)", phase_main_path,
-                              profiled("main")),
-        "A: ensemble_dirk": phase("path A (ensemble_dirk)", phase_path_a,
-                                  profiled("A")),
-    }
+    paths = {"ensemble_bdf": phase("main path (ensemble_bdf)",
+                                   phase_main_path, profiled("main"))}
+    # the main path's problem in coupled legs: warm start, telemetry,
+    # profiler, logger and the memory helper
+    paths["L: coupled legs"] = phase(
+        "path L (coupled legs)", phase_path_l,
+        paths["ensemble_bdf"].pop("y"),
+        paths["ensemble_bdf"]["kernels_run"]["loop"]["host_syncs"],
+        profiled("L"))
+    paths["A: ensemble_dirk"] = phase("path A (ensemble_dirk)", phase_path_a,
+                                      profiled("A"))
     paths["ensemble_bdf"]["reference"] = phase(
         "reference (ensemble_bdf)", classic_robertson_reference,
         "ensemble_bdf")

@@ -17,7 +17,10 @@ CVODE families ``"bdf"`` and ``"adams"``, and the ensemble families
 ``EnsembleSparseGJ`` or a preconditioned Krylov solver (``SPGMR``,
 ``SPFGMR``, ``SPBCGS``, ``SPTFQMR``, ``PCG``) over a ``jac_sparsity``
 pattern; the sparse matrices ``core.sunmatrix.SparseCSR`` and
-``EnsembleBSR``; event detection (``core.events``); and the paper's §7
-demonstration, ``apps.brusselator``.  Everything else raises
-``NotImplementedError`` naming its ROADMAP item.
+``EnsembleBSR``; event detection (``core.events``); warm-start sessions
+(``core.batched.SolverSession``) and step telemetry; the SUNContext,
+SUNMemoryHelper, SUNProfiler and SUNLogger analogs (``core.context``,
+``core.memory``, ``observability``); the paper's §7 demonstration,
+``apps.brusselator``; and the example ``examples.batched_kinetics``.
+Everything else raises ``NotImplementedError`` naming its ROADMAP item.
 """

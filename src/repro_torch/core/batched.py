@@ -43,11 +43,18 @@ object is a tensor or a tuple of tensors, each with the system axis
 last, and a partial lsetup merges it leaf by leaf.  ``jac_sparsity``
 binds a static pattern to the solver (``with_sparsity``), as in the
 reference.  The inner-iteration and psolve counts of the Krylov solvers
-stay device tensors (no read per Newton iteration).  Warm-start
-sessions and step telemetry wait for ROADMAP queue A item 5 and raise.
+stay device tensors (no read per Newton iteration).
+
+Warm start (:class:`SolverSession`, ``session=`` / ``return_session=``)
+and step telemetry (``telemetry=K``, a ring of
+:mod:`repro_torch.observability.telemetry` on the solve's device) follow
+the reference.  A telemetry record stores values the step computed
+anyway, with no host read, so the loop's syncs and bits are those of a
+run without it.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -58,6 +65,7 @@ from . import dispatch as dv
 from . import status
 from .arkode import ODEOptions
 from .butcher import ButcherTable
+from ..observability.telemetry import ring_init, ring_record
 from .linsol import BlockDiagGJ, encode_sparsity, newton_blocks_soa
 # the host loops' counted reads and trip counts (shared with krylov)
 from .loops import loop_counts, reset_loop_counts  # noqa: F401
@@ -95,6 +103,71 @@ class EnsembleStats(NamedTuple):
     npsolves: Optional[torch.Tensor] = None  # (nsys,) preconditioner solves
     retcodes: Optional[torch.Tensor] = None  # (nsys,) int32, 0 == SUCCESS
     ok: Optional[torch.Tensor] = None        # (nsys,) bool, retcodes == 0
+
+
+class SolverSession(NamedTuple):
+    """Warm-start continuation state of ``ensemble_bdf`` (reference
+    ``batched.py:138-202``).
+
+    The final step-loop state of one integration, exported with
+    ``return_session=True`` and taken back with ``session=``, so a
+    client that integrates again from where it stopped (a coupling step
+    of a reacting-flow code) re-enters at its last order and step size
+    instead of the cold order-1 start.  Every leaf keeps the system axis
+    LAST, so :meth:`lanes` and :meth:`concat` slice and join bundles.
+
+    ``h <= 0`` marks a cold lane: re-entry takes the default ``h0``
+    there, which is how :meth:`cold` reproduces the plain ``y0`` start
+    bit for bit.  The integrator clones every leaf it takes, so the
+    caller's handle is unchanged by the call, and exports the loop's
+    outputs.
+    """
+
+    t: torch.Tensor       # (nsys,) time reached
+    h: torch.Tensor       # (nsys,) step size; <= 0 marks a cold lane
+    q: torch.Tensor       # (nsys,) int32 current BDF order
+    Z: torch.Tensor       # (QMAX+1, n, nsys) uniform-grid history
+    e1: torch.Tensor      # (nsys,) controller err_prev
+    e2: torch.Tensor      # (nsys,) controller err_prev2
+    steps: torch.Tensor   # (nsys,) int32 cumulative accepted steps
+    #                       (bounds how much of Z is valid history)
+
+    @property
+    def nsys(self) -> int:
+        return self.Z.shape[-1]
+
+    @property
+    def n(self) -> int:
+        return self.Z.shape[-2]
+
+    @classmethod
+    def cold(cls, y0: torch.Tensor, t0) -> "SolverSession":
+        """A cold-start session for ``y0`` (nsys, n) at ``t0``: the same
+        bits as passing ``y0`` without a session."""
+        nsys, n = y0.shape
+        dtype, dev = y0.dtype, y0.device
+        Z = torch.zeros((_cv.QMAX + 1, n, nsys), dtype=dtype, device=dev)
+        Z[0] = y0.T
+        return cls(
+            t=torch.as_tensor(t0, dtype=dtype, device=dev).expand(nsys)
+            .clone(),
+            h=torch.zeros((nsys,), dtype=dtype, device=dev),
+            q=torch.ones((nsys,), dtype=torch.int32, device=dev), Z=Z,
+            e1=torch.ones((nsys,), dtype=dtype, device=dev),
+            e2=torch.ones((nsys,), dtype=dtype, device=dev),
+            steps=torch.zeros((nsys,), dtype=torch.int32, device=dev))
+
+    def lanes(self, idx) -> "SolverSession":
+        """The session of lane(s) ``idx``, kept as a system axis (pass a
+        slice or an index tensor so the result can be concatenated)."""
+        return SolverSession(*(x[..., idx] for x in self))
+
+    @staticmethod
+    def concat(sessions) -> "SolverSession":
+        """Join sessions along the system axis (mixed warm and cold
+        bundles)."""
+        return SolverSession(*(torch.cat(xs, dim=-1)
+                               for xs in zip(*sessions)))
 
 
 def _start(t0, tf, opts: ODEOptions, nsys: int, dtype, dev):
@@ -219,10 +292,11 @@ def ensemble_dirk_integrate(fi: Callable, jac: Callable, y0: torch.Tensor,
     with ``block_solve_soa``.  The stage is then accepted on the WRMS of
     its residual.  Failed lanes are quarantined with a CV_*-style
     retcode, as in the BDF loop.
+
+    ``telemetry=K`` records each attempt in a K-slot ring on y0's device
+    (reference ``batched.py:442-470``: ``q`` is the method's order, no
+    lsetup) and returns ``(y, stats, ring)``.
     """
-    if telemetry is not None:
-        raise NotImplementedError("step telemetry waits for ROADMAP queue A "
-                                  "item 5")
     policy = opts.policy if policy is None else policy
     nsys, n = y0.shape
     dtype, dev = y0.dtype, y0.device
@@ -240,6 +314,8 @@ def ensemble_dirk_integrate(fi: Callable, jac: Callable, y0: torch.Tensor,
     steps, att, netf, nni, rc, ncf_cur, nef_cur = (zeros_i32()
                                                    for _ in range(7))
     tf_run = tf * (1 - 1e-12)
+    ring = None if telemetry is None else ring_init(telemetry, (nsys,),
+                                                    dtype, dev)
 
     while True:
         active = (t < tf_run) & (rc == 0)
@@ -296,7 +372,11 @@ def ensemble_dirk_integrate(fi: Callable, jac: Callable, y0: torch.Tensor,
         accept = (err <= 1.0) & ~bad & active
         eta, e = _pi_eta(opts.controller, err, e1, p, accept, active)
         eta = torch.where(nl_ok | ~active, eta, opts.eta_cf)
-        t = torch.where(accept, t + hs, t)
+        t_new = t + hs
+        if ring is not None:
+            ring = ring_record(ring, (t_new, hs, p, nni_step, err, False,
+                                      nl_ok, accept, active))
+        t = torch.where(accept, t_new, t)
         y = torch.where(accept[None, :], y_new, y)
         h_next = torch.where(active, torch.clamp(hs * eta, min=1e-14), h)
         e1 = torch.where(accept, e, e1)
@@ -330,6 +410,8 @@ def ensemble_dirk_integrate(fi: Callable, jac: Callable, y0: torch.Tensor,
     st = EnsembleStats(steps=steps, attempts=att, netf=netf, nni=nni,
                        success=t >= tf_end, retcodes=retcodes,
                        ok=retcodes == 0)
+    if ring is not None:
+        return y.T.contiguous(), st, ring
     return y.T.contiguous(), st
 
 
@@ -337,6 +419,7 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
                            t0, tf, *, order: int = 5,
                            opts: ODEOptions = ODEOptions(),
                            policy=None, linear_solver=None,
+                           lin_mode: Optional[str] = None,
                            jac_sparsity=None, msbp: int = 20,
                            dgmax: float = 0.3, mem=None,
                            f_soa: Optional[Callable] = None,
@@ -367,13 +450,37 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
     all systems per Newton iteration, and ``stats.nli`` /
     ``stats.npsolves`` count its inner iterations and psolves (totals,
     broadcast over the systems, as in the reference).
+    ``lin_mode='setup' | 'direct'`` is the reference's deprecated string
+    form of ``BlockDiagGJ(factor_once=True | False)``; it warns.
+
+    **Warm start** (reference ``batched.py:670-975``).  ``session=``
+    re-enters the loop from a :class:`SolverSession` exported by an
+    earlier call with ``return_session=True`` (which returns ``(y,
+    stats, session)``): history, order, step size and controller memory
+    resume per lane, from ``t0 = session.t``.  ``y0`` may then be None
+    (a given one must have the session's shape).  Lanes with ``h <= 0``
+    start cold with the default ``h0``.  The saved linear object is not
+    part of the session: the first warm step refreshes it.
+    ``stats.steps`` counts this call's accepted steps; ``session.steps``
+    stays cumulative (it bounds the valid history).  A lane that failed
+    is exported cold (``h = 0``, ``q = 1``, ``e1 = e2 = 1``, ``steps =
+    0``), anchored at its last accepted state ``Z[0]``.
+
+    **Step telemetry.**  ``telemetry=K`` records ``(t, h, q, nni, err,
+    lsetup, conv, accept, active)`` for each attempt of each system in a
+    K-slot ring on y0's device, appended last to the returned tuple.
     """
-    if session is not None or return_session:
-        raise NotImplementedError("warm-start sessions wait for ROADMAP "
-                                  "queue A item 5")
-    if telemetry is not None:
-        raise NotImplementedError("step telemetry waits for ROADMAP queue A "
-                                  "item 5")
+    if lin_mode is not None:
+        warnings.warn(
+            "repro-compat: ensemble_bdf_integrate(lin_mode=...) is "
+            "deprecated; pass linear_solver=BlockDiagGJ(factor_once="
+            f"{lin_mode == 'setup'}) (or any LinearSolver with an SoA "
+            "batch path)", DeprecationWarning, stacklevel=2)
+        if lin_mode not in ("setup", "direct"):
+            raise ValueError(f"lin_mode must be 'setup' or 'direct', got "
+                             f"{lin_mode!r}")
+        if linear_solver is None:
+            linear_solver = BlockDiagGJ(factor_once=(lin_mode == "setup"))
     ls = BlockDiagGJ() if linear_solver is None else linear_solver
     if jac_sparsity is not None:
         ls = ls.with_sparsity(encode_sparsity(jac_sparsity))
@@ -381,8 +488,20 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
         raise ValueError(f"order must lie in 1..{_cv.QMAX}, got {order}")
     policy = opts.policy if policy is None else policy
     QMAX = _cv.QMAX
-    nsys, n = y0.shape
-    dtype, dev = y0.dtype, y0.device
+    if session is not None:
+        n, nsys = session.n, session.nsys
+        dtype, dev = session.Z.dtype, session.Z.device
+        if y0 is not None and tuple(y0.shape) != (nsys, n):
+            raise ValueError(
+                f"y0 shape {tuple(y0.shape)} disagrees with the session "
+                f"({(nsys, n)}); pass y0=None to resume from the session")
+        t0 = session.t          # per-lane resume times
+    elif y0 is None:
+        raise ValueError("ensemble_bdf_integrate needs y0 (or a session= "
+                         "to resume from)")
+    else:
+        nsys, n = y0.shape
+        dtype, dev = y0.dtype, y0.device
     f_s, jac_s = _wrap_soa(f, jac, f_soa, jac_soa)
     if mem is not None:
         mem.register("ensemble_bdf.history", (QMAX + 1, n, nsys), dtype)
@@ -399,19 +518,32 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
     def zeros_i32():
         return torch.zeros((nsys,), dtype=i32, device=dev)
 
-    q = torch.ones((nsys,), dtype=i32, device=dev)
-    Z = torch.zeros((QMAX + 1, n, nsys), dtype=dtype, device=dev)
-    Z[0] = y0.T
-    e1 = torch.ones((nsys,), dtype=dtype, device=dev)
-    e2 = torch.ones((nsys,), dtype=dtype, device=dev)
+    if session is None:
+        q = torch.ones((nsys,), dtype=i32, device=dev)
+        Z = torch.zeros((QMAX + 1, n, nsys), dtype=dtype, device=dev)
+        Z[0] = y0.T
+        e1 = torch.ones((nsys,), dtype=dtype, device=dev)
+        e2 = torch.ones((nsys,), dtype=dtype, device=dev)
+        steps = zeros_i32()
+    else:
+        # every leaf the loop updates is cloned: the caller's handle
+        # must survive the call
+        h = torch.where(session.h > 0, session.h, h)
+        q = torch.clamp(session.q, 1, order).to(i32)
+        Z = session.Z.clone()
+        e1, e2 = session.e1.clone(), session.e2.clone()
+        steps = session.steps.to(i32).clone()
+    steps0 = steps.clone()
     MJ = ls.soa_carry_init(n, nsys, dtype, dev)
     gam_saved = torch.zeros((nsys,), dtype=dtype, device=dev)
     ncf_prev = torch.zeros((nsys,), dtype=torch.bool, device=dev)
-    since_jac, steps, att, netf = (zeros_i32() for _ in range(4))
+    since_jac, att, netf = (zeros_i32() for _ in range(3))
     nni, nsetups, ncfn, rc, ncf_cur, nef_cur = (zeros_i32() for _ in range(6))
     nli = torch.zeros((), dtype=i32, device=dev)
     nps = torch.zeros((), dtype=i32, device=dev)
     tf_run = tf * (1 - 1e-12)
+    ring = None if telemetry is None else ring_init(telemetry, (nsys,),
+                                                    dtype, dev)
 
     while True:
         active = (t < tf_run) & (rc == 0)
@@ -533,6 +665,9 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
         rc = torch.where(active & ((ncf_cur >= status.MXNCF) |
                                    (hfail & ~conv)), status.CONV_FAILURE, rc)
         rc = torch.where(nanstep, status.RHSFUNC_FAIL, rc)
+        if ring is not None:
+            ring = ring_record(ring, (t_new, hs, q, nni_s, err, need, conv,
+                                      accept, active))
 
         t = t_next
         h = torch.where(active, hs * eta, h)
@@ -550,8 +685,19 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
     tf_end = tf * (1 - 1e-10)
     retcodes = torch.where((rc == 0) & (t < tf_end), status.TOO_MUCH_WORK, rc)
     st = EnsembleStats(
-        steps=steps, attempts=att, netf=netf, nni=nni, success=t >= tf_end,
-        nsetups=nsetups, ncfn=ncfn,
+        steps=steps - steps0, attempts=att, netf=netf, nni=nni,
+        success=t >= tf_end, nsetups=nsetups, ncfn=ncfn,
         nli=nli.expand(nsys).clone(), npsolves=nps.expand(nsys).clone(),
         retcodes=retcodes, ok=retcodes == 0)
-    return Z[0].T.contiguous(), st
+    out = [Z[0].T.contiguous(), st]
+    if return_session:
+        # quarantine hygiene: a failed lane resumes cold (h = 0, order
+        # 1, no valid history) from its last accepted state Z[0]
+        ok = retcodes == 0
+        out.append(SolverSession(
+            t=t, h=torch.where(ok, h, 0.0), q=torch.where(ok, q, 1), Z=Z,
+            e1=torch.where(ok, e1, 1.0), e2=torch.where(ok, e2, 1.0),
+            steps=torch.where(ok, steps, 0)))
+    if ring is not None:
+        out.append(ring)
+    return tuple(out)

@@ -43,6 +43,7 @@ from typing import Callable, Optional
 import torch
 
 from ..kernels.newton import LAGRANGE_Q1, lagrange_matrix_soa
+from ..observability.telemetry import ring_init, ring_record
 from . import controller as ctrl
 from . import dispatch as dv
 from . import status
@@ -147,13 +148,11 @@ def bdf_integrate(f: Callable, y0, t0, tf, *, order: int = 5,
     to matrix-free SPGMR, or :class:`~repro_torch.core.linsol.DenseGJ`
     with ``dense_jac=True``.  ``nonlin_solver`` defaults to the
     ODEOptions Newton tolerances; ``mem`` registers the history
-    workspace.  ``telemetry=`` waits for ROADMAP queue A item 5 and
-    raises.  Returns ``(y(tf), stats)`` with ``stats.retcode`` a 0-d
-    int32 CV_* code.
+    workspace.  Returns ``(y(tf), stats)`` with ``stats.retcode`` a 0-d
+    int32 CV_* code; ``telemetry=K`` records each attempt in a K-slot
+    ring on y0's device (reference ``cvode.py:235-265``: no lsetup
+    trigger, always active) and returns ``(y, stats, ring)``.
     """
-    if telemetry is not None:
-        raise NotImplementedError("step telemetry waits for ROADMAP queue A "
-                                  "item 5")
     if not 1 <= order <= QMAX:
         raise ValueError(f"order must lie in 1..{QMAX}, got {order}")
     if lin_solver is None and dense_jac:
@@ -186,6 +185,7 @@ def bdf_integrate(f: Callable, y0, t0, tf, *, order: int = 5,
     q, rc, ncf_cur, nef_cur = 1, status.SUCCESS, 0, 0
     n_ = _Counts()
     last_h = h
+    ring = None if telemetry is None else ring_init(telemetry, (), dtype, dev)
     while (t_host < tf_host * (1 - 1e-12) - 1e-300
            and n_.attempts < opts.max_steps and rc == status.SUCCESS):
         h_use = torch.minimum(h, tf_t - t)
@@ -235,6 +235,9 @@ def bdf_integrate(f: Callable, y0, t0, tf, *, order: int = 5,
         # relative underflow (t + h == t); stiff problems legitimately
         # visit tiny absolute h near transients and recover
         hfail = t + h_use * eta == t
+        if ring is not None:
+            ring = ring_record(ring, (t_new, h_use, q, nst.iters, err, False,
+                                      nl_ok, accept, True))
         t = torch.where(accept, t_new, t)
         h = torch.clamp(h_use * eta, min=opts.hmin, max=opts.hmax)
         last_h = h_use
@@ -266,6 +269,8 @@ def bdf_integrate(f: Callable, y0, t0, tf, *, order: int = 5,
         rc = status.TOO_MUCH_WORK
     st = n_.stats(last_h, t, success, dev)._replace(
         retcode=torch.tensor(rc, dtype=torch.int32, device=dev))
+    if ring is not None:
+        return unravel(Z[0]), st, ring
     return unravel(Z[0]), st
 
 

@@ -26,3 +26,8 @@ RETCODE_NAMES = {
     CONV_FAILURE: "CONV_FAILURE",
     RHSFUNC_FAIL: "RHSFUNC_FAIL",
 }
+
+
+def retcode_name(code: int) -> str:
+    """Symbolic name for ``code`` (``"UNKNOWN(<n>)"`` off the table)."""
+    return RETCODE_NAMES.get(int(code), f"UNKNOWN({int(code)})")

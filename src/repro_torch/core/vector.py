@@ -10,7 +10,7 @@ reductions combine them in leaf order, as the reference does.  They are
 plain tensor code in the reference too; the hot ops that have kernels
 (``linear_combination``, ``dot``, ``wrms_norm``, ...) are
 :mod:`repro_torch.core.dispatch`'s.  ``MeshVector`` waits for ROADMAP
-queue A item 11.
+queue A.7.
 """
 from __future__ import annotations
 

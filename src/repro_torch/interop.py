@@ -9,8 +9,10 @@ numbers and numpy arrays, so this module imports neither package.  A
 numpy bool array in both packages, and the port encodes it with its
 own copy of the reference's host code (``core/spsolve.py``), so a test
 hands the one array to both; a ``SparseCSR`` crosses as its values and
-pattern (:func:`csr_from_reference`).  The ``SolverSession`` carry waits
-for ROADMAP queue A item 5.
+pattern (:func:`csr_from_reference`).  A warm-start ``SolverSession``
+crosses as a dict of its numpy leaves (:func:`session_from_reference`,
+:func:`session_to_numpy`): the solver state a client carries from one
+coupling step to the next, the system's counterpart of weights.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from .configs.brusselator import BrusselatorConfig
 from .core.arkode import ODEOptions
+from .core.batched import SolverSession
 from .core.butcher import ButcherTable, IMEXTable
 from .core.controller import ControllerConfig
 from .core.sunmatrix import SparseCSR
@@ -95,3 +98,19 @@ def solution_to_numpy(sol) -> dict:
     out.update({f"stats.{k}": v for k, v in sol.stats._asdict().items()})
     return {k: v.detach().cpu().numpy() for k, v in out.items()
             if v is not None}
+
+
+def session_from_reference(leaves: dict, *, device) -> SolverSession:
+    """The port's :class:`~repro_torch.core.batched.SolverSession` from
+    the reference's, given as ``{name: numpy array}`` of its fields
+    (``SolverSession._asdict()``): dtypes kept, the system axis last."""
+    return SolverSession(**{
+        k: torch.tensor(np.asarray(leaves[k]), device=device)
+        for k in SolverSession._fields})
+
+
+def session_to_numpy(session: SolverSession) -> dict:
+    """A session's leaves as numpy arrays (the reference takes them back
+    as ``SolverSession(**{k: jnp.asarray(v) ...})``)."""
+    return {k: v.detach().cpu().numpy()
+            for k, v in session._asdict().items()}

@@ -587,3 +587,111 @@ def test_csr_spmv_matches_plain_on_card(which, n, dtype):
                                    device="cuda"))
     with pytest.raises(ValueError, match="x has shape"):
         dv.csr_spmv(data, x[:-1], pattern)
+
+
+def _telemetry_records(count, nsys, seed):
+    """Seeded step records (RECORD_FIELDS order) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        active = rng.uniform(size=nsys) < 0.9
+        conv = rng.uniform(size=nsys) < 0.8
+        out.append((0.01 * (i + 1) + 1e-3 * rng.uniform(size=nsys),
+                    10.0 ** rng.uniform(-8, 0, size=nsys),
+                    rng.integers(1, 6, size=nsys).astype(np.int32),
+                    rng.integers(0, 5, size=nsys).astype(np.int32),
+                    rng.uniform(0, 2, size=nsys),
+                    rng.uniform(size=nsys) < 0.3, conv,
+                    conv & active & (rng.uniform(size=nsys) < 0.7), active))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,count", [(64, 40), (16, 40)])
+def test_telemetry_ring_on_card(K, count):
+    """The ring written on the card equals the one written on the CPU
+    (which the CPU tests hold to the reference), and so do the
+    chronological views, the per-lane sums and ``summary()``."""
+    _need_card()
+    from repro_torch import observability as obs
+    nsys = 1000
+    rings = {dev: obs.ring_init(K, (nsys,), torch.float64, dev)
+             for dev in ("cpu", "cuda")}
+    for rec in _telemetry_records(count, nsys, seed=K):
+        for dev in rings:
+            rings[dev] = obs.ring_record(rings[dev], tuple(
+                torch.from_numpy(np.asarray(v)).to(dev) for v in rec))
+    tels = {dev: obs.StepTelemetry(r) for dev, r in rings.items()}
+    assert tels["cuda"].t.device.type == "cuda"
+    for name in ("t", "h", "q", "newton_iters", "accepted", "active"):
+        assert torch.equal(getattr(tels["cuda"], name).cpu(),
+                           getattr(tels["cpu"], name)), name
+    for name in ("steps", "attempts", "newton_iters_total", "lsetups"):
+        got = getattr(tels["cuda"], name)()
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), getattr(tels["cpu"], name)()), name
+    s_card, s_cpu = tels["cuda"].summary(), tels["cpu"].summary()
+    e_card, e_cpu = s_card.pop("h_hist_log10"), s_cpu.pop("h_hist_log10")
+    assert s_card == s_cpu
+    assert np.allclose(e_card["edges"], e_cpu["edges"], rtol=0, atol=1e-12)
+    assert e_card["counts"] == e_cpu["counts"]
+
+
+@pytest.mark.cuda
+def test_session_round_trip_and_telemetry_on_card():
+    """A warm leg on the card from a session carried through numpy: the
+    same bits run twice, the handle unchanged, the cold session equal to
+    the session-free run, and the ring reconciled with the counters."""
+    _need_card()
+    from repro_torch import interop
+    from repro_torch.core import batched, ivp, problems
+    from repro_torch.core.arkode import ODEOptions
+    nsys = 4096
+    rates = problems.robertson_rates(nsys, seed=0)
+    f, jac, y0 = problems.batched_robertson(nsys, rates=rates)
+    prob = ivp.IVP(f=f, jac=jac, y0=y0)
+    opts = ODEOptions(rtol=1e-5, atol=1e-10, max_steps=100_000)
+    plain = ivp.integrate(prob, 0.0, 1.0, "ensemble_bdf", opts=opts)
+    cold = ivp.integrate(prob, 0.0, 1.0, "ensemble_bdf", opts=opts,
+                         session=batched.SolverSession.cold(y0, 0.0),
+                         return_session=True, telemetry=256)
+    assert torch.equal(cold.y, plain.y)
+    tel = cold.telemetry
+    for got, want in ((tel.steps(), cold.stats.steps),
+                      (tel.attempts(), cold.stats.attempts),
+                      (tel.newton_iters_total(), cold.stats.nni),
+                      (tel.lsetups(), cold.stats.nsetups)):
+        assert torch.equal(got.to(want.dtype), want)
+    sess = interop.session_from_reference(
+        interop.session_to_numpy(cold.session), device="cuda")
+    before = [x.clone() for x in sess]
+    prob2 = ivp.IVP(f=f, jac=jac, y0=cold.y)
+    runs = [ivp.integrate(prob2, 1.0, 2.0, "ensemble_bdf", opts=opts,
+                          session=sess) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(before, sess))
+    assert torch.equal(runs[0].y, runs[1].y) and bool(runs[0].ok.all())
+
+
+@pytest.mark.cuda
+def test_profiler_synchronises_the_card():
+    """A synchronising region on the card ends after the work it
+    launched: the stream is idle at exit, and the span covers the
+    work's device time."""
+    _need_card()
+    from repro_torch import observability as obs
+    x = torch.randn(4096, 4096, device="cuda")
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    prof = obs.Profiler(device="cuda")
+    with prof.region("matmuls"):
+        start.record()
+        for _ in range(20):
+            x = x @ x
+            x = x / x.norm()
+        end.record()
+    assert torch.cuda.current_stream().query()
+    assert prof.spans[0].dur * 1e3 >= start.elapsed_time(end)
+    unsynced = obs.Profiler(device="cuda", sync=False)
+    with unsynced.region("launch only"):
+        pass
+    assert unsynced.spans[0].name == "launch only"

@@ -15,6 +15,7 @@ from repro.core.arkode import ODEOptions as RefOptions
 from repro_torch import interop
 from repro_torch.core import ivp, problems, status, sunmatrix
 from repro_torch.core.arkode import ODEOptions
+from repro_torch.core.context import Context
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -45,7 +46,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels, repro_torch.core.precond, "
             "repro_torch.core.krylov, repro_torch.apps.brusselator, "
             "repro_torch.core.vector, repro_torch.core.sunmatrix, "
-            "repro_torch.core.events, repro_torch.core.cvode\n"
+            "repro_torch.core.events, repro_torch.core.cvode, "
+            "repro_torch.observability, repro_torch.core.context, "
+            "repro_torch.examples.batched_kinetics\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad")
@@ -76,10 +79,13 @@ def test_entry_points_run_on_the_card_by_default():
 
 
 def test_unported_paths_raise():
+    """What the port runs now (telemetry=, session=, timed=True on the
+    CPU) and what still waits: live= raises naming ROADMAP queue A.5,
+    the autotuner A.8."""
     f, jac, y0 = problems.batched_robertson(4, device="cpu")
     prob = ivp.IVP(f=f, jac=jac, y0=y0)
     # bdf and adams are ported (tests/test_torch_cvode.py holds them to
-    # the reference); bdf's step telemetry still waits and raises
+    # the reference), bdf with its step telemetry
     decay = ivp.IVP(f=lambda t, y: -y, y0=torch.ones(2, dtype=torch.float64))
     for method in ("bdf", "adams"):
         sol = ivp.integrate(decay, 0.0, 1.0, method, device="cpu")
@@ -87,14 +93,27 @@ def test_unported_paths_raise():
         assert abs(float(sol.y[0]) - np.exp(-1.0)) < 1e-4
     assert int(ivp.integrate(decay, 0.0, 1.0, "bdf",
                              device="cpu").retcodes) == status.SUCCESS
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
-        ivp.integrate(decay, 0.0, 1.0, "bdf", device="cpu", telemetry=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
-        ivp.integrate(prob, 0.0, 1.0, "ensemble_dirk:sdirk2", device="cpu",
+    sol = ivp.integrate(decay, 0.0, 1.0, "bdf", device="cpu", telemetry=256)
+    assert int(sol.telemetry.steps()) == int(sol.stats.steps)
+    sol = ivp.integrate(prob, 0.0, 1e-3, "ensemble_dirk:sdirk2",
+                        device="cpu", telemetry=512)
+    assert sol.telemetry.steps().tolist() == sol.stats.steps.tolist()
+    sol = ivp.integrate(prob, 0.0, 1e-3, "ensemble_bdf", device="cpu",
+                        telemetry=512, return_session=True, timed=True)
+    assert sol.telemetry.steps().tolist() == sol.stats.steps.tolist()
+    assert set(sol.timings) == {"build", "execute"}
+    assert sol.timings["build"] >= 0.0 and sol.timings["execute"] > 0.0
+    sol2 = ivp.integrate(prob, 1e-3, 2e-3, "ensemble_bdf", device="cpu",
+                         session=sol.session)
+    assert bool(sol2.ok.all())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A.5"):
+        ivp.integrate(prob, 0.0, 1.0, "ensemble_bdf", device="cpu",
+                      live=torch.ones(4, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A.8"):
+        Context().dispatch_report()
+    with pytest.raises(ValueError, match="telemetry"):
+        ivp.integrate(decay, 0.0, 1.0, "erk:dopri5", device="cpu",
                       telemetry=8)
-    for kw in ({"session": object()}, {"telemetry": 8}, {"timed": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ivp.integrate(prob, 0.0, 1.0, "ensemble_bdf", device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown method"):
         ivp.integrate(prob, 0.0, 1.0, "rk4", device="cpu")
     with pytest.raises(ValueError, match="lies on cpu"):
