@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile[=main,A,...,L]] [--ptxas]
+    python3 chip_smoke.py [--profile[=main,A,...,M]] [--ptxas]
 
 Run from the repository root.  It imports nothing of JAX or of the JAX
 package.  Phases, each of which fails the run (non-zero exit), and each
@@ -14,9 +14,11 @@ of which prints the seconds it took:
    on the card, in float64 and float32: the six of the ensemble-BDF path
    and the fused history rebuild ``lagrange_rescale`` (W formed from
    eta and q) at the main-path shape (2**20 systems, n = b = 3) and at
-   ragged batches (7, 130, 516), both rebuild entries and ``wrms_soa``
-   also at n = 32 over those and 2**16 systems, both rebuild entries
-   bit for bit (also with no system and with every system active),
+   ragged batches (7, 130, 516), the six and the fused rebuild also at
+   path M's decay chain, n = b = 6, over those and 16384 systems, both
+   rebuild entries and ``wrms_soa`` also at n = 32 over those and 2**16
+   systems, both rebuild entries bit for bit (also with no system and
+   with every system active),
    ``blockdiag_spmv`` also at b = 9, 16, 24, 32
    (its row form; 32 is path K's) and 33 over 7, 130, 516 and 2**16
    systems, equal to its plain version bit for bit at every b (it sums
@@ -49,8 +51,9 @@ of which prints the seconds it took:
    2**20 (path D's ``BlockJacobiPrecond(2)``), the Newton loop's five
    (``newton_residual``, ``masked_update_wrms``, ``history_rescale``,
    ``lagrange_rescale``, ``wrms_soa``) also at n = 32 over 2**16 (paths
-   B, K, D, E, F), the two rebuild entries also with every system
-   active, the
+   B, K, D, E, F), the six of the ensemble-BDF path also at n = 6 over
+   16384 (path M's decay chain), the two rebuild entries also with
+   every system active, the
    dot also at 3*2**20 elements (paths H and I) and at 32 (the floor of
    one timed launch);
 4. paths, each driven through ``integrate`` with the launch counts set
@@ -130,10 +133,40 @@ of which prints the seconds it took:
      of leg 1, and ``context_metrics`` counting the calls; it prints
      each leg's wall, syncs, trips and peak memory, warm against cold
      steps, and leg 1's order occupancy and log10 h histogram;
+   - path M, the serving tier, right after L: ``SolverServer`` on the
+     card (``ensemble_bdf``, ``BlockDiagGJ()``, buckets 4096, 16384 and
+     65536, rtol 1e-5, atol 1e-10) over Robertson (n = 3) and the decay
+     chain (n = 6): a burst of 2**17 Robertson requests (the main
+     path's rates) and 16000 decay-chain requests (rates U(0.1, 5) of
+     numpy seed 1) drained as two full 65536-lane bundles and one
+     16000-of-16384 bundle, each served lane equal to a direct
+     ``integrate`` kernel run of the same systems in its per-lane steps,
+     nni and retcodes and within 10*(rtol*|y|+atol) (bit for bit
+     printed); a warm leg of the first 2**16 with their sessions, held
+     to a direct warm call the same way, and its bundle's ``_assemble``
+     timed as served (one gather a leaf) against every warm lane joined
+     by ``concat`` (the reference's construction, bit for bit the same
+     session); the async facade (3000 + 1000
+     requests); every kernel bundle launching rows 1-6 (4f) at b = 3 and
+     b = 6 and no plain version, no failure, no degraded bundle, mass
+     conserved, the Prometheus scrape equal to ``metrics()``, cache
+     misses equal to the distinct keys and no steady-state miss; a
+     plain-version server on 2**14 of the burst's Robertson requests and
+     its decay-chain requests, held to the kernel server's answers; then
+     the chaos sub-phase on the card: ``run_core_chaos`` (2**16 lanes,
+     k = 8, nan and divergent: exactly those lanes fail with the
+     reference's retcodes, healthy lanes bit for bit the clean run) and
+     ``run_serving_chaos`` (2**14 requests, 32 poisoned, 16 deadlines,
+     one degraded bundle, one failed fallback, one kernel error that
+     fails its bundle without a fallback); it prints each bundle's
+     wall, host syncs and per-request host costs (submit, assemble,
+     resolve, and the garbage collector's share), latency percentiles,
+     occupancy, cache counters, peak memory and the sub-phase's seconds;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
-to the paths named; ``main`` is the main path) and writes its
+to the paths named; ``main`` is the main path; M profiles the drain of
+one more full Robertson bundle) and writes its
 busiest device kernels to ``chip_smoke_out/chip_smoke_profile_*.txt``,
 with the device time under the profiler ranges of the plain code
 (``lagrange_matrix_soa``, which a BDF path's kernel run must not reach,
@@ -146,7 +179,9 @@ spills) when it builds.  The full record goes to
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -219,10 +254,29 @@ PATH_KERNELS = {
     "L: coupled legs": ("newton_residual", "blockdiag_spmv",
                         "masked_update_wrms", "lagrange_rescale", "wrms_soa",
                         "block_inverse"),
+    "M: serving": ("newton_residual", "blockdiag_spmv", "masked_update_wrms",
+                   "lagrange_rescale", "wrms_soa", "block_inverse"),
 }
 #: path L: slots of the step-telemetry ring, and the legs' intervals
 L_RING = 256
 L_LEG1, L_LEG2 = (0.0, 10.0), (10.0, 20.0)
+#: path M, the serving tier: bucket sizes; the burst's Robertson requests
+#: (rates of numpy seed 0) and decay-chain requests (n = 6); the warm
+#: leg's requests (the burst's first); the async leg's Robertson and
+#: decay-chain requests; the plain-version server's Robertson requests
+#: (the burst's first); the chaos sub-phase's core lanes and faults, and
+#: its serving requests, faults and bucket.  The plain server's and the
+#: serving chaos's requests are cut from 2**16 to 2**14 (PERF.md §4):
+#: each request costs ~50-100 us of host Python on the card's host, and
+#: every 65536-lane bundle stays
+M_BUCKETS = (4096, 16384, 65536)
+M_ROB, M_DECAY, M_WARM = 1 << 17, 16000, 1 << 16
+M_ASYNC = (3000, 1000)
+M_PLAIN = 1 << 14
+M_CHAOS_NSYS, M_CHAOS_K = 1 << 16, 8
+M_CHAOS_REQUESTS, M_CHAOS_FAULTS, M_CHAOS_BUCKET = 1 << 14, 32, 1 << 14
+#: the decay chain's systems in phase 3 (path M's padded bundle)
+NDECAY = 16384
 #: t_final of paths I and J (each run ~15 s or less on the card; J takes
 #: 20+ steps at nx = 2**20)
 TF_I, TF_J = 0.005, 0.02
@@ -532,6 +586,9 @@ def kernel_table():
         return d["A"].shape[2]
 
     b3 = [(3, nb) for nb in (NSYS,) + RAGGED]
+    # path M's decay chain: n = b = 6, ragged and its padded bundle
+    b6 = [(6, nb) for nb in RAGGED + (NDECAY,)]
+    n6 = [(6, NDECAY)]
     # the Newton loop's state on paths B, K, D, E, F: n = 32, 2**16 systems
     n32 = [(32, NBRUSS)]
     n32_cases = [(32, nb) for nb in RAGGED + (NBRUSS,)]
@@ -542,15 +599,15 @@ def kernel_table():
                newton.newton_residual_plain, ref + "newton.py:40",
                csrc + "newton.cu",
                lambda d: (d["z"], d["f"], d["psi"], d["gam"]),
-               {"negate": True}, lambda d: 3 * d["z"].numel(), b3,
-               more_timings=n32),
+               {"negate": True}, lambda d: 3 * d["z"].numel(), b3 + b6,
+               more_timings=n6 + n32),
         Kernel("blockdiag_spmv", blockdiag_spmv.blockdiag_spmv_soa,
                blockdiag_spmv.blockdiag_spmv_soa_plain,
                ref + "blockdiag_spmv.py:20", csrc + "blockdiag_spmv.cu",
                lambda d: (d["A"], d["r"]), {},
                lambda d: (2 * b_of(d) - 1) * b_of(d) * nb_of(d),
-               b3 + tiled_gj_cases(), exact=True,
-               more_timings=SPMV_TIMINGS,
+               b3 + b6 + tiled_gj_cases(), exact=True,
+               more_timings=tuple(n6) + SPMV_TIMINGS,
                library=lambda d: torch.einsum("ijs,js->is", d["A"], d["r"])),
         Kernel("masked_update_wrms", newton.masked_update_wrms,
                newton.masked_update_wrms_plain, ref + "newton.py:73",
@@ -558,7 +615,7 @@ def kernel_table():
                lambda d: (d["z"], d["f"], d["w"], d["mask"]), {},
                lambda d: 3 * d["z"].numel()
                + d["z"].shape[0] * int(d["mask"].sum())
-               + 2 * d["mask"].numel(), b3, more_timings=n32),
+               + 2 * d["mask"].numel(), b3 + b6, more_timings=n6 + n32),
         Kernel("history_rescale", newton.history_rescale,
                newton.history_rescale_plain, ref + "newton.py:119",
                csrc + "newton.cu", lambda d: (d["W"], d["Z"], d["mask"]), {},
@@ -577,19 +634,20 @@ def kernel_table():
                newton.lagrange_rescale_plain, ref + "newton.py:119",
                csrc + "newton.cu",
                lambda d: (d["eta"], d["q"], d["Z"], d["mask"]), {},
-               lagrange_flops, b3 + n32_cases, more_timings=n32, exact=True),
+               lagrange_flops, b3 + b6 + n32_cases, more_timings=n6 + n32,
+               exact=True),
         Kernel("wrms_soa", newton.wrms_soa, newton.wrms_soa_plain,
                ref + "newton.py:167", csrc + "newton.cu",
                lambda d: (d["z"], d["w"]), {},
                lambda d: 3 * d["z"].numel() + 2 * d["z"].shape[1],
-               b3 + n32_cases, more_timings=n32,
+               b3 + b6 + n32_cases, more_timings=n6 + n32,
                library=lambda d: torch.linalg.vector_norm(d["z"] * d["w"],
                                                           dim=0)),
         Kernel("block_inverse", block_solve.block_inverse_soa,
                block_solve.block_inverse_soa_plain, ref + "block_solve.py:92",
                csrc + "block_solve.cu", lambda d: (d["A"],), {},
                lambda d: inverse_flops(b_of(d), nb_of(d)),
-               b3 + [(1, 130), (8, 516), (8, 1 << 16)],
+               b3 + b6 + [(1, 130), (8, 516), (8, 1 << 16)], more_timings=n6,
                library=lambda d: torch.linalg.inv(d["A"].permute(2, 0, 1))),
         Kernel("block_inverse_tiled", block_solve.block_inverse_soa,
                block_solve.block_inverse_soa_plain,
@@ -749,7 +807,7 @@ def phase_compare(table, dev):
             for k in table:
                 if k.make.__name__ == maker and (b, nb) in k.cases:
                     k.compare(d, f"b={b} nb={nb} {dtype}")
-            if maker == "make_inputs" and b in (3, 32):
+            if maker == "make_inputs" and b in (3, 6, 32):
                 compare_rescale_masks(d, f"n={b} nb={nb} {dtype}")
     by_name = {k.name: k for k in table}
     M = robertson_newton_blocks(NSYS, gen, dev, torch.float64)
@@ -1228,6 +1286,452 @@ def phase_path_l(y_main, main_syncs, profile):
             "profiler": ctx.profiler.summary(), "profile": prof}
 
 
+def m_server(ctx):
+    """Path M's server: Robertson (n = 3) and the decay chain (n = 6),
+    ``ensemble_bdf`` with the default ``BlockDiagGJ()`` on ``ctx``."""
+    from repro_torch.core import problems
+    from repro_torch.serve.solver import ProblemFamily, SolverServer
+    fr, fd = problems.robertson_family(), problems.decay_chain_family(6)
+    return SolverServer(
+        [ProblemFamily("robertson", 3, *fr), ProblemFamily("decay6", 6, *fd)],
+        ctx=ctx, bucket_sizes=M_BUCKETS, max_batch=M_BUCKETS[-1],
+        max_wait=2e-3, max_depth=1 << 18)
+
+
+class GcClock:
+    """The seconds Python's cyclic garbage collector ran, and its full
+    (generation 2) collections, since it was made (a ``gc.callbacks``
+    hook; :meth:`close` removes it)."""
+
+    def __init__(self):
+        self.s, self.full, self._t0 = 0.0, 0, None
+        gc.callbacks.append(self._hook)
+
+    def _hook(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.s += time.perf_counter() - self._t0
+            self.full += info["generation"] == 2
+            self._t0 = None
+
+    def close(self):
+        gc.callbacks.remove(self._hook)
+
+
+class BundleProbe:
+    """Wraps a server's ``_execute``, ``_assemble`` and ``_run_compiled``
+    (instance attributes, as ``failing_executions`` does) and records
+    each bundle: family, live and padded lanes, the kernel launch counts
+    (set to 0 just before the bundle's run, read just after it), the
+    host syncs of the bundle (the integrator's loops and the server's own
+    reads, all through ``loops.read``), and the walls of the whole
+    bundle, of ``_assemble``, of the run, of resolving its futures (from
+    the run's end to the bundle's end), and of the garbage collector's
+    runs inside the bundle (``gcc``, a :class:`GcClock`)."""
+
+    def __init__(self, server, gcc):
+        from repro_torch import kernels
+        from repro_torch.core import batched
+        self.rows = []
+        self.bundle = None      # the last bundle executed
+        run0, asm0, exe0 = (server._run_compiled, server._assemble,
+                            server._execute)
+        self.assemble = asm0
+
+        def assemble(bundle):
+            t = time.perf_counter()
+            out = asm0(bundle)
+            self.cur["assemble_s"] = time.perf_counter() - t
+            return out
+
+        def run(entry, sess, tfa, params):
+            kernels.reset_counts()
+            t = time.perf_counter()
+            out = run0(entry, sess, tfa, params)
+            self.cur["run_end"] = time.perf_counter()
+            self.cur["run_s"] = self.cur["run_end"] - t
+            self.cur["counts"] = kernels.counts()
+            return out
+
+        def execute(bundle):
+            self.bundle = bundle
+            self.cur = {"family": bundle.key.family, "live": bundle.live,
+                        "nsys": bundle.nsys}
+            batched.reset_loop_counts()
+            gc0, full0 = gcc.s, gcc.full
+            t = time.perf_counter()
+            exe0(bundle)
+            end = time.perf_counter()
+            self.cur.update(wall_s=end - t,
+                            resolve_s=end - self.cur.pop("run_end"),
+                            gc_s=gcc.s - gc0, gc_full=gcc.full - full0,
+                            loop=dict(batched.loop_counts))
+            self.rows.append(self.cur)
+
+        server._assemble, server._run_compiled, server._execute = (
+            assemble, run, execute)
+
+    def take(self):
+        rows, self.rows = self.rows, []
+        return rows
+
+
+def m_assemble_ab(path, card, assemble, bundle):
+    """``_assemble`` of the warm bundle as the server does it (its warm
+    lanes gathered with one ``index_select`` a leaf from the burst
+    bundle's session) against the same with every warm lane joined by
+    ``concat``, the reference's construction: walls in the order
+    gather, concat, gather, concat, and the two sessions equal bit for
+    bit."""
+    import torch
+    from repro_torch.core.batched import SolverSession
+    from repro_torch.serve.solver import server as server_mod
+    gather = server_mod._join_warm
+
+    def concat_only(sessions, dev):
+        return (SolverSession.concat([SolverSession(*(x.to(dev) for x in s))
+                                      for s in sessions]),
+                list(range(len(sessions))))
+
+    walls, outs = {"gather": [], "concat": []}, {}
+    try:
+        for name in ("gather", "concat", "gather", "concat"):
+            server_mod._join_warm = gather if name == "gather" \
+                else concat_only
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs[name] = assemble(bundle)[0]
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t)
+    finally:
+        server_mod._join_warm = gather
+    check(all(torch.equal(a, b) for a, b in zip(outs["gather"],
+                                                outs["concat"])),
+          f"{path}: the gathered warm session differs from the concat one")
+    us = {k: [1e6 * w / bundle.live for w in v] for k, v in walls.items()}
+    print(f"{path} [warm _assemble] on {card}: {bundle.live} warm lanes, "
+          f"gather {', '.join(f'{w:.3f} s ({u:.2f} us/request)' for w, u in zip(walls['gather'], us['gather']))}; "
+          f"concat only {', '.join(f'{w:.3f} s ({u:.2f} us/request)' for w, u in zip(walls['concat'], us['concat']))}; "
+          f"sessions bit for bit equal", flush=True)
+    return {"walls_s": walls, "us_per_request": us}
+
+
+def m_submit(srv, gcc, family, y0, span, params, warm=None):
+    """Submit one request a params entry (``warm``: a ``(y, session)``
+    pair a request, the continuation); returns ``(futures, seconds,
+    garbage-collector seconds)``."""
+    gc0 = gcc.s
+    t = time.perf_counter()
+    futs = [srv.submit(family, y0 if warm is None else warm[i][0],
+                       span[0], span[1], rtol=RTOL, atol=ATOL, params=p,
+                       session=None if warm is None else warm[i][1])
+            for i, p in enumerate(params)]
+    return futs, time.perf_counter() - t, gcc.s - gc0
+
+
+def m_stacked(sols, name):
+    """One tensor of the lanes' ``name`` field (device views, stacked)."""
+    import torch
+    return torch.stack([getattr(s, name) for s in sols])
+
+
+def m_agree(path, what, sols, ref_y, ref_st, mass):
+    """Served lanes against a direct ``integrate`` of the same systems:
+    equal per-lane steps, nni and retcodes, y within
+    10*(rtol*|y|+atol); whether they are equal bit for bit."""
+    import torch
+    y = m_stacked(sols, "y")
+    for name in ("steps", "nni", "retcodes"):
+        got = torch.stack([getattr(s.stats, name) for s in sols])
+        check(torch.equal(got, getattr(ref_st, name)),
+              f"{path}: {what}: per-lane {name} differ from the direct run")
+    out = agree(f"{path} ({what})", y, ref_y, mass=mass)
+    out["bit_equal"] = bool(torch.equal(y, ref_y))
+    print(f"{path} ({what}): per-lane steps, nni and retcodes equal; bit for "
+          f"bit equal to the direct run: {out['bit_equal']}", flush=True)
+    return out
+
+
+def m_all_ok(path, what, sols):
+    """Every request succeeded with retcode 0 (one read)."""
+    import torch
+    ok = torch.stack([m_stacked(sols, "success"), m_stacked(sols, "ok"),
+                      m_stacked(sols, "retcodes") == 0])
+    check(bool(ok.all()), f"{path}: {what}: a request did not succeed")
+
+
+def m_check_bundles(path, rows, kernel_run):
+    """Every bundle of a kernel server launched each of the path's
+    kernels and no plain version; a plain server's launched none."""
+    for r in rows:
+        where = f"{path}: {r['family']} bundle of {r['live']}/{r['nsys']}"
+        if kernel_run:
+            for name in PATH_KERNELS[path]:
+                check(r["counts"][name][0] > 0,
+                      f"{where}: kernel {name} was never launched")
+            for name, (_, calls) in r["counts"].items():
+                check(calls == 0, f"{where}: plain {name} ran {calls} times")
+        else:
+            check(all(v[0] == 0 for v in r["counts"].values()),
+                  f"{where}: the plain-version server launched a kernel")
+
+
+def m_leg(path, card, name, rows, submitted=None):
+    """A leg's record; prints each bundle's wall, host syncs and
+    per-request host costs, and the submit cost a request."""
+    leg = {"bundles": rows}
+    for r in rows:
+        r["assemble_us_per_request"] = 1e6 * r["assemble_s"] / r["live"]
+        r["resolve_us_per_request"] = 1e6 * r["resolve_s"] / r["live"]
+        print(f"{path} [{name}] on {card}: {r['family']} bundle "
+              f"{r['live']}/{r['nsys']} lanes: wall {r['wall_s']:.3f} s "
+              f"(run {r['run_s']:.3f} s), host syncs "
+              f"{r['loop']['host_syncs']}, step trips "
+              f"{r['loop']['step_trips']}, assemble "
+              f"{r['assemble_us_per_request']:.2f} us/request, resolve "
+              f"{r['resolve_us_per_request']:.2f} us/request; garbage "
+              f"collector {r['gc_s']:.3f} s of the bundle ({r['gc_full']} "
+              f"full)", flush=True)
+    if submitted is not None:
+        n, s, gc_s = submitted
+        leg.update(requests=n, submit_s=s, submit_gc_s=gc_s)
+        print(f"{path} [{name}] on {card}: submit {1e6 * s / n:.2f} "
+              f"us/request over {n} requests (garbage collector "
+              f"{1e6 * gc_s / n:.2f} us/request)", flush=True)
+    return leg
+
+
+def phase_path_m(card, profile):
+    """Path M, the serving tier on the card: a burst of 2**17 Robertson
+    and 16000 decay-chain requests, a warm leg of 2**16, the async
+    facade, a plain-version server, and the chaos sub-phase.  Each
+    leg's responses are released once its gates have read them (a
+    client consumes its results): held, their ~20 tensor views a request
+    make the garbage collector's full passes longer."""
+    path = "M: serving"
+    t_phase = time.perf_counter()
+    gcc = GcClock()
+    try:
+        rec = phase_path_m_legs(path, card, gcc, profile)
+    finally:
+        gcc.close()
+    rec["served_s"] = time.perf_counter() - t_phase
+
+    # chaos on the card, the kernels
+    from repro_torch.testing.chaos import run_core_chaos, run_serving_chaos
+    t = time.perf_counter()
+    chaos = []
+    try:
+        # the reference's retcodes: -4 for nan, -3 or -4 for divergent
+        for mode, allowed in (("nan", {"CONV_FAILURE"}),
+                              ("divergent", {"ERR_FAILURE", "CONV_FAILURE"})):
+            r = run_core_chaos(M_CHAOS_NSYS, M_CHAOS_K, mode=mode)
+            chaos.append(r)
+            check(set(r["retcodes"].values()) <= allowed and
+                  r["failed"] == M_CHAOS_K and r["bitwise_checked"],
+                  f"{path}: core chaos ({mode}): {r}")
+        chaos.append(run_serving_chaos(M_CHAOS_REQUESTS, M_CHAOS_FAULTS, 16,
+                                       bucket=M_CHAOS_BUCKET))
+    except AssertionError as exc:
+        raise RuntimeError(f"{path}: chaos on the card: {exc}") from None
+    rec["chaos"] = chaos
+    rec["chaos_s"] = time.perf_counter() - t
+    print(f"{path} chaos on {card}: core nan {chaos[0]['retcodes']}, core "
+          f"divergent {chaos[1]['retcodes']} (healthy lanes bit for bit the "
+          f"clean run), serving {chaos[2]['failures_by_reason']}, degraded "
+          f"bundles {chaos[2]['degraded_bundles']}; {rec['chaos_s']:.1f} s",
+          flush=True)
+    print(f"{path} on {card}: served legs {rec['served_s']:.1f} s, chaos "
+          f"{rec['chaos_s']:.1f} s", flush=True)
+    return rec
+
+
+def phase_path_m_legs(path, card, gcc, profile):
+    """Path M's served legs (see :func:`phase_path_m`)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ivp, problems
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.batched import SolverSession
+    from repro_torch.core.context import Context
+    from repro_torch.core.policies import ExecPolicy
+    rates = problems.robertson_rates(M_ROB, seed=0)
+    cols = [rates[k].tolist() for k in ("k1", "k2", "k3")]
+    rob_params = [{"k1": a, "k2": b, "k3": c} for a, b, c in zip(*cols)]
+    kdec = np.random.default_rng(1).uniform(0.1, 5.0, size=(M_DECAY, 6))
+    dec_params = [{"k": k} for k in kdec]
+    y_rob, y_dec = np.array([1.0, 0.0, 0.0]), np.ones(6)
+    srv = m_server(Context())
+    probe = BundleProbe(srv, gcc)
+    rec = {"legs": {}, "agreement": {}}
+
+    # 1. the burst: two full Robertson bundles, one padded decay bundle
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rob, s1, g1 = m_submit(srv, gcc, "robertson", y_rob, (0.0, 10.0),
+                           rob_params)
+    dec, s2, g2 = m_submit(srv, gcc, "decay6", y_dec, (0.0, 1.0), dec_params)
+    t = time.perf_counter()
+    srv.drain()
+    rob = [f.result() for f in rob]
+    dec = [f.result() for f in dec]
+    burst = m_leg(path, card, "burst", probe.take(),
+                  (M_ROB + M_DECAY, s1 + s2, g1 + g2))
+    burst.update(wall_s=time.perf_counter() - t,
+                 peak_bytes=torch.cuda.max_memory_allocated())
+    rec["legs"]["burst"] = burst
+    made = sorted((r["family"], r["live"], r["nsys"])
+                  for r in burst["bundles"])
+    full = M_BUCKETS[-1]
+    check(made == [("decay6", M_DECAY, srv.queue.pad_to(M_DECAY))]
+          + [("robertson", full, full)] * (M_ROB // full),
+          f"{path}: the burst made the bundles {made}")
+    m_all_ok(path, "burst", rob + dec)
+
+    # 2. padding changes no lane: a direct kernel run of the same systems
+    opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
+    direct, _ = run_path(path, "direct kernels, Robertson",
+                         robertson_problem(M_ROB, rates), "ensemble_bdf",
+                         10.0, opts)
+    rec["agreement"]["burst_robertson"] = m_agree(
+        path, "burst Robertson", rob, direct.y, direct.stats, True)
+    dev = rob[0].y.device
+    fd = problems.decay_chain_family(6)
+    pk = {"k": torch.from_numpy(kdec).to(dev)}
+    dprob = ivp.IVP(f=lambda t, y: fd[0](t, y, pk),
+                    jac=lambda t, y: fd[1](t, y, pk),
+                    f_soa=lambda t, y: fd[2](t, y, pk),
+                    jac_soa=lambda t, y: fd[3](t, y, pk),
+                    y0=torch.ones((M_DECAY, 6), dtype=torch.float64,
+                                  device=dev))
+    ddirect, _ = run_path(path, "direct kernels, decay chain", dprob,
+                          "ensemble_bdf", 1.0, opts)
+    rec["agreement"]["burst_decay6"] = m_agree(
+        path, f"burst decay chain, padded to {srv.queue.pad_to(M_DECAY)}",
+        dec, ddirect.y, ddirect.stats, False)
+    # what the later legs need of the burst: the plain server's
+    # comparison, and the warm leg's (y, session) a request
+    kept = {"rob_y": m_stacked(rob[:M_PLAIN], "y"),
+            "rob_rc": m_stacked(rob[:M_PLAIN], "retcodes"),
+            "dec_y": m_stacked(dec, "y"), "dec_rc": m_stacked(dec, "retcodes")}
+    warm_src = [(s.y, s.session) for s in rob[:M_WARM]]
+    del direct, ddirect, rob, dec
+
+    # 3. the warm leg: the burst's first 2**16 requests, with sessions
+    warm, s1, g1 = m_submit(srv, gcc, "robertson", None, (10.0, 20.0),
+                            rob_params[:M_WARM], warm=warm_src)
+    t = time.perf_counter()
+    srv.drain()
+    warm = [f.result() for f in warm]
+    leg = m_leg(path, card, "warm", probe.take(), (M_WARM, s1, g1))
+    leg["wall_s"] = time.perf_counter() - t
+    rec["legs"]["warm"] = leg
+    m_all_ok(path, "warm leg", warm)
+    rec["warm_assemble"] = m_assemble_ab(path, card, probe.assemble,
+                                         probe.bundle)
+    probe.bundle = None
+    sess = SolverSession.concat([s for _, s in warm_src])
+    y10 = torch.stack([y for y, _ in warm_src])
+    del warm_src
+    prob10 = dataclasses.replace(robertson_problem(
+        M_WARM, {k: v[:M_WARM] for k, v in rates.items()}), y0=y10)
+    wdirect, _ = run_path(path, "direct kernels, warm", prob10,
+                          "ensemble_bdf", 20.0, opts, t0=10.0, session=sess)
+    rec["agreement"]["warm"] = m_agree(path, "warm leg", warm, wdirect.y,
+                                       wdirect.stats, True)
+    cold, _ = run_path(path, "direct kernels, cold from y(10)", prob10,
+                       "ensemble_bdf", 20.0, opts, t0=10.0)
+    rec["warm_vs_cold_steps"] = {
+        "warm": int(torch.stack([s.stats.steps for s in warm]).sum()),
+        "cold": int(cold.stats.steps.sum())}
+    print(f"{path}: warm leg steps {rec['warm_vs_cold_steps']['warm']} "
+          f"against a cold leg's {rec['warm_vs_cold_steps']['cold']} (the "
+          f"same {M_WARM} systems, t in [10, 20])", flush=True)
+    del wdirect, cold, sess, y10, prob10, warm
+
+    # 4. the async facade
+    t = time.perf_counter()
+    with srv:
+        afut, s1, g1 = m_submit(srv, gcc, "robertson", y_rob, (0.0, 10.0),
+                                rob_params[:M_ASYNC[0]])
+        dfut, s2, g2 = m_submit(srv, gcc, "decay6", y_dec, (0.0, 1.0),
+                                dec_params[:M_ASYNC[1]])
+        asol = [f.result(timeout=300) for f in afut + dfut]
+    leg = m_leg(path, card, "async", probe.take(),
+                (sum(M_ASYNC), s1 + s2, g1 + g2))
+    leg["wall_s"] = time.perf_counter() - t
+    rec["legs"]["async"] = leg
+    m_all_ok(path, "async leg", asol)
+    del asol, afut, dfut
+    prom = srv.metrics_prometheus()
+    m = srv.metrics()
+    rec["metrics"] = m
+    check(m["failures"] == {} and m["degraded"] == 0,
+          f"{path}: failures {m['failures']}, degraded {m['degraded']}")
+    for key in ("requests", "bundles", "live_lanes", "padded_lanes",
+                "rejected", "steady_misses", "degraded"):
+        check(f"repro_serve_{key}_total {m[key]}\n" in prom,
+              f"{path}: the scrape's repro_serve_{key}_total is not "
+              f"metrics()['{key}'] = {m[key]}")
+    tc = m["trace_cache"]
+    check(f"repro_trace_cache_misses_total {tc['misses']}\n" in prom and
+          f"repro_trace_cache_hits_total {tc['hits']}\n" in prom,
+          f"{path}: the scrape's trace-cache counters are not {tc}")
+    keys = len(srv.cache.keys())
+    check(tc["misses"] == keys and tc["evictions"] == 0
+          and m["steady_misses"] == 0,
+          f"{path}: cache {tc} over {keys} distinct keys, steady misses "
+          f"{m['steady_misses']}")
+    kernel_rows = [r for lg in rec["legs"].values() for r in lg["bundles"]]
+    m_check_bundles(path, kernel_rows, True)
+    for fam, b in (("robertson", 3), ("decay6", 6)):
+        check(any(r["family"] == fam for r in kernel_rows),
+              f"{path}: no bundle at b = {b}")
+    rec["kernels_run"] = {"counts": {
+        name: (sum(r["counts"][name][0] for r in kernel_rows), 0)
+        for name in kernel_rows[0]["counts"]}}
+    print(f"{path} on {card}: {m['requests']} requests in {m['bundles']} "
+          f"bundles, occupancy {m['occupancy']:.4f}, latency p50 "
+          f"{m['latency_p50_s']:.4f} s p99 {m['latency_p99_s']:.4f} s, "
+          f"bundle cache {tc}, peak (burst) "
+          f"{burst['peak_bytes'] / 2**20:.1f} MiB", flush=True)
+    if profile:
+        # one more full Robertson bundle, its drain profiled (after the
+        # gates: its requests are not in the metrics above)
+        futs, _, _ = m_submit(srv, gcc, "robertson", y_rob, (0.0, 10.0),
+                              rob_params[:M_WARM])
+        rec["profile"] = profile_run(path, srv.drain,
+                                     burst["bundles"][0]["wall_s"], True)
+        probe.take()
+        del futs
+    del srv, probe
+
+    # 5. the plain versions: a second server on the burst's first
+    # Robertson requests and its decay-chain requests
+    psrv = m_server(Context(policy=ExecPolicy(backend="torch")))
+    pprobe = BundleProbe(psrv, gcc)
+    prob_f, s1, g1 = m_submit(psrv, gcc, "robertson", y_rob, (0.0, 10.0),
+                              rob_params[:M_PLAIN])
+    pdec_f, s2, g2 = m_submit(psrv, gcc, "decay6", y_dec, (0.0, 1.0),
+                              dec_params)
+    t = time.perf_counter()
+    psrv.drain()
+    leg = m_leg(path, card, "plain versions", pprobe.take(),
+                (M_PLAIN + M_DECAY, s1 + s2, g1 + g2))
+    leg["wall_s"] = time.perf_counter() - t
+    rec["legs"]["plain"] = leg
+    m_check_bundles(path, leg["bundles"], False)
+    for what, futs, key, mass in (("Robertson", prob_f, "rob", True),
+                                  ("decay chain", pdec_f, "dec", False)):
+        psols = [f.result() for f in futs]
+        rec["agreement"][f"plain_{key}"] = agree(
+            f"{path} (plain-version server, {what})", kept[f"{key}_y"],
+            m_stacked(psols, "y"), kept[f"{key}_rc"],
+            m_stacked(psols, "retcodes"), mass=mass)
+    return rec
+
+
 def phase_path_a(profile):
     """Path A: ensemble DIRK (SDIRK2) on the main path's 2**20 systems;
     the plain run covers the first NSUB lanes, which are independent of
@@ -1695,6 +2199,9 @@ def main(argv) -> int:
         paths["ensemble_bdf"].pop("y"),
         paths["ensemble_bdf"]["kernels_run"]["loop"]["host_syncs"],
         profiled("L"))
+    # the serving tier: bundles of up to 2**16 lanes at b = 3 and b = 6
+    paths["M: serving"] = phase("path M (serving)", phase_path_m, card,
+                                profiled("M"))
     paths["A: ensemble_dirk"] = phase("path A (ensemble_dirk)", phase_path_a,
                                       profiled("A"))
     paths["ensemble_bdf"]["reference"] = phase(

@@ -21,6 +21,9 @@ pattern; the sparse matrices ``core.sunmatrix.SparseCSR`` and
 (``core.batched.SolverSession``) and step telemetry; the SUNContext,
 SUNMemoryHelper, SUNProfiler and SUNLogger analogs (``core.context``,
 ``core.memory``, ``observability``); the paper's §7 demonstration,
-``apps.brusselator``; and the example ``examples.batched_kinetics``.
-Everything else raises ``NotImplementedError`` naming its ROADMAP item.
+``apps.brusselator``; the dynamic-batching server ``serve.solver`` and
+the fault-injection harness ``testing.chaos``; and the examples
+``examples.batched_kinetics``, ``serve_solver_demo``, ``brusselator``
+and ``brusselator_sparse``.  Everything else raises
+``NotImplementedError`` naming its ROADMAP item.
 """

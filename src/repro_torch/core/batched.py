@@ -104,6 +104,30 @@ class EnsembleStats(NamedTuple):
     retcodes: Optional[torch.Tensor] = None  # (nsys,) int32, 0 == SUCCESS
     ok: Optional[torch.Tensor] = None        # (nsys,) bool, retcodes == 0
 
+    def masked(self, live) -> "EnsembleStats":
+        """The stats of the ``live`` lanes of a padded bundle (reference
+        ``batched.py:112``).
+
+        A dead lane (a ``tf == t0`` no-op) did no work: its per-lane
+        counters are zeroed, its retcode is 0 and it reports success, so
+        sums over the batch describe live systems only.  ``nli`` and
+        ``npsolves`` are totals of the batched inner solves, broadcast
+        over the lanes, and pass through unchanged.
+        """
+        live = torch.as_tensor(live, dtype=torch.bool,
+                               device=self.steps.device)
+
+        def z(x):
+            return None if x is None else torch.where(live, x, 0)
+
+        return self._replace(
+            steps=z(self.steps), attempts=z(self.attempts),
+            netf=z(self.netf), nni=z(self.nni),
+            success=self.success | ~live,
+            nsetups=z(self.nsetups), ncfn=z(self.ncfn),
+            retcodes=z(self.retcodes),
+            ok=None if self.ok is None else self.ok | ~live)
+
 
 class SolverSession(NamedTuple):
     """Warm-start continuation state of ``ensemble_bdf`` (reference

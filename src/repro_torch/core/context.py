@@ -5,9 +5,11 @@ Counterpart of ``repro.core.context.Context``: the
 :class:`~repro_torch.core.memory.MemoryHelper` (SUNMemoryHelper), the
 run-wide counters accumulated across ``integrate`` calls, and the
 observability switchboard with its lazily built profiler and logger
-(SUNProfiler, SUNLogger).  ``trace_cache`` stays None until the serving
-tier exists (ROADMAP queue A.5); ``autotune`` and ``dispatch_report``
-wait for the autotuner (A.8) and raise.
+(SUNProfiler, SUNLogger).  ``trace_cache`` is the slot a
+:class:`~repro_torch.serve.solver.SolverServer` fills with its bundle
+cache, so ``observability.context_metrics`` exports the cache's
+counters; ``autotune`` and ``dispatch_report`` wait for the autotuner
+(ROADMAP queue A.8) and raise.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ class Context:
     policy: ExecPolicy = DEFAULT
     memory: MemoryHelper = field(default_factory=MemoryHelper)
     counters: dict = field(default_factory=_counter_dict)
-    #: the serving tier's trace cache (ROADMAP queue A.5); None here
+    #: the bundle cache of the SolverServer built on this context (its
+    #: constructor sets it); None without a server
     trace_cache: Optional[Any] = None
     #: observability switchboard, everything off by default
     observability: ObservabilityConfig = field(

@@ -10,7 +10,8 @@ every family of the reference: the scalar ``"erk[:table]"``,
 policy) names another device; without CUDA it raises instead of
 falling back to the CPU.  It takes the reference's warm start
 (``session=`` / ``return_session=``, ensemble_bdf), step telemetry
-(``telemetry=K``; bdf, ensemble_dirk, ensemble_bdf) and ``timed=True``,
+(``telemetry=K``; bdf, ensemble_dirk, ensemble_bdf), ``timed=True`` and
+the serving tier's dead-lane mask (``live=``, the ensemble families),
 and logs ``integrate.lane_failed`` / ``integrate.done`` through the
 context's logger.
 """
@@ -161,6 +162,12 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
              :class:`~repro_torch.core.nonlinsol.NewtonSolver`; adams: a
              :class:`~repro_torch.core.nonlinsol.FixedPointSolver`.
     order  : the largest BDF order (bdf, ensemble_bdf).
+    live   : ensemble families: a ``(nsys,)`` boolean mask of the live
+             lanes of a padded bundle (reference ``ivp.py:424-428``).
+             Dead lanes are zeroed out of the stats, the aggregates
+             (``success``, ``nni``, ``nsetups``), the context's counters
+             and the telemetry, and report retcode 0.  Scalar methods
+             raise ``ValueError``.
     timed  : True reports ``Solution.timings = {"build": s, "execute":
              s}``; None takes ``ctx.observability.profile``.  The
              reference splits a jitted call into ``lower`` / ``compile``
@@ -199,12 +206,9 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
     if fam not in _KNOWN_FAMILIES:
         raise ValueError(f"unknown method {method!r}; families: "
                          f"{', '.join(_KNOWN_FAMILIES)}")
-    if live is not None:
-        if not fam.startswith("ensemble"):
-            raise ValueError(f"method {method!r} takes no live= mask (dead-"
-                             "lane masking applies to ensemble bundles only)")
-        raise NotImplementedError("live= lane masking waits for the serving "
-                                  "tier, ROADMAP queue A.5")
+    if live is not None and not fam.startswith("ensemble"):
+        raise ValueError(f"method {method!r} takes no live= mask (dead-"
+                         "lane masking applies to ensemble bundles only)")
     tel_cap = method_kw.pop("telemetry", None)
     if tel_cap is not None and fam not in _TELEMETRY_FAMILIES:
         raise ValueError(
@@ -311,6 +315,11 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
     else:
         y, st, session, ring = dispatch()
 
+    if live is not None:
+        # a padded bundle: dead lanes leave the stats before every
+        # aggregate below (success, the nni sum, nsetups, the counters)
+        live = torch.as_tensor(live, dtype=torch.bool, device=dev)
+        st = st.masked(live)
     workspace = mem.live_bytes - live0
     # workspaces are per call: release only the labels this call added
     for label in set(mem.workspaces) - labels0:
@@ -343,7 +352,7 @@ def integrate(problem: IVP, t0, tf, method: str = "bdf", *,
         workspace_bytes=workspace, high_water_bytes=mem.high_water_bytes,
         npsolves=st.npsolves[0] if bdf else None, npsetups=npsetups,
         session=session, timings=timings,
-        telemetry=None if ring is None else StepTelemetry(ring),
+        telemetry=None if ring is None else StepTelemetry(ring, live=live),
         retcodes=retcodes, ok=st.ok if ens else
         None if retcodes is None else retcodes == 0)
 

@@ -1,8 +1,9 @@
 """The ensemble integrators' test problems.
 
 Counterpart of ``repro.core.problems``: batched Robertson kinetics
-(``batched_robertson``, ``batched_robertson_soa``) and the ensemble
-Brusselator (``ensemble_brusselator``).  The reference draws its
+(``batched_robertson``, ``batched_robertson_soa``), the serving tier's
+parametric families (``robertson_family``, ``decay_chain_family``) and
+the ensemble Brusselator (``ensemble_brusselator``).  The reference draws its
 per-cell Robertson rates with ``jax.random``, which PyTorch cannot
 reproduce, so here they come from the caller (``rates=``) or from numpy
 with the reference's distributions (:func:`robertson_rates`); a test
@@ -27,6 +28,8 @@ def robertson_rates(nsys: int, seed: int = 0) -> dict:
 
 
 def _rate_tensors(nsys, rates, seed, device, dtype):
+    """``(device, {"k1", "k2", "k3"})``: the rates as ``(nsys,)``
+    tensors, the params of :func:`robertson_family`."""
     dev = resolve_device(device)
     if rates is None:
         rates = robertson_rates(nsys, seed)
@@ -36,32 +39,20 @@ def _rate_tensors(nsys, rates, seed, device, dtype):
         if v.shape != (nsys,):
             raise ValueError(f"rate {k} has shape {tuple(v.shape)}, "
                              f"want ({nsys},)")
-    return dev, out["k1"], out["k2"], out["k3"]
+    return dev, out
 
 
 def batched_robertson(nsys: int, *, rates=None, seed: int = 0, device=None,
                       dtype=torch.float64):
     """``(f, jac, y0)``: ``f(t, y:(nsys,3)) -> (nsys,3)`` and
-    ``jac(t, y) -> (nsys,3,3)`` with the rates closed over; ``y0`` is
-    ``[1, 0, 0]`` per system.  ``device=None`` means the card."""
-    dev, k1, k2, k3 = _rate_tensors(nsys, rates, seed, device, dtype)
-
-    def f(t, y):  # y: (nsys, 3)
-        a, b, c = y[:, 0], y[:, 1], y[:, 2]
-        r1, r2, r3 = k1 * a, k2 * b * c, k3 * b * b
-        return torch.stack([-r1 + r2, r1 - r2 - r3, r3], dim=1)
-
-    def jac(t, y):
-        a, b, c = y[:, 0], y[:, 1], y[:, 2]
-        z = torch.zeros_like(a)
-        return torch.stack([
-            torch.stack([-k1, k2 * c, k2 * b], dim=1),
-            torch.stack([k1, -k2 * c - 2 * k3 * b, -k2 * b], dim=1),
-            torch.stack([z, 2 * k3 * b, z], dim=1)], dim=1)
-
+    ``jac(t, y) -> (nsys,3,3)`` with the rates closed over (the
+    arithmetic of :func:`robertson_family`); ``y0`` is ``[1, 0, 0]`` per
+    system.  ``device=None`` means the card."""
+    dev, p = _rate_tensors(nsys, rates, seed, device, dtype)
+    f, jac, _, _ = robertson_family()
     y0 = torch.zeros((nsys, 3), dtype=dtype, device=dev)
     y0[:, 0] = 1.0
-    return f, jac, y0
+    return (lambda t, y: f(t, y, p)), (lambda t, y: jac(t, y, p)), y0
 
 
 def batched_robertson_soa(nsys: int, *, rates=None, seed: int = 0,
@@ -69,22 +60,81 @@ def batched_robertson_soa(nsys: int, *, rates=None, seed: int = 0,
     """Native SoA companions, system axis LAST: ``f_soa(t, y:(3,nsys))
     -> (3,nsys)`` and ``jac_soa -> (3,3,nsys)``; same rates as
     :func:`batched_robertson` for the same arguments."""
-    _, k1, k2, k3 = _rate_tensors(nsys, rates, seed, device, dtype)
+    _, p = _rate_tensors(nsys, rates, seed, device, dtype)
+    _, _, f_soa, jac_soa = robertson_family()
+    return (lambda t, y: f_soa(t, y, p)), (lambda t, y: jac_soa(t, y, p))
 
-    def f_soa(t, y):  # y: (3, nsys)
+
+def robertson_family():
+    """Parametric Robertson kinetics for the serving tier (reference
+    ``problems.py:82``): the problem of :func:`batched_robertson` with
+    the rates as per-request data, ``params = {"k1", "k2", "k3"}`` each
+    of shape (nsys,), so requests with other chemistry share one bundle.
+
+    Returns ``(f, jac, f_soa, jac_soa)``: ``f(t:(nsys,), y:(nsys,3),
+    params) -> (nsys,3)``, ``jac -> (nsys,3,3)``, and the SoA forms
+    (``y:(3,nsys)``, ``jac_soa -> (3,3,nsys)``); n = 3.  The arithmetic
+    is the one :func:`batched_robertson` closes its rates into.
+    """
+
+    def f(t, y, p):  # y: (nsys, 3)
+        a, b, c = y[:, 0], y[:, 1], y[:, 2]
+        r1, r2, r3 = p["k1"] * a, p["k2"] * b * c, p["k3"] * b * b
+        return torch.stack([-r1 + r2, r1 - r2 - r3, r3], dim=1)
+
+    def jac(t, y, p):
+        a, b, c = y[:, 0], y[:, 1], y[:, 2]
+        k1, k2, k3 = p["k1"], p["k2"], p["k3"]
+        z = torch.zeros_like(a)
+        return torch.stack([
+            torch.stack([-k1, k2 * c, k2 * b], dim=1),
+            torch.stack([k1, -k2 * c - 2 * k3 * b, -k2 * b], dim=1),
+            torch.stack([z, 2 * k3 * b, z], dim=1)], dim=1)
+
+    def f_soa(t, y, p):  # y: (3, nsys)
         a, b, c = y[0], y[1], y[2]
-        r1, r2, r3 = k1 * a, k2 * b * c, k3 * b * b
+        r1, r2, r3 = p["k1"] * a, p["k2"] * b * c, p["k3"] * b * b
         return torch.stack([-r1 + r2, r1 - r2 - r3, r3], dim=0)
 
-    def jac_soa(t, y):  # -> (3, 3, nsys)
+    def jac_soa(t, y, p):  # -> (3, 3, nsys)
         a, b, c = y[0], y[1], y[2]
+        k1, k2, k3 = p["k1"], p["k2"], p["k3"]
         z = torch.zeros_like(a)
         return torch.stack([
             torch.stack([-k1, k2 * c, k2 * b], dim=0),
             torch.stack([k1, -k2 * c - 2 * k3 * b, -k2 * b], dim=0),
             torch.stack([z, 2 * k3 * b, z], dim=0)], dim=0)
 
-    return f_soa, jac_soa
+    return f, jac, f_soa, jac_soa
+
+
+def decay_chain_family(n: int = 6):
+    """Parametric linear decay chain of ``n`` species, the serving tier's
+    second shape (reference ``problems.py:127``): ``dy_0/dt = -k_0 y_0``,
+    ``dy_i/dt = k_{i-1} y_{i-1} - k_i y_i``, with per-request rates
+    ``params = {"k": (nsys, n)}``.  The Jacobian is lower bidiagonal.
+
+    Returns ``(f, jac, f_soa, jac_soa)`` in the conventions of
+    :func:`robertson_family`.
+    """
+
+    def f(t, y, p):  # y: (nsys, n)
+        r = p["k"] * y
+        return -r + torch.cat([torch.zeros_like(r[:, :1]), r[:, :-1]], dim=1)
+
+    def jac(t, y, p):  # -> (nsys, n, n)
+        k = p["k"]
+        return torch.diag_embed(-k) + torch.diag_embed(k[:, :-1], offset=-1)
+
+    def f_soa(t, y, p):  # y: (n, nsys)
+        # the kernels take contiguous SoA tensors: transpose k once
+        r = p["k"].T.contiguous() * y
+        return -r + torch.cat([torch.zeros_like(r[:1]), r[:-1]], dim=0)
+
+    def jac_soa(t, y, p):  # -> (n, n, nsys)
+        return jac(t, y.T, p).permute(1, 2, 0).contiguous()
+
+    return f, jac, f_soa, jac_soa
 
 
 def _brusselator(nsys, nx, du, dv, a, device, dtype):

@@ -28,6 +28,21 @@ RETCODE_NAMES = {
 }
 
 
+#: retcode -> the SUNDIALS flag it mirrors (the README's failure-semantics
+#: table)
+SUNDIALS_FLAGS = {
+    SUCCESS: "CV_SUCCESS",
+    TOO_MUCH_WORK: "CV_TOO_MUCH_WORK",
+    ERR_FAILURE: "CV_ERR_FAILURE",
+    CONV_FAILURE: "CV_CONV_FAILURE",
+    RHSFUNC_FAIL: "CV_RHSFUNC_FAIL",
+}
+
+
 def retcode_name(code: int) -> str:
     """Symbolic name for ``code`` (``"UNKNOWN(<n>)"`` off the table)."""
     return RETCODE_NAMES.get(int(code), f"UNKNOWN({int(code)})")
+
+
+def is_success(code: int) -> bool:
+    return int(code) == SUCCESS

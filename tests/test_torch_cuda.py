@@ -695,3 +695,127 @@ def test_profiler_synchronises_the_card():
     with unsynced.region("launch only"):
         pass
     assert unsynced.spans[0].name == "launch only"
+
+
+def _serving_families():
+    from repro_torch.core import problems
+    from repro_torch.serve.solver import ProblemFamily
+    fr, fd = problems.robertson_family(), problems.decay_chain_family(6)
+    return [ProblemFamily("robertson", 3, *fr),
+            ProblemFamily("decay6", 6, *fd)]
+
+
+@pytest.mark.cuda
+def test_server_bundles_match_a_direct_kernel_run_on_card():
+    """The serving tier on the card: a Robertson bundle and a padded
+    decay-chain bundle launch the main path's kernels, their lanes equal
+    a direct ``integrate`` of the same systems (per-lane steps, nni and
+    retcodes; y within 10*(rtol*|y|+atol)), a warm resubmission resumes
+    from the sessions, and nothing degrades."""
+    _need_card()
+    from repro_torch.core import ivp, problems
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.serve.solver import SolverServer
+    srv = SolverServer(_serving_families(), bucket_sizes=(256, 1024),
+                       max_batch=1024)
+    nrob, ndec = 1024, 200
+    rates = problems.robertson_rates(nrob, seed=0)
+    kdec = np.random.default_rng(1).uniform(0.1, 5.0, size=(ndec, 6))
+    tol = {"rtol": 1e-5, "atol": 1e-10}
+    rob = [srv.submit("robertson", [1.0, 0.0, 0.0], 0.0, 10.0, params={
+        k: float(v[i]) for k, v in rates.items()}, **tol)
+        for i in range(nrob)]
+    dec = [srv.submit("decay6", np.ones(6), 0.0, 1.0, params={"k": k},
+                      **tol) for k in kdec]
+    kernels.reset_counts()
+    srv.drain()
+    for name in ("newton_residual", "blockdiag_spmv", "masked_update_wrms",
+                 "lagrange_rescale", "wrms_soa", "block_inverse"):
+        launches, calls = kernels.counts()[name]
+        assert launches > 0 and calls == 0, name
+    rob, dec = [f.result() for f in rob], [f.result() for f in dec]
+    assert rob[0].y.device.type == "cuda"
+    opts = ODEOptions(**tol, max_steps=100_000)
+    f, jac, y0 = problems.batched_robertson(nrob, rates=rates)
+    direct = ivp.integrate(ivp.IVP(f=f, jac=jac, y0=y0), 0.0, 10.0,
+                           "ensemble_bdf", opts=opts)
+    fd = problems.decay_chain_family(6)
+    pk = {"k": torch.from_numpy(kdec).cuda()}
+    ddirect = ivp.integrate(ivp.IVP(
+        f=lambda t, y: fd[0](t, y, pk), jac=lambda t, y: fd[1](t, y, pk),
+        f_soa=lambda t, y: fd[2](t, y, pk),
+        jac_soa=lambda t, y: fd[3](t, y, pk),
+        y0=torch.ones((ndec, 6), dtype=torch.float64, device="cuda")),
+        0.0, 1.0, "ensemble_bdf", opts=opts)
+    for sols, ref in ((rob, direct), (dec, ddirect)):
+        y = torch.stack([s.y for s in sols])
+        for name in ("steps", "nni", "retcodes"):
+            got = torch.stack([getattr(s.stats, name) for s in sols])
+            assert torch.equal(got, getattr(ref.stats, name)), name
+        bound = 10 * (1e-5 * ref.y.abs() + 1e-10)
+        assert bool(((y - ref.y).abs() <= bound).all())
+    warm = [srv.submit("robertson", s.y, 10.0, 20.0, params={
+        k: float(v[i]) for k, v in rates.items()}, session=s.session, **tol)
+        for i, s in enumerate(rob[:256])]
+    srv.drain()
+    warm = [f.result() for f in warm]
+    assert all(bool(s.ok) for s in warm[:4])
+    assert int(torch.stack([s.stats.steps for s in warm]).sum()) < \
+        int(direct.stats.steps[:256].sum())
+    m = srv.metrics()
+    assert m["failures"] == {} and m["degraded"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nan", "divergent"])
+def test_core_chaos_on_card(mode):
+    """k poisoned lanes of 4096 on the card, the kernels: exactly those
+    fail, healthy lanes bit for bit the clean run."""
+    _need_card()
+    from repro_torch.testing.chaos import run_core_chaos
+    rep = run_core_chaos(4096, 8, seed=1, mode=mode)
+    assert rep["device"].startswith("cuda") and rep["failed"] == 8
+    allowed = {"CONV_FAILURE"} if mode == "nan" else {"ERR_FAILURE",
+                                                      "CONV_FAILURE"}
+    assert set(rep["retcodes"].values()) <= allowed
+
+
+@pytest.mark.cuda
+def test_serving_chaos_on_card():
+    """Lane faults, deadline sheds, one degraded bundle and one failed
+    fallback on the card: every future typed, none hung."""
+    _need_card()
+    from repro_torch.testing.chaos import run_serving_chaos
+    rep = run_serving_chaos(2048, 16, 8, bucket=1024)
+    assert rep["device"].startswith("cuda")
+    assert rep["failed_retcode"] == 16 and rep["degraded_bundles"] == 1
+    assert rep["failed_exec"] == 8
+
+
+@pytest.mark.cuda
+def test_a_kernel_refusing_its_inputs_fails_the_bundle_on_card():
+    """A family whose SoA RHS comes back strided: the kernels refuse it,
+    and the bundle's futures fail typed (``exec_error``); the bundle is
+    not served by the plain versions in their place."""
+    _need_card()
+    from repro_torch.core import problems
+    from repro_torch.serve.solver import ProblemFamily, SolverServer
+    from repro_torch.serve.solver.server import SolverError
+    fr = problems.robertson_family()
+
+    def strided(t, z, p):
+        return fr[2](t, z, p).T.contiguous().T
+
+    srv = SolverServer([ProblemFamily("robertson", 3, fr[0], fr[1],
+                                      strided, fr[3])],
+                       bucket_sizes=(64,), max_batch=64)
+    rates = problems.robertson_rates(64, seed=0)
+    futs = [srv.submit("robertson", [1.0, 0.0, 0.0], 0.0, 1.0, params={
+        k: float(v[i]) for k, v in rates.items()}, rtol=1e-5, atol=1e-10)
+        for i in range(64)]
+    with pytest.raises(Exception):
+        srv.drain()
+    for fut in futs:
+        assert isinstance(fut.exception(), SolverError)
+    m = srv.metrics()
+    assert m["degraded"] == 0 and m["failures"] == {"exec_error": 64}

@@ -27,6 +27,7 @@ def test_retcodes_match_reference():
                  "RHSFUNC_FAIL", "MXNCF", "MXNEF"):
         assert getattr(status, name) == getattr(ref_status, name), name
     assert status.RETCODE_NAMES == ref_status.RETCODE_NAMES
+    assert status.SUNDIALS_FLAGS == ref_status.SUNDIALS_FLAGS
 
 
 def _imported_modules(path: Path):
@@ -48,7 +49,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.core.vector, repro_torch.core.sunmatrix, "
             "repro_torch.core.events, repro_torch.core.cvode, "
             "repro_torch.observability, repro_torch.core.context, "
-            "repro_torch.examples.batched_kinetics\n"
+            "repro_torch.examples.batched_kinetics, "
+            "repro_torch.serve.solver, repro_torch.testing.chaos, "
+            "repro_torch.examples.serve_solver_demo, "
+            "repro_torch.examples.brusselator, "
+            "repro_torch.examples.brusselator_sparse\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad")
@@ -79,9 +84,9 @@ def test_entry_points_run_on_the_card_by_default():
 
 
 def test_unported_paths_raise():
-    """What the port runs now (telemetry=, session=, timed=True on the
-    CPU) and what still waits: live= raises naming ROADMAP queue A.5,
-    the autotuner A.8."""
+    """What the port runs now (telemetry=, session=, timed=True and
+    live= on the CPU) and what still waits: the autotuner, ROADMAP queue
+    A.8."""
     f, jac, y0 = problems.batched_robertson(4, device="cpu")
     prob = ivp.IVP(f=f, jac=jac, y0=y0)
     # bdf and adams are ported (tests/test_torch_cvode.py holds them to
@@ -106,9 +111,14 @@ def test_unported_paths_raise():
     sol2 = ivp.integrate(prob, 1e-3, 2e-3, "ensemble_bdf", device="cpu",
                          session=sol.session)
     assert bool(sol2.ok.all())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.5"):
-        ivp.integrate(prob, 0.0, 1.0, "ensemble_bdf", device="cpu",
-                      live=torch.ones(4, dtype=torch.bool))
+    live = torch.tensor([True, True, False, True])
+    sol3 = ivp.integrate(prob, 0.0, 1e-3, "ensemble_bdf", device="cpu",
+                         live=live)
+    assert sol3.stats.steps[2] == 0 and bool(sol3.ok.all())
+    assert torch.equal(sol3.stats.steps[live], sol.stats.steps[live])
+    with pytest.raises(ValueError, match="live"):
+        ivp.integrate(decay, 0.0, 1.0, "bdf", device="cpu",
+                      live=torch.ones(1, dtype=torch.bool))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A.8"):
         Context().dispatch_report()
     with pytest.raises(ValueError, match="telemetry"):
