@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile[=main,A,...,M]] [--ptxas]
+    python3 chip_smoke.py [--profile[=main,A,...,N]] [--ptxas]
 
 Run from the repository root.  It imports nothing of JAX or of the JAX
 package.  Phases, each of which fails the run (non-zero exit), and each
@@ -162,11 +162,40 @@ of which prints the seconds it took:
      wall, host syncs and per-request host costs (submit, assemble,
      resolve, and the garbage collector's share), latency percentiles,
      occupancy, cache counters, peak memory and the sub-phase's seconds;
+   - path N, the multi-device layer and the op registry, after D-F
+     (float64, rtol 1e-5, atol 1e-10; each sub-phase prints its
+     seconds): N.1 ``ensemble_bdf_integrate_sharded`` over the main
+     path's 2**20 systems to t = 10 as a world of one, with no process
+     group and under an NCCL group of one, each equal to the main
+     path's kernel run bit for bit (y, every stats field, its host
+     syncs), rows 1-6 (4f) and no plain version; N.4 the Fig. 4 analog
+     (the reference's ``benchmarks/meshvector_overhead.py``): host us a
+     call over 200 calls ending in a synchronize, ``MeshVector``'s
+     ``linear_sum`` and ``wrms_norm`` against the raw ``dispatch`` calls
+     at 1e4, 1e5, 1e6 and 3*2**20 elements, gspmd and explicit under
+     the group of one, printed, no gate; N.2 two processes of this
+     script (``--path-n-rank``), gloo over a ``file://`` store, both on
+     this card: the sharded run at 2**20 - 1 systems (one padded dummy),
+     the gathered y and stats on each rank equal to the main path's
+     lanes bit for bit, and path D's solver sharded two ways over
+     ``problems.brusselator_family`` (every lane's nli and npsolves the
+     sum of the ranks' own totals, y within 100*(rtol*|y|+atol) of D's
+     unsharded kernel run); N.3 in those ranks, explicit ``MeshVector``
+     reductions over 3*2**20 + 5 elements split unevenly (``linear_sum``
+     bit for bit, ``dot``, ``wrms_norm``, ``l1_norm`` within 1e-13
+     relative of the whole vector's, ``max_norm``, ``min`` exact), each
+     one collective and its row's one launch (row 12, 16, 14); N.5
+     the main path's problem at 2**16 systems under
+     ``ExecPolicy().override(blockdiag_spmv_soa="torch")``: rows 1, 3,
+     4f, 5, 6 launched, row 2 never (its plain version instead), within
+     10*(rtol*|y|+atol) of the main path's lanes, retcodes equal; a
+     failed rank fails the run;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
 to the paths named; ``main`` is the main path; M profiles the drain of
-one more full Robertson bundle) and writes its
+one more full Robertson bundle; N its world-of-one sharded run) and
+writes its
 busiest device kernels to ``chip_smoke_out/chip_smoke_profile_*.txt``,
 with the device time under the profiler ranges of the plain code
 (``lagrange_matrix_soa``, which a BDF path's kernel run must not reach,
@@ -256,7 +285,15 @@ PATH_KERNELS = {
                         "block_inverse"),
     "M: serving": ("newton_residual", "blockdiag_spmv", "masked_update_wrms",
                    "lagrange_rescale", "wrms_soa", "block_inverse"),
+    "N: sharded ensemble_bdf": ("newton_residual", "blockdiag_spmv",
+                                "masked_update_wrms", "lagrange_rescale",
+                                "wrms_soa", "block_inverse"),
+    "N.5: pinned": ("newton_residual", "masked_update_wrms",
+                    "lagrange_rescale", "wrms_soa", "block_inverse"),
 }
+#: path -> the plain versions its kernel run takes by a per-op pin (and
+#: must take); a kernel run of any other path takes none
+PATH_PLAIN = {"N.5: pinned": ("blockdiag_spmv",)}
 #: path L: slots of the step-telemetry ring, and the legs' intervals
 L_RING = 256
 L_LEG1, L_LEG2 = (0.0, 10.0), (10.0, 20.0)
@@ -277,6 +314,13 @@ M_CHAOS_NSYS, M_CHAOS_K = 1 << 16, 8
 M_CHAOS_REQUESTS, M_CHAOS_FAULTS, M_CHAOS_BUCKET = 1 << 14, 32, 1 << 14
 #: the decay chain's systems in phase 3 (path M's padded bundle)
 NDECAY = 16384
+#: path N: ranks of N.2 and N.3 (gloo, all on the card) and the seconds
+#: they may take; N.3's vector length (split unevenly); N.4's vector
+#: lengths and its calls a timing
+N_WORLD, N_RANK_TIMEOUT = 2, 300
+N3_SIZE = 3 * NXB + 5
+N_OVERHEAD_SIZES = (10 ** 4, 10 ** 5, 10 ** 6, 3 * NXB)
+N_REPS, N_ROUNDS = 200, 3
 #: t_final of paths I and J (each run ~15 s or less on the card; J takes
 #: 20+ steps at nx = 2**20)
 TF_I, TF_J = 0.005, 0.02
@@ -1038,9 +1082,16 @@ def check_counts(path, counts, kernel_run):
     for name in PATH_KERNELS[path]:
         check(counts[name][0] > 0, f"{path}: kernel {name} was never "
               "launched")
-    for name, (_, plain_calls) in counts.items():
-        check(plain_calls == 0, f"{path}: plain {name} ran {plain_calls} "
-              "times")
+    pinned = PATH_PLAIN.get(path, ())
+    for name, (launched, plain_calls) in counts.items():
+        if name in pinned:
+            check(launched == 0 and plain_calls > 0, f"{path}: {name} is "
+                  f"pinned to its plain version, but the kernel launched "
+                  f"{launched} times and the plain version ran "
+                  f"{plain_calls}")
+        else:
+            check(plain_calls == 0, f"{path}: plain {name} ran "
+                  f"{plain_calls} times")
 
 
 def run_path(path, label, prob, method, t1, opts, ctx=None, t0=0.0, **kw):
@@ -1092,22 +1143,23 @@ def run_path(path, label, prob, method, t1, opts, ctx=None, t0=0.0, **kw):
     return sol, rec
 
 
-def agree(path, y, ref, retcodes=None, ref_retcodes=None, mass=False, C=10):
-    """Kernel run against plain run: equal retcodes, y within
-    C*(rtol*|y|+atol); optionally y1+y2+y3 = 1 within 10*rtol."""
+def agree(path, y, ref, retcodes=None, ref_retcodes=None, mass=False, C=10,
+          what="the plain run"):
+    """Kernel run against plain run (or ``what``): equal retcodes, y
+    within C*(rtol*|y|+atol); optionally y1+y2+y3 = 1 within 10*rtol."""
     import torch
     if retcodes is not None:
         check(torch.equal(retcodes, ref_retcodes), f"{path}: retcodes differ")
     bound = C * (RTOL * ref.abs() + ATOL)
     ratio = ((y - ref).abs() / bound).max().item()
-    check(ratio <= 1.0, f"{path}: y differs from the plain run by {ratio} "
+    check(ratio <= 1.0, f"{path}: y differs from {what} by {ratio} "
           f"of {C}*(rtol*|y|+atol)")
     out = {"max_diff_over_bound": ratio}
     if mass:
         out["mass_drift"] = (y.sum(dim=1) - 1.0).abs().max().item()
         check(out["mass_drift"] <= 10 * RTOL,
               f"{path}: y1+y2+y3 drifts from 1 by {out['mass_drift']}")
-    print(f"{path} agrees with the plain run: "
+    print(f"{path} agrees with {what}: "
           + ", ".join(f"{k} {v:.3g}" for k, v in out.items()), flush=True)
     return out
 
@@ -1134,7 +1186,7 @@ def phase_main_path(profile):
                                 policy=ExecPolicy(backend="torch")))
     agreement = agree(path, sol.y, ref.y, sol.retcodes, ref.retcodes,
                       mass=True)
-    y = sol.y
+    y, stats = sol.y, sol.stats
     del sol, ref
     prof = None
     if profile:
@@ -1142,7 +1194,7 @@ def phase_main_path(profile):
                                                 opts), rec["wall_s"], True)
         prof["lagrange_alone_ms"] = lagrange_alone_ms()
     return {"kernels_run": rec, "plain_run": ref_rec,
-            "agreement": agreement, "profile": prof, "y": y}
+            "agreement": agreement, "profile": prof, "y": y, "stats": stats}
 
 
 def run_leg(path, label, ctx, prob, t_span, opts, summarise=False, **kw):
@@ -1732,6 +1784,424 @@ def phase_path_m_legs(path, card, gcc, profile):
     return rec
 
 
+def robertson_family_problem(nsys, dev):
+    """The main path's first ``nsys`` systems in the form the sharded
+    ensemble takes: ``(f, jac, y0, params)``, the rates (numpy seed 0)
+    as per-system data."""
+    import torch
+    from repro_torch.core import problems
+    rates = problems.robertson_rates(NSYS, seed=0)
+    params = {k: torch.as_tensor(v[:nsys], device=dev)
+              for k, v in rates.items()}
+    f, jac, _, _ = problems.robertson_family()
+    y0 = torch.zeros((nsys, 3), dtype=torch.float64, device=dev)
+    y0[:, 0] = 1.0
+    return f, jac, y0, params
+
+
+def n_run(path, label, run, kernel_path):
+    """One call of path N's (``run()``) with the counts zeroed just
+    before it and read just after; its kernels checked as those of
+    ``kernel_path``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import batched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    batched.reset_loop_counts()
+    start = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - start, "counts": kernels.counts(),
+           "loop": dict(batched.loop_counts),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"{path} [{label}]: wall {rec['wall_s']:.3f} s, host syncs "
+          f"{rec['loop']['host_syncs']}, step trips "
+          f"{rec['loop']['step_trips']}, Newton trips "
+          f"{rec['loop']['newton_trips']}, Krylov trips "
+          f"{rec['loop']['krylov_trips']}, peak "
+          f"{rec['peak_bytes'] / 2**20:.1f} MiB", flush=True)
+    check_counts(kernel_path, rec["counts"], True)
+    return out, rec
+
+
+def same_stats(path, what, st, ref, lanes=None):
+    """Every field of two EnsembleStats equal bit for bit (``ref``'s
+    first ``lanes``)."""
+    import torch
+    for name, a, b in zip(ref._fields, st, ref):
+        if a is None or b is None:
+            check(a is None and b is None, f"{path}: {what}: stats field "
+                  f"{name} is None on one side only")
+            continue
+        b = b if lanes is None else b[:lanes]
+        check(torch.equal(a.to(b.device), b), f"{path}: {what}: stats "
+              f"field {name} differs from the main path's")
+
+
+def sum_counts(recs):
+    """Kernel launches and plain calls summed over runs."""
+    names = recs[0]["counts"]
+    return {n: (sum(r["counts"][n][0] for r in recs),
+                sum(r["counts"][n][1] for r in recs)) for n in names}
+
+
+def n_overhead(dev):
+    """N.4, the Fig. 4 analog (the reference's
+    ``benchmarks/meshvector_overhead.py``): host-side us per call over
+    N_REPS calls ending in a synchronize, ``MeshVector.linear_sum`` and
+    ``.wrms_norm`` against the raw ``dispatch`` calls, in gspmd mode and
+    in explicit mode under the process group of one; N_ROUNDS rounds in
+    turns, the ratio of the medians."""
+    import torch
+    from repro_torch.core import dispatch
+    from repro_torch.core.vector import MeshVector, MeshVectorSpec
+    from repro_torch.launch.mesh import make_ensemble_mesh
+    mesh = make_ensemble_mesh()
+
+    def per_call_us(fn):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / N_REPS * 1e6
+
+    rows = []
+    for n in N_OVERHEAD_SIZES:
+        x = torch.arange(n, dtype=torch.float64, device=dev)
+        w = torch.full((n,), 0.5, dtype=torch.float64, device=dev)
+        calls = {("raw", "linear_sum"):
+                 lambda: dispatch.linear_sum(2.0, x, -3.0, w),
+                 ("raw", "wrms_norm"): lambda: dispatch.wrms_norm(x, w)}
+        for mode, comm in (("gspmd", None), ("explicit", mesh)):
+            spec = MeshVectorSpec(comm=comm, mode=mode)
+            mx, mw = MeshVector(x, spec), MeshVector(w, spec)
+            calls[mode, "linear_sum"] = functools.partial(
+                mx.linear_sum, 2.0, -3.0, mw)
+            calls[mode, "wrms_norm"] = functools.partial(
+                mx.wrms_norm, mw, global_size=n)
+        # rounds in turns, so drift reaches every form alike
+        us = {k: [] for k in calls}
+        for _ in range(N_ROUNDS):
+            for k, fn in calls.items():
+                us[k].append(per_call_us(fn))
+        for mode in ("gspmd", "explicit"):
+            for op in ("linear_sum", "wrms_norm"):
+                mv, raw = us[mode, op], us["raw", op]
+                ratio = statistics.median(mv) / statistics.median(raw)
+                rows.append({"n": n, "mode": mode, "op": op,
+                             "meshvector_us": mv, "raw_us": raw,
+                             "ratio_of_medians": ratio})
+                print(f"N.4 {op} n={n} {mode}: MeshVector "
+                      f"{', '.join(f'{v:.2f}' for v in mv)} us, raw "
+                      f"{', '.join(f'{v:.2f}' for v in raw)} us, ratio of "
+                      f"medians {ratio:.3f}", flush=True)
+    return rows
+
+
+def spawn_ranks(world, profile):
+    """N.2 and N.3: ``world`` processes of this script
+    (``--path-n-rank``), gloo over a ``file://`` store in a fresh
+    directory under chip_smoke_out/, all on this card; each must exit 0
+    within N_RANK_TIMEOUT s (else all are killed and the run fails).
+    ``profile`` adds a profiled run of each N.2 solve to each rank.
+    Returns each rank's record."""
+    import shutil
+    import tempfile
+    import torch
+    OUT.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="path_n_", dir=OUT))
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--path-n-rank", str(r), str(world), str(tmp),
+                               *(["--profile"] if profile else [])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=ROOT) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=N_RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print("\n".join(f"  [rank {r}] {line}" for line in log.splitlines()),
+              flush=True)
+        check(p.returncode == 0, f"N: rank {r} exited {p.returncode}")
+    outs = [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+    shutil.rmtree(tmp)
+    return outs
+
+
+def phase_path_n(y_main, st_main, syncs_main, y_d, profile):
+    """Path N, the multi-device layer and the op registry on the card:
+    N.1 the sharded ensemble BDF as a world of one, with no group and
+    under an NCCL group of one, each bit for bit the main path's kernel
+    run with its host syncs; N.4 the MeshVector overhead under that
+    group; N.2 and N.3 in two gloo ranks on this card (the sharded
+    Robertson run at 2**20 - 1 systems and path D's solver, and
+    explicit MeshVector reductions); N.5 a per-op pin."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import batched, ivp, problems
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.policies import ExecPolicy
+    from repro_torch.launch.mesh import WorldOfOne, make_ensemble_mesh
+    path, key = "N: multi-device", "N: sharded ensemble_bdf"
+    dev = y_main.device
+    opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
+    sub_s, runs, out = {}, [], {}
+    # N.1: a world of one, in this process
+    t = time.perf_counter()
+    f, jac, y0, params = robertson_family_problem(NSYS, dev)
+
+    def sharded(mesh=None):
+        return lambda: batched.ensemble_bdf_integrate_sharded(
+            f, jac, y0, 0.0, 10.0, params=params, mesh=mesh, opts=opts)
+
+    check(isinstance(make_ensemble_mesh(), WorldOfOne),
+          f"{path}: no group, but the layout is not a world of one")
+    n1 = {}
+    for label in ("no group", "NCCL group of one"):
+        if label != "no group":
+            dist.init_process_group("nccl", rank=0, world_size=1,
+                                    store=dist.HashStore())
+            mesh = make_ensemble_mesh()
+            check(mesh.size() == 1 and mesh.mesh_dim_names == ("systems",),
+                  f"{path}: the group of one's layout is {mesh}")
+        (y, st), rec = n_run(path, f"N.1 {label}", sharded(), key)
+        check(torch.equal(y, y_main), f"{path}: N.1 ({label}): y is not "
+              "the main path's kernel run bit for bit")
+        same_stats(path, f"N.1 ({label})", st, st_main)
+        check(rec["loop"]["host_syncs"] == syncs_main,
+              f"{path}: N.1 ({label}) made {rec['loop']['host_syncs']} "
+              f"host syncs, the main path {syncs_main}")
+        runs.append(rec)
+        n1[label] = rec
+        del y, st
+    print(f"{path}: N.1 both runs equal the main path bit for bit, "
+          f"{syncs_main} host syncs", flush=True)
+    sub_s["N.1"] = time.perf_counter() - t
+    print(f"N.1: {sub_s['N.1']:.1f} s", flush=True)
+    out["N.1"] = n1
+    prof = {}
+    if profile:
+        prof["N.1"] = profile_run("N.1 world of one", sharded(),
+                                  n1["no group"]["wall_s"], True)
+    # N.4: MeshVector's overhead, gspmd and explicit (group of one)
+    t = time.perf_counter()
+    out["N.4"] = n_overhead(dev)
+    dist.destroy_process_group()
+    sub_s["N.4"] = time.perf_counter() - t
+    print(f"N.4: {sub_s['N.4']:.1f} s", flush=True)
+    del f, jac, y0, params
+    torch.cuda.empty_cache()
+    # N.2 and N.3: two gloo ranks on this card
+    t = time.perf_counter()
+    ranks = spawn_ranks(N_WORLD, profile)
+    nsys = NSYS - 1
+    for r, rk in enumerate(ranks):
+        check(torch.equal(rk["rob_y"].to(dev), y_main[:nsys]),
+              f"{path}: N.2 rank {r}: the gathered y is not the main "
+              "path's lanes bit for bit")
+        same_stats(path, f"N.2 rank {r}", batched.EnsembleStats(
+            *rk["rob_stats"]), st_main, lanes=nsys)
+        nli, nps = rk["d_nli"], rk["d_npsolves"]
+        own_nli = sum(o["d_own"][0] for o in ranks)
+        own_nps = sum(o["d_own"][1] for o in ranks)
+        check(bool((nli == own_nli).all()) and bool((nps == own_nps).all()),
+              f"{path}: N.2 rank {r}: nli / npsolves are not the ranks' "
+              f"totals {own_nli} / {own_nps} on every lane")
+        agree(f"{path} N.2 D rank {r}", rk["d_y"].to(dev), y_d, C=100,
+              what="path D's unsharded kernel run")
+        runs.extend(rk["runs"])
+    sub_s["N.2+N.3"] = time.perf_counter() - t
+    print(f"{path}: N.2 both ranks' gathered y and stats equal the main "
+          f"path's first {nsys} lanes bit for bit; D sharded: nli "
+          f"{own_nli}, npsolves {own_nps} (the ranks' "
+          f"{[o['d_own'] for o in ranks]}); N.3 within 1e-13, one "
+          f"collective a reduction", flush=True)
+    print(f"N.2+N.3: {sub_s['N.2+N.3']:.1f} s", flush=True)
+    out["ranks"] = [{k: v for k, v in rk.items()
+                     if k in ("timings", "n3", "d_own", "profile")}
+                    for rk in ranks]
+    # N.5: a per-op pin, the BDF lsolve's SpMV on its plain version
+    t = time.perf_counter()
+    rates = problems.robertson_rates(NSYS, seed=0)
+    sub = {k: v[:NSUB] for k, v in rates.items()}
+    pinned = ExecPolicy().override(blockdiag_spmv_soa="torch")
+    def n5():
+        return ivp.integrate(robertson_problem(NSUB, sub), 0.0, 10.0,
+                             "ensemble_bdf", opts=opts._replace(policy=pinned))
+
+    sol, rec = n_run(path, "N.5 pinned", n5, "N.5: pinned")
+    out["N.5"] = {"run": rec, "agreement": agree(
+        f"{path} N.5", sol.y, y_main[:NSUB], sol.retcodes,
+        st_main.retcodes[:NSUB], what="the main path's kernel run")}
+    runs.append(rec)
+    if profile:
+        prof["N.5"] = profile_run("N.5 pinned", n5, rec["wall_s"], True)
+    sub_s["N.5"] = time.perf_counter() - t
+    print(f"N.5: {sub_s['N.5']:.1f} s", flush=True)
+    out.update({"kernels_run": {"counts": sum_counts(runs)}, "sub_s": sub_s,
+                "profile": prof})
+    return out
+
+
+def path_n_rank(argv) -> int:
+    """One rank of path N.2 and N.3 (``--path-n-rank RANK WORLD DIR
+    [--profile]``): joins the gloo group through ``DIR/store``, runs its
+    share and saves its record to ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as dist
+    rank, world, tmp = int(argv[0]), int(argv[1]), Path(argv[2])
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        rec = n_rank_work(rank, world, "--profile" in argv)
+        torch.save(rec, tmp / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def n_rank_work(rank, world, profile):
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core import batched, dispatch, problems, vector
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.linsol import SPGMR
+    from repro_torch.core.precond import BlockJacobiPrecond
+    from repro_torch.launch.mesh import make_ensemble_mesh, mesh_device
+    path = f"N rank {rank}"
+    mesh = make_ensemble_mesh()
+    dev = mesh_device(mesh)
+    check(mesh.size() == world and dev.type == "cuda",
+          f"{path}: layout {mesh}, device {dev}")
+    opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
+    rec = {"runs": [], "timings": {}, "profile": {}}
+    # N.2: the main path's systems but the last, sharded (one dummy)
+    f, jac, y0, params = robertson_family_problem(NSYS - 1, dev)
+
+    def rob():
+        return batched.ensemble_bdf_integrate_sharded(
+            f, jac, y0, 0.0, 10.0, params=params, mesh=mesh, opts=opts)
+
+    (y, st), r = n_run(path, "N.2 Robertson", rob, "N: sharded ensemble_bdf")
+    rec["runs"].append(r)
+    rec["timings"]["N.2 Robertson"] = r["wall_s"]
+    if profile:
+        rec["profile"]["N.2 Robertson"] = profile_run(
+            f"N.2 Robertson rank {rank}", rob, r["wall_s"], True)
+    rec["rob_y"], rec["rob_stats"] = y.cpu(), tuple(
+        None if v is None else v.cpu() for v in st)
+    del f, jac, y0, params, y, st
+    # N.2: path D's solver, sharded; each rank's own inner totals
+    fb, jb, P = problems.brusselator_family(NX, device=dev)
+    yb0 = problems.ensemble_brusselator(NBRUSS, nx=NX, device=dev)[3]
+    pb = {"b": problems.brusselator_b(NBRUSS, device=dev)}
+    own, real = [], batched.ensemble_bdf_integrate
+
+    def spy(*a, **k):
+        res = real(*a, **k)
+        own.append((int(res[1].nli[0]), int(res[1].npsolves[0])))
+        return res
+
+    def d_run():
+        return batched.ensemble_bdf_integrate_sharded(
+            fb, jb, yb0, 0.0, 2.0, params=pb, mesh=mesh, opts=opts,
+            jac_sparsity=P, linear_solver=SPGMR(
+                tol=1e-10, restart=10, max_restarts=6,
+                precond=BlockJacobiPrecond(block_size=2)))
+
+    batched.ensemble_bdf_integrate = spy
+    try:
+        (y, st), r = n_run(path, "N.2 D", d_run, "D: ensemble_bdf SPGMR")
+    finally:
+        batched.ensemble_bdf_integrate = real
+    if profile:
+        rec["profile"]["N.2 D"] = profile_run(f"N.2 D rank {rank}", d_run,
+                                              r["wall_s"], True)
+    check(bool(st.ok.all()), f"{path}: N.2 D: a lane failed")
+    rec["runs"].append(r)
+    rec["timings"]["N.2 D"] = r["wall_s"]
+    rec["d_y"], rec["d_own"] = y.cpu(), own[-1]
+    rec["d_nli"], rec["d_npsolves"] = st.nli.cpu(), st.npsolves.cpu()
+    del fb, jb, yb0, pb, y, st
+    # N.3: explicit MeshVector reductions over an uneven split
+    t0 = time.perf_counter()
+    n = N3_SIZE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
+    w = torch.rand(n, generator=gen, dtype=torch.float64, device=dev) + 0.1
+    cuts = [0] + [n * (2 * k + 1) // (2 * world + 1) for k in range(1, world)] \
+        + [n]
+    lo, hi = cuts[rank], cuts[rank + 1]
+    spec = vector.MeshVectorSpec(comm=mesh, mode="explicit")
+    mx = vector.MeshVector(x[lo:hi].clone(), spec)
+    mw = vector.MeshVector(w[lo:hi].clone(), spec)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    z = mx.linear_sum(0.5, -2.0, mw).data
+    counts = kernels.counts()
+    check(counts["linear_combination"] == (1, 0), f"{path}: N.3 linear_sum "
+          f"ran row 12 as {counts['linear_combination']} (launches, plain)")
+    rec["runs"].append({"counts": counts})
+    check(torch.equal(z, dispatch.linear_sum(0.5, x, -2.0, w)[lo:hi]),
+          f"{path}: N.3 linear_sum differs from the whole vector's")
+    calls, all_reduce = [0], dist.all_reduce
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return all_reduce(*a, **k)
+
+    dist.all_reduce = counted
+    n3 = {}
+    try:
+        for name, fn, whole, kernel in (
+                ("dot", lambda: mx.dot(mw), dispatch.dot(x, w), "dot"),
+                ("wrms_norm", lambda: mx.wrms_norm(mw, global_size=n),
+                 dispatch.wrms_norm(x, w), "wrms_ss"),
+                ("l1_norm", mx.l1_norm, vector.l1_norm(x), None),
+                ("max_norm", mx.max_norm, vector.max_norm(x), None),
+                ("min", mx.min, vector.vmin(x), None)):
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            c0, v0 = calls[0], vector.MeshVector.collectives
+            got = float(fn())
+            counts = kernels.counts()
+            check(calls[0] - c0 == 1 and vector.MeshVector.collectives - v0
+                  == 1, f"{path}: N.3 {name} issued {calls[0] - c0} "
+                  "collectives")
+            if kernel is not None:
+                check(counts[kernel][0] == 1, f"{path}: N.3 {name} launched "
+                      f"{kernel} {counts[kernel][0]} times")
+            check(all(c[1] == 0 for c in counts.values()),
+                  f"{path}: N.3 {name} ran a plain version")
+            want = float(whole)
+            rel = abs(got - want) / abs(want)
+            check(rel <= 1e-13 if kernel or name == "l1_norm" else
+                  got == want, f"{path}: N.3 {name}: {got!r} against the "
+                  f"whole vector's {want!r} (relative {rel:.3g})")
+            n3[name] = {"value": got, "whole": want, "relative": rel}
+            rec["runs"].append({"counts": counts})
+    finally:
+        dist.all_reduce = all_reduce
+    rec["n3"] = n3
+    rec["timings"]["N.3"] = time.perf_counter() - t0
+    print(f"{path}: N.3 shard [{lo}, {hi}) of {n}: " + ", ".join(
+        f"{k} rel {v['relative']:.2g}" for k, v in n3.items()), flush=True)
+    return rec
+
+
 def phase_path_a(profile):
     """Path A: ensemble DIRK (SDIRK2) on the main path's 2**20 systems;
     the plain run covers the first NSUB lanes, which are independent of
@@ -2158,6 +2628,8 @@ def main(argv) -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if argv[:1] == ["--path-n-rank"]:
+        return path_n_rank(argv[1:])
     from repro_torch.core.linsol import (SPBCGS, SPGMR, BlockDiagGJ,
                                          EnsembleSparseGJ)
     from repro_torch.core.precond import BlockJacobiPrecond, ILU0Precond
@@ -2194,10 +2666,11 @@ def main(argv) -> int:
                                    phase_main_path, profiled("main"))}
     # the main path's problem in coupled legs: warm start, telemetry,
     # profiler, logger and the memory helper
+    y_main = paths["ensemble_bdf"].pop("y")
+    st_main = paths["ensemble_bdf"].pop("stats")
+    syncs_main = paths["ensemble_bdf"]["kernels_run"]["loop"]["host_syncs"]
     paths["L: coupled legs"] = phase(
-        "path L (coupled legs)", phase_path_l,
-        paths["ensemble_bdf"].pop("y"),
-        paths["ensemble_bdf"]["kernels_run"]["loop"]["host_syncs"],
+        "path L (coupled legs)", phase_path_l, y_main, syncs_main,
         profiled("L"))
     # the serving tier: bundles of up to 2**16 lanes at b = 3 and b = 6
     paths["M: serving"] = phase("path M (serving)", phase_path_m, card,
@@ -2242,7 +2715,15 @@ def main(argv) -> int:
              SPBCGS(tol=1e-10, maxiter=200, precond=ILU0Precond()), 100)):
         paths[path] = phase(f"path {path}", phase_brusselator, path,
                             "ensemble_bdf", 2.0, {"lin_solver": ls},
-                            profiled(path[0]), True, C)
+                            profiled(path[0]), True, C,
+                            keep_y=path[0] == "D")
+    # the multi-device layer and the op registry: the main path sharded
+    # (a world of one, two ranks on this card), D's solver sharded,
+    # MeshVector, a per-op pin
+    paths["N: multi-device"] = phase(
+        "path N (multi-device, op registry)", phase_path_n, y_main, st_main,
+        syncs_main, paths["D: ensemble_bdf SPGMR"].pop("y"), profiled("N"))
+    del y_main, st_main
     # the paper's §7 demonstration: the scalar IMEX stack at nx = 2**20
     paths["G: imex task-local"] = phase(
         "path G (imex:ark324, task-local)", phase_imex,

@@ -22,8 +22,13 @@ pattern; the sparse matrices ``core.sunmatrix.SparseCSR`` and
 SUNMemoryHelper, SUNProfiler and SUNLogger analogs (``core.context``,
 ``core.memory``, ``observability``); the paper's §7 demonstration,
 ``apps.brusselator``; the dynamic-batching server ``serve.solver`` and
-the fault-injection harness ``testing.chaos``; and the examples
-``examples.batched_kinetics``, ``serve_solver_demo``, ``brusselator``
-and ``brusselator_sparse``.  Everything else raises
+the fault-injection harness ``testing.chaos``; the multi-device layer:
+``launch.mesh`` (the ensemble's ``("systems",)`` layout over
+``torch.distributed``), the vector layer's ``MeshVector`` (MPIPlusX)
+and ManyVector (``core.vector``) and the sharded ensemble BDF
+(``core.batched.ensemble_bdf_integrate_sharded``); the op table with
+per-op policy pins (``core.dispatch``, ``core.policies``); and the
+examples ``examples.batched_kinetics``, ``serve_solver_demo``,
+``brusselator`` and ``brusselator_sparse``.  Everything else raises
 ``NotImplementedError`` naming its ROADMAP item.
 """

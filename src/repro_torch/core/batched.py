@@ -1,13 +1,16 @@
 """Ensemble (submodel) integration: many small independent systems
 advanced together, each with its own step size (and, for BDF, order).
 
-Counterpart of ``repro.core.batched`` (``batched.py:204-977``):
+Counterpart of ``repro.core.batched`` (``batched.py:204-1074``):
 
 * :func:`ensemble_erk_integrate` — adaptive explicit RK (nonstiff);
 * :func:`ensemble_dirk_integrate` — adaptive DIRK whose stage Newton
   runs a fixed number of iterations, each a batched block solve;
 * :func:`ensemble_bdf_integrate` — CVODE-style adaptive order and step,
-  convergence-tested modified Newton with Jacobian reuse.
+  convergence-tested modified Newton with Jacobian reuse;
+* :func:`ensemble_bdf_integrate_sharded` — the same, its systems
+  sharded over the ranks of a ``("systems",)`` layout
+  (:mod:`repro_torch.launch.mesh`), one integrator per device.
 
 The reference runs its step loops and the BDF Newton loop as
 ``lax.while_loop``s on the device; here they are Python loops that read
@@ -725,3 +728,139 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
     if ring is not None:
         out.append(ring)
     return tuple(out)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a dict / tuple / list tree."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _all_gather_rows(t: torch.Tensor, group, world: int) -> torch.Tensor:
+    """Every rank's equal-sized shard of ``t`` joined along dim 0, bit
+    for bit, on ``t``'s device.  Gloo gathers only host tensors, so a
+    CUDA tensor under a group without NCCL goes through the host; bools
+    travel as bytes."""
+    import torch.distributed as dist
+    src = t.view(torch.uint8) if t.dtype == torch.bool else t
+    host = src.is_cuda and "nccl" not in str(dist.get_backend(group))
+    if host:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(world)]
+    dist.all_gather(parts, src.contiguous(), group=group)
+    out = torch.cat(parts)
+    if host:
+        out = out.to(t.device)
+    return out.view(torch.bool) if t.dtype == torch.bool else out
+
+
+def ensemble_bdf_integrate_sharded(f: Callable, jac: Callable,
+                                   y0: torch.Tensor, t0, tf, *,
+                                   params=None, mesh=None,
+                                   axis: str = "systems", **kw):
+    """Shard :func:`ensemble_bdf_integrate` over the system axis
+    (reference ``batched.py:980-1074``).
+
+    SPMD: every rank of ``mesh`` calls it with the same global ``y0``,
+    ``t0``, ``tf`` and ``params``.  The batch is padded to a multiple of
+    the world size with finished dummy systems (``tf = t0``, the last
+    row repeated), each rank moves its contiguous shard to its device
+    (:func:`repro_torch.launch.mesh.mesh_device`) and runs the masked
+    adaptive loop there on its own, with no collective and its own trip
+    counts; then ``y`` and every ``EnsembleStats`` field are gathered
+    to the global ``(nsys, ...)`` on every rank, ``nli`` and
+    ``npsolves`` become the global totals broadcast over the lanes, and
+    the padding is stripped.  A world of one runs exactly the unsharded
+    call on its device.
+
+    params : optional tree (dict, tuple, list) of per-system tensors
+             (leading axis nsys), sharded alongside ``y0``; ``f``/``jac``
+             are then called as ``f(t, y, params_shard)``.  Closed-over
+             global ``(nsys, ...)`` tensors would NOT be sharded.
+    mesh   : a 1-D ``("systems",)`` layout; None builds
+             :func:`repro_torch.launch.mesh.make_ensemble_mesh` (the
+             card).
+    """
+    from ..launch.mesh import make_ensemble_mesh, mesh_device
+
+    # an explicit None is the documented "no native SoA form" default of
+    # the non-sharded API — only an actual callable is rejected here
+    if kw.pop("f_soa", None) is not None or \
+            kw.pop("jac_soa", None) is not None:
+        raise ValueError(
+            "ensemble_bdf_integrate_sharded takes the AoS f/jac only: a "
+            "native SoA callable would close over unsharded (.., nsys) "
+            "arrays; route per-system data through params= instead (the "
+            "per-shard SoA wrapping happens inside each device's loop)")
+    if kw.pop("session", None) is not None or kw.pop("return_session",
+                                                    False):
+        raise ValueError(
+            "ensemble_bdf_integrate_sharded takes no session=/"
+            "return_session=: a SolverSession's (.., nsys) leaves would "
+            "close over the shard_map body unsharded; warm-start "
+            "continuation is a serving-layer (single-mesh-shard) "
+            "feature for now")
+    if kw.get("telemetry") is not None:
+        raise ValueError("ensemble_bdf_integrate_sharded takes no "
+                         "telemetry=: each rank's ring holds its own shard")
+    if mesh is None:
+        mesh = make_ensemble_mesh()
+    if tuple(mesh.mesh_dim_names or ()) != (axis,):
+        raise ValueError(f"the mesh's dimensions are {mesh.mesh_dim_names}, "
+                         f"want ({axis!r},)")
+    dev = mesh_device(mesh)
+    world = mesh.size()
+    if world == 1:
+        y0, params = y0.to(dev), _tree_map(lambda p: p.to(dev), params)
+        if params is None:
+            return ensemble_bdf_integrate(f, jac, y0, t0, tf, **kw)
+        return ensemble_bdf_integrate(lambda t, y: f(t, y, params),
+                                      lambda t, y: jac(t, y, params),
+                                      y0, t0, tf, **kw)
+    nsys, n = y0.shape
+    dtype = y0.dtype
+    t0a = torch.as_tensor(t0, dtype=dtype, device=y0.device).expand(nsys)
+    tfa = torch.as_tensor(tf, dtype=dtype, device=y0.device).expand(nsys)
+    pad = (-nsys) % world
+    if pad:
+        def padded(p):
+            return torch.cat([p, p[-1:].expand(pad, *p.shape[1:])])
+
+        y0, t0a, params = padded(y0), padded(t0a), _tree_map(padded, params)
+        # tf = t0 -> padded systems are inactive from the first cond
+        tfa = torch.cat([tfa, t0a[-pad:]])
+    shard = (nsys + pad) // world
+    lo = mesh.get_local_rank() * shard
+
+    def local(p):
+        return p[lo:lo + shard].to(dev)
+
+    y0_l, t0_l, tf_l = local(y0), local(t0a), local(tfa)
+    if params is None:
+        f_l, jac_l = f, jac
+    else:
+        params_l = _tree_map(local, params)
+        f_l = lambda t, y: f(t, y, params_l)
+        jac_l = lambda t, y: jac(t, y, params_l)
+    y_l, st_l = ensemble_bdf_integrate(f_l, jac_l, y0_l, t0_l, tf_l, **kw)
+    group = mesh.get_group()
+
+    def gathered(v):
+        return None if v is None else _all_gather_rows(v, group, world)
+
+    y = gathered(y_l)
+    st = EnsembleStats(*(gathered(v) for v in st_l))
+    # each shard broadcast its own inner-solve total over its lanes; the
+    # documented invariant is every entry == the GLOBAL total
+    for name in ("nli", "npsolves"):
+        v = getattr(st, name)
+        if v is not None:
+            total = v[::shard].sum().to(v.dtype)
+            st = st._replace(**{name: total.expand(v.shape[0]).clone()})
+    if pad:
+        y = y[:nsys]
+        st = EnsembleStats(*(None if v is None else v[:nsys] for v in st))
+    return y, st

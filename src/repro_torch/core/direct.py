@@ -59,7 +59,7 @@ def block_solve(A: BlockDiagMatrix, b: torch.Tensor,
     nb, bs = A.nblocks, A.block_size
     data = _masked(A)
     bb = b.reshape(nb, bs)
-    if (policy or DEFAULT).backend == "torch":
+    if (policy or DEFAULT).backend_for("block_solve_soa") == "torch":
         xb = gauss_jordan_batched(data, bb)
     else:
         xb = dv.block_solve_soa(data.permute(1, 2, 0).contiguous(),

@@ -1,27 +1,34 @@
-"""Policy-routed ops of the port.
+"""Policy-routed ops of the port, through one op table.
 
-Counterpart of the nineteen entries of ``repro.core.dispatch``
-(``dispatch.py:393,610-743``), with the same names and argument
-order: the seven ``*_soa`` ops of the ensemble BDF path, the N_Vector
-ops ``linear_sum``, ``axpy``, ``linear_combination``,
-``scale_add_multi``, ``dot``, ``dot_prod_multi``, ``wrms_norm``,
-``wrms_ss`` and ``wrms_norm_mask``, and the sparse ops ``csr_spmv``
-(``SparseCSR.matvec``), ``bsr_spmv_soa`` and
-``bsr_block_jacobi_inverse_soa``.
-One route is the port's own, not one of the nineteen:
-``lagrange_rescale_soa``, the ensemble BDF's history rebuild with its
-Lagrange matrix formed inside the kernel (the reference builds W in
-its jitted step, where XLA fuses the build; eager PyTorch would spend
-some 60 launches on it).
-Each op routes per :class:`~repro_torch.core.policies.ExecPolicy`:
-``"torch"`` runs the plain version, ``"auto"`` the kernel wrapper (the
-CUDA kernel for a CUDA tensor, the plain version for a CPU tensor), and
-``"cuda"`` the kernel wrapper after checking that the tensor lies on the
-card.  ``linear_sum`` and ``axpy`` go through the linear-combination
-kernel with K = 2, as in the reference (``dispatch.py:107-112``), and
-their ``"torch"`` backend through its plain version, which sums
-``c_0 x_0 + c_1 x_1`` in that order as the reference's ``a*x + b*y`` and
-``a*x + y`` do (``1*y`` is exact).
+Counterpart of ``repro.core.dispatch`` (``dispatch.py:393-743``).
+:data:`OP_TABLE` holds the reference's nineteen ops, with the same
+names and argument order: the seven ``*_soa`` ops of the ensemble BDF
+path, the N_Vector ops ``linear_sum``, ``axpy``,
+``linear_combination``, ``scale_add_multi``, ``dot``,
+``dot_prod_multi``, ``wrms_norm``, ``wrms_ss`` and ``wrms_norm_mask``,
+and the sparse ops ``csr_spmv`` (``SparseCSR.matvec``),
+``bsr_spmv_soa`` and ``bsr_block_jacobi_inverse_soa``.  One op is the
+port's own, not one of the nineteen: ``lagrange_rescale_soa``, the
+ensemble BDF's history rebuild with its Lagrange matrix formed inside
+the kernel (the reference builds W in its jitted step, where XLA fuses
+the build; eager PyTorch would spend some 60 launches on it).
+
+Each entry is ``{"torch": plain version, "cuda": kernel wrapper}``, two
+callables with one signature and a keyword-only ``policy``
+(:func:`validate_op_table` checks that at import).  :func:`dispatch`
+resolves an op under an :class:`~repro_torch.core.policies.ExecPolicy`
+by ``policy.backend_for(op)``, so a pin in ``op_overrides`` takes
+effect at every call site: ``"torch"`` runs the plain version,
+``"auto"`` the kernel wrapper (the CUDA kernel for a CUDA tensor, the
+plain version for a CPU tensor; not cost-driven yet, ROADMAP A.8), and
+``"cuda"`` the kernel wrapper after checking that the op's first tensor
+lies on the card.  Each implementation looks its kernel wrapper or
+plain version up in its kernel module at each call.  ``linear_sum`` and
+``axpy`` go through the linear-combination kernel with K = 2, as in the
+reference (``dispatch.py:107-112``), and their ``"torch"`` backend
+through its plain version, which sums ``c_0 x_0 + c_1 x_1`` in that
+order as the reference's ``a*x + b*y`` and ``a*x + y`` do (``1*y`` is
+exact).
 
 The N_Vector ops take a vector that is a tensor or a tuple of tensors
 (the reference's pytrees) and run leaf by leaf as the reference's
@@ -33,11 +40,16 @@ tensors on the vectors' device, so the host reads a norm only where a
 caller decides on it.  A linear combination of more terms than one
 kernel launch takes is chained: each launch after the first adds
 ``1 * (the partial sum)`` first, which is exact, so the sum keeps the
-reference's order and its rounding.
+reference's order and its rounding.  A ``DTensor`` runs only under
+``"torch"``: the kernel wrappers refuse one.
+
+``python -m repro_torch.core.dispatch`` prints the table that
+:mod:`repro_torch.core.policies`' docstring embeds.
 """
 from __future__ import annotations
 
 import functools
+import inspect
 from typing import Optional, Sequence
 
 import torch
@@ -52,74 +64,13 @@ from .policies import DEFAULT, ExecPolicy
 from .sunmatrix import CSRPattern
 
 _leaves = _nv.leaves
+_BACKENDS = ("torch", "cuda")
 
 
-def _route(op: str, policy: Optional[ExecPolicy], plain, wrapper,
-           lead: torch.Tensor):
-    backend = (policy or DEFAULT).backend
-    if backend == "torch":
-        return plain
-    if backend == "cuda" and not lead.is_cuda:
-        raise ValueError(f"{op}: backend 'cuda' needs CUDA tensors, got one "
-                         f"on {lead.device}")
-    return wrapper
-
-
-def block_solve_soa(A, r, policy: Optional[ExecPolicy] = None):
-    """Solve every block system: A (b,b,NB), r (b,NB) -> x (b,NB)."""
-    return _route("block_solve_soa", policy, _bs.block_solve_soa_plain,
-                  _bs.block_solve_soa, A)(A, r)
-
-
-def block_inverse_soa(A, policy: Optional[ExecPolicy] = None):
-    """Invert every block: A (b,b,NB) -> A^{-1} (b,b,NB) (lsetup)."""
-    return _route("block_inverse_soa", policy, _bs.block_inverse_soa_plain,
-                  _bs.block_inverse_soa, A)(A)
-
-
-def blockdiag_spmv_soa(A, x, policy: Optional[ExecPolicy] = None):
-    """y = blockdiag(A) @ x: A (b,b,NB), x (b,NB) -> (b,NB) (lsolve)."""
-    return _route("blockdiag_spmv_soa", policy, _sp.blockdiag_spmv_soa_plain,
-                  _sp.blockdiag_spmv_soa, A)(A, x)
-
-
-def newton_residual_soa(z, fval, psi, gamma,
-                        policy: Optional[ExecPolicy] = None, *,
-                        negate: bool = False):
-    """g = z - gamma*f - psi; z/f/psi (n, nsys), gamma (nsys,);
-    ``negate=True`` emits -g (the Newton rhs)."""
-    return _route("newton_residual_soa", policy, _nw.newton_residual_plain,
-                  _nw.newton_residual, z)(z, fval, psi, gamma, negate=negate)
-
-
-def masked_update_wrms_soa(z, dz, w, mask,
-                           policy: Optional[ExecPolicy] = None):
-    """-> (where(mask, z+dz, z), per-system WRMS of dz)."""
-    return _route("masked_update_wrms_soa", policy,
-                  _nw.masked_update_wrms_plain, _nw.masked_update_wrms,
-                  z)(z, dz, w, mask)
-
-
-def history_rescale_soa(W, Z, active, policy: Optional[ExecPolicy] = None):
-    """where(active, sum_i W[j,i]*Z[i], Z[j]); W (q1,q1,nsys),
-    Z (q1,n,nsys)."""
-    return _route("history_rescale_soa", policy, _nw.history_rescale_plain,
-                  _nw.history_rescale, Z)(W, Z, active)
-
-
-def lagrange_rescale_soa(eta, q, Z, active,
-                         policy: Optional[ExecPolicy] = None):
-    """``history_rescale_soa(lagrange_matrix_soa(eta, q), Z, active)``:
-    eta (nsys,), q (nsys,) int32, Z (6, n, nsys); the kernel forms W
-    from (eta, q) and never stores it."""
-    return _route("lagrange_rescale_soa", policy, _nw.lagrange_rescale_plain,
-                  _nw.lagrange_rescale, Z)(eta, q, Z, active)
-
-
-def wrms_soa(v, w, policy: Optional[ExecPolicy] = None):
-    """Per-system WRMS over the state axis: v/w (n, nsys) -> (nsys,)."""
-    return _route("wrms_soa", policy, _nw.wrms_soa_plain, _nw.wrms_soa,
-                  v)(v, w)
+# ---------------------------------------------------------------------------
+# The ops' bodies: ``body(fn, *args)`` with ``fn`` the plain version or
+# the kernel wrapper of the op's kernel module.
+# ---------------------------------------------------------------------------
 
 
 def _like(v, leaves):
@@ -146,36 +97,22 @@ def _chained(lincomb, coeffs, vecs: list):
     return z
 
 
-def linear_combination(coeffs, vecs: Sequence,
-                       policy: Optional[ExecPolicy] = None):
-    """z = sum_k c_k * X_k in one pass per leaf; the coefficients are
-    numbers or 0-d tensors (or one ``(K,)`` tensor) on the vectors'
-    device."""
-    lincomb = _route("linear_combination", policy,
-                     _vo.linear_combination_plain, _vo.linear_combination,
-                     _leaves(vecs[0])[0])
+def _linear_combination(lincomb, coeffs, vecs: Sequence):
     # the kernel reads flat contiguous vectors (the reference ravels)
     rows = [[t.contiguous() for t in _leaves(v)] for v in vecs]
     return _like(vecs[0], [_chained(lincomb, coeffs, list(leaf))
                            for leaf in zip(*rows)])
 
 
-def linear_sum(a, x, b, y, policy: Optional[ExecPolicy] = None):
-    """z = a*x + b*y."""
-    return linear_combination((a, b), (x, y), policy)
+def _linear_sum(lincomb, a, x, b, y):
+    return _linear_combination(lincomb, (a, b), (x, y))
 
 
-def axpy(a, x, y, policy: Optional[ExecPolicy] = None):
-    """z = a*x + y."""
-    return linear_combination((a, 1.0), (x, y), policy)
+def _axpy(lincomb, a, x, y):
+    return _linear_combination(lincomb, (a, 1.0), (x, y))
 
 
-def scale_add_multi(coeffs, x, ys: Sequence,
-                    policy: Optional[ExecPolicy] = None) -> list:
-    """Z_k = c_k * x + Y_k for every k, x read once: a list of K
-    vectors shaped as x."""
-    fn = _route("scale_add_multi", policy, _vo.scale_add_multi_plain,
-                _vo.scale_add_multi, _leaves(x)[0])
+def _scale_add_multi(fn, coeffs, x, ys: Sequence) -> list:
     rows = [_leaves(y) for y in ys]
     per_leaf = []                       # per leaf a (K, *leaf.shape) tensor
     for pos, xl in enumerate(_leaves(x)):
@@ -185,60 +122,42 @@ def scale_add_multi(coeffs, x, ys: Sequence,
     return [_like(x, [Z[k] for Z in per_leaf]) for k in range(len(rows))]
 
 
-def _leafwise_sum(op, policy, plain, wrapper, *vecs) -> torch.Tensor:
+def _leafwise_sum(fn, *vecs) -> torch.Tensor:
     """sum over leaf positions of the reduction of those leaves, each
     cast to the result type of every leaf and flattened."""
     rows = [_leaves(v) for v in vecs]
-    fn = _route(op, policy, plain, wrapper, rows[0][0])
     want = _result_type(*(leaf for row in rows for leaf in row))
     return functools.reduce(torch.add, (fn(*(_flat(t, want) for t in leaf))
                                         for leaf in zip(*rows)))
 
 
-def dot(x, y, policy: Optional[ExecPolicy] = None) -> torch.Tensor:
-    """<x, y> over all elements, a 0-d tensor on their device."""
-    return _leafwise_sum("dot", policy, _vo.dot_plain, _vo.dot, x, y)
+def _pair_sum(fn, x, y):
+    """``dot`` and ``wrms_ss``: the leafwise sum of ``fn(x, y)``."""
+    return _leafwise_sum(fn, x, y)
 
 
-def dot_prod_multi(x, ys: Sequence,
-                   policy: Optional[ExecPolicy] = None) -> torch.Tensor:
-    """d_k = <x, Y_k> for every k, x read once: a ``(K,)`` tensor."""
+def _dot_prod_multi(fn, x, ys: Sequence):
     lx = _leaves(x)
     rows = [_leaves(y) for y in ys]
-    fn = _route("dot_prod_multi", policy, _vo.dot_prod_multi_plain,
-                _vo.dot_prod_multi, lx[0])
     want = _result_type(*lx, *(leaf for row in rows for leaf in row))
     return functools.reduce(torch.add, (
         fn(_flat(xl, want), [_flat(row[pos], want) for row in rows])
         for pos, xl in enumerate(lx)))
 
 
-def wrms_ss(x, w, policy: Optional[ExecPolicy] = None) -> torch.Tensor:
-    """sum((x*w)^2) over all elements (no sqrt, no /N)."""
-    return _leafwise_sum("wrms_ss", policy, _vo.wrms_ss_plain, _vo.wrms_ss,
-                         x, w)
+def _wrms_norm(fn, x, w):
+    return torch.sqrt(_leafwise_sum(fn, x, w) / _nv.tree_size(x))
 
 
-def wrms_norm(x, w, policy: Optional[ExecPolicy] = None) -> torch.Tensor:
-    """sqrt(sum((x*w)^2) / N), N the element count of every leaf."""
-    return torch.sqrt(wrms_ss(x, w, policy) / _nv.tree_size(x))
+def _wrms_norm_mask(fn, x, w, mask):
+    return torch.sqrt(_leafwise_sum(fn, x, w, mask) / _nv.tree_size(x))
 
 
-def wrms_norm_mask(x, w, mask,
-                   policy: Optional[ExecPolicy] = None) -> torch.Tensor:
-    """sqrt(sum((x*w*m)^2) / N): N counts every entry, masked ones too
-    (the reference's ``vector.py:202``)."""
-    ss = _leafwise_sum("wrms_norm_mask", policy, _vo.wrms_mask_ss_plain,
-                       _vo.wrms_mask_ss, x, w, mask)
-    return torch.sqrt(ss / _nv.tree_size(x))
+def _newton_residual(fn, z, fval, psi, gamma, negate=False):
+    return fn(z, fval, psi, gamma, negate=negate)
 
 
-def csr_spmv(data, x, pattern,
-             policy: Optional[ExecPolicy] = None) -> torch.Tensor:
-    """y = A @ x for a CSR matrix: data (nnz,), x (ncols,); pattern a
-    :class:`~repro_torch.core.sunmatrix.CSRPattern` (pass the object on
-    a hot path: it holds the device arrays) or an ``(indptr, indices)``
-    pair, checked and laid out anew each call."""
+def _csr_spmv(fn, data, x, pattern):
     pat = pattern if isinstance(pattern, CSRPattern) else \
         CSRPattern(*pattern, x.shape[0])
     if data.shape != (pat.nnz,):
@@ -247,16 +166,7 @@ def csr_spmv(data, x, pattern,
     if x.shape != (pat.ncols,):
         raise ValueError(f"csr_spmv: x has shape {tuple(x.shape)}, want "
                          f"({pat.ncols},)")
-    return _route("csr_spmv", policy, _sx.csr_spmv_plain, _sx.csr_spmv,
-                  data)(data, x, *pat.kernel_plan(data.device))
-
-
-def bsr_spmv_soa(values, x, pattern,
-                 policy: Optional[ExecPolicy] = None) -> torch.Tensor:
-    """Ensemble shared-pattern BSR SpMV: values (nnzb,b,b,NB),
-    x (nblk,b,NB), pattern = (brows, bcols, nblk) -> y (nblk,b,NB)."""
-    return _route("bsr_spmv_soa", policy, _sx.bsr_spmv_soa_plain,
-                  _sx.bsr_spmv_soa, values)(values, x, pattern)
+    return fn(data, x, *pat.kernel_plan(data.device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -273,15 +183,399 @@ def _diag_blocks(pattern: tuple, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(idx, dtype=torch.int64, device=device)
 
 
+def _bsr_block_jacobi_inverse_soa(inverse, values, pattern):
+    b, nb = values.shape[1], values.shape[3]
+    D = values[_diag_blocks(pattern, values.device)]   # (nblk, b, b, NB)
+    D = D.permute(1, 2, 0, 3).reshape(b, b, pattern[2] * nb)
+    return inverse(D)
+
+
+# ---------------------------------------------------------------------------
+# The op table.
+# ---------------------------------------------------------------------------
+
+_POLICY = inspect.Parameter("policy", inspect.Parameter.KEYWORD_ONLY,
+                            default=None)
+
+
+def _impl(body, module, name: str):
+    """One backend's implementation: ``body(module.<name>, *args)``, or
+    ``module.<name>(*args)`` itself where ``body`` is None, the
+    attribute looked up at each call.  Its signature is the body's
+    without ``fn`` (or the kernel wrapper's) plus the keyword-only
+    ``policy`` that :func:`dispatch` passes."""
+    if body is None:
+        def impl(*args, policy=None, **kw):
+            return getattr(module, name)(*args, **kw)
+        params = list(inspect.signature(getattr(module, name))
+                      .parameters.values())
+    else:
+        def impl(*args, policy=None, **kw):
+            return body(getattr(module, name), *args, **kw)
+        params = list(inspect.signature(body).parameters.values())[1:]
+    impl.__signature__ = inspect.Signature(params + [_POLICY])
+    impl.__name__ = impl.__qualname__ = name
+    return impl
+
+
+def _op(module, kernel: str, body=None) -> dict:
+    """``{"torch": ..., "cuda": ...}`` of an op whose kernel wrapper is
+    ``module.<kernel>`` and whose plain version is
+    ``module.<kernel>_plain``."""
+    return {"torch": _impl(body, module, kernel + "_plain"),
+            "cuda": _impl(body, module, kernel)}
+
+
+OP_TABLE = {
+    # streaming
+    "linear_sum": _op(_vo, "linear_combination", _linear_sum),
+    "linear_combination": _op(_vo, "linear_combination",
+                              _linear_combination),
+    "scale_add_multi": _op(_vo, "scale_add_multi", _scale_add_multi),
+    "axpy": _op(_vo, "linear_combination", _axpy),
+    # reductions
+    "dot": _op(_vo, "dot", _pair_sum),
+    "wrms_norm": _op(_vo, "wrms_ss", _wrms_norm),
+    "wrms_norm_mask": _op(_vo, "wrms_mask_ss", _wrms_norm_mask),
+    "dot_prod_multi": _op(_vo, "dot_prod_multi", _dot_prod_multi),
+    "wrms_ss": _op(_vo, "wrms_ss", _pair_sum),
+    # batched block-diagonal (ensemble) linear algebra, SoA layout
+    "block_solve_soa": _op(_bs, "block_solve_soa"),
+    "block_inverse_soa": _op(_bs, "block_inverse_soa"),
+    "blockdiag_spmv_soa": _op(_sp, "blockdiag_spmv_soa"),
+    # fused ensemble-Newton hot-loop ops (SoA, nsys last)
+    "newton_residual_soa": _op(_nw, "newton_residual", _newton_residual),
+    "masked_update_wrms_soa": _op(_nw, "masked_update_wrms"),
+    "history_rescale_soa": _op(_nw, "history_rescale"),
+    "wrms_soa": _op(_nw, "wrms_soa"),
+    # sparse matrices (static shared patterns)
+    "csr_spmv": _op(_sx, "csr_spmv", _csr_spmv),
+    "bsr_spmv_soa": _op(_sx, "bsr_spmv_soa"),
+    "bsr_block_jacobi_inverse_soa": _op(_bs, "block_inverse_soa",
+                                        _bsr_block_jacobi_inverse_soa),
+    # the port's own: the BDF history rebuild with W formed in the kernel
+    "lagrange_rescale_soa": _op(_nw, "lagrange_rescale"),
+}
+
+
+def op_names() -> frozenset:
+    """The dispatch op set, which :class:`~repro_torch.core.policies.
+    ExecPolicy` checks its ``op_overrides`` against."""
+    return frozenset(OP_TABLE)
+
+
+def _positional_arity(fn):
+    """Number of positional parameters (None for a variadic callable)."""
+    n = 0
+    for p in inspect.signature(fn).parameters.values():
+        if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD):
+            n += 1
+        elif p.kind is p.VAR_POSITIONAL:
+            return None
+    return n
+
+
+def _accepts_policy(fn) -> bool:
+    sig = inspect.signature(fn, follow_wrapped=False)
+    return ("policy" in sig.parameters
+            or any(p.kind is p.VAR_KEYWORD for p in sig.parameters.values()))
+
+
+def validate_op_table(table=None):
+    """Fail fast on a half-registered op.
+
+    Checks every entry of ``table`` (default :data:`OP_TABLE`) for a
+    callable ``"torch"`` plain version AND a callable ``"cuda"`` kernel
+    wrapper, no stray backend keys, equal positional arities of the two,
+    and the keyword-only ``policy`` argument the dispatcher passes.
+    Every offender is reported in ONE aggregated ``ValueError``."""
+    table = OP_TABLE if table is None else table
+    problems = []
+    for op in sorted(table):
+        impls = table[op]
+        if not isinstance(impls, dict):
+            problems.append(f"{op}: entry is {type(impls).__name__}, "
+                            f"expected a {{'torch', 'cuda'}} dict")
+            continue
+        stray = sorted(set(impls) - set(_BACKENDS))
+        if stray:
+            problems.append(f"{op}: unknown backend keys {stray}")
+        for backend in _BACKENDS:
+            fn = impls.get(backend)
+            if fn is None:
+                problems.append(f"{op}: missing {backend!r} implementation")
+            elif not callable(fn):
+                problems.append(f"{op}: {backend!r} implementation is not "
+                                f"callable")
+            elif not _accepts_policy(fn):
+                problems.append(f"{op}: {backend!r} implementation does not "
+                                f"accept the keyword-only `policy` argument")
+        plain, kernel = impls.get("torch"), impls.get("cuda")
+        if callable(plain) and callable(kernel):
+            a_p, a_k = _positional_arity(plain), _positional_arity(kernel)
+            if a_p is not None and a_k is not None and a_p != a_k:
+                problems.append(f"{op}: arity mismatch — the plain version "
+                                f"takes {a_p} positional args, the kernel "
+                                f"wrapper {a_k}")
+    if problems:
+        raise ValueError(
+            "OP_TABLE validation failed (%d problem%s):\n  - %s"
+            % (len(problems), "" if len(problems) == 1 else "s",
+               "\n  - ".join(problems)))
+
+
+validate_op_table()
+
+
+def _first_tensor(args):
+    for a in args:
+        if torch.is_tensor(a):
+            return a
+        if isinstance(a, (tuple, list)):
+            t = _first_tensor(a)
+            if t is not None:
+                return t
+    return None
+
+
+def _on_card(op: str, fn):
+    """``fn`` after checking that the first tensor of its arguments lies
+    on the card (the ``"cuda"`` backend)."""
+    def impl(*args, **kw):
+        lead = _first_tensor(args)
+        if lead is not None and not lead.is_cuda:
+            raise ValueError(f"{op}: backend 'cuda' needs CUDA tensors, got "
+                             f"one on {lead.device}")
+        return fn(*args, **kw)
+    return impl
+
+
+def dispatch(op: str, policy: Optional[ExecPolicy] = None):
+    """Resolve ``op`` to the implementation ``policy`` selects (None
+    means the default ``ExecPolicy()``): ``policy.backend_for(op)``, so a
+    per-op pin wins over the policy-wide backend.  Unknown ops and
+    backends raise ``ValueError``."""
+    policy = DEFAULT if policy is None else policy
+    impls = OP_TABLE.get(op)
+    if impls is None:
+        raise ValueError(f"unknown dispatch op {op!r}; valid OP_TABLE "
+                         f"ops: {', '.join(sorted(OP_TABLE))}")
+    backend = policy.backend_for(op)
+    if backend == "torch":
+        fn = impls["torch"]
+    elif backend == "auto":
+        fn = impls["cuda"]
+    elif backend == "cuda":
+        fn = _on_card(op, impls["cuda"])
+    else:
+        raise ValueError(f"unknown ExecPolicy backend: {backend!r}")
+    return functools.partial(fn, policy=policy)
+
+
+# ---------------------------------------------------------------------------
+# Documentation rendering: the op-table matrix in the policies module's
+# docstring is generated FROM this table (one row per OP_TABLE key); a
+# test asserts the rendered text is embedded verbatim.
+# ---------------------------------------------------------------------------
+
+#: short descriptions of each op's plain version and kernel; the
+#: renderer iterates OP_TABLE keys, so an op missing here still gets a row
+OP_NOTES = {
+    "linear_sum": ("vecops lincomb plain (K=2)",
+                   "row 12 lincomb_kernel (K=2)"),
+    "linear_combination": ("vecops lincomb plain", "row 12 lincomb_kernel"),
+    "scale_add_multi": ("vecops scale_add_multi plain",
+                        "row 13 scale_add_multi_kernel"),
+    "axpy": ("vecops lincomb plain (K=2)", "row 12 lincomb_kernel (K=2)"),
+    "dot": ("(x*y).sum()", "row 16 onepass_reduce (dot)"),
+    "wrms_norm": ("sqrt(sum((x*w)^2)/N)", "row 14 onepass_reduce (wrms)"),
+    "wrms_norm_mask": ("sqrt(sum((x*w*m)^2)/N)",
+                       "row 15 onepass_reduce (mask)"),
+    "dot_prod_multi": ("stacked (x*y_k).sum()", "row 17 multi_dot + final"),
+    "wrms_ss": ("sum((x*w)^2)", "row 14 onepass_reduce (wrms)"),
+    "block_solve_soa": ("Gauss-Jordan, kernel order", "rows 8, 9 gj_solve_*"),
+    "block_inverse_soa": ("Gauss-Jordan inverse", "rows 6, 7 gj_inverse_*"),
+    "blockdiag_spmv_soa": ("per-block products, in order",
+                           "row 2 spmv_*_kernel"),
+    "newton_residual_soa": ("z - gamma*f - psi",
+                            "row 1 newton_residual_kernel"),
+    "masked_update_wrms_soa": ("where + per-system WRMS",
+                               "row 3 masked_update_wrms_kernel"),
+    "history_rescale_soa": ("masked W Z products",
+                            "row 4 history_rescale_kernel"),
+    "wrms_soa": ("per-system WRMS", "row 5 wrms_soa_kernel"),
+    "csr_spmv": ("ELL gather + row sums", "row 11 csr_spmv_kernel"),
+    "bsr_spmv_soa": ("block products by position",
+                     "row 10 bsr_spmv_kernel"),
+    "bsr_block_jacobi_inverse_soa": ("diag gather + plain inverse",
+                                     "diag gather + rows 6, 7"),
+    "lagrange_rescale_soa": ("lagrange_matrix_soa + row 4",
+                             "row 4f (W formed from eta, q)"),
+}
+
+
+def op_table_rows():
+    """(op, plain description, kernel description) per OP_TABLE entry."""
+    return [(op,) + OP_NOTES.get(op, ("plain version", "kernel wrapper"))
+            for op in OP_TABLE]
+
+
+def render_op_table(fmt: str = "rst") -> str:
+    """Render the backend matrix from :data:`OP_TABLE` ('rst' for the
+    policies module's docstring, 'md' for markdown)."""
+    rows = op_table_rows()
+    heads = ("op", "'torch' backend", "'cuda' backend")
+    widths = [max(len(r[i]) for r in rows + [heads]) for i in range(3)]
+    if fmt == "md":
+        lines = ["| " + " | ".join(h.ljust(w)
+                                   for h, w in zip(heads, widths)) + " |",
+                 "|" + "|".join("-" * (w + 2) for w in widths) + "|"]
+        lines += ["| " + " | ".join(c.ljust(w)
+                                    for c, w in zip(r, widths)) + " |"
+                  for r in rows]
+        return "\n".join(lines)
+    rule = "  ".join("=" * w for w in widths)
+    lines = [rule, "  ".join(h.ljust(w)
+                             for h, w in zip(heads, widths)).rstrip(), rule]
+    lines += ["  ".join(c.ljust(w)
+                        for c, w in zip(r, widths)).rstrip() for r in rows]
+    lines.append(rule)
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Public ops — what the integrators call.
+# ---------------------------------------------------------------------------
+
+
+def block_solve_soa(A, r, policy: Optional[ExecPolicy] = None):
+    """Solve every block system: A (b,b,NB), r (b,NB) -> x (b,NB)."""
+    return dispatch("block_solve_soa", policy)(A, r)
+
+
+def block_inverse_soa(A, policy: Optional[ExecPolicy] = None):
+    """Invert every block: A (b,b,NB) -> A^{-1} (b,b,NB) (lsetup)."""
+    return dispatch("block_inverse_soa", policy)(A)
+
+
+def blockdiag_spmv_soa(A, x, policy: Optional[ExecPolicy] = None):
+    """y = blockdiag(A) @ x: A (b,b,NB), x (b,NB) -> (b,NB) (lsolve)."""
+    return dispatch("blockdiag_spmv_soa", policy)(A, x)
+
+
+def newton_residual_soa(z, fval, psi, gamma,
+                        policy: Optional[ExecPolicy] = None, *,
+                        negate: bool = False):
+    """g = z - gamma*f - psi; z/f/psi (n, nsys), gamma (nsys,);
+    ``negate=True`` emits -g (the Newton rhs)."""
+    return dispatch("newton_residual_soa", policy)(z, fval, psi, gamma,
+                                                   negate=negate)
+
+
+def masked_update_wrms_soa(z, dz, w, mask,
+                           policy: Optional[ExecPolicy] = None):
+    """-> (where(mask, z+dz, z), per-system WRMS of dz)."""
+    return dispatch("masked_update_wrms_soa", policy)(z, dz, w, mask)
+
+
+def history_rescale_soa(W, Z, active, policy: Optional[ExecPolicy] = None):
+    """where(active, sum_i W[j,i]*Z[i], Z[j]); W (q1,q1,nsys),
+    Z (q1,n,nsys)."""
+    return dispatch("history_rescale_soa", policy)(W, Z, active)
+
+
+def lagrange_rescale_soa(eta, q, Z, active,
+                         policy: Optional[ExecPolicy] = None):
+    """``history_rescale_soa(lagrange_matrix_soa(eta, q), Z, active)``:
+    eta (nsys,), q (nsys,) int32, Z (6, n, nsys); the kernel forms W
+    from (eta, q) and never stores it."""
+    return dispatch("lagrange_rescale_soa", policy)(eta, q, Z, active)
+
+
+def wrms_soa(v, w, policy: Optional[ExecPolicy] = None):
+    """Per-system WRMS over the state axis: v/w (n, nsys) -> (nsys,)."""
+    return dispatch("wrms_soa", policy)(v, w)
+
+
+def linear_combination(coeffs, vecs: Sequence,
+                       policy: Optional[ExecPolicy] = None):
+    """z = sum_k c_k * X_k in one pass per leaf; the coefficients are
+    numbers or 0-d tensors (or one ``(K,)`` tensor) on the vectors'
+    device."""
+    return dispatch("linear_combination", policy)(coeffs, vecs)
+
+
+def linear_sum(a, x, b, y, policy: Optional[ExecPolicy] = None):
+    """z = a*x + b*y."""
+    return dispatch("linear_sum", policy)(a, x, b, y)
+
+
+def axpy(a, x, y, policy: Optional[ExecPolicy] = None):
+    """z = a*x + y."""
+    return dispatch("axpy", policy)(a, x, y)
+
+
+def scale_add_multi(coeffs, x, ys: Sequence,
+                    policy: Optional[ExecPolicy] = None) -> list:
+    """Z_k = c_k * x + Y_k for every k, x read once: a list of K
+    vectors shaped as x."""
+    return dispatch("scale_add_multi", policy)(coeffs, x, ys)
+
+
+def dot(x, y, policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """<x, y> over all elements, a 0-d tensor on their device."""
+    return dispatch("dot", policy)(x, y)
+
+
+def dot_prod_multi(x, ys: Sequence,
+                   policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """d_k = <x, Y_k> for every k, x read once: a ``(K,)`` tensor."""
+    return dispatch("dot_prod_multi", policy)(x, ys)
+
+
+def wrms_ss(x, w, policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """sum((x*w)^2) over all elements (no sqrt, no /N)."""
+    return dispatch("wrms_ss", policy)(x, w)
+
+
+def wrms_norm(x, w, policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """sqrt(sum((x*w)^2) / N), N the element count of every leaf."""
+    return dispatch("wrms_norm", policy)(x, w)
+
+
+def wrms_norm_mask(x, w, mask,
+                   policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """sqrt(sum((x*w*m)^2) / N): N counts every entry, masked ones too
+    (the reference's ``vector.py:202``)."""
+    return dispatch("wrms_norm_mask", policy)(x, w, mask)
+
+
+def csr_spmv(data, x, pattern,
+             policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """y = A @ x for a CSR matrix: data (nnz,), x (ncols,); pattern a
+    :class:`~repro_torch.core.sunmatrix.CSRPattern` (pass the object on
+    a hot path: it holds the device arrays) or an ``(indptr, indices)``
+    pair, checked and laid out anew each call."""
+    return dispatch("csr_spmv", policy)(data, x, pattern)
+
+
+def bsr_spmv_soa(values, x, pattern,
+                 policy: Optional[ExecPolicy] = None) -> torch.Tensor:
+    """Ensemble shared-pattern BSR SpMV: values (nnzb,b,b,NB),
+    x (nblk,b,NB), pattern = (brows, bcols, nblk) -> y (nblk,b,NB)."""
+    return dispatch("bsr_spmv_soa", policy)(values, x, pattern)
+
+
 def bsr_block_jacobi_inverse_soa(values, pattern,
                                  policy: Optional[ExecPolicy] = None
                                  ) -> torch.Tensor:
     """Invert every diagonal block of the shared pattern (the
     block-Jacobi psetup): values (nnzb,b,b,NB) -> (b,b,nblk*NB), block I
-    of system s at I*NB + s.  A gather of the diagonal blocks, then
-    ``block_inverse_soa`` over the flattened nblk*NB batch
+    of system s at I*NB + s.  A gather of the diagonal blocks, then the
+    block inverse over the flattened nblk*NB batch
     (``repro/kernels/ops.py:416-439``)."""
-    b, nb = values.shape[1], values.shape[3]
-    D = values[_diag_blocks(pattern, values.device)]   # (nblk, b, b, NB)
-    D = D.permute(1, 2, 0, 3).reshape(b, b, pattern[2] * nb)
-    return block_inverse_soa(D, policy)
+    return dispatch("bsr_block_jacobi_inverse_soa", policy)(values, pattern)
+
+
+if __name__ == "__main__":
+    print(render_op_table())

@@ -14,13 +14,54 @@ backend       meaning
 ``"cuda"``    the kernels; CPU tensors raise
 ============  ==========================================================
 
-There is no ``interpret`` and no ``batch_tile``: the kernels bounds-check
-the system axis, so no batch padding exists to tune.
+``"auto"`` is not cost-driven yet: the reference's ``'auto'`` asks its
+autotuner per call site (ROADMAP queue A.8), the port's always takes
+the kernel on the card.  There is no ``interpret`` and no
+``batch_tile``: the kernels bounds-check the system axis, so no batch
+padding exists to tune.
+
+Backend selection
+-----------------
+The policy is consumed by :mod:`repro_torch.core.dispatch`, whose **op
+table** routes each op to the implementation the policy names.  The
+matrix below is rendered from ``OP_TABLE`` itself (``python -m
+repro_torch.core.dispatch`` prints it; a test asserts it is embedded
+verbatim, so ops cannot drift out of this doc):
+
+============================  ============================  ===============================
+op                            'torch' backend               'cuda' backend
+============================  ============================  ===============================
+linear_sum                    vecops lincomb plain (K=2)    row 12 lincomb_kernel (K=2)
+linear_combination            vecops lincomb plain          row 12 lincomb_kernel
+scale_add_multi               vecops scale_add_multi plain  row 13 scale_add_multi_kernel
+axpy                          vecops lincomb plain (K=2)    row 12 lincomb_kernel (K=2)
+dot                           (x*y).sum()                   row 16 onepass_reduce (dot)
+wrms_norm                     sqrt(sum((x*w)^2)/N)          row 14 onepass_reduce (wrms)
+wrms_norm_mask                sqrt(sum((x*w*m)^2)/N)        row 15 onepass_reduce (mask)
+dot_prod_multi                stacked (x*y_k).sum()         row 17 multi_dot + final
+wrms_ss                       sum((x*w)^2)                  row 14 onepass_reduce (wrms)
+block_solve_soa               Gauss-Jordan, kernel order    rows 8, 9 gj_solve_*
+block_inverse_soa             Gauss-Jordan inverse          rows 6, 7 gj_inverse_*
+blockdiag_spmv_soa            per-block products, in order  row 2 spmv_*_kernel
+newton_residual_soa           z - gamma*f - psi             row 1 newton_residual_kernel
+masked_update_wrms_soa        where + per-system WRMS       row 3 masked_update_wrms_kernel
+history_rescale_soa           masked W Z products           row 4 history_rescale_kernel
+wrms_soa                      per-system WRMS               row 5 wrms_soa_kernel
+csr_spmv                      ELL gather + row sums         row 11 csr_spmv_kernel
+bsr_spmv_soa                  block products by position    row 10 bsr_spmv_kernel
+bsr_block_jacobi_inverse_soa  diag gather + plain inverse   diag gather + rows 6, 7
+lagrange_rescale_soa          lagrange_matrix_soa + row 4   row 4f (W formed from eta, q)
+============================  ============================  ===============================
+
+``op_overrides`` pins single ops to a backend whatever the policy-wide
+``backend`` says, e.g. ``ExecPolicy().override(blockdiag_spmv_soa=
+"torch")`` runs the BDF lsolve's SpMV as its plain version and every
+other op on its kernel.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,17 +70,56 @@ BACKENDS = ("auto", "torch", "cuda")
 
 @dataclass(frozen=True)
 class ExecPolicy:
-    """backend : one of :data:`BACKENDS`.
-    device  : where :func:`repro_torch.core.ivp.integrate` runs when the
-              call names no device (None means ``"cuda"``)."""
+    """backend      : one of :data:`BACKENDS`.
+    device       : where :func:`repro_torch.core.ivp.integrate` runs when
+                   the call names no device (None means ``"cuda"``).
+    op_overrides : per-op backend pins, a tuple of ``(op, backend)``
+                   pairs (hashable, as the reference's), validated at
+                   construction against ``dispatch.op_names()`` and
+                   :data:`BACKENDS`: an unknown op or backend raises one
+                   ``ValueError`` naming every bad pair and the valid
+                   ops."""
 
     backend: str = "auto"
     device: Optional[str] = None
+    op_overrides: Tuple[Tuple[str, str], ...] = ()
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"valid: {', '.join(BACKENDS)}")
+        if not self.op_overrides:
+            return
+        # lazy: dispatch imports this module
+        from . import dispatch
+        valid_ops = dispatch.op_names()
+        bad = []
+        for name, be in self.op_overrides:
+            if name not in valid_ops:
+                bad.append(f"unknown dispatch op {name!r}")
+            if be not in BACKENDS:
+                bad.append(f"unknown backend {be!r} for op {name!r} "
+                           f"(valid: {', '.join(map(repr, BACKENDS))})")
+        if bad:
+            raise ValueError(
+                "invalid ExecPolicy.op_overrides: %s; valid OP_TABLE "
+                "ops: %s" % ("; ".join(bad), ", ".join(sorted(valid_ops))))
+
+    def backend_for(self, op: str) -> str:
+        """Backend for one op: an ``op_overrides`` pin wins, else the
+        policy-wide ``backend``."""
+        for name, be in self.op_overrides:
+            if name == op:
+                return be
+        return self.backend
+
+    def override(self, **ops: str) -> "ExecPolicy":
+        """A copy with per-op pins added (a later pin of an op replaces
+        an earlier one), e.g. ``ExecPolicy().override(
+        blockdiag_spmv_soa="torch")``."""
+        merged = dict(self.op_overrides)
+        merged.update(ops)
+        return replace(self, op_overrides=tuple(sorted(merged.items())))
 
 
 DEFAULT = ExecPolicy()

@@ -3,11 +3,13 @@
 Counterpart of ``repro.core.problems``: batched Robertson kinetics
 (``batched_robertson``, ``batched_robertson_soa``), the serving tier's
 parametric families (``robertson_family``, ``decay_chain_family``) and
-the ensemble Brusselator (``ensemble_brusselator``).  The reference draws its
-per-cell Robertson rates with ``jax.random``, which PyTorch cannot
-reproduce, so here they come from the caller (``rates=``) or from numpy
-with the reference's distributions (:func:`robertson_rates`); a test
-hands the same numpy arrays to both packages.
+the ensemble Brusselator (``ensemble_brusselator``, and
+``brusselator_family`` with its per-member ``b`` as data).  The
+reference draws its per-cell Robertson rates with ``jax.random``, which
+PyTorch cannot reproduce, so here they come from the caller
+(``rates=``) or from numpy with the reference's distributions
+(:func:`robertson_rates`); a test hands the same numpy arrays to both
+packages.
 """
 from __future__ import annotations
 
@@ -137,11 +139,9 @@ def decay_chain_family(n: int = 6):
     return f, jac, f_soa, jac_soa
 
 
-def _brusselator(nsys, nx, du, dv, a, device, dtype):
-    """The shared pieces of :func:`ensemble_brusselator`: device, the
-    per-member ``b`` (nsys,), the grid factor and the SoA pair."""
-    dev = resolve_device(device)
-    bpar = torch.linspace(1.8, 3.2, nsys, dtype=dtype, device=dev)
+def _brusselator_p(nx, du, dv, a, dev, dtype):
+    """The ensemble Brusselator's SoA pair with the per-member ``b`` as
+    an argument: ``f_soa(t, y:(n,nsys), b:(nsys,))`` and ``jac_soa``."""
     h2 = 1.0 / ((1.0 / max(nx, 2)) ** 2)
     n = 2 * nx
 
@@ -150,7 +150,7 @@ def _brusselator(nsys, nx, du, dv, a, device, dtype):
         wr = torch.cat([w[1:], w[-1:]], dim=0)
         return (wl - 2.0 * w + wr) * h2
 
-    def f_soa(t, y):                  # y: (2*nx, nsys)
+    def f_soa(t, y, bpar):            # y: (2*nx, nsys)
         u, v = y[0::2], y[1::2]
         uv2 = u * u * v
         fu = a - (bpar + 1.0) * u + uv2 + du * lap(u)
@@ -164,7 +164,7 @@ def _brusselator(nsys, nx, du, dv, a, device, dtype):
     iu = torch.arange(0, n, 2, device=dev)
     iv = iu + 1
 
-    def jac_soa(t, y):                # -> (2*nx, 2*nx, nsys), banded
+    def jac_soa(t, y, bpar):          # -> (2*nx, 2*nx, nsys), banded
         u, v = y[0::2], y[1::2]
         J = torch.zeros((n, n, y.shape[1]), dtype=dtype, device=dev)
         J[iu, iu] = -(bpar + 1.0) + 2.0 * u * v + du * c * h2
@@ -176,7 +176,56 @@ def _brusselator(nsys, nx, du, dv, a, device, dtype):
             J[i[:-1], i[1:]] = d * h2             # w_i <- w_{i+1}
         return J
 
-    return dev, bpar, f_soa, jac_soa
+    return f_soa, jac_soa
+
+
+def _brusselator(nsys, nx, du, dv, a, device, dtype):
+    """The shared pieces of :func:`ensemble_brusselator`: device, the
+    per-member ``b`` (nsys,) and the SoA pair closing it."""
+    dev = resolve_device(device)
+    bpar = brusselator_b(nsys, device=dev, dtype=dtype)
+    f_p, jac_p = _brusselator_p(nx, du, dv, a, dev, dtype)
+    return (dev, bpar, lambda t, y: f_p(t, y, bpar),
+            lambda t, y: jac_p(t, y, bpar))
+
+
+def brusselator_b(nsys: int, *, device=None, dtype=torch.float64):
+    """The ensemble Brusselator's per-member reaction parameter,
+    ``b = linspace(1.8, 3.2, nsys)``."""
+    return torch.linspace(1.8, 3.2, nsys, dtype=dtype,
+                          device=resolve_device(device))
+
+
+def _brusselator_pattern(nx: int) -> np.ndarray:
+    n = 2 * nx
+    P = np.zeros((n, n), bool)
+    for i in range(nx):
+        P[2 * i:2 * i + 2, 2 * i:2 * i + 2] = True    # reaction block
+        for j in (i - 1, i + 1):                      # Laplacian coupling
+            if 0 <= j < nx:
+                P[2 * i, 2 * j] = True                # u_i <- u_j
+                P[2 * i + 1, 2 * j + 1] = True        # v_i <- v_j
+    return P
+
+
+def brusselator_family(nx: int = 16, du: float = 0.02, dv: float = 0.02,
+                       a: float = 1.0, *, device=None, dtype=torch.float64):
+    """:func:`ensemble_brusselator` with the per-member ``b`` as
+    per-system data, for calls that shard the systems
+    (``ensemble_bdf_integrate_sharded(..., params=)``): returns ``(f,
+    jac, jac_sparsity)`` with ``f(t, y:(nsys,n), params) -> (nsys,n)``,
+    ``jac -> (nsys,n,n)``, ``params = {"b": (nsys,)}`` (the ensemble's
+    own: :func:`brusselator_b`), the arithmetic of
+    :func:`ensemble_brusselator`."""
+    f_p, jac_p = _brusselator_p(nx, du, dv, a, resolve_device(device), dtype)
+
+    def f(t, y, p):
+        return f_p(t, y.T, p["b"]).T
+
+    def jac(t, y, p):
+        return jac_p(t, y.T, p["b"]).permute(2, 0, 1)
+
+    return f, jac, _brusselator_pattern(nx)
 
 
 def ensemble_brusselator(nsys: int, nx: int = 16, du: float = 0.02,
@@ -208,13 +257,7 @@ def ensemble_brusselator(nsys: int, nx: int = 16, du: float = 0.02,
     def jac(t, y):
         return jac_soa(t, y.T).permute(2, 0, 1)
 
-    P = np.zeros((n, n), bool)
-    for i in range(nx):
-        P[2 * i:2 * i + 2, 2 * i:2 * i + 2] = True    # reaction block
-        for j in (i - 1, i + 1):                      # Laplacian coupling
-            if 0 <= j < nx:
-                P[2 * i, 2 * j] = True                # u_i <- u_j
-                P[2 * i + 1, 2 * j + 1] = True        # v_i <- v_j
+    P = _brusselator_pattern(nx)
     x = torch.linspace(0.0, 1.0, nx, dtype=dtype, device=dev)
     u0 = a + 0.1 * torch.sin(2 * torch.pi * x)
     v0 = (bpar / a)[:, None] + 0.1 * torch.cos(2 * torch.pi * x)[None, :]

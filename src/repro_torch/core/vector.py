@@ -9,12 +9,19 @@ tensors (the reference's pytrees); streaming ops map over the leaves and
 reductions combine them in leaf order, as the reference does.  They are
 plain tensor code in the reference too; the hot ops that have kernels
 (``linear_combination``, ``dot``, ``wrms_norm``, ...) are
-:mod:`repro_torch.core.dispatch`'s.  ``MeshVector`` waits for ROADMAP
-queue A.7.
+:mod:`repro_torch.core.dispatch`'s.
+
+The paper's §4 vectors (reference ``vector.py:266-399``):
+:class:`MeshVector`, the MPIPlusX analog, a node-local vector with a
+communicator whose every reduction ends in one collective; and
+:func:`many_vector`, the ManyVector, which is the tuple of its
+subvectors (the port's vector form already).
 """
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import torch
 
@@ -159,3 +166,146 @@ def inv_test(x):
     has_zero = functools.reduce(torch.logical_or,
                                 ((l == 0).any() for l in leaves(x)))
     return ~has_zero, z
+
+
+# ---------------------------------------------------------------------------
+# MeshVector — the MPIPlusX analog.
+# ---------------------------------------------------------------------------
+
+MODES = ("gspmd", "explicit")
+
+
+@dataclass(frozen=True)
+class MeshVectorSpec:
+    """Pairs node-local vector data with a communicator for global
+    reductions (reference ``vector.py:266``).
+
+    ``comm`` is the "MPI communicator": a ``torch.distributed``
+    ``ProcessGroup`` or a 1-D ``DeviceMesh`` over the ranks that hold
+    this vector's shards; None issues no collective (the reference's
+    empty ``axis_names``).  Streaming ops never touch it.
+
+    ``mode`` is ``"explicit"``, the literal MPIPlusX form: ``data`` is
+    this rank's shard, and each reduction computes its node-local
+    partial, then issues exactly one ``all_reduce`` (SUM, MAX or MIN)
+    over ``comm``.  Or ``"gspmd"``: ``data`` holds the whole vector, a
+    tensor or a ``DTensor`` sharded ``Shard(0)`` (PyTorch's sharding
+    propagation then inserts the collective, as GSPMD does), and a
+    reduction returns the op's value as it is.
+
+    ``policy`` selects the node-local implementations through
+    :mod:`repro_torch.core.dispatch` (None: the default
+    ``ExecPolicy()``, the kernels on the card); a ``DTensor`` runs only
+    under ``ExecPolicy(backend="torch")``.
+    """
+
+    comm: Any = None
+    mode: str = "gspmd"
+    policy: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"unknown MeshVector mode {self.mode!r}; "
+                             f"valid: {', '.join(MODES)}")
+
+
+class MeshVector:
+    """MPIPlusX analog: node-local data + a communicator.
+
+    In ``"explicit"`` mode every rank of ``spec.comm`` calls each
+    reduction, in the same order: the node-local partial, then exactly
+    one collective, as MPIPlusX runs the node-local op then
+    ``MPI_Allreduce``.  :attr:`collectives` counts the collectives
+    issued.
+    """
+
+    #: collectives issued by every MeshVector since the last reset
+    collectives = 0
+
+    def __init__(self, data, spec: MeshVectorSpec = MeshVectorSpec()):
+        self.data = data
+        self.spec = spec
+
+    def wrap(self, data) -> "MeshVector":
+        return MeshVector(data, self.spec)
+
+    def _dv(self):
+        # function-level import: dispatch imports this module
+        from . import dispatch
+        return dispatch
+
+    # -- streaming ops: purely node-local ---------------------------------
+    def linear_sum(self, a, b, other: "MeshVector") -> "MeshVector":
+        return self.wrap(self._dv().linear_sum(a, self.data, b, other.data,
+                                               self.spec.policy))
+
+    def scale(self, c) -> "MeshVector":
+        return self.wrap(scale(c, self.data))
+
+    def const(self, c) -> "MeshVector":
+        return self.wrap(const_like(c, self.data))
+
+    def prod(self, other: "MeshVector") -> "MeshVector":
+        return self.wrap(prod(self.data, other.data))
+
+    def div(self, other: "MeshVector") -> "MeshVector":
+        return self.wrap(div(self.data, other.data))
+
+    def abs(self) -> "MeshVector":
+        return self.wrap(vabs(self.data))
+
+    def inv(self) -> "MeshVector":
+        return self.wrap(inv(self.data))
+
+    def add_const(self, b) -> "MeshVector":
+        return self.wrap(add_const(self.data, b))
+
+    # -- reductions: node-local partial + one collective -------------------
+    def _finish(self, partial: torch.Tensor, op: str) -> torch.Tensor:
+        """``partial`` (a fresh 0-d tensor) reduced over ``spec.comm`` in
+        place in explicit mode; as it is otherwise."""
+        comm = self.spec.comm
+        if self.spec.mode != "explicit" or comm is None:
+            return partial
+        import torch.distributed as dist
+        group = comm.get_group() if hasattr(comm, "get_group") else comm
+        dist.all_reduce(partial, op=getattr(dist.ReduceOp, op), group=group)
+        MeshVector.collectives += 1
+        return partial
+
+    def dot(self, other: "MeshVector") -> torch.Tensor:
+        return self._finish(self._dv().dot(self.data, other.data,
+                                           self.spec.policy), "SUM")
+
+    def l1_norm(self) -> torch.Tensor:
+        return self._finish(l1_norm(self.data), "SUM")
+
+    def max_norm(self) -> torch.Tensor:
+        return self._finish(max_norm(self.data), "MAX")
+
+    def min(self) -> torch.Tensor:
+        return self._finish(vmin(self.data), "MIN")
+
+    def wrms_norm(self, w: "MeshVector",
+                  global_size: Optional[int] = None) -> torch.Tensor:
+        """WRMS norm; in explicit mode the caller passes the GLOBAL
+        element count (the node-local ``tree_size`` is the shard's)."""
+        n = global_size if global_size is not None else tree_size(self.data)
+        ss = self._finish(self._dv().wrms_ss(self.data, w.data,
+                                             self.spec.policy), "SUM")
+        return torch.sqrt(ss / n)
+
+
+# ---------------------------------------------------------------------------
+# ManyVector — n vectors as one cohesive vector (paper §4): the tuple of
+# the subvectors, which every op of the port takes as a vector.
+# ---------------------------------------------------------------------------
+
+
+def many_vector(*subvectors) -> tuple:
+    """Combine subvectors into a single cohesive vector (a tuple)."""
+    return tuple(subvectors)
+
+
+def many_vector_num_subvectors(mv: tuple) -> int:
+    return len(mv)

@@ -136,10 +136,22 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _is_dtensor(t) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def on_cpu(op: str, t: torch.Tensor) -> bool:
     """True if ``t`` lies on the CPU, where a wrapper runs its plain
     version; False on the card, where it launches its kernel.  Any other
-    device raises."""
+    device, and a ``DTensor`` on any device, raises: no kernel takes a
+    sharded tensor, and its plain version runs only when the caller asks
+    for it (``ExecPolicy(backend="torch")``)."""
+    if type(t) is not torch.Tensor and _is_dtensor(t):
+        raise TypeError(f"{op}: the CUDA kernel takes no DTensor; run "
+                        f"DTensors under ExecPolicy(backend='torch')")
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":

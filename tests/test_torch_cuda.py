@@ -819,3 +819,134 @@ def test_a_kernel_refusing_its_inputs_fails_the_bundle_on_card():
         assert isinstance(fut.exception(), SolverError)
     m = srv.metrics()
     assert m["degraded"] == 0 and m["failures"] == {"exec_error": 64}
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer and the op registry on the card (path N's
+# checks at 2**12 systems)
+# ---------------------------------------------------------------------------
+
+NSHARD = 1 << 12
+BDF_KERNELS = ("newton_residual", "blockdiag_spmv", "masked_update_wrms",
+               "lagrange_rescale", "wrms_soa", "block_inverse")
+
+
+def _robertson_family_problem(nsys):
+    from repro_torch.core import problems
+    rates = problems.robertson_rates(nsys, seed=0)
+    params = {k: torch.as_tensor(v, device="cuda") for k, v in rates.items()}
+    f, jac, _, _ = problems.robertson_family()
+    y0 = torch.zeros((nsys, 3), dtype=torch.float64, device="cuda")
+    y0[:, 0] = 1.0
+    return f, jac, y0, params
+
+
+def _group_of_one(tmp_path):
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+
+
+@pytest.mark.cuda
+def test_sharded_world_of_one_is_the_unsharded_run_on_card(tmp_path):
+    """``ensemble_bdf_integrate_sharded`` with no group and under an NCCL
+    group of one: the unsharded kernel run bit for bit (y, every stats
+    field, host syncs), the BDF kernels launched and no plain version."""
+    _need_card()
+    import torch.distributed as dist
+    from repro_torch.core import batched
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.launch.mesh import WorldOfOne, make_ensemble_mesh
+    f, jac, y0, params = _robertson_family_problem(NSHARD)
+    opts = ODEOptions(rtol=1e-5, atol=1e-10, max_steps=100_000)
+    batched.reset_loop_counts()
+    y1, st1 = batched.ensemble_bdf_integrate(
+        lambda t, y: f(t, y, params), lambda t, y: jac(t, y, params), y0,
+        0.0, 10.0, opts=opts)
+    syncs = batched.loop_counts["host_syncs"]
+    assert isinstance(make_ensemble_mesh(), WorldOfOne)
+    for grouped in (False, True):
+        if grouped:
+            _group_of_one(tmp_path)
+        try:
+            kernels.reset_counts()
+            batched.reset_loop_counts()
+            y, st = batched.ensemble_bdf_integrate_sharded(
+                f, jac, y0, 0.0, 10.0, params=params, opts=opts)
+            assert batched.loop_counts["host_syncs"] == syncs
+            assert torch.equal(y, y1)
+            for name, a, b in zip(st._fields, st, st1):
+                assert (a is None and b is None) or torch.equal(a, b), name
+            counts = kernels.counts()
+            for name in BDF_KERNELS:
+                assert counts[name][0] > 0, name
+            assert all(c[1] == 0 for c in counts.values())
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_a_pinned_run_launches_all_but_the_pinned_kernel_on_card():
+    """``override(blockdiag_spmv_soa="torch")``: rows 1, 3, 4f, 5, 6 on
+    their kernels, row 2 on its plain version only; y within
+    10*(rtol*|y|+atol) of the kernel run, retcodes equal."""
+    _need_card()
+    from repro_torch.core import ivp
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.policies import ExecPolicy
+    f, jac, y0, params = _robertson_family_problem(NSHARD)
+    prob = ivp.IVP(f=lambda t, y: f(t, y, params),
+                   jac=lambda t, y: jac(t, y, params), y0=y0)
+    opts = ODEOptions(rtol=1e-5, atol=1e-10, max_steps=100_000)
+    ref = ivp.integrate(prob, 0.0, 10.0, "ensemble_bdf", opts=opts)
+    kernels.reset_counts()
+    sol = ivp.integrate(prob, 0.0, 10.0, "ensemble_bdf", opts=opts._replace(
+        policy=ExecPolicy().override(blockdiag_spmv_soa="torch")))
+    counts = kernels.counts()
+    launched, plain = counts["blockdiag_spmv"]
+    assert launched == 0 and plain > 0
+    for name in BDF_KERNELS:
+        if name != "blockdiag_spmv":
+            assert counts[name][0] > 0 and counts[name][1] == 0, name
+    assert torch.equal(sol.retcodes, ref.retcodes)
+    assert bool(((sol.y - ref.y).abs()
+                 <= 10 * (1e-5 * ref.y.abs() + 1e-10)).all())
+
+
+@pytest.mark.cuda
+def test_explicit_mesh_vector_under_a_group_of_one_on_card(tmp_path):
+    """Explicit-mode reductions over a layout of one NCCL rank: each one
+    collective and, for ``dot`` and ``wrms_norm``, one launch of rows 16
+    and 14; the values are the plain dispatch ops' bit for bit (a sum
+    over one rank is the identity)."""
+    _need_card()
+    import torch.distributed as dist
+    from repro_torch.core import dispatch, vector
+    from repro_torch.launch.mesh import make_ensemble_mesh
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=3 * 2**12 + 5)).cuda()
+    w = torch.from_numpy(np.abs(rng.normal(size=x.numel())) + 0.1).cuda()
+    _group_of_one(tmp_path)
+    try:
+        mesh = make_ensemble_mesh()
+        spec = vector.MeshVectorSpec(comm=mesh, mode="explicit")
+        mx, mw = vector.MeshVector(x, spec), vector.MeshVector(w, spec)
+        for name, fn, want, kernel in (
+                ("dot", lambda: mx.dot(mw), dispatch.dot(x, w), "dot"),
+                ("wrms_norm", lambda: mx.wrms_norm(mw, global_size=x.numel()),
+                 dispatch.wrms_norm(x, w), "wrms_ss"),
+                ("l1_norm", mx.l1_norm, vector.l1_norm(x), None),
+                ("max_norm", mx.max_norm, vector.max_norm(x), None),
+                ("min", mx.min, vector.vmin(x), None)):
+            kernels.reset_counts()
+            before = vector.MeshVector.collectives
+            got = fn()
+            assert vector.MeshVector.collectives - before == 1, name
+            if kernel is not None:
+                assert kernels.counts()[kernel] == (1, 0), name
+            assert torch.equal(got, want), name
+        assert torch.equal(mx.linear_sum(0.5, -2.0, mw).data,
+                           dispatch.linear_sum(0.5, x, -2.0, w))
+    finally:
+        dist.destroy_process_group()
