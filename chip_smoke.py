@@ -1915,21 +1915,29 @@ def spawn_ranks(world, profile):
     import torch
     OUT.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="path_n_", dir=OUT))
+    # each rank writes to a file of its own: a rank blocked on a full
+    # pipe would stall the other at its next collective
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                                "--path-n-rank", str(r), str(world), str(tmp),
                                *(["--profile"] if profile else [])],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              stdout=logs[r], stderr=subprocess.STDOUT,
                               text=True, cwd=ROOT) for r in range(world)]
-    logs = []
+    deadline = time.monotonic() + N_RANK_TIMEOUT
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=N_RANK_TIMEOUT)[0])
+            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+    except subprocess.TimeoutExpired:
+        pass
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        log = (tmp / f"rank{r}.log").read_text()
         print("\n".join(f"  [rank {r}] {line}" for line in log.splitlines()),
               flush=True)
         check(p.returncode == 0, f"N: rank {r} exited {p.returncode}")
@@ -2175,12 +2183,11 @@ def n_rank_work(rank, world, profile):
                 ("min", mx.min, vector.vmin(x), None)):
             torch.cuda.synchronize()
             kernels.reset_counts()
-            c0, v0 = calls[0], vector.MeshVector.collectives
+            c0 = calls[0]
             got = float(fn())
             counts = kernels.counts()
-            check(calls[0] - c0 == 1 and vector.MeshVector.collectives - v0
-                  == 1, f"{path}: N.3 {name} issued {calls[0] - c0} "
-                  "collectives")
+            check(calls[0] - c0 == 1, f"{path}: N.3 {name} issued "
+                  f"{calls[0] - c0} collectives")
             if kernel is not None:
                 check(counts[kernel][0] == 1, f"{path}: N.3 {name} launched "
                       f"{kernel} {counts[kernel][0]} times")

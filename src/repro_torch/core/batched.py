@@ -731,7 +731,10 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
 
 
 def _tree_map(fn, tree):
-    """``fn`` over the tensors of a dict / tuple / list tree."""
+    """``fn`` over the tensors of a dict / tuple / list tree; None (no
+    ``params``) stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

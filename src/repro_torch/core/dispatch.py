@@ -14,16 +14,21 @@ the kernel (the reference builds W in its jitted step, where XLA fuses
 the build; eager PyTorch would spend some 60 launches on it).
 
 Each entry is ``{"torch": plain version, "cuda": kernel wrapper}``, two
-callables with one signature and a keyword-only ``policy``
-(:func:`validate_op_table` checks that at import).  :func:`dispatch`
+callables with one positional signature (:func:`validate_op_table`
+checks that at import).  The reference's implementations also take a
+keyword ``policy``, because its Pallas wrappers read the interpret flag
+and their tiling from it; the port's kernel wrappers read nothing from
+a policy (the device is the tensor's), so its implementations take no
+``policy`` and the validator does not ask for one.  :func:`dispatch`
 resolves an op under an :class:`~repro_torch.core.policies.ExecPolicy`
 by ``policy.backend_for(op)``, so a pin in ``op_overrides`` takes
 effect at every call site: ``"torch"`` runs the plain version,
 ``"auto"`` the kernel wrapper (the CUDA kernel for a CUDA tensor, the
 plain version for a CPU tensor; not cost-driven yet, ROADMAP A.8), and
 ``"cuda"`` the kernel wrapper after checking that the op's first tensor
-lies on the card.  Each implementation looks its kernel wrapper or
-plain version up in its kernel module at each call.  ``linear_sum`` and
+lies on the card.  The three callables of each op are built once, at
+import, so :func:`dispatch` is two dictionary reads; each looks its
+kernel wrapper or plain version up in its kernel module at each call.  ``linear_sum`` and
 ``axpy`` go through the linear-combination kernel with K = 2, as in the
 reference (``dispatch.py:107-112``), and their ``"torch"`` backend
 through its plain version, which sums ``c_0 x_0 + c_1 x_1`` in that
@@ -132,7 +137,9 @@ def _leafwise_sum(fn, *vecs) -> torch.Tensor:
 
 
 def _pair_sum(fn, x, y):
-    """``dot`` and ``wrms_ss``: the leafwise sum of ``fn(x, y)``."""
+    """``dot`` and ``wrms_ss``: :func:`_leafwise_sum` of two vectors,
+    with the reference's two positional arguments (which
+    :func:`validate_op_table`'s arity check reads)."""
     return _leafwise_sum(fn, x, y)
 
 
@@ -194,26 +201,22 @@ def _bsr_block_jacobi_inverse_soa(inverse, values, pattern):
 # The op table.
 # ---------------------------------------------------------------------------
 
-_POLICY = inspect.Parameter("policy", inspect.Parameter.KEYWORD_ONLY,
-                            default=None)
-
-
 def _impl(body, module, name: str):
     """One backend's implementation: ``body(module.<name>, *args)``, or
     ``module.<name>(*args)`` itself where ``body`` is None, the
-    attribute looked up at each call.  Its signature is the body's
-    without ``fn`` (or the kernel wrapper's) plus the keyword-only
-    ``policy`` that :func:`dispatch` passes."""
+    attribute looked up at each call.  ``inspect`` shows what it
+    forwards to: the body's signature without ``fn``, or the kernel
+    wrapper's."""
     if body is None:
-        def impl(*args, policy=None, **kw):
+        def impl(*args, **kw):
             return getattr(module, name)(*args, **kw)
         params = list(inspect.signature(getattr(module, name))
                       .parameters.values())
     else:
-        def impl(*args, policy=None, **kw):
+        def impl(*args, **kw):
             return body(getattr(module, name), *args, **kw)
         params = list(inspect.signature(body).parameters.values())[1:]
-    impl.__signature__ = inspect.Signature(params + [_POLICY])
+    impl.__signature__ = inspect.Signature(params)
     impl.__name__ = impl.__qualname__ = name
     return impl
 
@@ -275,20 +278,13 @@ def _positional_arity(fn):
     return n
 
 
-def _accepts_policy(fn) -> bool:
-    sig = inspect.signature(fn, follow_wrapped=False)
-    return ("policy" in sig.parameters
-            or any(p.kind is p.VAR_KEYWORD for p in sig.parameters.values()))
-
-
 def validate_op_table(table=None):
     """Fail fast on a half-registered op.
 
     Checks every entry of ``table`` (default :data:`OP_TABLE`) for a
     callable ``"torch"`` plain version AND a callable ``"cuda"`` kernel
-    wrapper, no stray backend keys, equal positional arities of the two,
-    and the keyword-only ``policy`` argument the dispatcher passes.
-    Every offender is reported in ONE aggregated ``ValueError``."""
+    wrapper, no stray backend keys, and equal positional arities of the
+    two.  Every offender is reported in ONE aggregated ``ValueError``."""
     table = OP_TABLE if table is None else table
     problems = []
     for op in sorted(table):
@@ -307,9 +303,6 @@ def validate_op_table(table=None):
             elif not callable(fn):
                 problems.append(f"{op}: {backend!r} implementation is not "
                                 f"callable")
-            elif not _accepts_policy(fn):
-                problems.append(f"{op}: {backend!r} implementation does not "
-                                f"accept the keyword-only `policy` argument")
         plain, kernel = impls.get("torch"), impls.get("cuda")
         if callable(plain) and callable(kernel):
             a_p, a_k = _positional_arity(plain), _positional_arity(kernel)
@@ -350,26 +343,26 @@ def _on_card(op: str, fn):
     return impl
 
 
+#: per op, the callable of each ExecPolicy backend
+_RESOLVED = {op: {"torch": impls["torch"], "auto": impls["cuda"],
+                  "cuda": _on_card(op, impls["cuda"])}
+             for op, impls in OP_TABLE.items()}
+
+
 def dispatch(op: str, policy: Optional[ExecPolicy] = None):
     """Resolve ``op`` to the implementation ``policy`` selects (None
     means the default ``ExecPolicy()``): ``policy.backend_for(op)``, so a
     per-op pin wins over the policy-wide backend.  Unknown ops and
     backends raise ``ValueError``."""
-    policy = DEFAULT if policy is None else policy
-    impls = OP_TABLE.get(op)
-    if impls is None:
+    by_backend = _RESOLVED.get(op)
+    if by_backend is None:
         raise ValueError(f"unknown dispatch op {op!r}; valid OP_TABLE "
                          f"ops: {', '.join(sorted(OP_TABLE))}")
-    backend = policy.backend_for(op)
-    if backend == "torch":
-        fn = impls["torch"]
-    elif backend == "auto":
-        fn = impls["cuda"]
-    elif backend == "cuda":
-        fn = _on_card(op, impls["cuda"])
-    else:
+    backend = (DEFAULT if policy is None else policy).backend_for(op)
+    fn = by_backend.get(backend)
+    if fn is None:
         raise ValueError(f"unknown ExecPolicy backend: {backend!r}")
-    return functools.partial(fn, policy=policy)
+    return fn
 
 
 # ---------------------------------------------------------------------------

@@ -215,12 +215,8 @@ class MeshVector:
     In ``"explicit"`` mode every rank of ``spec.comm`` calls each
     reduction, in the same order: the node-local partial, then exactly
     one collective, as MPIPlusX runs the node-local op then
-    ``MPI_Allreduce``.  :attr:`collectives` counts the collectives
-    issued.
+    ``MPI_Allreduce``.
     """
-
-    #: collectives issued by every MeshVector since the last reset
-    collectives = 0
 
     def __init__(self, data, spec: MeshVectorSpec = MeshVectorSpec()):
         self.data = data
@@ -270,7 +266,6 @@ class MeshVector:
         import torch.distributed as dist
         group = comm.get_group() if hasattr(comm, "get_group") else comm
         dist.all_reduce(partial, op=getattr(dist.ReduceOp, op), group=group)
-        MeshVector.collectives += 1
         return partial
 
     def dot(self, other: "MeshVector") -> torch.Tensor:

@@ -133,7 +133,7 @@ def test_mesh_vector_gspmd_mode_matches_reference(kind):
     assert np.isclose(float(mv.wrms_norm(mv.const(1.0))), np.sqrt(3.5))
 
 
-def test_mesh_vector_spec_and_many_vector():
+def test_mesh_vector_spec_and_many_vector(monkeypatch):
     with pytest.raises(ValueError, match="unknown MeshVector mode"):
         vector.MeshVectorSpec(mode="shard_map")
     x = torch.ones(3)
@@ -143,11 +143,13 @@ def test_mesh_vector_spec_and_many_vector():
         ref_vector.many_vector_num_subvectors(ref_vector.many_vector(1, 2)) \
         == 2
     # no communicator: explicit mode issues no collective
-    vector.MeshVector.collectives = 0
+    import torch.distributed as dist
+    calls = []
+    monkeypatch.setattr(dist, "all_reduce", lambda *a, **k: calls.append(a))
     spec = vector.MeshVectorSpec(mode="explicit")
     assert float(vector.MeshVector(x, spec).dot(vector.MeshVector(x, spec))) \
         == 3.0
-    assert vector.MeshVector.collectives == 0
+    assert calls == []
 
 
 # ---------------------------------------------------------------------------
@@ -186,10 +188,9 @@ for comm_name, comm in (("group", dist.group.WORLD), ("mesh", mesh)):
                          ("min", mx.min),
                          ("wrms_norm", lambda: mx.wrms_norm(
                              mw, global_size=x.numel()))):
-            before, n0 = len(calls), vector.MeshVector.collectives
+            before = len(calls)
             res[name] = fn()
-            res[name + "_collectives"] = (len(calls) - before,
-                                          vector.MeshVector.collectives - n0)
+            res[name + "_collectives"] = len(calls) - before
         OUT[comm_name, pol_name] = res
 # gspmd mode over a DTensor sharded Shard(0)
 from torch.distributed.tensor import Shard, distribute_tensor
@@ -247,7 +248,7 @@ def test_mesh_vector_explicit_mode_across_gloo_ranks(tmp_path, world):
             assert torch.equal(res["linear_sum"],
                                whole_sum[cuts[rank]:cuts[rank + 1]]), key
             for name, v in want.items():
-                assert res[name + "_collectives"] == (1, 1), (key, name)
+                assert res[name + "_collectives"] == 1, (key, name)
                 if name in ("max_norm", "min"):
                     assert float(res[name]) == float(v), (key, name)
                 else:
@@ -420,6 +421,93 @@ def test_sharded_ensemble_bdf_world_of_one_is_the_unsharded_call():
     y_ref, st_ref = _ref_run()
     assert np.all(np.abs(_np(y) - np.asarray(y_ref))
                   <= 10 * (RTOL * np.abs(np.asarray(y_ref)) + ATOL))
+
+
+#: a problem with no per-system data, for the calls without ``params``:
+#: the lanes differ only in y0
+K_DECAY = 40.0
+Y0_FREE = np.linspace(0.0, 1.0, NSYS)[:, None] * np.arange(1.0, N + 1.0)
+
+NO_PARAMS = """
+from repro_torch.core import batched
+from repro_torch.core.arkode import ODEOptions
+from repro_torch.launch.mesh import make_ensemble_mesh
+k, n = %r, %d
+def f(t, y):
+    return -k * (y - torch.cos(t)[:, None])
+def jac(t, y):
+    return (-k * torch.eye(n, dtype=y.dtype)).expand(
+        y.shape[0], n, n).contiguous()
+y, st = batched.ensemble_bdf_integrate_sharded(
+    f, jac, torch.from_numpy(np.array(%r)), 0.0, 2.0,
+    opts=ODEOptions(rtol=%r, atol=%r), mesh=make_ensemble_mesh(device_type="cpu"))
+OUT["y"], OUT["st"] = y, tuple(st)
+"""
+
+
+def _no_params_problem():
+    def f(t, y):
+        return -K_DECAY * (y - torch.cos(t)[:, None])
+
+    def jac(t, y):
+        return (-K_DECAY * torch.eye(N, dtype=y.dtype)) \
+            .expand(y.shape[0], N, N).contiguous()
+
+    return f, jac
+
+
+def _no_params_ref():
+    return ref_batched.ensemble_bdf_integrate(
+        lambda t, y: -K_DECAY * (y - jnp.cos(t)[:, None]),
+        lambda t, y: jnp.broadcast_to(-K_DECAY * jnp.eye(N),
+                                      (y.shape[0], N, N)),
+        jnp.asarray(Y0_FREE), 0.0, 2.0,
+        opts=RefOptions(rtol=RTOL, atol=ATOL))
+
+
+def _assert_near_reference(y, st, y_ref, st_ref):
+    y_ref = np.asarray(y_ref)
+    assert y.shape == (NSYS, N)
+    assert np.all(np.abs(_np(y) - y_ref)
+                  <= 10 * (RTOL * np.abs(y_ref) + ATOL))
+    np.testing.assert_array_equal(_np(st.success), np.asarray(st_ref.success))
+
+
+def test_sharded_ensemble_bdf_without_params_on_four_gloo_ranks(tmp_path):
+    """No ``params`` (the reference's default, as ``tests/test_chaos.py``
+    calls it) on 4 ranks, padded 10 -> 12: every rank gathers the same
+    y and stats, within 10*(rtol*|y|+atol) of the reference's
+    ``ensemble_bdf_integrate`` and of the port's unsharded run, with
+    equal success."""
+    outs = _run_ranks(tmp_path, 4, NO_PARAMS % (K_DECAY, N, Y0_FREE.tolist(),
+                                                RTOL, ATOL))
+    y_ref, st_ref = _no_params_ref()
+    f, jac = _no_params_problem()
+    y1, st1 = batched.ensemble_bdf_integrate(
+        f, jac, torch.from_numpy(Y0_FREE), 0.0, 2.0,
+        opts=ODEOptions(rtol=RTOL, atol=ATOL))
+    for out in outs:
+        y, st = out["y"], batched.EnsembleStats(*out["st"])
+        _assert_near_reference(y, st, y_ref, st_ref)
+        _assert_near_reference(y, st, y1, st1)
+        assert st.steps.shape == (NSYS,) and bool(st.ok.all())
+        assert torch.equal(y, outs[0]["y"])
+
+
+def test_sharded_ensemble_bdf_world_of_one_without_params():
+    """No ``params`` in a world of one: exactly the unsharded call, and
+    within 10*(rtol*|y|+atol) of the reference with equal success."""
+    f, jac = _no_params_problem()
+    y0 = torch.from_numpy(Y0_FREE)
+    opts = ODEOptions(rtol=RTOL, atol=ATOL)
+    y, st = batched.ensemble_bdf_integrate_sharded(
+        f, jac, y0, 0.0, 2.0, opts=opts,
+        mesh=lmesh.make_ensemble_mesh(device_type="cpu"))
+    y1, st1 = batched.ensemble_bdf_integrate(f, jac, y0, 0.0, 2.0, opts=opts)
+    assert torch.equal(y, y1)
+    for a, b in zip(st, st1):
+        assert (a is None and b is None) or torch.equal(a, b)
+    _assert_near_reference(y, st, *_no_params_ref())
 
 
 def test_sharded_ensemble_bdf_raises_the_reference_errors():

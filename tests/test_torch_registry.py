@@ -35,20 +35,17 @@ def test_validate_op_table_reports_every_problem_at_once():
     dv.validate_op_table()                  # the real table (also at import)
     good = dv.OP_TABLE["dot"]
 
-    def two(x, y, *, policy=None):
+    def two(x, y):
         return x
 
-    def three(x, y, z, *, policy=None):
-        return x
-
-    def no_policy(x, y):
+    def three(x, y, z):
         return x
 
     table = {"dot": good,
              "half": {"torch": two},
              "stray": {"torch": two, "cuda": two, "pallas": two},
              "arity": {"torch": two, "cuda": three},
-             "kwarg": {"torch": no_policy, "cuda": two},
+             "called": {"torch": two, "cuda": 2},
              "shape": [two, two]}
     with pytest.raises(ValueError) as err:
         dv.validate_op_table(table)
@@ -57,12 +54,15 @@ def test_validate_op_table_reports_every_problem_at_once():
     for part in ("half: missing 'cuda' implementation",
                  "stray: unknown backend keys ['pallas']",
                  "arity: arity mismatch",
-                 "kwarg: 'torch' implementation does not accept",
+                 "called: 'cuda' implementation is not callable",
                  "shape: entry is list"):
         assert part in msg
     # the reference's validator finds the same kinds of fault
+    def ref_two(x, y, *, policy=None):
+        return x
+
     with pytest.raises(ValueError, match=r"\(1 problem\)"):
-        rdv.validate_op_table({"half": {"jnp": two}})
+        rdv.validate_op_table({"half": {"jnp": ref_two}})
 
 
 def test_op_overrides_are_validated_against_the_table():
@@ -103,12 +103,12 @@ def test_dispatch_returns_the_pinned_implementation(op):
              "torch"),
             (ExecPolicy(), "cuda", "cuda"),
             (None, "cuda", "cuda")):
-        fn = dv.dispatch(op, policy)
-        assert fn.func is impls[want]
-        assert dv.dispatch(other, policy).func is dv.OP_TABLE[other][want_other]
-    # "cuda" is the kernel wrapper behind a device check
+        assert dv.dispatch(op, policy) is impls[want]
+        assert dv.dispatch(other, policy) is dv.OP_TABLE[other][want_other]
+    # "cuda" is the kernel wrapper behind a device check, built once
     pinned = ExecPolicy().override(**{op: "cuda"})
-    assert dv.dispatch(op, pinned).func is not impls["cuda"]
+    fn = dv.dispatch(op, pinned)
+    assert fn is not impls["cuda"] and dv.dispatch(op, pinned) is fn
     with pytest.raises(ValueError, match="unknown dispatch op 'nope'"):
         dv.dispatch("nope")
 
