@@ -190,6 +190,29 @@ of which prints the seconds it took:
      4f, 5, 6 launched, row 2 never (its plain version instead), within
      10*(rtol*|y|+atol) of the main path's lanes, retcodes equal; a
      failed rank fails the run;
+   - path O, the analysis layer, right after N: O.1 the ``h100_sxm``
+     roofline row's constants measured on this card (the device time of
+     one launch of a hand-written kernel and of one plain elementwise
+     op, back to back, and the streamed bandwidth of a 1 GiB device copy
+     and of a plain elementwise product), printed beside the row's, and
+     ``device_for`` finding this card's row; O.2 ``autotune.tune()``
+     over its grid (the reference tuner's signatures, the paths' shapes
+     of phase 3, ``lagrange_rescale_soa``) into a temporary directory,
+     every time finite and above 0, the cache read back equal, each
+     entry's winner and torch/cuda ratio, the model's agreement and
+     every misprediction printed, the main path's signatures (rows 1-6
+     and 4f at 2**20 systems) won by the kernels and the model agreeing
+     on at least 80 % of the entries; O.3 the main path under
+     ``Context(policy=ExecPolicy())`` with that cache, bit for bit the
+     main path's kernel run (y, every stats field, its host syncs),
+     rows 1-6 (4f) and no plain version, one decision a signature, each
+     the kernel from the cache, their hits the op calls, the three
+     ``repro_autotune_*`` gauges exported, its wall printed beside the
+     main path's; O.4 sunlint's kernel-contract with the card present
+     (each signature of its grid run on both implementations); the
+     resolvers reset after.  Every other path runs under the default
+     ``"auto"`` with no cache, so the cost model picks each call's
+     implementation, and each path's launch checks hold as before;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
@@ -290,6 +313,9 @@ PATH_KERNELS = {
                                 "wrms_soa", "block_inverse"),
     "N.5: pinned": ("newton_residual", "masked_update_wrms",
                     "lagrange_rescale", "wrms_soa", "block_inverse"),
+    "O: auto main path": ("newton_residual", "blockdiag_spmv",
+                          "masked_update_wrms", "lagrange_rescale",
+                          "wrms_soa", "block_inverse"),
 }
 #: path -> the plain versions its kernel run takes by a per-op pin (and
 #: must take); a kernel run of any other path takes none
@@ -321,6 +347,12 @@ N_WORLD, N_RANK_TIMEOUT = 2, 300
 N3_SIZE = 3 * NXB + 5
 N_OVERHEAD_SIZES = (10 ** 4, 10 ** 5, 10 ** 6, 3 * NXB)
 N_REPS, N_ROUNDS = 200, 3
+#: path O: launches a timing of one launch and rounds of such timings;
+#: the spin before them (~10 ms, so the host enqueues all the launches
+#: before the device reaches them); the bytes of the streamed copy
+O_LAUNCHES, O_ROUNDS = 200, 5
+O_SPIN_CYCLES = 20_000_000
+O_GIB = 1 << 30
 #: t_final of paths I and J (each run ~15 s or less on the card; J takes
 #: 20+ steps at nx = 2**20)
 TF_I, TF_J = 0.005, 0.02
@@ -2209,6 +2241,234 @@ def n_rank_work(rank, world, profile):
     return rec
 
 
+def launch_floor_ms(fn, rounds=O_ROUNDS, launches=O_LAUNCHES):
+    """Device milliseconds a launch of ``fn`` (a call that launches one
+    kernel on a tiny input) back to back: a spin holds the device while
+    the host enqueues ``launches`` calls between two events; the median
+    over ``rounds``."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        torch.cuda._sleep(O_SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per.append(start.elapsed_time(end) / launches)
+    return statistics.median(per)
+
+
+def stream_bytes_per_s(fn, moved, rounds=O_ROUNDS):
+    """Bytes a second of ``fn`` moving ``moved`` bytes (median of
+    ``rounds`` event-timed calls)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return moved / statistics.median(times)
+
+
+def o_constants(card, dev):
+    """O.1: the roofline row's constants measured on this card: one
+    launch of a hand-written kernel (``newton_residual`` over 32
+    systems), one plain elementwise launch (a product over 32
+    elements), and the streamed bandwidth of a 1 GiB device copy and of
+    a plain elementwise product over 1 GiB; the card's row by
+    ``device_for``."""
+    import torch
+    from repro_torch.analysis.roofline import device_for, get_device
+    from repro_torch.kernels import newton
+    row = get_device(device_for(dev))
+    z = torch.ones(1, 32, dtype=torch.float64, device=dev)
+    g = torch.ones(32, dtype=torch.float64, device=dev)
+    x = torch.ones(32, dtype=torch.float64, device=dev)
+    out = {"row": row.name,
+           "kernel_launch_s": launch_floor_ms(
+               lambda: newton.newton_residual(z, z, z, g)) / 1e3,
+           "plain_launch_s": launch_floor_ms(lambda: x * 1.5) / 1e3}
+    n = O_GIB // 8
+    a = torch.empty(n, dtype=torch.float64, device=dev).uniform_()
+    b = torch.empty_like(a)
+    out["copy_bytes_per_s"] = stream_bytes_per_s(lambda: b.copy_(a),
+                                                 2 * O_GIB)
+    out["elementwise_bytes_per_s"] = stream_bytes_per_s(
+        lambda: torch.mul(a, 1.5, out=b), 2 * O_GIB)
+    del a, b
+    torch.cuda.empty_cache()
+    props = torch.cuda.get_device_properties(dev)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    out["smem_optin_bytes"] = optin
+    if optin is not None:
+        check(optin >= row.smem_optin_bytes, f"O.1: the card lets a block "
+              f"opt into {optin} B of shared memory, the row states "
+              f"{row.smem_optin_bytes}")
+    print(f"O.1 on {card}: row {row.name}; one kernel launch "
+          f"{out['kernel_launch_s'] * 1e6:.3f} us (row "
+          f"{row.kernel_launch * 1e6:.3f}), one plain elementwise launch "
+          f"{out['plain_launch_s'] * 1e6:.3f} us (row "
+          f"{row.plain_launch * 1e6:.3f}); 1 GiB copy "
+          f"{out['copy_bytes_per_s'] / 1e12:.4f} TB/s (row cuda_bw "
+          f"{row.cuda_bw / 1e12:.4f}), plain product "
+          f"{out['elementwise_bytes_per_s'] / 1e12:.4f} TB/s (row torch_bw "
+          f"{row.torch_bw / 1e12:.4f}); shared memory a block may opt "
+          f"into {optin} B (row {row.smem_optin_bytes})", flush=True)
+    return out
+
+
+def o_tune(card, tmp):
+    """O.2: ``tune()`` over its grid into ``tmp``; every time finite and
+    above 0; the file read back equal; the main path's signatures won by
+    the kernels; the model agreeing on at least 80 % of the entries."""
+    import math
+    from repro_torch.core import autotune
+    cache = autotune.tune(reps=25)
+    check(str(cache.path).startswith(str(tmp)),
+          f"O.2: the cache went to {cache.path}, not under {tmp}")
+    for e in cache.entries.values():
+        check(all(math.isfinite(t) and t > 0 for t in (e.t_torch, e.t_cuda)),
+              f"O.2: {e.sig.key()}: times {e.t_torch}, {e.t_cuda}")
+    back = autotune.AutotuneCache(cache.device, path=cache.path).load()
+    check(not back.stale and {k: (e.t_torch, e.t_cuda) for k, e in
+                              back.entries.items()} ==
+          {k: (e.t_torch, e.t_cuda) for k, e in cache.entries.items()},
+          "O.2: save and load do not round-trip the entries")
+    for sig in autotune.main_path_grid():
+        e = cache.get(sig)
+        check(e is not None and e.winner == "cuda",
+              f"O.2: the main path's {sig.key()}: measured winner "
+              f"{None if e is None else e.winner}")
+    audit = autotune.model_audit(cache)
+    print(f"O.2 on {card}: {len(cache.entries)} entries, model agreement "
+          f"{audit['model_agree']}/{audit['model_total']} = "
+          f"{audit['model_agreement']:.3f}; measured winners: "
+          + ", ".join(f"{w} {sum(e.winner == w for e in cache.entries.values())}"
+                      for w in autotune.BACKENDS), flush=True)
+    for m in audit["mispredictions"]:
+        print(f"  misprediction {m['sig']}: measured {m['measured']} "
+              f"(torch/cuda {m['measured_ratio']}), predicted "
+              f"{m['predicted']} ({m['predicted_ratio']})", flush=True)
+    check(audit["model_agreement"] >= 0.8, f"O.2: the model agrees on "
+          f"{audit['model_agreement']:.3f} of the entries, under 0.8")
+    return {"entries": {k: e.to_json() for k, e in cache.entries.items()},
+            **audit}
+
+
+def o_auto_main(card, y_main, st_main, syncs_main, main_wall):
+    """O.3: the main path under ``Context(policy=ExecPolicy())`` with the
+    tuned cache: bit for bit the main path's kernel run with its host
+    syncs, rows 1-6 (4f) and no plain version; one decision a
+    signature, each the kernel from the cache, their hits the op calls;
+    the autotune gauges exported."""
+    import torch
+    from repro_torch.core import problems
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.context import Context
+    from repro_torch.core.policies import ExecPolicy
+    from repro_torch.observability import MetricsRegistry, context_metrics
+    path = "O: auto main path"
+    prob = robertson_problem(NSYS, problems.robertson_rates(NSYS, seed=0))
+    opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
+    ctx = Context(policy=ExecPolicy())
+    sol, rec = run_path(path, "kernels, tuned auto", prob, "ensemble_bdf",
+                        10.0, opts, ctx=ctx)
+    check(torch.equal(sol.y, y_main), f"{path}: y is not the main path's "
+          "kernel run bit for bit")
+    same_stats(path, "tuned auto", sol.stats, st_main)
+    check(rec["loop"]["host_syncs"] == syncs_main, f"{path}: "
+          f"{rec['loop']['host_syncs']} host syncs, the main path "
+          f"{syncs_main}")
+    rep = ctx.dispatch_report()
+    decs = rep["decisions"]
+    check(len({d["sig"] for d in decs}) == len(decs) and
+          all(d["backend"] == "cuda" and d["source"] == "cache"
+              for d in decs),
+          f"{path}: decisions {[(d['sig'], d['backend'], d['source']) for d in decs]}")
+    calls = sum(rec["counts"][k][0] + rec["counts"][k][1]
+                for k in PATH_KERNELS[path])
+    hits = sum(d["hits"] for d in decs)
+    check(hits == calls, f"{path}: the decisions' hits {hits}, the op calls "
+          f"{calls}")
+    reg = MetricsRegistry()
+    context_metrics(reg, ctx)
+    text = reg.render()
+    for name in ("repro_autotune_cache_entries",
+                 "repro_autotune_decisions_total",
+                 "repro_autotune_model_agreement"):
+        check(f"\n{name} " in "\n" + text, f"{path}: context_metrics "
+              f"exports no {name}")
+    print(f"{path} on {card}: bit for bit the main path, {syncs_main} host "
+          f"syncs; {len(decs)} decisions (cuda, from the cache), hits "
+          f"{hits} = op calls; wall {rec['wall_s']:.3f} s against the main "
+          f"path's {main_wall:.3f} s in this call", flush=True)
+    return {"run": rec, "decisions": decs, "main_wall_s": main_wall}
+
+
+def phase_path_o(card, y_main, st_main, syncs_main, main_wall):
+    """Path O, the analysis layer: O.1 the roofline row's constants on
+    this card, O.2 the autotuner over its grid into a temporary
+    directory, O.3 the main path under the tuned ``"auto"``, O.4 sunlint's
+    kernel-contract with the card present; the resolvers reset after."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.analysis import lint
+    from repro_torch.core import autotune
+    dev = y_main.device
+    sub_s, out = {}, {}
+    t = time.perf_counter()
+    out["O.1"] = o_constants(card, dev)
+    sub_s["O.1"] = time.perf_counter() - t
+    old = os.environ.get("REPRO_TORCH_AUTOTUNE_DIR")
+    OUT.mkdir(exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+            os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = tmp
+            t = time.perf_counter()
+            out["O.2"] = o_tune(card, tmp)
+            sub_s["O.2"] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            autotune.reset_resolver()
+            out["O.3"] = o_auto_main(card, y_main, st_main, syncs_main,
+                                     main_wall)
+            sub_s["O.3"] = time.perf_counter() - t
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_DIR", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = old
+        autotune.reset_resolver()
+    t = time.perf_counter()
+    ctx = lint.LintContext()
+    check(ctx.cuda, "O.4: the lint context sees no card")
+    found = lint.run_rules(ctx, ["kernel-contract"])
+    check(not found, "O.4: kernel-contract on the card: "
+          + "; ".join(f"{v.where}: {v.message}" for v in found))
+    sub_s["O.4"] = time.perf_counter() - t
+    print(f"O.4 on {card}: kernel-contract clean with the card present "
+          f"({sum(len(s) for s in ctx.contract_sigs.values())} signatures "
+          f"run on both implementations)", flush=True)
+    for k, v in sub_s.items():
+        print(f"{k}: {v:.1f} s", flush=True)
+    out.update({"kernels_run": {"counts": out["O.3"]["run"]["counts"]},
+                "sub_s": sub_s})
+    return out
+
+
 def phase_path_a(profile):
     """Path A: ensemble DIRK (SDIRK2) on the main path's 2**20 systems;
     the plain run covers the first NSUB lanes, which are independent of
@@ -2730,6 +2990,11 @@ def main(argv) -> int:
     paths["N: multi-device"] = phase(
         "path N (multi-device, op registry)", phase_path_n, y_main, st_main,
         syncs_main, paths["D: ensemble_bdf SPGMR"].pop("y"), profiled("N"))
+    # the analysis layer: the row's constants, the autotuner, the main
+    # path under the tuned "auto", kernel-contract on the card
+    paths["O: analysis"] = phase(
+        "path O (analysis layer)", phase_path_o, card, y_main, st_main,
+        syncs_main, paths["ensemble_bdf"]["kernels_run"]["wall_s"])
     del y_main, st_main
     # the paper's §7 demonstration: the scalar IMEX stack at nx = 2**20
     paths["G: imex task-local"] = phase(

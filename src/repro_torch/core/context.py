@@ -8,8 +8,8 @@ observability switchboard with its lazily built profiler and logger
 (SUNProfiler, SUNLogger).  ``trace_cache`` is the slot a
 :class:`~repro_torch.serve.solver.SolverServer` fills with its bundle
 cache, so ``observability.context_metrics`` exports the cache's
-counters; ``autotune`` and ``dispatch_report`` wait for the autotuner
-(ROADMAP queue A.8) and raise.
+counters.  ``autotune`` and ``dispatch_report`` front the ``"auto"``
+resolver of the policy's device (:mod:`repro_torch.core.autotune`).
 """
 from __future__ import annotations
 
@@ -78,16 +78,30 @@ class Context:
         kw.setdefault("policy", self.policy)
         return ODEOptions(**kw)
 
-    # -- cost-model-driven dispatch (ROADMAP queue A.8) -----------------------
+    # -- cost-model-driven dispatch ("auto") ----------------------------------
 
     @property
     def autotune(self) -> Any:
-        raise NotImplementedError("the autotuner waits for ROADMAP queue "
-                                  "A.8")
+        """The :class:`~repro_torch.core.autotune.Resolver` of this
+        context's policy (``policy.device_name()``: its named roofline
+        row, ``"cpu"`` for a CPU device, else the card's row), which
+        loads the row's persisted cache at first use.  Resolvers are
+        process-wide per row (the policy stays a hashable value), so the
+        context fronts the one resolver, not a copy of it."""
+        from . import autotune
+        return autotune.get_resolver(self.policy.device_name())
 
     def dispatch_report(self) -> dict:
-        raise NotImplementedError("dispatch_report waits for the autotuner, "
-                                  "ROADMAP queue A.8")
+        """Every ``"auto"`` decision made for this context's row (per
+        signature: backend, source, hits), with the model's audit over
+        the row's whole cache (agreement, mispredictions); with the
+        trace cache's counters under ``"trace_cache"`` when a
+        :class:`~repro_torch.serve.solver.SolverServer` owns the
+        context."""
+        report = dict(self.autotune.report())
+        if self.trace_cache is not None:
+            report["trace_cache"] = self.trace_cache.stats()
+        return report
 
     # -- counter accumulation ------------------------------------------------
 

@@ -23,12 +23,18 @@ a policy (the device is the tensor's), so its implementations take no
 resolves an op under an :class:`~repro_torch.core.policies.ExecPolicy`
 by ``policy.backend_for(op)``, so a pin in ``op_overrides`` takes
 effect at every call site: ``"torch"`` runs the plain version,
-``"auto"`` the kernel wrapper (the CUDA kernel for a CUDA tensor, the
-plain version for a CPU tensor; not cost-driven yet, ROADMAP A.8), and
 ``"cuda"`` the kernel wrapper after checking that the op's first tensor
-lies on the card.  The three callables of each op are built once, at
-import, so :func:`dispatch` is two dictionary reads; each looks its
-kernel wrapper or plain version up in its kernel module at each call.  ``linear_sum`` and
+lies on the card, and ``"auto"`` a resolving callable: it keys the call
+by its op, the policy's ``roofline``, its first tensor's device, and
+its tensors' shapes and dtypes (and the lengths of its number lists),
+and runs the implementation memoized under that key; on a miss it builds
+the op's signature and asks :mod:`repro_torch.core.autotune` (the card's
+measured cache, else the cost model; the plain version for a CPU
+tensor), and every call counts one hit on its decision.  The callables
+of each op are built once, at import (an ``"auto"`` one per named
+``roofline`` at its first use), so :func:`dispatch` is two dictionary
+reads; each looks its kernel wrapper or plain version up in its kernel
+module at each call.  ``linear_sum`` and
 ``axpy`` go through the linear-combination kernel with K = 2, as in the
 reference (``dispatch.py:107-112``), and their ``"torch"`` backend
 through its plain version, which sums ``c_0 x_0 + c_1 x_1`` in that
@@ -64,6 +70,7 @@ from ..kernels import blockdiag_spmv as _sp
 from ..kernels import newton as _nw
 from ..kernels import sparse as _sx
 from ..kernels import vecops as _vo
+from . import autotune as _at
 from . import vector as _nv
 from .policies import DEFAULT, ExecPolicy
 from .sunmatrix import CSRPattern
@@ -343,10 +350,56 @@ def _on_card(op: str, fn):
     return impl
 
 
+def _call_key(args) -> tuple:
+    """``(first tensor or None, key)`` of a call: what its signature
+    depends on (the tensors' shapes and dtypes, nested sequences'
+    items, number sequences' lengths, ints)."""
+    lead, parts = None, []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if lead is None:
+                lead = a
+            parts.append((a.shape, a.dtype))
+        elif isinstance(a, (list, tuple)):
+            if a and isinstance(a[0], (torch.Tensor, list, tuple)):
+                sub_lead, sub = _call_key(a)
+                parts.append(sub)
+                if lead is None:
+                    lead = sub_lead
+            else:
+                parts.append(len(a))
+        elif isinstance(a, int):
+            parts.append(a)
+    return lead, tuple(parts)
+
+
+def _auto(op: str, roofline: str = ""):
+    """The ``"auto"`` callable of ``op``: the implementation memoized
+    under the call's device and key, resolved by the autotuner on a
+    miss."""
+    impls, memo = OP_TABLE[op], _at.memo_for(op, roofline)
+
+    def impl(*args, **kw):
+        lead, parts = _call_key(args)
+        key = (-2 if lead is None else lead.get_device(), parts)
+        hit = memo.get(key)
+        if hit is None:
+            hit = memo[key] = _at.resolve_call(op, impls, roofline, lead,
+                                               args)
+        else:
+            hit[1].hits += 1
+        return hit[0](*args, **kw)
+
+    impl.__name__ = impl.__qualname__ = f"auto_{op}"
+    return impl
+
+
 #: per op, the callable of each ExecPolicy backend
-_RESOLVED = {op: {"torch": impls["torch"], "auto": impls["cuda"],
+_RESOLVED = {op: {"torch": impls["torch"], "auto": _auto(op),
                   "cuda": _on_card(op, impls["cuda"])}
              for op, impls in OP_TABLE.items()}
+#: (op, roofline) -> the "auto" callable of a named roofline row
+_AUTO_ROW: dict = {}
 
 
 def dispatch(op: str, policy: Optional[ExecPolicy] = None):
@@ -358,10 +411,16 @@ def dispatch(op: str, policy: Optional[ExecPolicy] = None):
     if by_backend is None:
         raise ValueError(f"unknown dispatch op {op!r}; valid OP_TABLE "
                          f"ops: {', '.join(sorted(OP_TABLE))}")
-    backend = (DEFAULT if policy is None else policy).backend_for(op)
+    policy = DEFAULT if policy is None else policy
+    backend = policy.backend_for(op)
     fn = by_backend.get(backend)
     if fn is None:
         raise ValueError(f"unknown ExecPolicy backend: {backend!r}")
+    if policy.roofline and backend == "auto":
+        key = (op, policy.roofline)
+        fn = _AUTO_ROW.get(key)
+        if fn is None:
+            fn = _AUTO_ROW[key] = _auto(op, policy.roofline)
     return fn
 
 

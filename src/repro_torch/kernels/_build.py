@@ -37,6 +37,10 @@ SOURCES = ("newton", "blockdiag_spmv", "block_solve", "sparse", "vecops")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
+#: threads of a block of the one-thread-a-system kernels
+#: (``REPRO_THREADS`` in csrc/common.cuh)
+REPRO_THREADS = 256
+
 #: dtype -> suffix of the exported C symbols
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

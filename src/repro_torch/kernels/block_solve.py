@@ -42,6 +42,23 @@ UNROLL_MAX_B = 8
 #: largest b of the tiled bodies' warp-per-system CUDA form; larger
 #: blocks take the form that works in device memory
 WARP_MAX_B = 32
+#: the warp form's launch (csrc/block_solve.cu): systems a block, one a
+#: warp (``GJ_WARPS``), and a warp's pivot-row slots (``GJ_PIVOT_SLOTS``)
+GJ_WARPS = 4
+GJ_PIVOT_SLOTS = 34
+
+
+def warp_smem_bytes(b: int, itemsize: int) -> int:
+    """Dynamic shared memory a block of the warp form requests at block
+    size b (``gj_smem_bytes``): GJ_WARPS systems of b rows, each row
+    b + 1 values padded to odd, each system padded off the others'
+    banks, then the warps' pivot rows, 16-byte aligned."""
+    row = b + 1 + (b & 1)
+    wave = 128 // itemsize
+    n = b * row
+    system = n + ((wave // GJ_WARPS - n) % wave + wave) % wave
+    pivots = (GJ_WARPS * system + 3) & ~3
+    return (pivots + GJ_WARPS * GJ_PIVOT_SLOTS) * itemsize
 
 
 def _row_scale(A):

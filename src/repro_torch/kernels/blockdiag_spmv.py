@@ -9,6 +9,25 @@ import torch
 
 from . import _build
 
+#: the row form's launch (csrc/blockdiag_spmv.cu, 9 <= b <= SPMV_MAX_B):
+#: warps a block (``SPMV_WARPS``), systems a block (``SPMV_SYSTEMS``)
+#: and the widest block (``SPMV_MAX_B``); smaller b take the fixed form,
+#: larger the one that reads x from device memory
+SPMV_WARPS = 8
+SPMV_SYSTEMS = 32
+SPMV_MAX_B = 32
+#: the b whose row-form kernel is compiled for that width; the others
+#: up to SPMV_MAX_B run the run-time-width instance
+SPMV_ROW_WIDTHS = (16, 24, 32)
+
+
+def row_tile_bytes(b: int, itemsize: int) -> int:
+    """Static shared memory of a row-form block at block size b: its x
+    tile, ``WIDTH`` rows of SPMV_SYSTEMS values, WIDTH being b for a
+    compiled width and SPMV_MAX_B otherwise."""
+    width = b if b in SPMV_ROW_WIDTHS else SPMV_MAX_B
+    return width * SPMV_SYSTEMS * itemsize
+
 
 def blockdiag_spmv_soa_plain(A, x):
     blockdiag_spmv_soa_plain.calls += 1

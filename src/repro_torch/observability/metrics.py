@@ -224,10 +224,7 @@ def context_metrics(reg: MetricsRegistry, ctx) -> None:
             reg.gauge("repro_trace_cache_hit_rate",
                       "Context trace-cache hit rate"
                       ).set(float(stats["hit_rate"]))
-    try:
-        rep = ctx.dispatch_report()
-    except NotImplementedError:     # the port has no autotuner yet
-        rep = None
+    rep = ctx.dispatch_report()
     if rep:
         reg.gauge("repro_autotune_cache_entries",
                   "Persisted autotune cache entries"

@@ -959,3 +959,94 @@ def test_explicit_mesh_vector_under_a_group_of_one_on_card(tmp_path,
                            dispatch.linear_sum(0.5, x, -2.0, w))
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the analysis layer on the card: the tuner, "auto" from a cache, the
+# card's roofline row, kernel-contract with its card half
+# ---------------------------------------------------------------------------
+
+
+def _sig(op, **kw):
+    from repro_torch.analysis.opcost import OpSig
+    return OpSig(op, "float64", **kw)
+
+
+@pytest.mark.cuda
+def test_tune_times_both_implementations_on_the_card(tmp_path):
+    _need_card()
+    import math
+    from repro_torch.core import autotune
+    sigs = [_sig("wrms_soa", n=3, nsys=4096),
+            _sig("block_inverse_soa", n=3, nsys=4096, b=3),
+            _sig("dot", n=4096, k=1)]
+    cache = autotune.tune(cases=sigs, reps=5, path=tmp_path, verbose=False)
+    assert cache.path.parent == tmp_path
+    assert [cache.get(s) is not None for s in sigs] == [True] * 3
+    for e in cache.entries.values():
+        assert all(math.isfinite(t) and t > 0 for t in (e.t_torch, e.t_cuda))
+    back = autotune.AutotuneCache(cache.device, path=cache.path).load()
+    assert set(back.entries) == set(cache.entries) and not back.stale
+
+
+@pytest.mark.cuda
+def test_auto_takes_the_cache_then_the_model_on_the_card(tmp_path,
+                                                         monkeypatch):
+    _need_card()
+    from repro_torch.analysis.roofline import device_for
+    from repro_torch.core import autotune
+    from repro_torch.core.context import Context
+    from repro_torch.core.policies import ExecPolicy
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_DIR", str(tmp_path))
+    row = device_for("cuda")
+    cache = autotune.AutotuneCache(row)
+    # a made-up measurement in which the plain version wins
+    cache.put(autotune.Entry(_sig("wrms_soa", n=3, nsys=512), 1e-6, 2e-6))
+    cache.save()
+    autotune.reset_resolver()
+    try:
+        ctx = Context(policy=ExecPolicy())
+        v = torch.rand(3, 512, dtype=torch.float64, device="cuda")
+        w = torch.rand(3, 4096, dtype=torch.float64, device="cuda")
+        kernels.reset_counts()
+        want = newton.wrms_soa_plain(v, v)
+        newton.wrms_soa_plain.calls = 0
+        for _ in range(2):
+            assert torch.equal(dv.wrms_soa(v, v, ctx.policy), want)
+        dv.wrms_soa(w, w, ctx.policy)         # 8x the entry's: near
+        assert kernels.counts()["wrms_soa"] == (0, 3)
+        rep = ctx.dispatch_report()
+        got = {d["sig"]: (d["backend"], d["source"], d["hits"])
+               for d in rep["decisions"]}
+        assert got == {_sig("wrms_soa", n=3, nsys=512).key():
+                       ("torch", "cache", 2),
+                       _sig("wrms_soa", n=3, nsys=4096).key():
+                       ("torch", "near", 1)}
+        big = torch.rand(3, 1 << 16, dtype=torch.float64, device="cuda")
+        dv.wrms_soa(big, big, ctx.policy)     # 128x: the model's kernel
+        assert kernels.counts()["wrms_soa"] == (1, 3)
+        assert rep["cache_entries"] == 1
+    finally:
+        autotune.reset_resolver()
+
+
+@pytest.mark.cuda
+def test_device_for_names_this_cards_row():
+    _need_card()
+    from repro_torch.analysis import roofline
+    name = torch.cuda.get_device_name(0)
+    rows = {r.card: r.name for r in roofline.DEVICES.values()}
+    if name in rows:
+        assert roofline.device_for("cuda:0") == rows[name]
+    else:
+        with pytest.raises(ValueError, match="no roofline row"):
+            roofline.device_for("cuda:0")
+
+
+@pytest.mark.cuda
+def test_kernel_contract_with_the_card_present():
+    _need_card()
+    from repro_torch.analysis import lint
+    ctx = lint.LintContext()
+    assert ctx.cuda
+    assert lint.run_rules(ctx, ["kernel-contract"]) == []

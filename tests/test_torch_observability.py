@@ -57,8 +57,10 @@ def test_config_fields_and_defaults_equal_the_reference():
         profile=True, log_level="DEBUG"))
     assert ctx2.profiler.enabled and ctx2.logger.enabled_for("DEBUG")
     assert ctx2.trace_cache is None
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ctx2.autotune
+    # the reference's context fronts its autotuner's resolver; the port's
+    # the resolver of its policy's device (the CPU's here)
+    assert ctx2.autotune.device == "cpu"
+    assert ctx2.autotune is Context(policy=CPU).autotune
 
 
 def _drive_profiler(mod):
@@ -173,10 +175,14 @@ def test_context_metrics_counts_integrations():
         ivp.integrate(ivp.IVP(f=f, jac=jac, y0=y0), 0.0, 0.05,
                       "ensemble_bdf", ctx=ctx)
     reg = obs.MetricsRegistry()
-    obs.context_metrics(reg, ctx)      # dispatch_report waits for A.8
+    obs.context_metrics(reg, ctx)
     text = reg.render()
     assert "repro_context_integrations_total 2" in text
-    assert "repro_autotune" not in text
+    # the CPU's "auto" decisions, with no cache: no measured agreement
+    rep = ctx.dispatch_report()
+    assert "repro_autotune_cache_entries 0" in text
+    assert f"repro_autotune_decisions_total {len(rep['decisions'])}" in text
+    assert rep["decisions"] and "repro_autotune_model_agreement" not in text
 
 
 # ---------------------------------------------------------------------------

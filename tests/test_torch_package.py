@@ -16,6 +16,7 @@ from repro_torch import interop
 from repro_torch.core import ivp, problems, status, sunmatrix
 from repro_torch.core.arkode import ODEOptions
 from repro_torch.core.context import Context
+from repro_torch.core.policies import ExecPolicy
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -85,8 +86,8 @@ def test_entry_points_run_on_the_card_by_default():
 
 def test_unported_paths_raise():
     """What the port runs now (telemetry=, session=, timed=True and
-    live= on the CPU) and what still waits: the autotuner, ROADMAP queue
-    A.8."""
+    live= on the CPU, the autotuner's report of the CPU's decisions) and
+    what raises: the default context's report without a card."""
     f, jac, y0 = problems.batched_robertson(4, device="cpu")
     prob = ivp.IVP(f=f, jac=jac, y0=y0)
     # bdf and adams are ported (tests/test_torch_cvode.py holds them to
@@ -119,8 +120,13 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="live"):
         ivp.integrate(decay, 0.0, 1.0, "bdf", device="cpu",
                       live=torch.ones(1, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.8"):
+    # the default context's resolver is the card's row: no card, no row
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         Context().dispatch_report()
+    rep = Context(policy=ExecPolicy(device="cpu")).dispatch_report()
+    assert rep["device"] == "cpu" and rep["cache_entries"] == 0
+    assert rep["decisions"] and all(d["source"] == "cpu"
+                                    for d in rep["decisions"])
     with pytest.raises(ValueError, match="telemetry"):
         ivp.integrate(decay, 0.0, 1.0, "erk:dopri5", device="cpu",
                       telemetry=8)

@@ -97,14 +97,18 @@ def test_override_and_backend_for_as_the_reference():
 def test_dispatch_returns_the_pinned_implementation(op):
     impls = dv.OP_TABLE[op]
     other = next(o for o in sorted(dv.op_names()) if o != op)
+    # "auto" is the op's resolving callable (core/autotune.py), built once
+    auto = {o: dv.dispatch(o, ExecPolicy()) for o in (op, other)}
+    assert auto[op] not in (impls["torch"], impls["cuda"])
     for policy, want, want_other in (
-            (ExecPolicy().override(**{op: "torch"}), "torch", "cuda"),
-            (ExecPolicy(backend="torch").override(**{op: "auto"}), "cuda",
+            (ExecPolicy().override(**{op: "torch"}), "torch", "auto"),
+            (ExecPolicy(backend="torch").override(**{op: "auto"}), "auto",
              "torch"),
-            (ExecPolicy(), "cuda", "cuda"),
-            (None, "cuda", "cuda")):
-        assert dv.dispatch(op, policy) is impls[want]
-        assert dv.dispatch(other, policy) is dv.OP_TABLE[other][want_other]
+            (ExecPolicy(), "auto", "auto"),
+            (None, "auto", "auto")):
+        for o, w in ((op, want), (other, want_other)):
+            assert dv.dispatch(o, policy) is \
+                (auto[o] if w == "auto" else dv.OP_TABLE[o][w])
     # "cuda" is the kernel wrapper behind a device check, built once
     pinned = ExecPolicy().override(**{op: "cuda"})
     fn = dv.dispatch(op, pinned)

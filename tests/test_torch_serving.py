@@ -647,9 +647,14 @@ def test_server_matches_the_reference_server(reference_run):
                   .splitlines() if ln.startswith("# TYPE")}
     ref_names = {ln.split()[2] for ln in rsrv.metrics_prometheus()
                  .splitlines() if ln.startswith("# TYPE")}
-    # the reference also exports its autotuner's gauges (ROADMAP A.8)
-    assert prom_names == {n for n in ref_names
-                          if not n.startswith("repro_autotune")}
+    # both export their autotuner's gauges; the model's agreement needs
+    # measurements, which the reference's committed interpret cache has
+    # and the CPU's resolver of the port never has
+    rep = srv.ctx.dispatch_report()
+    assert rep["device"] == "cpu" and rep["model_agreement"] is None
+    assert {"repro_autotune_cache_entries", "repro_autotune_decisions_total",
+            "repro_autotune_model_agreement"} <= ref_names
+    assert prom_names == ref_names - {"repro_autotune_model_agreement"}
 
 
 def test_serve_solver_demo_runs_on_the_cpu(capsys):
