@@ -196,8 +196,9 @@ of which prints the seconds it took:
      op, back to back, and the streamed bandwidth of a 1 GiB device copy
      and of a plain elementwise product), printed beside the row's, and
      ``device_for`` finding this card's row; O.2 ``autotune.tune()``
-     over its grid (the reference tuner's signatures, the paths' shapes
-     of phase 3, ``lagrange_rescale_soa``) into a temporary directory,
+     over its grid (the reference tuner's signatures and
+     ``lagrange_rescale_soa``'s, and :func:`path_o_grid`: the paths'
+     shapes of phase 3) into a temporary directory,
      every time finite and above 0, the cache read back equal, each
      entry's winner and torch/cuda ratio, the model's agreement and
      every misprediction printed, the main path's signatures (rows 1-6
@@ -211,8 +212,10 @@ of which prints the seconds it took:
      main path's; O.4 sunlint's kernel-contract with the card present
      (each signature of its grid run on both implementations); the
      resolvers reset after.  Every other path runs under the default
-     ``"auto"`` with no cache, so the cost model picks each call's
-     implementation, and each path's launch checks hold as before;
+     ``"auto"``, which runs the kernels whatever the resolver decides,
+     with ``$REPRO_TORCH_AUTOTUNE_DIR`` set to an empty directory (so a
+     cache left in the checkout changes no decision the paths report),
+     and each path's launch checks hold as before;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
@@ -353,6 +356,9 @@ N_REPS, N_ROUNDS = 200, 3
 O_LAUNCHES, O_ROUNDS = 200, 5
 O_SPIN_CYCLES = 20_000_000
 O_GIB = 1 << 30
+#: path O: the decay chain's and the mesh's lengths in the tuner's grid
+#: (path M's n = 6 over 16384 systems; the §7 mesh's 3 * 2**20 unknowns)
+O_DECAY_N, O_MESH_N = 6, 3 * NXB
 #: t_final of paths I and J (each run ~15 s or less on the card; J takes
 #: 20+ steps at nx = 2**20)
 TF_I, TF_J = 0.005, 0.02
@@ -2329,13 +2335,66 @@ def o_constants(card, dev):
     return out
 
 
+def main_path_grid():
+    """The main path's signatures: rows 1-6 and 4f at 2**20 systems,
+    n = b = 3 (and row 4, whose entry the paths no longer call)."""
+    from repro_torch.analysis.opcost import OpSig
+
+    def sig(op, **kw):
+        return OpSig(op, "float64", n=3, nsys=NSYS, **kw)
+    return [sig("newton_residual_soa"), sig("blockdiag_spmv_soa", b=3),
+            sig("masked_update_wrms_soa"), sig("history_rescale_soa", k=6),
+            sig("lagrange_rescale_soa", k=6), sig("wrms_soa"),
+            sig("block_inverse_soa", b=3)]
+
+
+def path_o_grid():
+    """The tuner's grid of path O: ``autotune.tune_grid()`` (the
+    reference tuner's signatures and ``lagrange_rescale_soa``'s), then
+    the paths' shapes of phase 3: the main path's, path M's decay chain,
+    the n = 32 Brusselator ensemble of B, K, D-F, the §7 mesh's vectors
+    and stage sums of G-J (a signature in both measured once)."""
+    from repro_torch.analysis.opcost import OpSig
+    from repro_torch.core import autotune
+
+    def sig(op, n=0, nsys=0, b=0, k=0, nnz=0):
+        return OpSig(op, "float64", n=n, nsys=nsys, b=b, k=k, nnz=nnz)
+    out = autotune.tune_grid() + main_path_grid()
+    for n, nb in ((O_DECAY_N, NDECAY), (32, NBRUSS)):
+        out += [sig("newton_residual_soa", n=n, nsys=nb),
+                sig("masked_update_wrms_soa", n=n, nsys=nb),
+                sig("lagrange_rescale_soa", n=n, nsys=nb, k=6),
+                sig("wrms_soa", n=n, nsys=nb)]
+    out.append(sig("history_rescale_soa", n=32, nsys=NBRUSS, k=6))
+    for b, nb in ((O_DECAY_N, NDECAY), (2, NSYS), (16, NBRUSS),
+                  (24, NBRUSS), (32, NBRUSS)):
+        out.append(sig("blockdiag_spmv_soa", n=b, nsys=nb, b=b))
+        out.append(sig("block_inverse_soa", n=b, nsys=nb, b=b))
+    out.append(sig("block_solve_soa", n=3, nsys=NSYS, b=3))
+    for b in (16, 24, 32):
+        out.append(sig("block_solve_soa", n=b, nsys=NBRUSS, b=b))
+    out.append(sig("bsr_spmv_soa", n=32, nsys=NBRUSS, b=1, nnz=124))
+    out.append(sig("csr_spmv", n=O_MESH_N, nnz=4 * O_MESH_N))
+    out.append(sig("linear_combination", n=32 * NBRUSS, k=3))
+    # the §7 mesh's stage sums: one term (a stage's copy of y) to five
+    for k in (1, 2, 5):
+        out.append(sig("linear_combination", n=O_MESH_N, k=k))
+    for n in (32, 32 * NBRUSS, O_MESH_N):
+        out.append(sig("dot", n=n, k=1))
+    out += [sig("scale_add_multi", n=O_MESH_N, k=3),
+            sig("wrms_ss", n=O_MESH_N, k=1),
+            sig("wrms_norm_mask", n=O_MESH_N, k=1),
+            sig("dot_prod_multi", n=O_MESH_N, k=3)]
+    return list({s.key(): s for s in out}.values())
+
+
 def o_tune(card, tmp):
     """O.2: ``tune()`` over its grid into ``tmp``; every time finite and
     above 0; the file read back equal; the main path's signatures won by
     the kernels; the model agreeing on at least 80 % of the entries."""
     import math
     from repro_torch.core import autotune
-    cache = autotune.tune(reps=25)
+    cache = autotune.tune(cases=path_o_grid(), reps=25)
     check(str(cache.path).startswith(str(tmp)),
           f"O.2: the cache went to {cache.path}, not under {tmp}")
     for e in cache.entries.values():
@@ -2346,7 +2405,7 @@ def o_tune(card, tmp):
                               back.entries.items()} ==
           {k: (e.t_torch, e.t_cuda) for k, e in cache.entries.items()},
           "O.2: save and load do not round-trip the entries")
-    for sig in autotune.main_path_grid():
+    for sig in main_path_grid():
         e = cache.get(sig)
         check(e is not None and e.winner == "cuda",
               f"O.2: the main path's {sig.key()}: measured winner "
@@ -2897,6 +2956,17 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if argv[:1] == ["--path-n-rank"]:
         return path_n_rank(argv[1:])
+    # an empty autotune directory: no cache in the checkout changes the
+    # decisions the paths report (path O tunes into a directory of its
+    # own); the ranks of path N inherit it
+    import atexit
+    import os
+    import shutil
+    import tempfile
+    OUT.mkdir(exist_ok=True)
+    tune_dir = tempfile.mkdtemp(prefix="autotune_", dir=OUT)
+    atexit.register(shutil.rmtree, tune_dir, True)
+    os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = tune_dir
     from repro_torch.core.linsol import (SPBCGS, SPGMR, BlockDiagGJ,
                                          EnsembleSparseGJ)
     from repro_torch.core.precond import BlockJacobiPrecond, ILU0Precond

@@ -28,7 +28,7 @@ the fault-injection harness ``testing.chaos``; the multi-device layer:
 and ManyVector (``core.vector``) and the sharded ensemble BDF
 (``core.batched.ensemble_bdf_integrate_sharded``); the op table with
 per-op policy pins (``core.dispatch``, ``core.policies``); the
-analysis layer: the cost-driven ``"auto"`` dispatch (``core.autotune``,
+analysis layer: the cost-driven decisions of ``"auto"`` (``core.autotune``,
 ``analysis.opcost``, the card's row in ``analysis.roofline``) and
 sunlint's rules for the port (``analysis.lint``); and the examples
 ``examples.batched_kinetics``, ``serve_solver_demo``, ``brusselator``

@@ -6,8 +6,8 @@ Counterpart of ``repro.analysis.opcost``.  Every op of
 reference's nineteen ops and the port's own ``lagrange_rescale_soa``.
 :func:`predict` evaluates both implementations of an op at one
 signature against a row of :data:`repro_torch.analysis.roofline.DEVICES`
-and names the faster; ``"auto"`` dispatch
-(:mod:`repro_torch.core.autotune`) takes that winner where no
+and names the faster; the resolver of ``"auto"`` dispatch
+(:mod:`repro_torch.core.autotune`) decides by that winner where no
 measurement covers the call, and audits the model against every
 measurement it has.
 

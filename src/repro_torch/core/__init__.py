@@ -6,7 +6,7 @@ Layers (mirroring the SUNDIALS class structure):
   memory     — SUNMemoryHelper analog (workspace high-water audit)
   policies   — ExecPolicy (plain versions vs CUDA kernels, per-op pins)
   dispatch   — the op table every hot op is routed through
-  autotune   — the cost-driven "auto": persisted cache, resolver, tuner
+  autotune   — "auto"'s decisions: persisted cache, resolver, tuner
   butcher    — ERK/DIRK/IMEX Butcher tables
   controller — step-size controllers
   linsol     — SUNLinearSolver objects (SPGMR/.../DenseGJ/BlockDiagGJ)

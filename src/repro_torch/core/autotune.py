@@ -1,13 +1,11 @@
 """Persisted autotune cache, the ``"auto"`` resolver, and the tuner.
 
 Counterpart of ``repro.core.autotune`` (and of the tuning half of the
-reference's ``benchmarks/autotune_bench.py``).  ``"auto"`` dispatch
-resolves each call on a CUDA tensor by its op's signature
-(:class:`~repro_torch.analysis.opcost.OpSig`), in this order:
+reference's ``benchmarks/autotune_bench.py``).  The resolver decides
+each signature (:class:`~repro_torch.analysis.opcost.OpSig`) of a
+card's row in this order:
 
-1. a per-op pin (``ExecPolicy.op_overrides``) — taken by
-   :func:`~repro_torch.core.dispatch.dispatch` before the resolver, and
-   recorded with source ``"override"`` when passed to
+1. a per-op pin, recorded with source ``"override"`` when passed to
    :meth:`Resolver.decide`;
 2. an exact entry of the card's autotune cache: the measured winner;
 3. the nearest entry (same op, dtype, b, k and nnz; the long axis
@@ -17,8 +15,16 @@ resolves each call on a CUDA tensor by its op's signature
    which is evaluated for every decision anyway, so each records whether
    model and measurement agree.
 
-A call on CPU tensors takes the plain version, and its decision is
-recorded under the pseudo-device ``"cpu"`` with source ``"cpu"``.
+``"auto"`` dispatch records a decision for every call
+(:func:`resolve_call`) but does not follow it: on CUDA tensors it runs
+the kernel wrapper whatever the resolver picked, and on CPU tensors the
+kernel wrapper's plain version (decisions under the pseudo-device
+``"cpu"``, source ``"cpu"``).  A decision that picks ``"torch"`` on the
+card is advice, which a user follows by pinning the op
+(``ExecPolicy().override(op="torch")``), the only way to the plain
+version on the card under ``"auto"``.  A card with no roofline row
+records its decisions under the pseudo-device ``"no-row"`` (source
+``"no-row"``) and runs its kernels all the same.
 
 The cache of a roofline row ``<row>`` is ``<dir>/<row>.json``, ``<dir>``
 being ``$REPRO_TORCH_AUTOTUNE_DIR`` or ``<repo>/.autotune_torch``; the
@@ -28,8 +34,9 @@ dropped whole, an entry whose key disagrees with its signature is
 dropped alone, both silently (a cold cache, never an error).
 
 :func:`tune` times both implementations of every op over
-:func:`tune_grid` on the card (CUDA events, median after an L2 flush,
-as ``chip_smoke.py`` phase 3 times its kernels) and writes the cache::
+:func:`tune_grid` (or the signatures a caller passes) on the card (CUDA
+events, median after an L2 flush, as ``chip_smoke.py`` phase 3 times its
+kernels) and writes the cache::
 
     python -m repro_torch.core.autotune --tune [--out DIR] [--reps N]
 
@@ -64,6 +71,12 @@ NEAREST_MAX_FACTOR = 8.0
 
 #: the pseudo-device of calls on CPU tensors (no roofline row, no cache)
 CPU = "cpu"
+
+#: the pseudo-device of calls on a card with no roofline row (no cache)
+NO_ROW = "no-row"
+
+#: the resolvers that stand for no row of the table
+PSEUDO_DEVICES = (CPU, NO_ROW)
 
 #: backends of a decision
 BACKENDS = ("torch", "cuda")
@@ -181,7 +194,8 @@ class Decision:
     sig: OpSig
     backend: str
     source: str       # 'override' | 'cache' | 'near' | 'model' | 'cpu'
-    model_winner: str
+    #                   | 'no-row'
+    model_winner: Optional[str]      # None: no row to model
     cached_winner: Optional[str] = None
     hits: int = 1
 
@@ -201,15 +215,15 @@ class Decision:
 
 
 class Resolver:
-    """The decisions of ``"auto"`` dispatch for one roofline row (or the
-    ``"cpu"`` pseudo-device, whose decisions all take the plain
-    version)."""
+    """The decisions of ``"auto"`` dispatch for one roofline row, or for
+    a pseudo-device: ``"cpu"``, whose decisions all take the plain
+    version, and ``"no-row"``, whose decisions all take the kernel."""
 
     def __init__(self, device: str, cache: Optional[AutotuneCache] = None):
         self.device = device
         if cache is None:
             cache = AutotuneCache(device)
-            if device != CPU:
+            if device not in PSEUDO_DEVICES:
                 cache.load()
         self.cache = cache
         self.decisions: Dict[str, Decision] = {}
@@ -224,8 +238,13 @@ class Resolver:
             hit.hits += 1
             return hit
         if self.device == CPU:
-            dec = Decision(sig=sig, backend="torch", source="cpu",
+            dec = Decision(sig=sig, backend="torch", source=CPU,
                            model_winner="torch")
+            self.decisions[key] = dec
+            return dec
+        if self.device == NO_ROW:
+            dec = Decision(sig=sig, backend="cuda", source=NO_ROW,
+                           model_winner=None)
             self.decisions[key] = dec
             return dec
         model = opcost.predict(sig, self.device).winner
@@ -280,24 +299,35 @@ def model_audit(cache: AutotuneCache) -> dict:
 # ---------------------------------------------------------------------------
 # The process-wide resolvers (the policy stays a hashable value; the
 # mutable decisions live here and Context fronts them), and the memos of
-# "auto" dispatch: per (op, roofline), call key -> (implementation,
-# decision).
+# "auto" dispatch: per op, call key -> decision.
 # ---------------------------------------------------------------------------
 
 _RESOLVERS: Dict[str, Resolver] = {}
-_MEMO: Dict[tuple, dict] = {}
+_MEMO: Dict[str, dict] = {}
 
 
-def memo_for(op: str, roofline: str = "") -> dict:
-    """The memo of the ``"auto"`` callable of ``op`` under ``roofline``
-    (emptied, never replaced, by :func:`reset_resolver`)."""
-    return _MEMO.setdefault((op, roofline), {})
+def memo_for(op: str) -> dict:
+    """The memo of the ``"auto"`` callable of ``op`` (emptied, never
+    replaced, by :func:`reset_resolver`)."""
+    return _MEMO.setdefault(op, {})
+
+
+def row_of(device) -> str:
+    """The resolver a ``torch.device`` reports to: ``"cpu"`` off the
+    card, the card's roofline row (:func:`device_for`), or ``"no-row"``
+    for a card the table has no row of."""
+    if torch.device(device).type != "cuda":
+        return CPU
+    try:
+        return device_for(device)
+    except ValueError:
+        return NO_ROW
 
 
 def get_resolver(device: str) -> Resolver:
     """The resolver of a roofline row (loading its cache at first use),
-    or of the ``"cpu"`` pseudo-device."""
-    if device != CPU:
+    or of a pseudo-device (``"cpu"``, ``"no-row"``)."""
+    if device not in PSEUDO_DEVICES:
         get_device(device)                  # validate the name early
     res = _RESOLVERS.get(device)
     if res is None:
@@ -317,17 +347,13 @@ def reset_resolver(device: Optional[str] = None) -> None:
         _RESOLVERS.pop(device, None)
 
 
-def resolve_call(op: str, impls: dict, roofline: str, lead, args) -> tuple:
-    """A call's (implementation, decision): the dispatch memo's miss
-    path.  ``lead`` is the call's first tensor (None: the CPU).  A call
-    on the card asks ``roofline``'s resolver or that of the card's row
-    (:func:`device_for`); any other asks the ``"cpu"`` one, and runs the
-    kernel wrapper, which takes its plain version for CPU tensors, as
-    ``"auto"`` always did there."""
-    on_card = lead is not None and lead.is_cuda
-    row = (roofline or device_for(lead.device)) if on_card else CPU
-    dec = get_resolver(row).decide(opcost.signature(op, args))
-    return impls[dec.backend if on_card else "cuda"], dec
+def resolve_call(op: str, lead, args) -> Decision:
+    """A call's decision: the dispatch memo's miss path.  ``lead`` is
+    the call's first tensor (None: the CPU); the decision is that of
+    the resolver :func:`row_of` its device names.  Dispatch records it
+    and runs the kernel wrapper all the same."""
+    row = CPU if lead is None else row_of(lead.device)
+    return get_resolver(row).decide(opcost.signature(op, args))
 
 
 # ---------------------------------------------------------------------------
@@ -486,63 +512,18 @@ def reference_grid() -> List[OpSig]:
     return out
 
 
-#: systems and vector lengths of ``chip_smoke.py``'s paths: the main
-#: path (2**20 Robertson systems), path M's decay chain (n = 6 over
-#: 16384), the n = 32 Brusselator ensemble of B, K, D-F (2**16), the
-#: §7 mesh's 3 * 2**20 unknowns (G-J)
-MAIN_NSYS, DECAY_NSYS, BRUSS_NSYS, MESH_N = 1 << 20, 16384, 1 << 16, 3 << 20
-
-
-def main_path_grid() -> List[OpSig]:
-    """The main path's signatures: rows 1-6 and 4f at 2**20 systems,
-    n = b = 3 (and row 4, whose entry the paths no longer call)."""
-    n, nb = 3, MAIN_NSYS
-    return [_sig("newton_residual_soa", n=n, nsys=nb),
-            _sig("blockdiag_spmv_soa", n=n, nsys=nb, b=n),
-            _sig("masked_update_wrms_soa", n=n, nsys=nb),
-            _sig("history_rescale_soa", n=n, nsys=nb, k=6),
-            _sig("lagrange_rescale_soa", n=n, nsys=nb, k=6),
-            _sig("wrms_soa", n=n, nsys=nb),
-            _sig("block_inverse_soa", n=n, nsys=nb, b=n)]
-
-
 def port_grid() -> List[OpSig]:
-    """The port's own additions: ``lagrange_rescale_soa`` where the
-    reference's grid has the history rebuild, and the paths' shapes of
-    ``chip_smoke.py`` phase 3."""
-    out = [_sig("lagrange_rescale_soa", n=n, nsys=4096, k=6) for n in (3, 8)]
-    out += main_path_grid()
-    for n, nb in ((6, DECAY_NSYS), (32, BRUSS_NSYS)):
-        out += [_sig("newton_residual_soa", n=n, nsys=nb),
-                _sig("masked_update_wrms_soa", n=n, nsys=nb),
-                _sig("lagrange_rescale_soa", n=n, nsys=nb, k=6),
-                _sig("wrms_soa", n=n, nsys=nb)]
-    out.append(_sig("history_rescale_soa", n=32, nsys=BRUSS_NSYS, k=6))
-    for b, nb in ((6, DECAY_NSYS), (2, MAIN_NSYS), (16, BRUSS_NSYS),
-                  (24, BRUSS_NSYS), (32, BRUSS_NSYS)):
-        out.append(_sig("blockdiag_spmv_soa", n=b, nsys=nb, b=b))
-        out.append(_sig("block_inverse_soa", n=b, nsys=nb, b=b))
-    out.append(_sig("block_solve_soa", n=3, nsys=MAIN_NSYS, b=3))
-    for b in (16, 24, 32):
-        out.append(_sig("block_solve_soa", n=b, nsys=BRUSS_NSYS, b=b))
-    out.append(_sig("bsr_spmv_soa", n=32, nsys=BRUSS_NSYS, b=1, nnz=124))
-    out.append(_sig("csr_spmv", n=MESH_N, nnz=4 * MESH_N))
-    out.append(_sig("linear_combination", n=32 * BRUSS_NSYS, k=3))
-    # the §7 mesh's stage sums: one term (a stage's copy of y) to five
-    for k in (1, 2, 5):
-        out.append(_sig("linear_combination", n=MESH_N, k=k))
-    for n in (32, 32 * BRUSS_NSYS, MESH_N):
-        out.append(_sig("dot", n=n, k=1))
-    out += [_sig("scale_add_multi", n=MESH_N, k=3),
-            _sig("wrms_ss", n=MESH_N, k=1),
-            _sig("wrms_norm_mask", n=MESH_N, k=1),
-            _sig("dot_prod_multi", n=MESH_N, k=3)]
-    return out
+    """The port's own op, ``lagrange_rescale_soa``, where the
+    reference's grid has the history rebuild (n = 3, 8 over 4096
+    systems, six history rows)."""
+    return [_sig("lagrange_rescale_soa", n=n, nsys=4096, k=6)
+            for n in (3, 8)]
 
 
 def tune_grid() -> List[OpSig]:
-    """Every signature :func:`tune` measures: the reference's grid, then
-    the port's (a signature in both is measured once)."""
+    """Every signature :func:`tune` measures by default: the
+    reference's grid, then the port's own op's (a signature in both is
+    measured once)."""
     seen, out = set(), []
     for sig in reference_grid() + port_grid():
         if sig.key() not in seen:

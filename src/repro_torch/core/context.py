@@ -83,8 +83,8 @@ class Context:
     @property
     def autotune(self) -> Any:
         """The :class:`~repro_torch.core.autotune.Resolver` of this
-        context's policy (``policy.device_name()``: its named roofline
-        row, ``"cpu"`` for a CPU device, else the card's row), which
+        context's policy (``policy.device_name()``: ``"cpu"`` for a CPU
+        device, else the card's row, or ``"no-row"``), which
         loads the row's persisted cache at first use.  Resolvers are
         process-wide per row (the policy stays a hashable value), so the
         context fronts the one resolver, not a copy of it."""

@@ -24,17 +24,19 @@ resolves an op under an :class:`~repro_torch.core.policies.ExecPolicy`
 by ``policy.backend_for(op)``, so a pin in ``op_overrides`` takes
 effect at every call site: ``"torch"`` runs the plain version,
 ``"cuda"`` the kernel wrapper after checking that the op's first tensor
-lies on the card, and ``"auto"`` a resolving callable: it keys the call
-by its op, the policy's ``roofline``, its first tensor's device, and
-its tensors' shapes and dtypes (and the lengths of its number lists),
-and runs the implementation memoized under that key; on a miss it builds
-the op's signature and asks :mod:`repro_torch.core.autotune` (the card's
-measured cache, else the cost model; the plain version for a CPU
-tensor), and every call counts one hit on its decision.  The callables
-of each op are built once, at import (an ``"auto"`` one per named
-``roofline`` at its first use), so :func:`dispatch` is two dictionary
-reads; each looks its kernel wrapper or plain version up in its kernel
-module at each call.  ``linear_sum`` and
+lies on the card, and ``"auto"`` the kernel wrapper too (which takes
+its plain version for CPU tensors), after recording the call's
+decision: it keys the call by the few arguments its signature depends
+on (:data:`_CALL_KEYS`: a tensor's shape, dtype and device index, a
+list's length), counts one hit on the decision memoized under that key,
+and on a miss builds the op's signature and asks
+:mod:`repro_torch.core.autotune` (the card's measured cache, else the
+cost model; source ``"cpu"`` for a CPU tensor).  The decision is
+reported (``Context.dispatch_report()``), not followed: the plain
+version runs on the card only where ``op_overrides`` pins it.  The
+callables of each op are built once, at import, so :func:`dispatch` is
+two dictionary reads; each looks its kernel wrapper or plain version up
+in its kernel module at each call.  ``linear_sum`` and
 ``axpy`` go through the linear-combination kernel with K = 2, as in the
 reference (``dispatch.py:107-112``), and their ``"torch"`` backend
 through its plain version, which sums ``c_0 x_0 + c_1 x_1`` in that
@@ -350,45 +352,52 @@ def _on_card(op: str, fn):
     return impl
 
 
-def _call_key(args) -> tuple:
-    """``(first tensor or None, key)`` of a call: what its signature
-    depends on (the tensors' shapes and dtypes, nested sequences'
-    items, number sequences' lengths, ints)."""
-    lead, parts = None, []
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            if lead is None:
-                lead = a
-            parts.append((a.shape, a.dtype))
-        elif isinstance(a, (list, tuple)):
-            if a and isinstance(a[0], (torch.Tensor, list, tuple)):
-                sub_lead, sub = _call_key(a)
-                parts.append(sub)
-                if lead is None:
-                    lead = sub_lead
-            else:
-                parts.append(len(a))
-        elif isinstance(a, int):
-            parts.append(a)
-    return lead, tuple(parts)
+def _vkey(x):
+    """A vector's part of a call key: a tensor's shape, dtype and device
+    index (-1 off the card), a tuple's of its leaves."""
+    if isinstance(x, torch.Tensor):
+        return x.shape, x.dtype, x.get_device()
+    return tuple(map(_vkey, x))
 
 
-def _auto(op: str, roofline: str = ""):
-    """The ``"auto"`` callable of ``op``: the implementation memoized
-    under the call's device and key, resolved by the autotuner on a
-    miss."""
-    impls, memo = OP_TABLE[op], _at.memo_for(op, roofline)
+def _key_first(a):
+    return _vkey(a[0])
+
+
+#: per op, the key of a call: the arguments its signature
+#: (``opcost.SIG_EXTRACTORS``) reads, and nothing else, so a key is a
+#: few attribute reads (the main path makes ~2190 calls a solve); an op
+#: not named below keys on its first argument
+_CALL_KEYS = dict.fromkeys(OP_TABLE, _key_first)
+_CALL_KEYS.update({
+    "linear_sum": lambda a: _vkey(a[1]),
+    "axpy": lambda a: _vkey(a[1]),
+    "linear_combination": lambda a: (len(a[0]), _vkey(a[1][0])),
+    "scale_add_multi": lambda a: (len(a[0]), _vkey(a[1])),
+    "dot_prod_multi": lambda a: (len(a[1]), _vkey(a[0])),
+    "csr_spmv": lambda a: (_vkey(a[0]), _vkey(a[1])),
+    "bsr_spmv_soa": lambda a: (_vkey(a[0]), a[-1][2]),
+    "bsr_block_jacobi_inverse_soa": lambda a: (_vkey(a[0]), a[-1][2]),
+    "history_rescale_soa": lambda a: _vkey(a[-2]),
+    "lagrange_rescale_soa": lambda a: _vkey(a[-2]),
+})
+
+
+def _auto(op: str):
+    """The ``"auto"`` callable of ``op``: the kernel wrapper, after one
+    hit on the decision memoized under the call's key (resolved by the
+    autotuner on a miss)."""
+    kernel, key_of, memo = OP_TABLE[op]["cuda"], _CALL_KEYS[op], \
+        _at.memo_for(op)
 
     def impl(*args, **kw):
-        lead, parts = _call_key(args)
-        key = (-2 if lead is None else lead.get_device(), parts)
-        hit = memo.get(key)
-        if hit is None:
-            hit = memo[key] = _at.resolve_call(op, impls, roofline, lead,
-                                               args)
+        key = key_of(args)
+        dec = memo.get(key)
+        if dec is None:
+            memo[key] = _at.resolve_call(op, _first_tensor(args), args)
         else:
-            hit[1].hits += 1
-        return hit[0](*args, **kw)
+            dec.hits += 1
+        return kernel(*args, **kw)
 
     impl.__name__ = impl.__qualname__ = f"auto_{op}"
     return impl
@@ -398,8 +407,6 @@ def _auto(op: str, roofline: str = ""):
 _RESOLVED = {op: {"torch": impls["torch"], "auto": _auto(op),
                   "cuda": _on_card(op, impls["cuda"])}
              for op, impls in OP_TABLE.items()}
-#: (op, roofline) -> the "auto" callable of a named roofline row
-_AUTO_ROW: dict = {}
 
 
 def dispatch(op: str, policy: Optional[ExecPolicy] = None):
@@ -416,11 +423,6 @@ def dispatch(op: str, policy: Optional[ExecPolicy] = None):
     fn = by_backend.get(backend)
     if fn is None:
         raise ValueError(f"unknown ExecPolicy backend: {backend!r}")
-    if policy.roofline and backend == "auto":
-        key = (op, policy.roofline)
-        fn = _AUTO_ROW.get(key)
-        if fn is None:
-            fn = _AUTO_ROW[key] = _auto(op, policy.roofline)
     return fn
 
 

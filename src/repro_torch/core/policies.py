@@ -7,28 +7,34 @@ and its plain PyTorch version.  The policy picks between them:
 ============  ==========================================================
 backend       meaning
 ============  ==========================================================
-``"auto"``    per call, the implementation the autotuner picks for a
-              CUDA tensor; the plain version for a CPU tensor (the
+``"auto"``    the kernels, each call's cost-driven decision recorded
+              for the report; the plain version for a CPU tensor (the
               default)
 ``"torch"``   the plain versions on purpose, on any device (the
               comparison run of ``chip_smoke.py``)
 ``"cuda"``    the kernels; CPU tensors raise
 ============  ==========================================================
 
-``"auto"`` is cost-driven, as the reference's ``'auto'``: each call on
-CUDA tensors is resolved by its op's shape signature (n, nsys, b, K,
-nnz, dtype) through :mod:`repro_torch.core.autotune`: a measured entry
-of the card's autotune cache (``.autotune_torch/<row>.json``, written by
-``python -m repro_torch.core.autotune --tune`` on the card and not
-committed) wins, a measured entry within 8x along the batch axis next;
-otherwise the analytical model (:mod:`repro_torch.analysis.opcost`, over
-the :data:`repro_torch.analysis.roofline.DEVICES` row of the card, or of
-``roofline`` where named) predicts the winner.  A call on CPU tensors
-takes the plain version, and its decision is recorded with source
-``"cpu"``.  The decisions are memoized per call shape and inspectable
-through ``Context.dispatch_report()``.  There is no ``interpret`` and
-no ``batch_tile``: the kernels bounds-check the system axis, so no
-batch padding exists to tune.
+``"auto"`` resolves each call on CUDA tensors by its op's shape
+signature (n, nsys, b, K, nnz, dtype) through
+:mod:`repro_torch.core.autotune`, as the reference's ``'auto'`` does: a
+measured entry of the card's autotune cache (``.autotune_torch/<row>.json``,
+written by ``python -m repro_torch.core.autotune --tune`` on the card
+and not committed) wins, a measured entry within 8x along the batch axis
+next; otherwise the analytical model (:mod:`repro_torch.analysis.opcost`,
+over the :data:`repro_torch.analysis.roofline.DEVICES` row of the card)
+predicts the winner.  Unlike the reference's, the decision is advice:
+``"auto"`` runs the kernel wrapper on the card whatever it decided, so
+a cache left in the checkout or a near tie (the one-term linear
+combination, where the plain copy measures a few per cent faster)
+cannot send a path to its plain version; a pin in ``op_overrides`` is
+the way to the plain version there.  A
+call on CPU tensors takes the plain version (source ``"cpu"``); a card
+with no roofline row runs its kernels (source ``"no-row"``).  The
+decisions are memoized per call shape and inspectable through
+``Context.dispatch_report()``.  There is no ``interpret`` and no
+``batch_tile``: the kernels bounds-check the system axis, so no batch
+padding exists to tune.
 
 Backend selection
 -----------------
@@ -88,24 +94,16 @@ class ExecPolicy:
                    construction against ``dispatch.op_names()`` and
                    :data:`BACKENDS`: an unknown op or backend raises one
                    ``ValueError`` naming every bad pair and the valid
-                   ops.
-    roofline     : the row of :data:`repro_torch.analysis.roofline.
-                   DEVICES` that ``"auto"`` resolves CUDA tensors'
-                   calls against; "" derives it from the tensor's card
-                   (:func:`~repro_torch.analysis.roofline.device_for`)."""
+                   ops."""
 
     backend: str = "auto"
     device: Optional[str] = None
     op_overrides: Tuple[Tuple[str, str], ...] = ()
-    roofline: str = ""
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"valid: {', '.join(BACKENDS)}")
-        if self.roofline:
-            from ..analysis.roofline import get_device
-            get_device(self.roofline)
         if not self.op_overrides:
             return
         # lazy: dispatch imports this module
@@ -124,16 +122,12 @@ class ExecPolicy:
                 "ops: %s" % ("; ".join(bad), ", ".join(sorted(valid_ops))))
 
     def device_name(self) -> str:
-        """The resolver this policy's context reports: ``roofline`` where
-        named, else ``"cpu"`` for a CPU ``device`` and the card's row
-        otherwise (None: the card, which raises without CUDA)."""
-        if self.roofline:
-            return self.roofline
-        dev = resolve_device(self.device)
-        if dev.type != "cuda":
-            return "cpu"
-        from ..analysis.roofline import device_for
-        return device_for(dev)
+        """The resolver this policy's context reports: ``"cpu"`` for a
+        CPU ``device``, else the card's row, or ``"no-row"`` for a card
+        the table has none of (None: the card, which raises without
+        CUDA)."""
+        from .autotune import row_of
+        return row_of(resolve_device(self.device))
 
     def backend_for(self, op: str) -> str:
         """Backend for one op: an ``op_overrides`` pin wins, else the

@@ -2,9 +2,9 @@
 cost model's signatures and flops/bytes (``repro_torch.analysis.opcost``
 against ``repro.analysis.opcost``), the persisted cache and the resolver
 (``repro_torch.core.autotune`` against ``repro.core.autotune``), and the
-port's own: the roofline row, the plain versions' launch counts, the
-cost-driven ``"auto"`` on the CPU, ``Context.autotune`` /
-``dispatch_report`` and the autotune gauges."""
+port's own: the roofline row, the plain versions' launch counts,
+``"auto"`` on the CPU (its decisions recorded, the kernel wrapper run),
+``Context.autotune`` / ``dispatch_report`` and the autotune gauges."""
 import functools
 import json
 
@@ -30,7 +30,15 @@ from repro_torch.observability import MetricsRegistry, context_metrics
 
 SHARED_OPS = sorted(rdv.OP_TABLE)
 CPU = ExecPolicy(device="cpu")
-H100 = ExecPolicy(device="cpu", roofline="h100_sxm")
+CARD = ExecPolicy(device="cuda:0")
+H100_NAME = "NVIDIA H100 80GB HBM3"
+
+
+def _fake_card(monkeypatch, name=H100_NAME):
+    """Make ``torch.cuda`` report one card named ``name`` (the policy's
+    and the resolvers' view of a card; nothing is launched)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: name)
 
 
 def _sig(op="dot", n=4096, **kw):
@@ -351,18 +359,16 @@ def test_window_pattern_has_the_entries_and_the_diagonal():
 def test_tune_grid_covers_every_op_and_gives_back_its_keys():
     grid = autotune.tune_grid()
     assert {s.op for s in grid} == set(dv.OP_TABLE)
-    assert {s.key() for s in autotune.main_path_grid()} <= \
-        {s.key() for s in grid}
+    assert [s.key() for s in autotune.port_grid()] == \
+        [s.key() for s in grid if s.op == "lagrange_rescale_soa"]
     for sig in grid:
-        if sig.op == "csr_spmv" and sig.n > 4096:
-            continue                        # a 12.6M-entry host pattern
         args = autotune.args_for(sig, "meta")
         assert opcost.signature(sig.op, args) == sig
 
 
 def test_the_model_picks_the_kernel_at_every_grid_shape():
-    """Without a cache the model decides every path's calls on the card:
-    it must take the kernels there (chip_smoke.py's launch checks)."""
+    """The model's advice over the tuner's default grid: the kernels
+    everywhere (what the card measured there: PERF.md's tuned winners)."""
     for sig in autotune.tune_grid():
         pred = opcost.predict(sig, "h100_sxm")
         assert pred.winner == "cuda" and pred.ratio >= 1.0, sig.key()
@@ -389,15 +395,21 @@ def test_roofline_row_and_device_for(monkeypatch):
         roofline.device_for("cuda:1")
 
 
-def test_policy_roofline_field_and_device_name():
-    assert ExecPolicy().roofline == ""
+def test_policy_roofline_field_and_device_name(monkeypatch):
+    """The policy names no row: its context reports the resolver of its
+    device's card (``"cpu"`` off the card, ``"no-row"`` for a card with
+    no row), and a default one needs CUDA."""
+    assert not hasattr(ExecPolicy(), "roofline")
     assert CPU.device_name() == "cpu"
-    assert H100.device_name() == "h100_sxm"
-    with pytest.raises(ValueError, match="unknown roofline device"):
-        ExecPolicy(roofline="tpu_v4")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ExecPolicy().device_name()
+    _fake_card(monkeypatch)
+    assert CARD.device_name() == "h100_sxm"
+    _fake_card(monkeypatch, "NVIDIA H100 PCIe")
+    assert CARD.device_name() == autotune.NO_ROW
+    with pytest.raises(ValueError, match="no roofline row"):
+        roofline.device_for("cuda:0")
 
 
 def test_auto_dispatch_memoizes_per_call_shape():
@@ -409,13 +421,83 @@ def test_auto_dispatch_memoizes_per_call_shape():
     res = autotune.get_resolver(autotune.CPU)
     hits = {d.sig.n: d.hits for d in res.decisions.values()}
     assert hits == {16: 3, 32: 1}
-    # a named row gets its own callable, built once
-    fn = dv.dispatch("dot", H100)
-    assert fn is dv.dispatch("dot", H100) and fn is not dv.dispatch("dot")
-    assert float(fn(x, x)) == 16.0
-    assert res.decisions[_sig(n=16, k=1).key()].hits == 4   # the cpu resolver
+    # one callable an op, whatever the policy's device
+    fn = dv.dispatch("dot", CPU)
+    assert fn is dv.dispatch("dot") and fn is dv.dispatch("dot", CARD)
+    # a tuple vector of 16 elements keys apart, and hits the same decision
+    parts = (x[:8], x[8:])
+    assert float(fn(parts, parts)) == 16.0
+    assert res.decisions[_sig(n=16, k=1).key()].hits == 4
     autotune.reset_resolver()
     assert not any(autotune._MEMO.values()) and autotune._RESOLVERS == {}
+
+
+def test_auto_runs_the_kernel_wrapper_whatever_the_decision(tmp_path,
+                                                           monkeypatch):
+    """A cache in which the plain version wins makes the decision
+    ``torch`` (source ``cache``), reported; the call still goes to the
+    kernel wrapper: only a pin reaches the plain version on the card."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_DIR", str(tmp_path))
+    sig = _sig(op="wrms_soa", n=3, nsys=64)
+    cache = autotune.AutotuneCache("h100_sxm")
+    cache.put(_entry(sig, 1e-6, 2e-6))
+    cache.save()
+    autotune.reset_resolver()
+    monkeypatch.setattr(autotune, "row_of", lambda device: "h100_sxm")
+    ran = []
+    kernel = dv.OP_TABLE["wrms_soa"]["cuda"]
+    monkeypatch.setitem(dv.OP_TABLE["wrms_soa"], "cuda",
+                        lambda *a: ran.append("cuda") or kernel(*a))
+    monkeypatch.setitem(dv.OP_TABLE["wrms_soa"], "torch",
+                        lambda *a: ran.append("torch"))
+    auto = dv._auto("wrms_soa")
+    v = torch.rand(3, 64, dtype=torch.float64)
+    for _ in range(3):
+        auto(v, v)
+    assert ran == ["cuda"] * 3
+    dec = autotune.get_resolver("h100_sxm").decisions[sig.key()]
+    assert (dec.backend, dec.source, dec.hits) == ("torch", "cache", 3)
+    autotune.reset_resolver()
+
+
+def test_a_card_without_a_row_runs_its_kernels_and_reports(monkeypatch):
+    """A Hopper card the table has no row of (an H100 PCIe) records
+    ``no-row`` decisions that take the kernel, and its context reports
+    and exports them; ``device_for`` still raises for it."""
+    autotune.reset_resolver()
+    _fake_card(monkeypatch, "NVIDIA H100 PCIe")
+    res = autotune.get_resolver(autotune.NO_ROW)
+    dec = res.decide(_sig(op="wrms_soa", n=3, nsys=64))
+    assert (dec.backend, dec.source, dec.model_winner, dec.agree) == \
+        ("cuda", "no-row", None, None)
+    ctx = Context(policy=CARD)
+    assert ctx.autotune is res
+    rep = ctx.dispatch_report()
+    assert rep["device"] == "no-row" and rep["cache_entries"] == 0
+    assert rep["model_agreement"] is None
+    reg = MetricsRegistry()
+    context_metrics(reg, ctx)
+    assert "repro_autotune_decisions_total 1" in reg.render()
+    autotune.reset_resolver()
+
+
+def _key_args(sig):
+    return autotune.args_for(sig, "meta")
+
+
+@pytest.mark.parametrize("op", sorted(dv.OP_TABLE))
+def test_call_keys_determine_the_signature(op):
+    """Dispatch memoizes a decision under a call's key: over the
+    contract grid and the tuner's, equal keys come with equal
+    signatures and distinct signatures with distinct keys."""
+    sigs = default_contract_sigs()[op] + [
+        s for s in autotune.tune_grid() if s.op == op]
+    by_key = {}
+    for sig in sigs:
+        key = dv._CALL_KEYS[op](_key_args(sig))
+        assert key == dv._CALL_KEYS[op](_key_args(sig))
+        assert by_key.setdefault(key, sig) == sig, (key, sig)
+    assert len(by_key) == len({s.key() for s in sigs})
 
 
 def test_auto_main_path_on_the_cpu_is_the_torch_run_bit_for_bit():
@@ -446,13 +528,17 @@ def test_auto_main_path_on_the_cpu_is_the_torch_run_bit_for_bit():
 
 
 def test_context_autotune_and_dispatch_report(tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Context().dispatch_report()
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_DIR", str(tmp_path))
     autotune.reset_resolver()
     cache = autotune.AutotuneCache("h100_sxm")
     assert cache.path == tmp_path / "h100_sxm.json"
     cache.put(_entry(_sig(op="wrms_soa", n=3, nsys=4096), 5e-4, 1e-4))
     cache.save()
-    ctx = Context(policy=H100)
+    _fake_card(monkeypatch)
+    ctx = Context(policy=CARD)
     assert ctx.autotune is autotune.get_resolver("h100_sxm")
     dec = ctx.autotune.decide(_sig(op="wrms_soa", n=3, nsys=4096))
     assert (dec.source, dec.backend, dec.agree) == ("cache", "cuda", True)
@@ -468,9 +554,6 @@ def test_context_autotune_and_dispatch_report(tmp_path, monkeypatch):
     ctx.trace_cache = Cache()
     assert ctx.dispatch_report()["trace_cache"] == {"hits": 3, "misses": 1}
     assert Context(policy=CPU).autotune is autotune.get_resolver("cpu")
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            Context().dispatch_report()
     autotune.reset_resolver()
 
 
@@ -481,7 +564,8 @@ def test_context_metrics_exports_the_autotune_gauges(tmp_path, monkeypatch):
     for n in (4096, 8192):
         cache.put(_entry(_sig(n=n), 3e-5, 2e-5))
     cache.save()
-    ctx = Context(policy=H100)
+    _fake_card(monkeypatch)
+    ctx = Context(policy=CARD)
     ctx.autotune.decide(_sig(n=4096))
     reg = MetricsRegistry()
     context_metrics(reg, ctx)

@@ -992,6 +992,9 @@ def test_tune_times_both_implementations_on_the_card(tmp_path):
 @pytest.mark.cuda
 def test_auto_takes_the_cache_then_the_model_on_the_card(tmp_path,
                                                          monkeypatch):
+    """The decisions come from the cache, a near entry, then the model;
+    each call launches the kernel whatever was decided, and only a pin
+    runs the plain version on the card."""
     _need_card()
     from repro_torch.analysis.roofline import device_for
     from repro_torch.core import autotune
@@ -1008,13 +1011,12 @@ def test_auto_takes_the_cache_then_the_model_on_the_card(tmp_path,
         ctx = Context(policy=ExecPolicy())
         v = torch.rand(3, 512, dtype=torch.float64, device="cuda")
         w = torch.rand(3, 4096, dtype=torch.float64, device="cuda")
+        want = dv.OP_TABLE["wrms_soa"]["cuda"](v, v)
         kernels.reset_counts()
-        want = newton.wrms_soa_plain(v, v)
-        newton.wrms_soa_plain.calls = 0
         for _ in range(2):
             assert torch.equal(dv.wrms_soa(v, v, ctx.policy), want)
         dv.wrms_soa(w, w, ctx.policy)         # 8x the entry's: near
-        assert kernels.counts()["wrms_soa"] == (0, 3)
+        assert kernels.counts()["wrms_soa"] == (3, 0)
         rep = ctx.dispatch_report()
         got = {d["sig"]: (d["backend"], d["source"], d["hits"])
                for d in rep["decisions"]}
@@ -1024,8 +1026,11 @@ def test_auto_takes_the_cache_then_the_model_on_the_card(tmp_path,
                        ("torch", "near", 1)}
         big = torch.rand(3, 1 << 16, dtype=torch.float64, device="cuda")
         dv.wrms_soa(big, big, ctx.policy)     # 128x: the model's kernel
-        assert kernels.counts()["wrms_soa"] == (1, 3)
+        assert kernels.counts()["wrms_soa"] == (4, 0)
         assert rep["cache_entries"] == 1
+        pinned = ExecPolicy().override(wrms_soa="torch")
+        dv.wrms_soa(v, v, pinned)             # the pin: the plain version
+        assert kernels.counts()["wrms_soa"] == (4, 1)
     finally:
         autotune.reset_resolver()
 

@@ -97,7 +97,7 @@ def test_override_and_backend_for_as_the_reference():
 def test_dispatch_returns_the_pinned_implementation(op):
     impls = dv.OP_TABLE[op]
     other = next(o for o in sorted(dv.op_names()) if o != op)
-    # "auto" is the op's resolving callable (core/autotune.py), built once
+    # "auto" is the op's recording callable (core/autotune.py), built once
     auto = {o: dv.dispatch(o, ExecPolicy()) for o in (op, other)}
     assert auto[op] not in (impls["torch"], impls["cuda"])
     for policy, want, want_other in (
