@@ -216,11 +216,37 @@ of which prints the seconds it took:
      with ``$REPRO_TORCH_AUTOTUNE_DIR`` set to an empty directory (so a
      cache left in the checkout changes no decision the paths report),
      and each path's launch checks hold as before;
+   - path P, the model stack's serving half (``repro_torch.models``,
+     ``serve.decode``), last: no kernel of the port lies on it (the
+     reference's models reach no ``pallas_call``), and its launch count
+     of every kernel and plain version must stay 0.  internlm2-1.8b's
+     ``FULL`` config, weights drawn from a seeded generator on the card:
+     P.1 greedy ``generate`` in bf16, batch 16, a 128-token prompt
+     (numpy seed 0) and 128 new tokens (``max_len`` 256), every token in
+     range and every step's logits finite, ms a decode step, tokens/s and
+     peak memory printed; P.2 the same config in float32 at full depth
+     and width: 32 tokens decoded one by one held to the forward pass
+     within 2e-3 + 2e-3*|logit| (the reference's tolerance,
+     ``tests/test_archs.py:94``), and greedy ``generate`` from their
+     first 8 equal to the forward pass's argmax (a differing token only
+     at a near-tie); P.3 those float32 weights cut to 2 layers: a forward
+     pass and 4 decode steps on the card held to the port's CPU run
+     within 1e-4 of each tensor's scale; P.4 one bf16 decode step at pos
+     32767 over ``SHAPES["decode_32k"]``'s 32768-token cache, batch 8
+     (25.8 GB of random K and V), median ms of 5 beside its bound (weight
+     and cache bytes over 3.35 TB/s) and peak memory; P.5 the ten archs'
+     smoke configs (bf16: forward, loss and a decode step finite;
+     float32: decode against the forward pass for internlm2, starcoder2
+     and qwen2); P.6 sunlint's dispatch walker (``hot-loop-layout``,
+     ``dtype-drift``) over four ``ensemble_bdf`` and ``ensemble_dirk``
+     steps of the main path's 2**20 systems under the kernels: no
+     finding outside ``.sunlint-torch-baseline``;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
 to the paths named; ``main`` is the main path; M profiles the drain of
-one more full Robertson bundle; N its world-of-one sharded run) and
+one more full Robertson bundle; N its world-of-one sharded run; P a
+32-step generate of P.1 and one P.4 step) and
 writes its
 busiest device kernels to ``chip_smoke_out/chip_smoke_profile_*.txt``,
 with the device time under the profiler ranges of the plain code
@@ -2938,6 +2964,430 @@ def lagrange_alone_ms():
     return ms
 
 
+# ---------------------------------------------------------------------------
+# path P: the model stack's serving half (models/, configs/, serve/decode)
+# ---------------------------------------------------------------------------
+
+#: path P's architecture (its FULL config: 24 layers, d_model 2048, 16
+#: heads over 8 KV heads, d_ff 8192, vocab 92544); P.1's batch, prompt
+#: and new tokens (numpy seed 0); P.2's sequence (numpy seed 1) and the
+#: prompt its greedy generate starts from; P.3's layers and decode steps;
+#: P.4's batch and cache (SHAPES["decode_32k"]'s 32768 tokens) and timed
+#: steps; the smoke configs' batch and sequence (P.5)
+P_ARCH = "internlm2-1.8b"
+P_BATCH, P_PROMPT, P_NEW = 16, 128, 128
+P2_LEN, P2_PROMPT = 32, 8
+P3_LAYERS, P3_STEPS = 2, 4
+P4_BATCH, P4_REPS = 8, 5
+P4_LEN = None                    # None: SHAPES["decode_32k"].seq_len
+P5_B, P5_S = 2, 16
+#: decode against the forward pass: the reference's own tolerance
+#: (|a - b| <= P_TOL + P_TOL*|b|, tests/test_archs.py:94); the card
+#: against the CPU (P.3): max |card - cpu| <= P3_TOL * max(1, max |cpu|),
+#: float32 on both
+P_TOL, P3_TOL = 2e-3, 1e-4
+#: the archs whose decode P.5 holds to their forward pass (float32), as
+#: the reference's test does
+P5_AGREE = ("internlm2-1.8b", "starcoder2-7b", "qwen2-72b")
+
+
+def p_sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def p_peak_reset():
+    import torch
+    p_sync()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def p_peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+class FiniteSteps:
+    """A ``Model`` that also notes, on the device, whether each decode
+    step's logits are finite (no host read); everything else is the
+    model's."""
+
+    def __init__(self, model):
+        self.model, self.finite = model, []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def decode_step(self, params, batch, caches, *pctx):
+        import torch
+        logits, caches = self.model.decode_step(params, batch, caches, *pctx)
+        self.finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+
+def p_model(name, dtype=None):
+    from repro_torch import configs
+    from repro_torch.models import Model
+    cfg = configs.get(name)
+    return FiniteSteps(Model(cfg if dtype is None else
+                             cfg.replace(dtype=dtype)))
+
+
+def p_tokens(seed, shape, vocab, dev):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, shape, np.int32)).to(dev)
+
+
+def p_bytes(tree):
+    from repro_torch.models import spec
+    return sum(t.numel() * t.element_size() for t in spec.tree_leaves(tree))
+
+
+def p_aten_calls(run):
+    """The aten calls (views included) that ``run()`` dispatches: the
+    host's work of a decode step in eager PyTorch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        run()
+    return Count.calls
+
+
+def p_generate(model, params, dev):
+    """P.1: greedy generate at the full width, bf16."""
+    import torch
+    from repro_torch.serve import decode
+    cfg = model.cfg
+    warm = time.perf_counter()
+    decode.generate(model, params, p_tokens(0, (P_BATCH, 4), cfg.vocab_size,
+                                            dev), 4, device=dev)
+    p_sync()
+    warm = time.perf_counter() - warm
+    model.finite.clear()
+    prompt = p_tokens(0, (P_BATCH, P_PROMPT), cfg.vocab_size, dev)
+    p_peak_reset()
+    t0 = time.perf_counter()
+    out = decode.generate(model, params, prompt, P_NEW, device=dev)
+    p_sync()
+    wall = time.perf_counter() - t0
+    steps = P_PROMPT + P_NEW
+    check(out.shape == (P_BATCH, steps), f"P.1: tokens of shape {out.shape}")
+    check(torch.equal(out[:, :P_PROMPT], prompt), "P.1: the prompt changed")
+    check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          "P.1: a token out of range")
+    check(len(model.finite) == steps and bool(torch.stack(
+        model.finite).all()), "P.1: non-finite logits")
+    caches = model.init_cache(P_BATCH, steps, device=dev)
+    calls = p_aten_calls(lambda: model.decode_step(
+        params, {"tokens": prompt[:, :1], "pos": 0}, caches))
+    rec = {"batch": P_BATCH, "prompt": P_PROMPT, "new": P_NEW,
+           "wall_s": wall, "warmup_s": warm, "steps": steps,
+           "aten_calls_per_step": calls,
+           "ms_per_step": 1e3 * wall / steps,
+           "new_tokens_per_s": P_BATCH * P_NEW / wall,
+           "tokens_per_s": P_BATCH * steps / wall,
+           "peak_gib": p_peak_gib()}
+    print(f"P.1 generate {cfg.name} bf16, batch {P_BATCH}, prompt "
+          f"{P_PROMPT} + {P_NEW} new (max_len {steps}): wall {wall:.3f} s "
+          f"(first call {warm:.3f} s), {rec['ms_per_step']:.3f} ms a "
+          f"decode step, {rec['new_tokens_per_s']:.1f} new tokens/s "
+          f"({rec['tokens_per_s']:.1f} tokens/s with the prefill), peak "
+          f"{rec['peak_gib']:.2f} GiB; {calls} aten calls a step", flush=True)
+    return rec
+
+
+def p_decode_all(model, params, toks, dev):
+    """Logits (B, S, V) of decoding ``toks`` token by token."""
+    import torch
+    B, S = toks.shape
+    caches = model.init_cache(B, S, device=dev)
+    return torch.cat([model.decode_step(params, {"tokens": toks[:, i:i + 1],
+                                                 "pos": i}, caches)[0]
+                      for i in range(S)], dim=1), caches
+
+
+def p_float32(model32, params32, dev):
+    """P.2: float32 at full depth and width: decode against the forward
+    pass, greedy generate against its argmax."""
+    import torch
+    from repro_torch.serve import decode
+    V = model32.cfg.vocab_size
+    toks = p_tokens(1, (1, P2_LEN), V, dev)
+    t0 = time.perf_counter()
+    full = model32.forward(params32, {"tokens": toks})
+    dec, _ = p_decode_all(model32, params32, toks, dev)
+    p_sync()
+    wall = time.perf_counter() - t0
+    diff = (dec - full).abs()
+    check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+          "P.2: non-finite logits")
+    over = float((diff - (P_TOL + P_TOL * full.abs())).max())
+    check(over <= 0, f"P.2: decode against the forward pass exceeds "
+          f"{P_TOL} + {P_TOL}*|forward| by {over:.3g}")
+    seq = decode.generate(model32, params32, toks[:, :P2_PROMPT],
+                          P2_LEN - P2_PROMPT, device=dev)
+    lg = model32.forward(params32, {"tokens": seq})[0, P2_PROMPT - 1:-1]
+    want = seq[0, P2_PROMPT:].long()
+    top = lg.argmax(-1)
+    bad = (top != want).nonzero().flatten().tolist()
+    # a differing token is allowed only where the forward pass's top two
+    # logits lie within the tolerance of each other (a near-tie)
+    gaps = [float(lg[i, top[i]] - lg[i, want[i]]) for i in bad]
+    check(all(g <= 2 * (P_TOL + P_TOL * float(lg[i].abs().max()))
+              for i, g in zip(bad, gaps)),
+          f"P.2: greedy generate differs from the forward pass's argmax at "
+          f"{bad} (gaps {gaps})")
+    rec = {"len": P2_LEN, "max_abs_diff": float(diff.max()),
+           "max_abs_logit": float(full.abs().max()),
+           "generate_mismatches": len(bad), "near_tie_gaps": gaps,
+           "wall_s": wall, "peak_gib": p_peak_gib()}
+    print(f"P.2 float32 {model32.cfg.name} full depth: decode against the "
+          f"forward pass over {P2_LEN} tokens: max |diff| "
+          f"{rec['max_abs_diff']:.3g} (max |logit| "
+          f"{rec['max_abs_logit']:.3g}, gate {P_TOL} + {P_TOL}*|logit|); "
+          f"greedy generate {P2_PROMPT} + {P2_LEN - P2_PROMPT} against the "
+          f"forward argmax: {len(bad)} differing (near-ties {gaps}); "
+          f"{wall:.3f} s, peak {rec['peak_gib']:.2f} GiB", flush=True)
+    return rec
+
+
+def p_card_vs_cpu(model32, params32, dev):
+    """P.3: the same float32 weights cut to P3_LAYERS layers, one forward
+    pass and P3_STEPS decode steps on the card and on the CPU."""
+    import torch
+    from repro_torch.models import spec
+    from repro_torch.models.transformer import Model
+    cfg = model32.cfg.replace(n_layers=P3_LAYERS)
+    model = Model(cfg)
+    cut = {k: (spec.tree_map(lambda a: a[:P3_LAYERS], v) if k == "layers"
+               else v) for k, v in params32.items()}
+    toks = p_tokens(2, (2, 16), cfg.vocab_size, dev)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        params = spec.tree_map(lambda a: a.to(where), cut)
+        t = toks.to(where)
+        full = model.forward(params, {"tokens": t})
+        dec, caches = p_decode_all(model, params, t[:, :P3_STEPS], where)
+        runs[where.type] = (full, dec, caches["k"], caches["v"])
+    errs = {}
+    for name, a, b in zip(("forward", "decode", "cache k", "cache v"),
+                          runs[dev.type], runs["cpu"]):
+        a = a.cpu()
+        scale = max(1.0, float(b.abs().max()))
+        errs[name] = float((a - b).abs().max()) / scale
+        check(errs[name] <= P3_TOL, f"P.3: {name} on the card differs from "
+              f"the CPU by {errs[name]:.3g} of its scale (gate {P3_TOL})")
+    print(f"P.3 {P3_LAYERS} layers float32, card against CPU, max |diff| / "
+          f"max(1, max |cpu|): " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                              errs.items())
+          + f" (gate {P3_TOL})", flush=True)
+    return {"layers": P3_LAYERS, "steps": P3_STEPS, "rel_err": errs}
+
+
+def p_long_cache(model, params, dev, profile=False):
+    """P.4: one decode step against a SHAPES["decode_32k"] cache, bf16."""
+    import torch
+    from repro_torch.models import SHAPES
+    length = P4_LEN or SHAPES["decode_32k"].seq_len
+    p_peak_reset()
+    caches = model.init_cache(P4_BATCH, length, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for leaf in (caches["k"], caches["v"]):
+        leaf.normal_(generator=gen)
+    kv_bytes = caches["k"].numel() * caches["k"].element_size() * 2
+    w_bytes = p_bytes(params)
+    toks = p_tokens(3, (P4_BATCH, 1), model.cfg.vocab_size, dev)
+    pos = length - 1
+    def step():
+        caches["pos"].fill_(pos)
+        return model.decode_step(params, {"tokens": toks, "pos": pos},
+                                 caches)[0]
+
+    calls = p_aten_calls(step)       # also the warm-up step
+    times = []
+    for _ in range(P4_REPS):
+        p_sync()
+        t0 = time.perf_counter()
+        logits = step()
+        p_sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    check(logits.shape == (P4_BATCH, 1, model.cfg.vocab_size) and
+          bool(torch.isfinite(logits).all()), "P.4: non-finite logits")
+    check(caches["pos"].tolist() == [length] * model.cfg.n_layers,
+          "P.4: the cache position did not advance")
+    ms = statistics.median(times)
+    prof = p_profile("P.4 long cache", step) if profile else None
+    bound = 1e3 * (w_bytes + kv_bytes) / HBM_BYTES_PER_S
+    rec = {"batch": P4_BATCH, "cache_len": length, "pos": pos,
+           "kv_gb": kv_bytes / 1e9, "weight_gb": w_bytes / 1e9,
+           "ms_per_step": ms, "ms_all": times, "bound_ms": bound,
+           "aten_calls": calls, "peak_gib": p_peak_gib(), "profile": prof}
+    print(f"P.4 one decode step at pos {pos} over a {length}-token cache, "
+          f"batch {P4_BATCH}, bf16: {ms:.3f} ms (median of {P4_REPS}: "
+          + ", ".join(f"{t:.3f}" for t in times) + f"); KV cache "
+          f"{rec['kv_gb']:.2f} GB + weights {rec['weight_gb']:.2f} GB, "
+          f"bound {bound:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s "
+          f"({100 * bound / ms:.1f} % of it); peak {rec['peak_gib']:.2f} "
+          f"GiB; {calls} aten calls", flush=True)
+    del caches
+    return rec
+
+
+def p_smoke(dev):
+    """P.5: every arch's smoke config: a forward pass and a decode step
+    (bf16, finite); decode against the forward pass for P5_AGREE
+    (float32, the reference's tolerance)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    out = {}
+    for arch in configs.ARCH_IDS:
+        model = p_model(f"{arch}-smoke")
+        cfg = model.cfg
+        params = model.init(0, device=dev)
+        rng = np.random.default_rng(5)
+        batch = {"tokens": p_tokens(5, (P5_B, P5_S), cfg.vocab_size, dev),
+                 "targets": p_tokens(6, (P5_B, P5_S), cfg.vocab_size, dev)}
+        if cfg.mrope:
+            batch["vis_embeds"] = torch.from_numpy(0.02 * rng.standard_normal(
+                (P5_B, 4, cfg.d_model))).to(dev, cfg.dtype)
+        if cfg.enc_dec:
+            batch["frames"] = torch.from_numpy(0.02 * rng.standard_normal(
+                (P5_B, 8, cfg.d_model))).to(dev, cfg.dtype)
+        logits = model.forward(params, batch)
+        loss = model.loss(params, batch)
+        db = {"tokens": batch["tokens"][:, :1], "pos": 0}
+        if cfg.enc_dec:
+            db["enc_out"] = 0.02 * torch.ones((P5_B, 8, cfg.d_model),
+                                              dtype=cfg.dtype, device=dev)
+        step, _ = model.decode_step(params, db, model.init_cache(
+            P5_B, P5_S, device=dev))
+        check(bool(torch.isfinite(logits.float()).all()
+                   and torch.isfinite(step.float()).all()
+                   and torch.isfinite(loss)), f"P.5 {arch}: non-finite")
+        check(step.shape == (P5_B, 1, cfg.vocab_size), f"P.5 {arch}: shape")
+        rec = {"loss": float(loss)}
+        if arch in P5_AGREE:
+            m32 = p_model(f"{arch}-smoke", torch.float32)
+            p32 = m32.init(0, device=dev)
+            toks = batch["tokens"][:1, :6]
+            full = m32.forward(p32, {"tokens": toks})
+            dec, _ = p_decode_all(m32, p32, toks, dev)
+            over = float(((dec - full).abs() - (P_TOL + P_TOL *
+                                                 full.abs())).max())
+            check(over <= 0, f"P.5 {arch}: decode against the forward pass "
+                  f"exceeds the tolerance by {over:.3g}")
+            rec["decode_vs_forward"] = float((dec - full).abs().max())
+        out[arch] = rec
+    print("P.5 smoke configs on the card (forward, loss, decode step finite"
+          "; decode against forward, float32): " + ", ".join(
+              f"{a} loss {r['loss']:.4g}" + (
+                  f" |diff| {r['decode_vs_forward']:.2g}"
+                  if "decode_vs_forward" in r else "")
+              for a, r in out.items()), flush=True)
+    return out
+
+
+def p_walker(dev):
+    """P.6: sunlint's dispatch walker over the main path's first BDF (and
+    DIRK) steps on the card, under the kernels."""
+    from repro_torch import kernels
+    from repro_torch.analysis import hotloop, lint
+    ctx = lint.LintContext()
+    ctx.hot_loop_targets = hotloop.robertson_targets(nsys=NSYS, device=dev,
+                                                     steps=4)
+    kernels.reset_counts()
+    found = lint.run_rules(ctx, ["hot-loop-layout", "dtype-drift"])
+    counts = kernels.counts()
+    for name in ("newton_residual", "blockdiag_spmv", "masked_update_wrms",
+                 "block_solve"):
+        check(counts[name][0] > 0, f"P.6: kernel {name} was not launched")
+    check(all(v[1] == 0 for v in counts.values()),
+          "P.6: a plain version ran on the card")
+    baseline = lint.load_baseline(ctx.baseline_path)
+    kept = [v for v in found if not lint.is_suppressed(v, baseline)]
+    calls = {t.name: ctx.hot_loop_trace(t).calls
+             for t in ctx.hot_loop_targets}
+    for v in kept:
+        print(f"P.6 {v.rule}: {v.where}: {v.message}", flush=True)
+    check(not kept, f"P.6: {len(kept)} findings outside the baseline")
+    print(f"P.6 walker on the card ({NSYS} systems, 4 steps): aten calls "
+          f"in the Newton trips {calls}, {len(found)} findings, "
+          f"{len(found) - len(kept)} baselined", flush=True)
+    return {"calls": calls, "findings": len(found),
+            "kernel_launches": {k: v[0] for k, v in counts.items()
+                                if v[0]}}
+
+
+def p_profile(label, run):
+    """``run()`` once unprofiled (timed) and once under the profiler
+    (:func:`profile_run`): the device's busy share of its wall."""
+    p_sync()
+    t0 = time.perf_counter()
+    run()
+    p_sync()
+    return profile_run(label, run, time.perf_counter() - t0)
+
+
+def phase_path_p(card, profile=False):
+    """Path P: the model stack's serving half at internlm2-1.8b's full
+    width (P.1-P.4), every arch's smoke config (P.5), and the walker on
+    the card (P.6).  P.1-P.5 launch no kernel of the port.  ``profile``
+    adds a profiled run of P.1's generate (32 decode steps) and of one
+    P.4 step."""
+    import torch
+    from repro_torch import kernels
+    dev = torch.device("cuda")
+    print(card, flush=True)
+    torch.cuda.empty_cache()
+    rec = {}
+    kernels.reset_counts()
+    with torch.no_grad():
+        model = p_model(P_ARCH)
+        t0 = time.perf_counter()
+        params = model.init(0, device=dev)
+        p_sync()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["weight_gb"] = p_bytes(params) / 1e9
+        print(f"P {P_ARCH}: weights {rec['weight_gb']:.3f} GB bf16 drawn "
+              f"on the card in {rec['init_s']:.3f} s", flush=True)
+        rec["P.1"] = p_generate(model, params, dev)
+        if profile:
+            from repro_torch.serve import decode
+            prompt = p_tokens(0, (P_BATCH, 16), model.cfg.vocab_size, dev)
+            rec["P.1"]["profile"] = p_profile(
+                "P.1 generate", lambda: decode.generate(
+                    model, params, prompt, 16, device=dev))
+        model32 = p_model(P_ARCH, torch.float32)
+        params32 = model32.init(0, device=dev)
+        rec["P.2"] = p_float32(model32, params32, dev)
+        rec["P.3"] = p_card_vs_cpu(model32, params32, dev)
+        del params32
+        torch.cuda.empty_cache()
+        rec["P.4"] = p_long_cache(model, params, dev, profile)
+        del params
+        torch.cuda.empty_cache()
+        rec["P.5"] = p_smoke(dev)
+    counts = kernels.counts()
+    check(all(v == (0, 0) for v in counts.values()),
+          f"path P launched a kernel or a plain version: {counts}")
+    print("path P: kernel launches " + ", ".join(
+        f"{k} {v[0]}" for k, v in counts.items()), flush=True)
+    rec["kernels_run"] = {"counts": counts}
+    rec["P.6"] = p_walker(dev)
+    return rec
+
+
 def profiled_paths(argv):
     """``--profile`` profiles every path, ``--profile=I,J`` only those
     named (``main`` for the main path): -> path name -> bool."""
@@ -3080,6 +3530,9 @@ def main(argv) -> int:
         "bdf", TF_I, profiled("I"))
     paths["J: adams"] = phase("path J (adams)", phase_cvode, "J: adams",
                               "adams", TF_J, profiled("J"))
+    # the model stack's serving half: no kernel of the port on its path
+    paths["P: model serving"] = phase("path P (model serving)",
+                                      phase_path_p, card, profiled("P"))
     # 5. kernels line: launches summed over the kernel runs of the paths
     line = []
     for k, row in zip(table, rows):

@@ -30,8 +30,12 @@ and ManyVector (``core.vector``) and the sharded ensemble BDF
 per-op policy pins (``core.dispatch``, ``core.policies``); the
 analysis layer: the cost-driven decisions of ``"auto"`` (``core.autotune``,
 ``analysis.opcost``, the card's row in ``analysis.roofline``) and
-sunlint's rules for the port (``analysis.lint``); and the examples
-``examples.batched_kinetics``, ``serve_solver_demo``, ``brusselator``
-and ``brusselator_sparse``.  Everything else raises
+sunlint's rules for the port (``analysis.lint``, with the dispatch
+walker ``analysis.hotloop``); the model stack's serving half:
+``models`` (every architecture's forward pass and decode step),
+``configs`` (the architecture registry) and ``serve.decode``
+(``generate``); and the examples ``examples.batched_kinetics``,
+``serve_solver_demo``, ``serve_demo``, ``brusselator`` and
+``brusselator_sparse``.  Everything else raises
 ``NotImplementedError`` naming its ROADMAP item.
 """

@@ -10,6 +10,7 @@ fixture has gone blind.
 """
 import dataclasses
 
+from .hotloop import HotLoopTarget
 from .lint import LoopSource
 from .opcost import OpSig
 
@@ -73,9 +74,57 @@ def _setup_unbounded_loops(ctx):
                                    UNBOUNDED_LOOPS)]
 
 
+# --- hot-loop-layout / dtype-drift ------------------------------------------
+# The main path's problem with a right-hand side the Newton trips must
+# convert: given only in the AoS layout (the integrator's boundary
+# transposes then run at every evaluation), or computed in float32 on
+# the float64 state.
+
+def _robertson(kind: str, nsys: int = 8):
+    import torch
+
+    from ..core import ivp, problems
+    from ..core.arkode import ODEOptions
+    from ..core.policies import ExecPolicy
+
+    rates = problems.robertson_rates(nsys, seed=0)
+    f, jac, y0 = problems.batched_robertson(nsys, rates=rates, device="cpu")
+    fs, js = problems.batched_robertson_soa(nsys, rates=rates, device="cpu")
+    if kind == "aos":
+        prob = ivp.IVP(f=f, jac=jac, y0=y0)
+    else:
+        prob = ivp.IVP(f=f, jac=jac, y0=y0, jac_soa=js,
+                       f_soa=lambda t, y: fs(t, y.to(torch.float32)).to(
+                           y.dtype))
+    opts = ODEOptions(rtol=1e-5, atol=1e-10, max_steps=3,
+                      policy=ExecPolicy(device="cpu"))
+    return prob, opts
+
+
+def _rhs_targets(kind):
+    def run(method):
+        prob, opts = _robertson(kind)
+        from ..core import ivp
+        return ivp.integrate(prob, 0.0, 10.0, method, opts=opts)
+
+    return [HotLoopTarget(f"fixture:{kind}_rhs:{m}",
+                          lambda m=m: run(m))
+            for m in ("ensemble_bdf", "ensemble_dirk")]
+
+
+def _setup_aos_rhs(ctx):
+    ctx.hot_loop_targets = _rhs_targets("aos")
+
+
+def _setup_f32_rhs(ctx):
+    ctx.hot_loop_targets = _rhs_targets("f32")
+
+
 FIXTURES = {
     "orphan_op": ("table-coherence", _setup_orphan_op),
     "mis_keyed_sig": ("kernel-contract", _setup_mis_keyed_sig),
     "oversize_smem": ("kernel-contract", _setup_oversize_smem),
     "unbounded_loops": ("bounded-loops", _setup_unbounded_loops),
+    "aos_rhs": ("hot-loop-layout", _setup_aos_rhs),
+    "f32_rhs": ("dtype-drift", _setup_f32_rhs),
 }

@@ -3,7 +3,9 @@
 Counterpart of ``repro.analysis.lint``.  The reference walks jaxprs; the
 port has no trace, so its rules read what they check directly: the op
 table and its registries, the kernels' launch sizes, and the step loops'
-source (Python ``ast``).  Three rules (:mod:`repro_torch.analysis.rules`):
+source (Python ``ast``), and the ops that the Newton trips dispatch
+(:mod:`.hotloop`, a ``TorchDispatchMode`` walker).  Five rules
+(:mod:`repro_torch.analysis.rules`):
 
 * ``kernel-contract`` — every op's inputs built from a signature give
   back that signature; on a card, kernel and plain version return the
@@ -13,10 +15,16 @@ source (Python ``ast``).  Three rules (:mod:`repro_torch.analysis.rules`):
   op notes, the port's autotune caches and the two rendered op matrices
   name one op set;
 * ``bounded-loops`` — every ``while`` of the step loops is bounded by an
-  integer ceiling of the options.
+  integer ceiling of the options;
+* ``hot-loop-layout`` — no permuted view is copied inside a Newton trip
+  of ``ensemble_bdf`` or ``ensemble_dirk``;
+* ``dtype-drift`` — no floating dtype changes width inside those trips
+  (``dtype_allowlist`` holds the deliberate (source, destination)
+  pairs).
 
-The reference's jaxpr walkers have no counterpart here (ROADMAP queue
-A.8 records what replaces each).
+The reference's other jaxpr walkers (``donation``, ``purity``,
+``telemetry-purity``) have no counterpart here (ROADMAP queue A.8
+records why).
 
 * **Rules** register with :func:`register`; each is ``rule(ctx) ->
   [Violation]``.
@@ -126,6 +134,11 @@ class LintContext:
         self._device = None
         self._cache_dir = None
         self._cuda = None
+        self._hot_loop_targets = None
+        self._traces: Dict[str, object] = {}
+        #: (source, destination) float dtype names dtype-drift allows:
+        #: the seam for a deliberate mixed-precision cast
+        self.dtype_allowlist = set()
 
     @property
     def op_table(self) -> dict:
@@ -196,6 +209,30 @@ class LintContext:
     @cuda.setter
     def cuda(self, on: bool):
         self._cuda = bool(on)
+
+
+    @property
+    def hot_loop_targets(self) -> list:
+        """What the hot-loop rules trace (default: four steps of
+        ``ensemble_bdf`` and of ``ensemble_dirk`` on the main path's
+        problem, 8 systems on the CPU)."""
+        if self._hot_loop_targets is None:
+            from .hotloop import robertson_targets
+            self._hot_loop_targets = robertson_targets()
+        return self._hot_loop_targets
+
+    @hot_loop_targets.setter
+    def hot_loop_targets(self, targets):
+        self._hot_loop_targets = list(targets)
+        self._traces = {}
+
+    def hot_loop_trace(self, target):
+        """The target's :class:`~.hotloop.HotLoopTrace`, run once and
+        shared by the rules that read it."""
+        if target.name not in self._traces:
+            from .hotloop import trace
+            self._traces[target.name] = trace(target)
+        return self._traces[target.name]
 
 
 def default_contract_sigs() -> Dict[str, list]:

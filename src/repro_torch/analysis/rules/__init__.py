@@ -4,3 +4,5 @@ with :data:`repro_torch.analysis.lint.RULES` (every module calls
 from . import bounded       # noqa: F401
 from . import coherence     # noqa: F401
 from . import contract      # noqa: F401
+from . import dtype         # noqa: F401
+from . import layout        # noqa: F401

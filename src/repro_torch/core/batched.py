@@ -73,6 +73,7 @@ from .linsol import BlockDiagGJ, encode_sparsity, newton_blocks_soa
 # the host loops' counted reads and trip counts (shared with krylov)
 from .loops import loop_counts, reset_loop_counts  # noqa: F401
 from .loops import read as _read
+from .loops import region as _region
 
 
 def _wrap_soa(f, jac, f_soa, jac_soa):
@@ -368,13 +369,14 @@ def ensemble_dirk_integrate(fi: Callable, jac: Callable, y0: torch.Tensor,
             gam = hs * aii
             z = r
             for _ in range(newton_iters):
-                loop_counts["newton_trips"] += 1
-                rhs = dv.newton_residual_soa(z, f_s(ti, z), r, gam, policy,
-                                             negate=True)
-                M = newton_blocks_soa(jac_s(ti, z), gam)
-                z = z + dv.block_solve_soa(M, rhs, policy)
-                # nni counts per ACTIVE system
-                nni_step += ai
+                with _region("ensemble_dirk:newton"):
+                    loop_counts["newton_trips"] += 1
+                    rhs = dv.newton_residual_soa(z, f_s(ti, z), r, gam,
+                                                 policy, negate=True)
+                    M = newton_blocks_soa(jac_s(ti, z), gam)
+                    z = z + dv.block_solve_soa(M, rhs, policy)
+                    # nni counts per ACTIVE system
+                    nni_step += ai
             fz = f_s(ti, z)           # final RHS: residual AND stage
             g = dv.newton_residual_soa(z, fz, r, gam, policy)
             res = dv.wrms_soa(g, unit_w, policy)
@@ -621,25 +623,26 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
             iterate = active & ~conv & ~div
             if not _read(iterate.any()):
                 break
-            loop_counts["newton_trips"] += 1
-            rhs = dv.newton_residual_soa(z, f_s(t_new, z), psi, gamma, policy,
-                                         negate=True)
-            dz, nli_inc, nps_inc = ls.soa_solve(MJ, gamma, gamrat, rhs,
-                                                policy, mem=mem)
-            z, dn = dv.masked_update_wrms_soa(z, dz, w, iterate, policy)
-            crate_new = crate
-            if it > 0:
-                crate_new = torch.maximum(
-                    0.3 * crate, dn / torch.clamp(dn_prev, min=1e-30))
-                div = div | (iterate & (dn > 2.0 * dn_prev))
-            conv = conv | (iterate & (dn * torch.clamp(crate_new, max=1.0) <
-                                      opts.newton_tol_fac))
-            dn_prev = torch.where(iterate, dn, dn_prev)
-            crate = torch.where(iterate, crate_new, crate)
-            nni_s += iterate.to(i32)
-            if torch.is_tensor(nli_inc):       # direct solvers return 0
-                nli += nli_inc
-                nps += nps_inc
+            with _region("ensemble_bdf:newton"):
+                loop_counts["newton_trips"] += 1
+                rhs = dv.newton_residual_soa(z, f_s(t_new, z), psi, gamma,
+                                             policy, negate=True)
+                dz, nli_inc, nps_inc = ls.soa_solve(MJ, gamma, gamrat, rhs,
+                                                    policy, mem=mem)
+                z, dn = dv.masked_update_wrms_soa(z, dz, w, iterate, policy)
+                crate_new = crate
+                if it > 0:
+                    crate_new = torch.maximum(
+                        0.3 * crate, dn / torch.clamp(dn_prev, min=1e-30))
+                    div = div | (iterate & (dn > 2.0 * dn_prev))
+                conv = conv | (iterate & (dn * torch.clamp(crate_new, max=1.0)
+                                          < opts.newton_tol_fac))
+                dn_prev = torch.where(iterate, dn, dn_prev)
+                crate = torch.where(iterate, crate_new, crate)
+                nni_s += iterate.to(i32)
+                if torch.is_tensor(nli_inc):   # direct solvers return 0
+                    nli += nli_inc
+                    nps += nps_inc
             it += 1
 
         # ---- local error test (LTE ~ (z - pred)/(q+1), uniform grid) ----

@@ -13,6 +13,14 @@ pattern (:func:`csr_from_reference`).  A warm-start ``SolverSession``
 crosses as a dict of its numpy leaves (:func:`session_from_reference`,
 :func:`session_to_numpy`): the solver state a client carries from one
 coupling step to the next, the system's counterpart of weights.
+
+The model stack's weights cross the same way: an ``ArchConfig`` as its
+``dataclasses.asdict`` with ``dtype`` by name
+(:func:`arch_config_from_reference`), a parameter tree and a decode
+cache as nested dicts of numpy leaves under the reference's keys
+(:func:`model_params_from_reference`, :func:`cache_from_reference`,
+:func:`cache_to_numpy`).  A bfloat16 leaf crosses through float32,
+which holds every bfloat16 value exactly.
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ from .core.batched import SolverSession
 from .core.butcher import ButcherTable, IMEXTable
 from .core.controller import ControllerConfig
 from .core.sunmatrix import SparseCSR
+from .models.config import ArchConfig
+from .models.spec import tree_map
 
 
 def params_from_numpy(params: dict, *, device, dtype=torch.float64) -> dict:
@@ -114,3 +124,64 @@ def session_to_numpy(session: SolverSession) -> dict:
     as ``SolverSession(**{k: jnp.asarray(v) ...})``)."""
     return {k: v.detach().cpu().numpy()
             for k, v in session._asdict().items()}
+
+
+def arch_config_from_reference(fields: dict) -> ArchConfig:
+    """The port's ArchConfig from the reference's
+    ``dataclasses.asdict(cfg)``, with ``dtype`` given by its name
+    (``"bfloat16"``, ``"float32"``)."""
+    fields = dict(fields)
+    if "dtype" in fields:
+        fields["dtype"] = getattr(torch, str(fields["dtype"]))
+    return ArchConfig(**fields)
+
+
+def _leaf(a, *, device, dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # numpy has no bfloat16 of its own
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def model_params_from_reference(tree: dict, model, *, device) -> dict:
+    """The port's parameters from the reference's ``Model(cfg).init(...)``
+    as nested dicts of numpy leaves: copied key for key and shape for
+    shape into ``model``'s spec tree, each leaf in its spec's dtype."""
+    def copy(spec, a):
+        if tuple(np.shape(a)) != tuple(spec.shape):
+            raise ValueError(f"reference leaf of shape {np.shape(a)}, spec "
+                             f"{spec.shape}")
+        return _leaf(a, device=device, dtype=spec.dtype)
+
+    specs = model.specs()
+    _same_keys(specs, tree)
+    return tree_map(copy, specs, tree)
+
+
+def _same_keys(a, b, where="params"):
+    if isinstance(a, dict) != isinstance(b, dict):
+        raise ValueError(f"{where}: a leaf against a subtree")
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise ValueError(f"{where}: keys {sorted(a)} against "
+                             f"{sorted(b)}")
+        for k in a:
+            _same_keys(a[k], b[k], f"{where}.{k}")
+
+
+def cache_from_reference(tree: dict, *, device) -> dict:
+    """A decode cache from the reference's (nested dicts of numpy leaves,
+    ``pos`` included), dtypes kept."""
+    return tree_map(lambda a: _leaf(a, device=device), tree)
+
+
+def cache_to_numpy(caches: dict) -> dict:
+    """A decode cache as nested dicts of numpy leaves (bfloat16 leaves as
+    float32)."""
+    def to_np(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(to_np, caches)

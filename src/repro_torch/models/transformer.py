@@ -1,0 +1,650 @@
+"""Model assembly for every architecture of the port.
+
+The port's ``repro.models.transformer``.  One generic decoder-only LM
+(GQA/MLA attention, dense/MoE FFN) covers 7 of the 10 archs; zamba2
+(hybrid Mamba2 + shared attention), xlstm (mLSTM/sLSTM) and whisper
+(enc-dec) get their own assemblies.  Parameters keep the reference's
+keys and stacked per-layer shapes (a leading ``layers`` axis), so the
+reference's weights copy over one to one; where the reference scans
+over that axis, the port loops over it.
+
+:class:`Model` is a thin namespace:
+
+* ``specs()`` -> ParamSpec tree (stacked layers); ``init(generator)``
+  -> params;
+* ``forward(params, batch)`` -> logits (B, S, V), the full forward pass
+  (the reference has no such entry: its tests assemble it from the
+  layer functions);
+* ``loss(params, batch)`` -> scalar loss;
+* ``decode_step(params, batch, caches)`` -> (logits, caches): the caches
+  are updated in place and returned;
+* ``cache_specs(batch, max_len)`` / ``input_specs(shape)`` -> ``meta``
+  tensors; ``init_cache(batch, max_len)`` -> zeros.
+
+Entry points that make tensors (``init``, ``init_cache``) run on the
+card unless given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from ..core.policies import resolve_device
+from . import layers, ssm
+from .config import ArchConfig, ShapeConfig
+from .spec import (ParamSpec, abstract_params, axes_tree, init_params,
+                   tree_map)
+
+Params = Dict[str, Any]
+f32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """Distribution context threaded through the apply functions.
+
+    The port runs a model on one device: ``cst`` is the identity and
+    ``moe_impl="dense"`` the only MoE path.  The expert-parallel path
+    (``moe_impl="ep"`` over a mesh, the reference's ``moe_ep.py``) is
+    not ported yet (ROADMAP A.9) and raises rather than falling through
+    to the dense MoE."""
+    mesh: Any = None
+    cst: Callable = layers._id_cst        # activation sharding constraint
+    moe_impl: str = "dense"               # 'dense' | 'ep'
+    dp_axes: Tuple[str, ...] = ("data",)
+    ep_axis: str = "model"
+    moe_token_layout: str = "split"       # 'split' | 'replicated'
+
+    def __post_init__(self):
+        if self.moe_impl not in ("dense", "ep"):
+            raise ValueError(f"unknown moe_impl {self.moe_impl!r}")
+        if self.moe_impl == "ep" and self.mesh is not None:
+            raise NotImplementedError(
+                "moe_impl='ep' over a mesh (the reference's "
+                "models/moe_ep.py) is not ported yet: ROADMAP A.9")
+
+
+def _stack_specs(tree, n: int):
+    """Add a stacked leading 'layers' dim to every spec in the tree."""
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes,
+                                        s.dtype, s.init, s.scale), tree)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree: views, no copy."""
+    return tree_map(lambda a: a[i], tree)
+
+
+def _store(stacked, i: int, before, after) -> None:
+    """Write layer ``i``'s updated cache into the stacked cache in place:
+    leaves updated in place (``after is before``) are already there."""
+    if isinstance(stacked, dict):
+        for k in stacked:
+            _store(stacked[k], i, before[k], after[k])
+    elif after is not before:
+        stacked[i].copy_(after)
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _stack_meta(tree, n: int):
+    return tree_map(lambda s: _meta((n,) + tuple(s.shape), s.dtype), tree)
+
+
+def _kv_cache_spec(cfg, batch, max_len):
+    return {"k": _meta((batch, max_len, cfg.n_kv_heads, cfg.hd), cfg.dtype),
+            "v": _meta((batch, max_len, cfg.n_kv_heads, cfg.hd), cfg.dtype),
+            "pos": _meta((), torch.int32)}
+
+
+# ----------------------------------------------------------------------------
+# Generic decoder layer (attention/MLA + dense-MLP/MoE)
+# ----------------------------------------------------------------------------
+
+
+def _decoder_layer_spec(cfg: ArchConfig) -> Params:
+    p = {"ln1": layers.rmsnorm_spec(cfg.d_model),
+         "ln2": layers.rmsnorm_spec(cfg.d_model)}
+    if cfg.use_mla:
+        p["attn"] = layers.mla_spec(cfg)
+    else:
+        p["attn"] = layers.attention_spec(cfg)
+    if cfg.is_moe:
+        p["ffn"] = layers.moe_spec(cfg)
+    else:
+        p["ffn"] = layers.swiglu_spec(cfg)
+    return p
+
+
+def _decoder_layer_apply(p: Params, cfg: ArchConfig, x, rope_cs, positions,
+                         pctx: ParallelCtx, cache=None):
+    cst = pctx.cst
+    h = layers.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if cfg.use_mla:
+        a, new_cache = layers.mla_apply(p["attn"], cfg, h, positions,
+                                        cst=cst, cache=cache)
+    else:
+        cos, sin = rope_cs
+        a, new_cache = layers.attention_apply(p["attn"], cfg, h, cos, sin,
+                                              cst=cst, causal=cfg.causal,
+                                              cache=cache)
+    x = x + a
+    h = layers.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        f = layers.moe_dense_apply(p["ffn"], cfg, h, cst=cst)
+    else:
+        f = layers.swiglu_apply(p["ffn"], h, cst=cst)
+    return x + f, new_cache
+
+
+# ----------------------------------------------------------------------------
+# Generic decoder-only LM (dense / MoE / VLM)
+# ----------------------------------------------------------------------------
+
+
+def lm_specs(cfg: ArchConfig) -> Params:
+    p = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                           ("vocab", "embed"), cfg.dtype, "normal"),
+        "layers": _stack_specs(_decoder_layer_spec(cfg), cfg.n_layers),
+        "ln_f": layers.rmsnorm_spec(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                 ("embed", "vocab"), cfg.dtype, "scaled")
+    if cfg.mtp:
+        p["mtp_proj"] = ParamSpec((2 * cfg.d_model, cfg.d_model),
+                                  ("mlp", "embed"), cfg.dtype, "scaled")
+        p["mtp_layer"] = _decoder_layer_spec(_mtp_cfg(cfg))
+        p["mtp_norm"] = layers.rmsnorm_spec(cfg.d_model)
+    return p
+
+
+def _mtp_cfg(cfg: ArchConfig) -> ArchConfig:
+    return cfg.replace(n_experts=0, d_ff=cfg.moe_d_ff or cfg.d_ff)
+
+
+def _positions_for(cfg: ArchConfig, B: int, S: int, vis_len: int, device,
+                   offset=0):
+    """Position ids; for mrope (B,S,3) else (S,)."""
+    i = torch.arange(S, device=device)
+    if not cfg.mrope:
+        return i + offset
+    # M-RoPE: vision prefix on a (t=0, h, w) grid, text sequential
+    grid_w = max(int(math.sqrt(max(vis_len, 1))), 1)
+    is_vis = i < vis_len
+    t = torch.where(is_vis, 0, i - vis_len + (vis_len + grid_w - 1) // grid_w)
+    hpos = torch.where(is_vis, i // grid_w, t)
+    wpos = torch.where(is_vis, i % grid_w, t)
+    pos3 = torch.stack([t, hpos, wpos], dim=-1) + offset   # (S, 3)
+    return pos3[None].expand(B, S, 3)
+
+
+def _rope_for(cfg: ArchConfig, positions):
+    if cfg.use_mla:
+        return None
+    if cfg.mrope:
+        return layers.mrope_cos_sin(cfg.hd, cfg.rope_theta, positions)
+    return layers.rope_freqs(cfg.hd, cfg.rope_theta, positions)
+
+
+def _scan_layers(cfg, stacked, x, rope_cs, positions, pctx, caches=None):
+    """Run the decoder layers in order over the stacked axis; ``caches``
+    (stacked, optional) are updated in place and returned."""
+    for i in range(cfg.n_layers):
+        lcache = None if caches is None else _layer(caches, i)
+        x, ncache = _decoder_layer_apply(_layer(stacked, i), cfg, x, rope_cs,
+                                         positions, pctx, cache=lcache)
+        if caches is not None:
+            _store(caches, i, lcache, ncache)
+    return x, caches
+
+
+def _embed_inputs(cfg: ArchConfig, params, batch, pctx):
+    """Token (+ vision stub) embedding -> (B, S, d), vis_len."""
+    x = params["embed"][batch["tokens"]]
+    vis_len = 0
+    if cfg.mrope and "vis_embeds" in batch:
+        ve = batch["vis_embeds"].to(x.dtype)            # (B, Sv, d)
+        vis_len = ve.shape[1]
+        x = torch.cat([ve, x], dim=1)
+    return pctx.cst(x, ("batch", "seq", "embed")), vis_len
+
+
+def _lm_head(cfg, params, x, pctx):
+    w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", x, w)
+    return pctx.cst(logits, ("batch", "seq", "vocab"))
+
+
+def _xent(logits, targets, mask=None):
+    """Mean cross-entropy in f32; targets < 0 are ignored."""
+    lf = logits.to(f32)
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = torch.clamp(targets, min=0).to(torch.long)
+    picked = torch.gather(lf, -1, tgt[..., None])[..., 0]
+    nll = lse - picked
+    valid = (targets >= 0).to(f32)
+    if mask is not None:
+        valid = valid * mask
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def _lm_trunk(cfg, params, batch, pctx):
+    """-> (logits over the whole sequence, final hidden, vis_len)."""
+    x, vis_len = _embed_inputs(cfg, params, batch, pctx)
+    B, S, _ = x.shape
+    positions = _positions_for(cfg, B, S, vis_len, x.device)
+    x, _ = _scan_layers(cfg, params["layers"], x, _rope_for(cfg, positions),
+                        positions, pctx)
+    x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    return _lm_head(cfg, params, x, pctx), x, vis_len
+
+
+def lm_forward(cfg: ArchConfig, params: Params, batch: Dict,
+               pctx: ParallelCtx):
+    """Logits (B, S, V) over the whole sequence, vision prefix included."""
+    return _lm_trunk(cfg, params, batch, pctx)[0]
+
+
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict, pctx: ParallelCtx):
+    logits, x, vis_len = _lm_trunk(cfg, params, batch, pctx)
+    B = x.shape[0]
+    if vis_len:
+        # loss only over the text region
+        logits = logits[:, vis_len:]
+    loss = _xent(logits, batch["targets"])
+    if cfg.mtp:
+        # multi-token prediction: h with the next token's embedding, one
+        # extra layer, predict t+2 (DeepSeek-V3 MTP, D=1)
+        emb_next = params["embed"][torch.clamp(batch["targets"], min=0)]
+        h = x[:, vis_len:] if vis_len else x
+        hcat = torch.cat([h, emb_next.to(h.dtype)], dim=-1)
+        hm = torch.einsum("bse,ed->bsd", hcat, params["mtp_proj"])
+        pos2 = _positions_for(cfg, B, hm.shape[1], 0, hm.device)
+        hm, _ = _decoder_layer_apply(params["mtp_layer"], _mtp_cfg(cfg), hm,
+                                     _rope_for(cfg, pos2), pos2, pctx)
+        hm = layers.rmsnorm_apply(params["mtp_norm"], hm, cfg.norm_eps)
+        logits2 = _lm_head(cfg, params, hm, pctx)
+        tgt2 = torch.cat([batch["targets"][:, 1:],
+                          -torch.ones_like(batch["targets"][:, :1])], dim=1)
+        loss = loss + 0.3 * _xent(logits2, tgt2)
+    return loss
+
+
+def lm_decode_step(cfg: ArchConfig, params: Params, batch: Dict, caches,
+                   pctx: ParallelCtx):
+    """One-token decode: batch = {'tokens': (B,1), 'pos': int or ()}."""
+    tokens, pos = batch["tokens"], batch["pos"]
+    B = tokens.shape[0]
+    x = params["embed"][tokens]
+    positions = _positions_for(cfg, B, 1, 0, x.device, offset=pos)
+    x, caches = _scan_layers(cfg, params["layers"], x,
+                             _rope_for(cfg, positions), positions, pctx,
+                             caches=caches)
+    x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    return _lm_head(cfg, params, x, pctx), caches
+
+
+def lm_cache_specs(cfg: ArchConfig, batch: int, max_len: int):
+    if cfg.use_mla:
+        per = {"c_kv": _meta((batch, max_len, cfg.kv_lora_rank), cfg.dtype),
+               "k_rope": _meta((batch, max_len, cfg.qk_rope_dim), cfg.dtype),
+               "pos": _meta((), torch.int32)}
+    else:
+        per = _kv_cache_spec(cfg, batch, max_len)
+    return _stack_meta(per, cfg.n_layers)
+
+
+# ----------------------------------------------------------------------------
+# xLSTM assembly (alternating mLSTM / sLSTM blocks)
+# ----------------------------------------------------------------------------
+
+
+def xlstm_specs(cfg: ArchConfig) -> Params:
+    pair = {
+        "m_ln": layers.rmsnorm_spec(cfg.d_model),
+        "m": ssm.mlstm_spec(cfg),
+        "s_ln": layers.rmsnorm_spec(cfg.d_model),
+        "s": ssm.slstm_spec(cfg),
+    }
+    return {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                           ("vocab", "embed"), cfg.dtype, "normal"),
+        "pairs": _stack_specs(pair, cfg.n_layers // 2),
+        "ln_f": layers.rmsnorm_spec(cfg.d_model),
+        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size),
+                             ("embed", "vocab"), cfg.dtype, "scaled"),
+    }
+
+
+def _xlstm_pair_apply(lp, cfg, x, pctx, cache=None):
+    cm = cache["m"] if cache is not None else None
+    cs_ = cache["s"] if cache is not None else None
+    h = layers.rmsnorm_apply(lp["m_ln"], x, cfg.norm_eps)
+    a, ncm = ssm.mlstm_apply(lp["m"], cfg, h, cst=pctx.cst, cache=cm)
+    x = x + a
+    h = layers.rmsnorm_apply(lp["s_ln"], x, cfg.norm_eps)
+    a, ncs = ssm.slstm_apply(lp["s"], cfg, h, cst=pctx.cst, cache=cs_)
+    x = x + a
+    ncache = {"m": ncm, "s": ncs} if cache is not None else None
+    return x, ncache
+
+
+def _xlstm_run(cfg, params, x, pctx, caches=None):
+    for i in range(cfg.n_layers // 2):
+        lcache = None if caches is None else _layer(caches, i)
+        x, ncache = _xlstm_pair_apply(_layer(params["pairs"], i), cfg, x,
+                                      pctx, cache=lcache)
+        if caches is not None:
+            _store(caches, i, lcache, ncache)
+    x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    return pctx.cst(logits, ("batch", "seq", "vocab"))
+
+
+def xlstm_forward(cfg, params, batch, pctx):
+    x = pctx.cst(params["embed"][batch["tokens"]], ("batch", "seq", "embed"))
+    return _xlstm_run(cfg, params, x, pctx)
+
+
+def xlstm_decode_step(cfg, params, batch, caches, pctx):
+    x = params["embed"][batch["tokens"]]
+    return _xlstm_run(cfg, params, x, pctx, caches), caches
+
+
+def xlstm_cache_specs(cfg, batch, max_len):
+    per = {"m": ssm.mlstm_cache_spec(cfg, batch),
+           "s": ssm.slstm_cache_spec(cfg, batch)}
+    return _stack_meta(per, cfg.n_layers // 2)
+
+
+# ----------------------------------------------------------------------------
+# Zamba2 assembly (Mamba2 stack + ONE shared attention block every k layers)
+# ----------------------------------------------------------------------------
+
+
+def zamba_n_sites(cfg: ArchConfig) -> int:
+    return (cfg.n_layers + cfg.attn_every - 1) // cfg.attn_every
+
+
+def zamba_specs(cfg: ArchConfig) -> Params:
+    mamba_layer = {"ln": layers.rmsnorm_spec(cfg.d_model),
+                   "mamba": ssm.mamba2_spec(cfg)}
+    # the shared attention block reads concat(hidden, embedding): the
+    # zamba "shared block with concatenated input" design
+    shared = {
+        "ln": layers.rmsnorm_spec(2 * cfg.d_model),
+        "attn": layers.attention_spec(cfg, d_in=2 * cfg.d_model,
+                                      d_out=cfg.d_model),
+        "out": ParamSpec((cfg.d_model, cfg.d_model),
+                         ("embed", "embed_out"), cfg.dtype, "scaled"),
+    }
+    return {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                           ("vocab", "embed"), cfg.dtype, "normal"),
+        "mamba_layers": _stack_specs(mamba_layer, cfg.n_layers),
+        "shared_attn": shared,
+        "ln_f": layers.rmsnorm_spec(cfg.d_model),
+        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size),
+                             ("embed", "vocab"), cfg.dtype, "scaled"),
+    }
+
+
+def _zamba_shared_attn(sp, cfg, x, x0, rope_cs, pctx, cache=None):
+    """Shared block: attn over concat(x, x0), projected back to d."""
+    h = torch.cat([x, x0], dim=-1)
+    h = layers.rmsnorm_apply(sp["ln"], h, cfg.norm_eps)
+    cos, sin = rope_cs
+    a, ncache = layers.attention_apply(sp["attn"], cfg, h, cos, sin,
+                                       cst=pctx.cst, causal=True,
+                                       cache=cache)
+    return x + torch.einsum("bsd,de->bse", a, sp["out"]), ncache
+
+
+def _zamba_run(cfg, params, x, rope_cs, pctx, caches=None):
+    x0 = x
+    sp = params["shared_attn"]
+    for i in range(cfg.n_layers):
+        if i % cfg.attn_every == 0:
+            site = i // cfg.attn_every
+            acache = None if caches is None else _layer(caches["attn"], site)
+            x, nac = _zamba_shared_attn(sp, cfg, x, x0, rope_cs, pctx,
+                                        cache=acache)
+            if caches is not None:
+                _store(caches["attn"], site, acache, nac)
+        lp = _layer(params["mamba_layers"], i)
+        mcache = None if caches is None else _layer(caches["mamba"], i)
+        h = layers.rmsnorm_apply(lp["ln"], x, cfg.norm_eps)
+        a, nmc = ssm.mamba2_apply(lp["mamba"], cfg, h, cst=pctx.cst,
+                                  cache=mcache)
+        if caches is not None:
+            _store(caches["mamba"], i, mcache, nmc)
+        x = x + a
+    x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    return pctx.cst(logits, ("batch", "seq", "vocab"))
+
+
+def zamba_forward(cfg, params, batch, pctx):
+    x = pctx.cst(params["embed"][batch["tokens"]], ("batch", "seq", "embed"))
+    positions = torch.arange(x.shape[1], device=x.device)
+    rope_cs = layers.rope_freqs(cfg.hd, cfg.rope_theta, positions)
+    return _zamba_run(cfg, params, x, rope_cs, pctx)
+
+
+def zamba_decode_step(cfg, params, batch, caches, pctx):
+    """caches = {'mamba': stacked(L), 'attn': stacked(n_sites)}."""
+    x = params["embed"][batch["tokens"]]
+    positions = torch.arange(1, device=x.device) + batch["pos"]
+    rope_cs = layers.rope_freqs(cfg.hd, cfg.rope_theta, positions)
+    return _zamba_run(cfg, params, x, rope_cs, pctx, caches), caches
+
+
+def zamba_cache_specs(cfg, batch, max_len):
+    return {"mamba": _stack_meta(ssm.mamba2_cache_spec(cfg, batch),
+                                 cfg.n_layers),
+            "attn": _stack_meta(_kv_cache_spec(cfg, batch, max_len),
+                                zamba_n_sites(cfg))}
+
+
+# ----------------------------------------------------------------------------
+# Whisper (enc-dec) assembly: the conv frontend is a stub, the batch
+# provides precomputed frame embeddings (B, enc_len, d).
+# ----------------------------------------------------------------------------
+
+
+def whisper_specs(cfg: ArchConfig, max_len: int = 65536) -> Params:
+    enc_layer = {
+        "ln1": layers.layernorm_spec(cfg.d_model),
+        "attn": layers.attention_spec(cfg),
+        "ln2": layers.layernorm_spec(cfg.d_model),
+        "mlp": layers.gelu_mlp_spec(cfg),
+    }
+    dec_layer = {
+        "ln1": layers.layernorm_spec(cfg.d_model),
+        "attn": layers.attention_spec(cfg),
+        "ln_x": layers.layernorm_spec(cfg.d_model),
+        "xattn": layers.attention_spec(cfg),
+        "ln2": layers.layernorm_spec(cfg.d_model),
+        "mlp": layers.gelu_mlp_spec(cfg),
+    }
+    return {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                           ("vocab", "embed"), cfg.dtype, "normal"),
+        "enc_pos": ParamSpec((max_len, cfg.d_model), (None, "embed"),
+                             cfg.dtype, "normal"),
+        "dec_pos": ParamSpec((max_len, cfg.d_model), (None, "embed"),
+                             cfg.dtype, "normal"),
+        "enc_layers": _stack_specs(enc_layer, cfg.enc_layers),
+        "dec_layers": _stack_specs(dec_layer, cfg.n_layers),
+        "ln_enc": layers.layernorm_spec(cfg.d_model),
+        "ln_f": layers.layernorm_spec(cfg.d_model),
+        # whisper ties the output head to the token embedding
+    }
+
+
+def whisper_encode(cfg, params, frames, pctx):
+    S = frames.shape[1]
+    x = pctx.cst(frames + params["enc_pos"][:S][None],
+                 ("batch", "seq", "embed"))
+    for i in range(cfg.enc_layers):
+        lp = _layer(params["enc_layers"], i)
+        h = layers.layernorm_apply(lp["ln1"], x, cfg.norm_eps)
+        a, _ = layers.attention_apply(lp["attn"], cfg, h, None, None,
+                                      cst=pctx.cst, causal=False,
+                                      use_rope=False)
+        x = x + a
+        h = layers.layernorm_apply(lp["ln2"], x, cfg.norm_eps)
+        x = x + layers.gelu_mlp_apply(lp["mlp"], h, cst=pctx.cst)
+    return layers.layernorm_apply(params["ln_enc"], x, cfg.norm_eps)
+
+
+def _whisper_dec_layer(lp, cfg, x, enc_out, pctx, cache=None):
+    h = layers.layernorm_apply(lp["ln1"], x, cfg.norm_eps)
+    a, ncache = layers.attention_apply(lp["attn"], cfg, h, None, None,
+                                       cst=pctx.cst, causal=True,
+                                       cache=cache, use_rope=False)
+    x = x + a
+    h = layers.layernorm_apply(lp["ln_x"], x, cfg.norm_eps)
+    x = x + layers.cross_attention_apply(lp["xattn"], cfg, h, enc_out,
+                                         cst=pctx.cst)
+    h = layers.layernorm_apply(lp["ln2"], x, cfg.norm_eps)
+    return x + layers.gelu_mlp_apply(lp["mlp"], h, cst=pctx.cst), ncache
+
+
+def _whisper_decode(cfg, params, x, enc_out, pctx, caches=None):
+    for i in range(cfg.n_layers):
+        lcache = None if caches is None else _layer(caches, i)
+        x, ncache = _whisper_dec_layer(_layer(params["dec_layers"], i), cfg,
+                                       x, enc_out, pctx, cache=lcache)
+        if caches is not None:
+            _store(caches, i, lcache, ncache)
+    x = layers.layernorm_apply(params["ln_f"], x, cfg.norm_eps)
+    logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+    return pctx.cst(logits, ("batch", "seq", "vocab"))
+
+
+def whisper_forward(cfg, params, batch, pctx):
+    enc_out = whisper_encode(cfg, params, batch["frames"], pctx)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = pctx.cst(params["embed"][tokens] + params["dec_pos"][:S][None],
+                 ("batch", "seq", "embed"))
+    return _whisper_decode(cfg, params, x, enc_out, pctx)
+
+
+def whisper_decode_step(cfg, params, batch, caches, pctx):
+    """caches: the stacked decoder self-attention caches; the encoder
+    output ``batch['enc_out']`` is computed once and carried outside."""
+    tokens, pos = batch["tokens"], batch["pos"]
+    x = params["embed"][tokens] + params["dec_pos"][pos][None, None]
+    return _whisper_decode(cfg, params, x, batch["enc_out"], pctx,
+                           caches), caches
+
+
+def whisper_cache_specs(cfg, batch, max_len):
+    return _stack_meta(_kv_cache_spec(cfg, batch, max_len), cfg.n_layers)
+
+
+# ----------------------------------------------------------------------------
+# Model facade
+# ----------------------------------------------------------------------------
+
+
+def _family(cfg: ArchConfig) -> str:
+    if cfg.family == "ssm":
+        return "xlstm"
+    if cfg.family == "hybrid":
+        return "zamba"
+    if cfg.enc_dec:
+        return "whisper"
+    return "lm"
+
+
+_SPECS = {"lm": lm_specs, "xlstm": xlstm_specs, "zamba": zamba_specs,
+          "whisper": whisper_specs}
+_FORWARD = {"lm": lm_forward, "xlstm": xlstm_forward, "zamba": zamba_forward,
+            "whisper": whisper_forward}
+_DECODE = {"lm": lm_decode_step, "xlstm": xlstm_decode_step,
+           "zamba": zamba_decode_step, "whisper": whisper_decode_step}
+_CACHE_SPECS = {"lm": lm_cache_specs, "xlstm": xlstm_cache_specs,
+                "zamba": zamba_cache_specs, "whisper": whisper_cache_specs}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+
+    # --- specs/init ---
+    def specs(self):
+        return _SPECS[_family(self.cfg)](self.cfg)
+
+    def init(self, generator, device=None):
+        """Parameters drawn from ``generator`` (a ``torch.Generator``,
+        or an int seeding one on ``device``, default the card)."""
+        if isinstance(generator, int):
+            dev = resolve_device(device)
+            generator = torch.Generator(device=dev).manual_seed(generator)
+        return init_params(self.specs(), generator, device)
+
+    def abstract_params(self):
+        return abstract_params(self.specs())
+
+    def param_axes(self):
+        return axes_tree(self.specs())
+
+    # --- forward paths ---
+    def forward(self, params, batch, pctx: ParallelCtx = ParallelCtx()):
+        """Logits (B, S, V) of the full forward pass."""
+        return _FORWARD[_family(self.cfg)](self.cfg, params, batch, pctx)
+
+    def loss(self, params, batch, pctx: ParallelCtx = ParallelCtx()):
+        if _family(self.cfg) == "lm":
+            return lm_loss(self.cfg, params, batch, pctx)
+        return _xent(self.forward(params, batch, pctx), batch["targets"])
+
+    def decode_step(self, params, batch, caches,
+                    pctx: ParallelCtx = ParallelCtx()):
+        """One token against ``caches``, which are updated in place:
+        -> (logits (B, 1, V), caches)."""
+        return _DECODE[_family(self.cfg)](self.cfg, params, batch, caches,
+                                          pctx)
+
+    def cache_specs(self, batch: int, max_len: int):
+        return _CACHE_SPECS[_family(self.cfg)](self.cfg, batch, max_len)
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        dev = resolve_device(device)
+        return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                              device=dev),
+                        self.cache_specs(batch, max_len))
+
+    # --- abstract inputs ---
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind in ("train", "prefill"):
+            batch = {"tokens": _meta((B, S), i32),
+                     "targets": _meta((B, S), i32)}
+            if cfg.mrope:
+                vis = int(S * cfg.vis_prefix_frac)
+                batch["tokens"] = _meta((B, S - vis), i32)
+                batch["targets"] = _meta((B, S - vis), i32)
+                batch["vis_embeds"] = _meta((B, vis, cfg.d_model), cfg.dtype)
+            if cfg.enc_dec:
+                enc_len = int(S * cfg.enc_len_frac)
+                batch["frames"] = _meta((B, enc_len, cfg.d_model), cfg.dtype)
+            return batch
+        # decode: one token with a KV cache of S
+        batch = {"tokens": _meta((B, 1), i32), "pos": _meta((), i32)}
+        if cfg.enc_dec:
+            enc_len = int(S * cfg.enc_len_frac)
+            batch["enc_out"] = _meta((B, enc_len, cfg.d_model), cfg.dtype)
+        return batch

@@ -1055,3 +1055,116 @@ def test_kernel_contract_with_the_card_present():
     ctx = lint.LintContext()
     assert ctx.cuda
     assert lint.run_rules(ctx, ["kernel-contract"]) == []
+
+
+# ---------------------------------------------------------------------------
+# the model stack's serving half (models/, serve/decode) on the card
+# ---------------------------------------------------------------------------
+
+#: card against CPU, float32: max |card - cpu| <= MODEL_TOL * max(1,
+#: max |cpu|) (two layers of float32 products of widths <= 256)
+MODEL_TOL = 1e-4
+
+
+def _model_pair(arch, dtype=torch.float32):
+    from repro_torch import configs
+    from repro_torch.models import Model, spec
+    model = Model(configs.get(f"{arch}-smoke").replace(dtype=dtype))
+    cpu = model.init(torch.Generator().manual_seed(0))
+    return model, cpu, spec.tree_map(lambda a: a.to("cuda"), cpu)
+
+
+def _smoke_batch(cfg, dev):
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                     generator=gen, dtype=torch.int32),
+             "targets": torch.randint(0, cfg.vocab_size, (2, 12),
+                                      generator=gen, dtype=torch.int32)}
+    if cfg.mrope:
+        batch["vis_embeds"] = 0.02 * torch.randn(2, 4, cfg.d_model,
+                                                 generator=gen)
+    if cfg.enc_dec:
+        batch["frames"] = 0.02 * torch.randn(2, 8, cfg.d_model, generator=gen)
+    return {k: v.to(dev, cfg.dtype) if v.is_floating_point() else v.to(dev)
+            for k, v in batch.items()}
+
+
+def _rel(a, b):
+    return float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "dbrx-132b",
+                                  "xlstm-125m", "qwen2-vl-2b",
+                                  "internlm2-1.8b", "deepseek-coder-33b",
+                                  "qwen2-72b", "starcoder2-7b", "zamba2-7b",
+                                  "whisper-tiny"])
+def test_model_forward_and_decode_card_against_cpu(arch):
+    """Each smoke config in float32: the forward logits, the loss and
+    three decode steps' logits and caches on the card agree with the CPU
+    (which the CPU tests hold to the JAX package)."""
+    _need_card()
+    from repro_torch.models import spec
+    model, cpu, card = _model_pair(arch)
+    cfg = model.cfg
+    with torch.no_grad():
+        outs = {}
+        for dev, params in (("cpu", cpu), ("cuda", card)):
+            batch = _smoke_batch(cfg, dev)
+            caches = model.init_cache(2, 8, device=dev)
+            steps = []
+            for i in range(3):
+                db = {"tokens": batch["tokens"][:, i:i + 1], "pos": i}
+                if cfg.enc_dec:
+                    db["enc_out"] = batch["frames"]
+                steps.append(model.decode_step(params, db, caches)[0])
+            outs[dev] = ([model.forward(params, batch),
+                          model.loss(params, batch)] + steps
+                         + spec.tree_leaves(caches))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.device.type == "cuda"
+        assert _rel(got.float(), want.float()) <= MODEL_TOL, arch
+
+
+@pytest.mark.cuda
+def test_generate_on_the_card_matches_the_cpu():
+    _need_card()
+    from repro_torch.serve import decode
+    model, cpu, card = _model_pair("internlm2-1.8b")
+    prompt = torch.randint(0, model.cfg.vocab_size, (3, 5),
+                           generator=torch.Generator().manual_seed(2),
+                           dtype=torch.int32)
+    got = decode.generate(model, card, prompt, 6)       # default: the card
+    want = decode.generate(model, cpu, prompt, 6, device="cpu")
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_bf16_decode_steps_on_the_card_are_finite_and_in_place():
+    _need_card()
+    from repro_torch.serve import decode
+    model, _, card = _model_pair("qwen2-72b", torch.bfloat16)
+    caches = model.init_cache(4, 16)
+    ptr = caches["k"].data_ptr()
+    step = decode.make_serve_step(model)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    for pos in range(4):
+        logits, out = step(card, {"tokens": tok, "pos": pos}, caches)
+        assert out is caches and caches["k"].data_ptr() == ptr
+        assert logits.dtype == torch.bfloat16
+        assert bool(torch.isfinite(logits).all())
+        tok = decode.sample_token(logits)
+    assert caches["pos"].tolist() == [4] * model.cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_walker_clean_on_the_card():
+    """sunlint's dispatch walker over the main path's first steps on the
+    card, under the kernels: no finding."""
+    _need_card()
+    from repro_torch.analysis import hotloop, lint
+    ctx = lint.LintContext()
+    ctx.hot_loop_targets = hotloop.robertson_targets(nsys=4096,
+                                                     device="cuda")
+    assert lint.run_rules(ctx, ["hot-loop-layout", "dtype-drift"]) == []
+    assert all(ctx.hot_loop_trace(t).calls for t in ctx.hot_loop_targets)

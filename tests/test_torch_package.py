@@ -17,6 +17,10 @@ from repro_torch.core import ivp, problems, status, sunmatrix
 from repro_torch.core.arkode import ODEOptions
 from repro_torch.core.context import Context
 from repro_torch.core.policies import ExecPolicy
+from repro_torch import configs
+from repro_torch.examples import serve_demo
+from repro_torch.models import Model, ParallelCtx
+from repro_torch.serve import decode
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -54,7 +58,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.serve.solver, repro_torch.testing.chaos, "
             "repro_torch.examples.serve_solver_demo, "
             "repro_torch.examples.brusselator, "
-            "repro_torch.examples.brusselator_sparse\n"
+            "repro_torch.examples.brusselator_sparse, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.serve.decode, repro_torch.examples.serve_demo, "
+            "repro_torch.analysis.lint, repro_torch.analysis.hotloop\n"
+            "from repro_torch import configs\n"
+            "configs.names()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad")
@@ -80,6 +89,18 @@ def test_entry_points_run_on_the_card_by_default():
             make()
     eye = torch.eye(2, dtype=torch.float64)
     assert sm.SparseCSR.from_dense(eye).data.device == eye.device
+    # the model stack: weights, caches, generation and the example
+    model = Model(configs.get("internlm2-1.8b-smoke"))
+    for make in (lambda: model.init(0), lambda: model.init_cache(1, 4),
+                 lambda: decode.generate(model, {}, torch.zeros(
+                     (1, 2), dtype=torch.int32), 1),
+                 lambda: serve_demo.main([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    params = model.init(0, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert model.init_cache(1, 4, device="cpu")["k"].device.type == "cpu"
+    assert model.abstract_params()["embed"].device.type == "meta"
     assert sm.SparseCSR.from_pattern((0, 1, 2), (0, 1), (2, 2),
                                      data=eye[0]).data.device == eye.device
 
@@ -134,6 +155,19 @@ def test_unported_paths_raise():
         ivp.integrate(prob, 0.0, 1.0, "rk4", device="cpu")
     with pytest.raises(ValueError, match="lies on cpu"):
         ivp.integrate(prob, 0.0, 1.0, "ensemble_bdf", device="meta")
+    # the expert-parallel MoE (moe_ep.py) is not ported: no quiet
+    # fall-through to the dense MoE; without a mesh "ep" is the dense path
+    # in both packages
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        ParallelCtx(mesh=object(), moe_impl="ep")
+    with pytest.raises(ValueError, match="moe_impl"):
+        ParallelCtx(moe_impl="expert")
+    moe = Model(configs.get("dbrx-132b-smoke").replace(dtype=torch.float32))
+    p = moe.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.zeros((1, 3), dtype=torch.int32),
+             "targets": torch.zeros((1, 3), dtype=torch.int32)}
+    assert torch.equal(moe.loss(p, batch, ParallelCtx(moe_impl="ep")),
+                       moe.loss(p, batch))
 
 
 def _fields(opts):

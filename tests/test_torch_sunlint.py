@@ -2,15 +2,19 @@
 CPU: every rule flags its fixture (through the API and the CLI) and is
 clean on the port's tree; the suppression machinery; bounded-loops'
 reading of loop guards; table-coherence's cache and doc checks;
-kernel-contract's launch half; the CLI's exit codes and ``--list``."""
+kernel-contract's launch half; the dispatch walker of hot-loop-layout and
+dtype-drift (seeded permute-copies and casts inside a marked region, the
+allowlist, the Newton trips of ``ensemble_bdf`` and ``ensemble_dirk``);
+the CLI's exit codes and ``--list``."""
 import json
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.analysis import fixtures, lint
+from repro_torch.analysis import fixtures, hotloop, lint
 from repro_torch.analysis.rules import bounded
+from repro_torch.core import loops
 from repro_torch.kernels import block_solve
 
 FIXTURES = lint.load_fixtures()
@@ -40,7 +44,8 @@ def test_fixture_cli_exits_nonzero(name):
 def test_every_rule_has_a_fixture():
     assert {rule for rule, _ in FIXTURES.values()} == set(RULE_NAMES)
     assert set(RULE_NAMES) == {"kernel-contract", "table-coherence",
-                               "bounded-loops"}
+                               "bounded-loops", "hot-loop-layout",
+                               "dtype-drift"}
 
 
 @pytest.mark.parametrize("rule", RULE_NAMES)
@@ -50,7 +55,7 @@ def test_rule_clean_on_the_ports_tree(clean_ctx, rule):
 
 def test_check_cli_clean_on_the_ports_tree(capsys):
     assert lint.main(["--check"]) == 0
-    assert "sunlint: 0 violations (3 rules" in capsys.readouterr().out
+    assert "sunlint: 0 violations (5 rules" in capsys.readouterr().out
 
 
 def test_cli_list_names_every_rule(capsys):
@@ -221,3 +226,107 @@ def test_kernel_contract_without_a_signature_grid():
     ctx.contract_sigs = sigs
     found = lint.run_rules(ctx, ["kernel-contract"])
     assert [v.where for v in found] == ["dot"]
+
+
+# ---------------------------------------------------------------------------
+# the dispatch walker: hot-loop-layout and dtype-drift
+# ---------------------------------------------------------------------------
+
+
+def _seeded(body):
+    """A target whose one 'trip' runs ``body`` inside a marked region,
+    with ops outside the region around it."""
+    def run():
+        x = torch.arange(12, dtype=torch.float64).reshape(3, 4)
+        x.T.contiguous()                     # outside: not recorded
+        with loops.region("fixture:newton"):
+            body(x)
+        x.float()
+
+    return hotloop.HotLoopTarget("seeded", run)
+
+
+SEEDED_LAYOUT = {
+    "contiguous": lambda x: x.T.contiguous(),
+    "clone": lambda x: x.permute(1, 0).clone(),
+    "copying_reshape": lambda x: x.T.reshape(-1),
+    "copy_into": lambda x: torch.empty(4, 3, dtype=x.dtype).copy_(x.T),
+    "view_of_permute": lambda x: x.T[1:].contiguous(),
+    "transpose_movedim": lambda x: x.unsqueeze(0).movedim(2, 0).clone(),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEEDED_LAYOUT))
+def test_hot_loop_layout_flags_a_seeded_permute_copy(case):
+    ctx = lint.LintContext()
+    ctx.hot_loop_targets = [_seeded(SEEDED_LAYOUT[case])]
+    got = lint.run_rules(ctx, ["hot-loop-layout"])
+    assert len(got) >= 1 and all(":fixture:newton:" in v.where for v in got)
+    assert got[0].src[0] == __file__
+    assert lint.run_rules(ctx, ["dtype-drift"]) == []
+
+
+def test_hot_loop_layout_passes_views_and_contiguous_copies():
+    def body(x):
+        x.T @ x                               # a permuted operand, no copy
+        x.T.sum(0)
+        x.clone().reshape(-1)                 # a copy of an unpermuted x
+        x[:1].T.contiguous()                  # permuted, already contiguous
+
+    ctx = lint.LintContext()
+    ctx.hot_loop_targets = [_seeded(body)]
+    assert lint.run_rules(ctx, ["hot-loop-layout", "dtype-drift"]) == []
+
+
+SEEDED_DTYPE = {
+    "truncation_to": (lambda x: x.to(torch.float32), ("float64", "float32")),
+    "promotion_float": (lambda x: x.float().double(), ("float32", "float64")),
+    "implicit_promotion": (lambda x: x * torch.ones(4, dtype=torch.float32),
+                           ("float32", "float64")),
+    "copy_into": (lambda x: torch.empty(3, 4).copy_(x),
+                  ("float64", "float32")),
+    "half": (lambda x: x.half(), ("float64", "float16")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEEDED_DTYPE))
+def test_dtype_drift_flags_a_seeded_cast_and_the_allowlist_silences_it(case):
+    body, pair = SEEDED_DTYPE[case]
+    ctx = lint.LintContext()
+    ctx.hot_loop_targets = [_seeded(body)]
+    got = lint.run_rules(ctx, ["dtype-drift"])
+    assert got and all(v.rule == "dtype-drift" for v in got)
+    assert any(f"{pair[0]} -> {pair[1]}" in v.message for v in got)
+    ctx.dtype_allowlist = {("float64", "float32"), ("float32", "float64"),
+                           ("float64", "float16")}
+    assert lint.run_rules(ctx, ["dtype-drift"]) == []
+
+
+def test_walker_sees_every_newton_trip_of_both_integrators():
+    """The walker records only the marked trips, and both integrators'
+    trips are marked: the default targets run ops in each region."""
+    ctx = lint.LintContext()
+    names = [t.name for t in ctx.hot_loop_targets]
+    assert names == ["ensemble_bdf", "ensemble_dirk"]
+    calls = {n: ctx.hot_loop_trace(t).calls
+             for n, t in zip(names, ctx.hot_loop_targets)}
+    assert set(calls["ensemble_bdf"]) == {"ensemble_bdf:newton"}
+    assert set(calls["ensemble_dirk"]) == {"ensemble_dirk:newton"}
+    assert all(n > 50 for c in calls.values() for n in c.values())
+    assert loops.regions == []
+    with pytest.raises(RuntimeError, match="saw no trip"):
+        hotloop.trace(hotloop.HotLoopTarget("none", lambda: None))
+
+
+def test_aos_boundary_findings_name_the_wrapper():
+    """The fixture's AoS right-hand side: every finding is the
+    integrator's boundary transpose (``batched._wrap_soa``), in both
+    integrators' trips."""
+    ctx = lint.LintContext()
+    fixtures.FIXTURES["aos_rhs"][1](ctx)
+    got = lint.run_rules(ctx, ["hot-loop-layout"])
+    regions = {v.where.split(":")[3] for v in got}
+    assert regions == {"ensemble_bdf", "ensemble_dirk"}
+    assert all("repro_torch.core.batched.<lambda>:clone" in v.where
+               for v in got)
+    assert all(v.src[0].endswith("core/batched.py") for v in got)
