@@ -241,6 +241,32 @@ of which prints the seconds it took:
      ``dtype-drift``) over four ``ensemble_bdf`` and ``ensemble_dirk``
      steps of the main path's 2**20 systems under the kernels: no
      finding outside ``.sunlint-torch-baseline``;
+   - path Q, the model stack's training half (``data/``, ``optim/``,
+     ``train/``, ``launch/train.py``), after P: Q.1 the launcher's path
+     at internlm2-1.8b's ``FULL`` width (bf16, remat): six AdamW steps
+     of ``make_train_step`` over ``synthetic_batch`` (batch 8 x 512,
+     seed 0, lr 3e-4, warmup 1), every loss and gradient norm finite
+     and > 0 and the last loss below the first, row 16 (``dot``, AdamW's
+     global norm) launched once a leaf a step; ms a step (median of steps
+     2-6), tokens/s, the share of 989 TFLOP/s given by 6*N*T plus remat's
+     2*N_layers*T, the device's busy share (one profiled step) and peak
+     memory printed; Q.2 step 0's batch with 4 microbatches against one
+     (loss within 1e-4 relative; params within 3e-2*|p| + 2*lr + one bf16
+     ulp, the reference's own check); Q.3 the width cut to 2 layers in
+     float32, one step (batch 2 x 64) on the card against the port's CPU
+     run with the same weights (loss within 1e-5 relative, gradient norm
+     1e-4, moments 1e-4 of each leaf's scale, params 2*lr + 1e-6) and
+     remat on against off on the card bit for bit; Q.4 the launcher on
+     ``internlm2-1.8b-smoke`` (6 steps, checkpoints every 3) run twice
+     uninterrupted and once crashed after 3 steps (its data stream dies)
+     then resumed: the resume line printed, the resumed losses and final
+     checkpoint equal to the uninterrupted run's bit for bit when the two
+     uninterrupted runs repeat their bits (else within Q.2's loss
+     tolerance, printed); Q.5 ``gradflow.step`` (heun_euler, tau 0.1,
+     max_steps 6) on Q.3's cut, rows 12 and 14 launched, its steps and
+     attempts equal to a run with ``linear_combination``, ``wrms_norm``
+     and ``dot`` pinned to their plain versions, params within
+     10*(rtol*|p|+atol) of it, the loss falling;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
@@ -264,6 +290,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3388,6 +3415,506 @@ def phase_path_p(card, profile=False):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# path Q: the model stack's training half (data/, optim/, train/, launch/)
+# ---------------------------------------------------------------------------
+
+#: path Q's architecture (P's: internlm2-1.8b FULL, bf16, remat on); Q.1's
+#: batch, sequence, steps and learning rate (warmup 1, total_steps Q_STEPS,
+#: synthetic_batch seed 0); Q.2's microbatches; Q.3's layers (the FULL
+#: width cut), batch and sequence (float32); Q.4's smoke arch, steps,
+#: crash point, batch and sequence; Q.5's gradient flow (heun_euler,
+#: tests/test_train_infra.py:149-160)
+Q_ARCH = "internlm2-1.8b"
+Q_BATCH, Q_SEQ, Q_STEPS, Q_LR = 8, 512, 6, 3e-4
+Q2_MICRO = 4
+Q3_LAYERS, Q3_BATCH, Q3_SEQ = 2, 2, 64
+Q4_ARCH, Q4_STEPS, Q4_CRASH, Q4_BATCH, Q4_SEQ = \
+    "internlm2-1.8b-smoke", 6, 3, 8, 64
+Q5_TAU, Q5_MAX_STEPS = 0.1, 6
+#: the H100 SXM's dense bf16 tensor-core peak (FLOP/s)
+BF16_DENSE_FLOPS = 989e12
+#: Q.2 (the reference's own microbatch check, tests/test_train_infra.py:
+#: 53-62, with atol 2*lr + one bf16 ulp): the loss within Q2_LOSS_RTOL
+#: relative, params within Q2_RTOL*|p| + 2*lr + ulp(max(|p|, |p'|)), the
+#: ulp of the larger of the two bf16 results.  Q.3 (card against CPU,
+#: float32): the loss within 1e-5 relative, params within 2*lr + 1e-6;
+#: the gradients, by leaf in the norm, within Q3_SPREAD times the CPU's
+#: own float32 error (its float32 gradient against one with float64
+#: weights) + 1e-4, the gradient norm likewise + 1e-4 relative, and the
+#: moments within the bound of their gradients and clip scales.  A
+#: random-weight model at this width loses 1-6 % of its attention
+#: gradients to float32 rounding on either device (PERF.md §6), so a
+#: fixed 1e-4 cannot hold, while a wrong gradient misses by far more
+Q2_LOSS_RTOL, Q2_RTOL = 1e-4, 3e-2
+Q3_LOSS_RTOL, Q3_NORM_RTOL, Q3_MOMENT_TOL, Q3_PARAM_ATOL = \
+    1e-5, 1e-4, 1e-4, 1e-6
+Q3_SPREAD = 3.0
+#: the kernels each sub-run of Q launches (rows 16; 12 and 14)
+Q_KERNELS = {"Q.1": ("dot",), "Q.5": ("linear_combination", "wrms_ss")}
+
+
+def q_counted(what, run, kernels_of=(), launched=None):
+    """``run()`` with the launch counts zeroed just before and read just
+    after: every kernel of ``kernels_of`` launched (``launched``: name ->
+    the exact count), no plain version on the card.  -> (out, counts)."""
+    from repro_torch import kernels
+    p_sync()
+    kernels.reset_counts()
+    out = run()
+    p_sync()
+    counts = kernels.counts()
+    for name in kernels_of:
+        check(counts[name][0] > 0, f"{what}: kernel {name} was not launched")
+    for name, n in (launched or {}).items():
+        check(counts[name][0] == n, f"{what}: kernel {name} launched "
+              f"{counts[name][0]} times, not {n}")
+    check(all(v[1] == 0 for v in counts.values()),
+          f"{what}: a plain version ran on the card: {counts}")
+    return out, counts
+
+
+def q_add(total, counts):
+    for k, (a, b) in counts.items():
+        x, y = total.get(k, (0, 0))
+        total[k] = (x + a, y + b)
+
+
+def q_batches(vocab, seq, batch, steps, dev, seed=0):
+    import torch
+    from repro_torch.data import pipeline
+    d = pipeline.DataConfig(vocab_size=vocab, seq_len=seq, global_batch=batch,
+                            seed=seed)
+    return [{k: torch.from_numpy(v).to(dev) for k, v in
+             pipeline.synthetic_batch(d, i).items()} for i in range(steps)]
+
+
+def q_ulp_bf16(t):
+    """One bfloat16 ulp of each element's magnitude (8 significant bits)."""
+    import torch
+    a = t.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def q_train(card, dev, total):
+    """Q.1: the launcher's path at the full width: Q_STEPS AdamW steps of
+    make_train_step over synthetic_batch, bf16, remat on."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import Model, spec
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    cfg = configs.get(Q_ARCH)
+    check(cfg.remat and cfg.dtype == torch.bfloat16, "Q: the FULL config "
+          "is not bf16 with remat on")
+    model = Model(cfg)
+    ocfg = adamw.AdamWConfig(lr=Q_LR, warmup_steps=1, total_steps=Q_STEPS)
+    batches = q_batches(cfg.vocab_size, Q_SEQ, Q_BATCH, Q_STEPS, dev)
+    p_peak_reset()
+    state = tstep.init_state(model, 0, ocfg, device=dev)
+    n_params = spec.param_count(model.specs())
+    n_layer = spec.param_count(model.specs()["layers"])
+    n_leaves = len(spec.tree_leaves(state.params))
+    train = tstep.make_train_step(model, ocfg=ocfg)
+    times, mets = [], []
+    step0 = {}
+
+    def steps():
+        nonlocal state
+        for i, b in enumerate(batches):
+            p_sync()
+            t0 = time.perf_counter()
+            state, met = train(state, b)
+            p_sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+            mets.append(met)
+            if i == 0:      # Q.2's reference: params after one full step
+                step0["params"] = spec.tree_map(torch.clone, state.params)
+                step0["loss"] = met["loss"].clone()
+
+    _, counts = q_counted("Q.1", steps, Q_KERNELS["Q.1"],
+                          {"dot": n_leaves * Q_STEPS})
+    q_add(total, counts)
+    peak = p_peak_gib()
+    loss = [float(m["loss"]) for m in mets]
+    gnorm = [float(m["grad_norm"]) for m in mets]
+    lr = [float(m["lr"]) for m in mets]
+    check(all(math.isfinite(x) and x > 0 for x in loss + gnorm),
+          f"Q.1: a loss or grad norm not finite and > 0: {loss} {gnorm}")
+    check(loss[-1] < loss[0], f"Q.1: the loss did not fall: {loss}")
+    ms = statistics.median(times[1:])
+    tokens = Q_BATCH * Q_SEQ
+    flops = 6 * n_params * tokens + 2 * n_layer * tokens
+    prof = p_profile("Q.1 train step", lambda: train(state, batches[0]))
+    busy = prof["device_busy_s"] / prof["unprofiled_wall_s"]
+    rec = {"arch": Q_ARCH, "params": n_params, "leaves": n_leaves,
+           "batch": Q_BATCH, "seq": Q_SEQ, "loss": loss, "grad_norm": gnorm,
+           "lr": lr, "ms_all": times, "ms_per_step": ms,
+           "tokens_per_s": tokens / (ms / 1e3), "model_flops": flops,
+           "peak_flops_share": flops / (ms / 1e3) / BF16_DENSE_FLOPS,
+           "peak_gib": peak, "dot_launches": counts["dot"][0],
+           "device_busy_share": busy, "profile": prof}
+    print(f"Q.1 {Q_ARCH} bf16 remat, {n_params / 1e9:.3f} B params in "
+          f"{n_leaves} leaves, batch {Q_BATCH} x {Q_SEQ}, {Q_STEPS} AdamW "
+          f"steps: loss " + " ".join(f"{x:.4f}" for x in loss) + ", grad "
+          "norm " + " ".join(f"{x:.4g}" for x in gnorm) + f"; {ms:.2f} ms a "
+          f"step (median of steps 2-{Q_STEPS}: " + ", ".join(
+              f"{t:.2f}" for t in times) + f"), {rec['tokens_per_s']:.0f} "
+          f"tokens/s, {100 * rec['peak_flops_share']:.1f} % of "
+          f"{BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s (6*N*T + remat's 2*N_layers"
+          f"*T = {flops / 1e12:.2f} TFLOP a step), device busy "
+          f"{100 * busy:.1f} %, peak {peak:.2f} GiB; row 16 (dot) launched "
+          f"{counts['dot'][0]} times ({n_leaves} a step)", flush=True)
+    del state, train
+    torch.cuda.empty_cache()
+    return rec, model, ocfg, batches[0], step0
+
+
+def q_microbatches(model, ocfg, batch, step0, dev, total):
+    """Q.2: step 0's batch with Q2_MICRO microbatches against Q.1's first
+    step (one microbatch), from the same initial weights."""
+    import torch
+    from repro_torch.models import spec
+    from repro_torch.train import step as tstep
+    state = tstep.init_state(model, 0, ocfg, device=dev)
+    train = tstep.make_train_step(model, ocfg=ocfg, microbatches=Q2_MICRO)
+    (state, met), counts = q_counted("Q.2", lambda: train(state, batch),
+                                     ("dot",))
+    q_add(total, counts)
+    loss, want = float(met["loss"]), float(step0["loss"])
+    check(abs(loss - want) <= Q2_LOSS_RTOL * abs(want),
+          f"Q.2: loss {loss} with {Q2_MICRO} microbatches against {want}")
+    lr = float(met["lr"])
+    over, strict = -math.inf, 0.0
+    for a, b in zip(spec.tree_leaves(state.params),
+                    spec.tree_leaves(step0["params"])):
+        diff = (a.float() - b.float()).abs()
+        # each side rounded to bf16 at its own magnitude: one ulp of the
+        # larger
+        slack = 2 * lr + q_ulp_bf16(torch.maximum(a.float().abs(),
+                                                  b.float().abs()))
+        over = max(over, float((diff - slack - Q2_RTOL * b.float().abs())
+                               .max()))
+        strict = max(strict, float((diff - slack).max()))
+    check(over <= 0, f"Q.2: params past the reference's bound by {over:.3g}")
+    print(f"Q.2 {Q2_MICRO} microbatches against 1, step 0: loss {loss:.6f} "
+          f"against {want:.6f} (rel {abs(loss - want) / want:.3g}, gate "
+          f"{Q2_LOSS_RTOL}); params max(|diff| - 2*lr - ulp) {strict:.3g} "
+          f"(gate also {Q2_RTOL}*|p|)", flush=True)
+    del state, train
+    torch.cuda.empty_cache()
+    return {"loss": loss, "loss_one": want, "param_excess": strict}
+
+
+def q_cut_model(dev):
+    """Q.3's and Q.5's model: the FULL width cut to Q3_LAYERS layers,
+    float32, remat on; weights drawn on the card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import Model
+    cfg = configs.get(Q_ARCH).replace(n_layers=Q3_LAYERS,
+                                      dtype=torch.float32)
+    model = Model(cfg)
+    return model, model.init(0, device=dev)
+
+
+def q_rel(a, b) -> float:
+    """||a - b|| / ||b||, on the host in float64."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).norm() / b.norm().clamp(min=1e-300))
+
+
+def q_card_vs_cpu(model, params, dev, total):
+    """Q.3: one float32 step on the card against the port's CPU run with
+    the same weights; the card's gradients against the CPU's within
+    Q3_SPREAD times the CPU's own float32 error; remat on against off on
+    the card, bit for bit."""
+    import torch
+    from repro_torch.models import Model, spec
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    ocfg = adamw.AdamWConfig(lr=Q_LR, warmup_steps=1, total_steps=Q_STEPS)
+    batch = q_batches(model.cfg.vocab_size, Q3_SEQ, Q3_BATCH, 1, dev, 3)[0]
+    cpu = torch.device("cpu")
+    runs = {}
+    for where in (dev, cpu):
+        p = spec.tree_map(lambda a: a.to(where, copy=True), params)
+        st = tstep.TrainState(p, adamw.init(p, ocfg))
+        b = {k: v.to(where) for k, v in batch.items()}
+        train = tstep.make_train_step(model, ocfg=ocfg)
+        t0 = time.perf_counter()
+        if where.type == "cuda":
+            (st, met), counts = q_counted("Q.3", lambda: train(st, b),
+                                          ("dot",))
+            q_add(total, counts)
+        else:
+            st, met = train(st, b)
+        runs[where.type] = (st, met, time.perf_counter() - t0)
+    (cs, cm, cwall), (hs, hm, hwall) = runs[dev.type], runs["cpu"]
+    errs = {"loss": abs(float(cm["loss"]) - float(hm["loss"])) /
+            abs(float(hm["loss"]))}
+    check(errs["loss"] <= Q3_LOSS_RTOL, f"Q.3: loss rel {errs['loss']:.3g}")
+    lr = float(hm["lr"])
+    errs["params"] = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        spec.tree_leaves(cs.params), spec.tree_leaves(hs.params)))
+    check(errs["params"] <= 2 * lr + Q3_PARAM_ATOL,
+          f"Q.3: params differ by {errs['params']:.3g} (gate 2*lr + "
+          f"{Q3_PARAM_ATOL})")
+    errs["lr"] = abs(float(cm["lr"]) - lr) / lr
+    # the gradients: the card's (remat on and off), the CPU's in float32
+    # and with float64 weights (its matmuls in float64; the model's own
+    # float32 casts stay): the CPU's own float32 error per leaf
+    off = Model(model.cfg.replace(remat=False))
+    card = [tstep.value_and_grad(m.loss, params, batch) for m in (model, off)]
+    same = torch.equal(card[0][0], card[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(spec.tree_leaves(card[0][1]),
+                                          spec.tree_leaves(card[1][1])))
+    check(same, "Q.3: remat on and off differ on the card")
+    gc = [g.cpu() for g in spec.tree_leaves(card[0][1])]
+    del card
+    torch.cuda.empty_cache()
+    hb = {k: v.cpu() for k, v in batch.items()}
+    p32 = spec.tree_map(lambda a: a.cpu(), params)
+    g32 = spec.tree_leaves(tstep.value_and_grad(model.loss, p32, hb)[1])
+    m64 = Model(model.cfg.replace(dtype=torch.float64))
+    g64 = spec.tree_leaves(tstep.value_and_grad(
+        m64.loss, spec.tree_map(torch.Tensor.double, p32), hb)[1])
+    spread = [q_rel(a, b) for a, b in zip(g32, g64)]
+    grad = [q_rel(a, b) for a, b in zip(gc, g32)]
+    bad = [(i, d, e) for i, (d, e) in enumerate(zip(grad, spread))
+           if d > Q3_SPREAD * e + Q3_MOMENT_TOL]
+    check(not bad, f"Q.3: gradient leaves (index, card rel, CPU float32 "
+          f"rel) past {Q3_SPREAD}x the CPU's own error + "
+          f"{Q3_MOMENT_TOL}: {bad}")
+
+    def norm(gs):
+        return math.sqrt(sum(float(g.double().pow(2).sum()) for g in gs))
+
+    n_card, n32, n64 = norm(gc), norm(g32), norm(g64)
+    gn_gate = Q3_SPREAD * abs(n32 - n64) + Q3_NORM_RTOL * n32
+    errs["grad_norm"] = abs(float(cm["grad_norm"]) - float(hm["grad_norm"]))
+    check(abs(n_card - n32) <= gn_gate and errs["grad_norm"] <= gn_gate,
+          f"Q.3: gradient norm {n_card} (step {float(cm['grad_norm'])}) "
+          f"against the CPU's {n32} (step {float(hm['grad_norm'])}; float64 "
+          f"weights {n64})")
+    errs["grad_norm"] /= float(hm["grad_norm"])
+    # the moments follow the gradient and the clip scale min(1, 1/norm)
+    clip = abs(min(1.0, 1 / float(cm["grad_norm"])) /
+               min(1.0, 1 / float(hm["grad_norm"])) - 1)
+    for name, power in (("m", 1), ("v", 2)):
+        rel = [q_rel(a, b) for a, b in zip(
+            spec.tree_leaves(getattr(cs.opt, name)),
+            spec.tree_leaves(getattr(hs.opt, name)))]
+        over = [(i, r) for i, (r, e) in enumerate(zip(rel, spread))
+                if r > power * (Q3_SPREAD * e + clip) + Q3_MOMENT_TOL]
+        check(not over, f"Q.3: {name} leaves past their gradients' bound: "
+              f"{over}")
+        errs[name] = max(rel)
+    errs["gradient"] = max(grad)
+    errs["cpu_float32_spread"] = max(spread)
+    del runs, cs, hs, gc, g32, g64, p32
+    print(f"Q.3 {Q3_LAYERS} layers float32 remat, batch {Q3_BATCH} x "
+          f"{Q3_SEQ}, one step, card against CPU (norm-relative by leaf, "
+          f"the largest): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items()) + "; per leaf card "
+          + " ".join(f"{x:.2g}" for x in grad) + ", CPU float32 against "
+          "float64 weights " + " ".join(f"{x:.2g}" for x in spread)
+          + f" (walls card {cwall:.2f} s, CPU {hwall:.2f} s); remat on "
+          "against off on the card: loss and gradients bit for bit",
+          flush=True)
+    return {"rel_err": errs, "gradient_rel": grad, "cpu_spread": spread,
+            "card_s": cwall, "cpu_s": hwall, "remat_bitwise": same}
+
+
+class QCrash(Exception):
+    """The launcher's data stream dying, as a crashed process would."""
+
+
+def q_launch(args, crash_after=None):
+    """``launch.train.main(args)`` with its stdout kept; ``crash_after``
+    kills its data stream after that many batches. -> (losses, stdout)."""
+    import contextlib
+    import io
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    real = pipeline.batches
+
+    def dying(*a, **kw):
+        for i, b in enumerate(real(*a, **kw)):
+            if i == crash_after:
+                raise QCrash
+            yield b
+
+    buf = io.StringIO()
+    if crash_after is not None:
+        pipeline.batches = dying
+    try:
+        with contextlib.redirect_stdout(buf):
+            hist = train.main(args)
+    except QCrash:
+        hist = None
+    finally:
+        pipeline.batches = real
+    return hist, buf.getvalue()
+
+
+def q_final(ckpt_dir):
+    """The final checkpoint's leaves (numpy) and meta."""
+    import numpy as np
+    d = Path(ckpt_dir) / f"step_{Q4_STEPS:08d}"
+    return ({f.name: np.load(f) for f in sorted(d.glob("*.npy"))},
+            json.loads((d / "meta.json").read_text()))
+
+
+def q_resume(dev, total):
+    """Q.4: crash and resume through the launcher on the card: two
+    uninterrupted runs (to learn whether the card repeats its bits), one
+    run crashed after Q4_CRASH steps and resumed."""
+    import shutil
+    import tempfile
+    import numpy as np
+    OUT.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="path_q_", dir=OUT))
+    args = ["--device", str(dev), "--arch", Q4_ARCH, "--steps", str(Q4_STEPS),
+            "--batch", str(Q4_BATCH), "--seq", str(Q4_SEQ), "--ckpt-every",
+            str(Q4_CRASH), "--lr", "1e-3"]
+    try:
+        def runs():
+            out = {}
+            for name in ("a", "b"):
+                out[name] = q_launch(args + ["--ckpt-dir", str(tmp / name)])
+            crashed = q_launch(args + ["--ckpt-dir", str(tmp / "c")],
+                               crash_after=Q4_CRASH)
+            check(crashed[0] is None, "Q.4: the crash did not happen")
+            out["c"] = q_launch(args + ["--ckpt-dir", str(tmp / "c")])
+            return out
+
+        out, counts = q_counted("Q.4", runs, ("dot",))
+        q_add(total, counts)
+        check(f"resuming from checkpoint step {Q4_CRASH}" in out["c"][1],
+              "Q.4: no resume line")
+        finals = {k: q_final(tmp / k) for k in "abc"}
+
+        def same(x, y):
+            return out[x][0][-len(out[y][0]):] == out[y][0] and \
+                finals[x][1] == finals[y][1] and all(
+                    np.array_equal(finals[x][0][f], finals[y][0][f])
+                    for f in finals[x][0])
+
+        repeat = same("a", "b")
+        if repeat:
+            check(same("a", "c"), "Q.4: the resumed run differs from the "
+                  "uninterrupted one")
+            gate = "bit for bit"
+        else:
+            # the card does not repeat its own bits: hold the resumed run
+            # to Q.2's tolerance
+            la, lc = out["a"][0][Q4_CRASH:], out["c"][0]
+            check(all(abs(x - y) <= Q2_LOSS_RTOL * abs(x)
+                      for x, y in zip(la, lc)), f"Q.4: losses {la} {lc}")
+            gate = "within Q.2's tolerance (two uninterrupted runs differ)"
+        print(f"Q.4 launcher {Q4_ARCH} on the card, {Q4_STEPS} steps, crash "
+              f"after {Q4_CRASH} and resume: resumed losses "
+              + " ".join(f"{x:.6f}" for x in out["c"][0])
+              + f", uninterrupted " + " ".join(f"{x:.6f}" for x in
+                                               out["a"][0][Q4_CRASH:])
+              + f"; two uninterrupted runs repeat their bits: {repeat}; "
+              f"resumed against uninterrupted {gate}", flush=True)
+        return {"losses_full": out["a"][0], "losses_resumed": out["c"][0],
+                "repeat_bitwise": repeat, "gate": gate}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def q_gradflow(model, params, dev, total):
+    """Q.5: gradflow.step on Q.3's cut, the kernels against a run with
+    the integrator's vector ops pinned to their plain versions."""
+    import torch
+    from repro_torch.core.policies import ExecPolicy
+    from repro_torch.models import spec
+    from repro_torch.optim import gradflow
+    batch = q_batches(model.cfg.vocab_size, Q3_SEQ, Q3_BATCH, 1, dev, 3)[0]
+    cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=Q5_MAX_STEPS)
+
+    def lf(p):
+        return model.loss(p, batch)
+
+    t0 = time.perf_counter()
+    (p2, st), counts = q_counted(
+        "Q.5", lambda: gradflow.step(lf, params, cfg), Q_KERNELS["Q.5"])
+    wall = time.perf_counter() - t0
+    q_add(total, counts)
+    pin = ExecPolicy().override(linear_combination="torch",
+                                wrms_norm="torch", dot="torch")
+    from repro_torch import kernels
+    kernels.reset_counts()
+    p3, st3 = gradflow.step(lf, params, cfg, policy=pin)
+    pinned = kernels.counts()
+    check(all(pinned[k][0] == 0 and pinned[k][1] > 0
+              for k in Q_KERNELS["Q.5"]), f"Q.5: the pinned run launched a "
+          f"kernel or skipped a plain version: {pinned}")
+    check(int(st.steps) == int(st3.steps) and
+          int(st.attempts) == int(st3.attempts),
+          f"Q.5: steps/attempts {int(st.steps)}/{int(st.attempts)} against "
+          f"the plain run's {int(st3.steps)}/{int(st3.attempts)}")
+    over = max(float(((a - b).abs() - 10 * (cfg.rtol * b.abs() + cfg.atol))
+                     .max()) for a, b in zip(spec.tree_leaves(p2),
+                                             spec.tree_leaves(p3)))
+    check(over <= 0, f"Q.5: params past 10*(rtol*|p|+atol) by {over:.3g}")
+    with torch.no_grad():
+        before, after = float(lf(params)), float(lf(p2))
+    check(after < before, f"Q.5: the loss did not fall ({before} -> {after})")
+    print(f"Q.5 gradflow (heun_euler, tau {Q5_TAU}, max_steps "
+          f"{Q5_MAX_STEPS}) on the cut: {int(st.steps)} steps, "
+          f"{int(st.attempts)} attempts, loss {before:.5f} -> {after:.5f}, "
+          f"{wall:.2f} s; rows 12 and 14 launched "
+          f"{counts['linear_combination'][0]} and {counts['wrms_ss'][0]} "
+          f"times; the plain run's steps and attempts equal, params within "
+          f"10*(rtol*|p|+atol) (max excess {over:.3g})", flush=True)
+    return {"steps": int(st.steps), "attempts": int(st.attempts),
+            "loss": [before, after], "wall_s": wall,
+            "launches": {k: counts[k][0] for k in Q_KERNELS["Q.5"]}}
+
+
+def phase_path_q(card):
+    """Path Q: the model stack's training half at internlm2-1.8b's full
+    width (Q.1, Q.2), on its 2-layer float32 cut (Q.3, Q.5), and through
+    the launcher on the smoke config (Q.4).  AdamW's global norm launches
+    row 16 (``dot``) once a leaf a step; gradient flow's ERK rows 12
+    (``linear_combination``) and 14 (``wrms_ss``)."""
+    import torch
+    dev = torch.device("cuda")
+    print(card, flush=True)
+    torch.cuda.empty_cache()
+    total = {}
+    rec = {"seconds": {}}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        rec["seconds"][name] = time.perf_counter() - t0
+        return out
+
+    rec["Q.1"], model, ocfg, batch0, step0 = timed("Q.1", q_train, card,
+                                                   dev, total)
+    rec["Q.2"] = timed("Q.2", q_microbatches, model, ocfg, batch0, step0,
+                       dev, total)
+    del step0, batch0
+    torch.cuda.empty_cache()
+    cut, params = q_cut_model(dev)
+    rec["Q.3"] = timed("Q.3", q_card_vs_cpu, cut, params, dev, total)
+    rec["Q.4"] = timed("Q.4", q_resume, dev, total)
+    rec["Q.5"] = timed("Q.5", q_gradflow, cut, params, dev, total)
+    del params
+    torch.cuda.empty_cache()
+    print("path Q seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rec["seconds"].items()), flush=True)
+    print("path Q: kernel launches " + ", ".join(
+        f"{k} {v[0]}" for k, v in total.items() if v[0]), flush=True)
+    rec["kernels_run"] = {"counts": total}
+    return rec
+
+
 def profiled_paths(argv):
     """``--profile`` profiles every path, ``--profile=I,J`` only those
     named (``main`` for the main path): -> path name -> bool."""
@@ -3533,6 +4060,10 @@ def main(argv) -> int:
     # the model stack's serving half: no kernel of the port on its path
     paths["P: model serving"] = phase("path P (model serving)",
                                       phase_path_p, card, profiled("P"))
+    # the model stack's training half: rows 16 (AdamW's norm), 12 and 14
+    # (gradient flow's ERK)
+    paths["Q: model training"] = phase("path Q (model training)",
+                                       phase_path_q, card)
     # 5. kernels line: launches summed over the kernel runs of the paths
     line = []
     for k, row in zip(table, rows):

@@ -19,8 +19,11 @@ The model stack's weights cross the same way: an ``ArchConfig`` as its
 (:func:`arch_config_from_reference`), a parameter tree and a decode
 cache as nested dicts of numpy leaves under the reference's keys
 (:func:`model_params_from_reference`, :func:`cache_from_reference`,
-:func:`cache_to_numpy`).  A bfloat16 leaf crosses through float32,
-which holds every bfloat16 value exactly.
+:func:`cache_to_numpy`), and a training state as
+``{"params": ..., "opt": {"step", "m", "v"}}`` of numpy leaves
+(:func:`train_state_from_reference`, :func:`train_state_to_numpy`).  A
+bfloat16 leaf crosses through float32, which holds every bfloat16 value
+exactly.
 """
 from __future__ import annotations
 
@@ -185,3 +188,36 @@ def cache_to_numpy(caches: dict) -> dict:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return tree_map(to_np, caches)
+
+
+def train_state_from_reference(tree: dict, model, *, device):
+    """The port's ``train.step.TrainState`` from the reference's, given as
+    ``{"params": params, "opt": {"step": ..., "m": ..., "v": ...}}`` of
+    numpy leaves: the params in ``model``'s spec dtypes, ``step`` as
+    int32, the moments in their own dtypes (a bfloat16 leaf as
+    bfloat16)."""
+    from .optim.adamw import AdamWState
+    from .train.step import TrainState
+    params = model_params_from_reference(tree["params"], model,
+                                         device=device)
+    opt = tree["opt"]
+    _same_keys(tree["params"], opt["m"], "opt.m")
+    _same_keys(tree["params"], opt["v"], "opt.v")
+
+    def moment(a):
+        return _leaf(a, device=device)
+
+    return TrainState(params=params, opt=AdamWState(
+        step=torch.tensor(np.asarray(opt["step"]), dtype=torch.int32,
+                          device=device),
+        m=tree_map(moment, opt["m"]), v=tree_map(moment, opt["v"])))
+
+
+def train_state_to_numpy(state) -> dict:
+    """A TrainState as ``{"params", "opt": {"step", "m", "v"}}`` of numpy
+    leaves (bfloat16 leaves as float32, ``step`` as int32)."""
+    return {"params": cache_to_numpy(state.params),
+            "opt": {"step": np.asarray(state.opt.step.detach().cpu().numpy(),
+                                       dtype=np.int32),
+                    "m": cache_to_numpy(state.opt.m),
+                    "v": cache_to_numpy(state.opt.v)}}

@@ -55,6 +55,16 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves) -> Any:
+    """Nested dicts shaped as ``like`` whose leaves are ``leaves``, taken
+    in :func:`tree_leaves` order."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def _materialize(spec: ParamSpec, gen: torch.Generator, device):
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)

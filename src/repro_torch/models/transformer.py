@@ -6,7 +6,13 @@ The port's ``repro.models.transformer``.  One generic decoder-only LM
 (enc-dec) get their own assemblies.  Parameters keep the reference's
 keys and stacked per-layer shapes (a leading ``layers`` axis), so the
 reference's weights copy over one to one; where the reference scans
-over that axis, the port loops over it.
+over that axis, the port loops over it, taking the layers' views with
+one ``unbind`` a pass (whose backward is one ``stack``, where indexing
+each layer would write a zero tensor of the whole stacked leaf per
+layer).  ``cfg.remat`` wraps each layer body in
+``torch.utils.checkpoint`` where the reference wraps its scan body in
+``jax.checkpoint``, when autograd records and no cache is carried (a
+decode step never recomputes).
 
 :class:`Model` is a thin namespace:
 
@@ -27,10 +33,12 @@ card unless given ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.policies import resolve_device
 from . import layers, ssm
@@ -76,6 +84,21 @@ def _stack_specs(tree, n: int):
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree: views, no copy."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree: views, one ``unbind`` a leaf."""
+    per_leaf = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], per_leaf) for i in range(n)]
+
+
+def _remat(cfg, fn: Callable) -> Callable:
+    """``fn`` recomputed in the backward pass (``torch.utils.checkpoint``)
+    when ``cfg.remat`` is set and autograd records; else ``fn``."""
+    if cfg.remat and torch.is_grad_enabled():
+        return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    return fn
 
 
 def _store(stacked, i: int, before, after) -> None:
@@ -196,12 +219,21 @@ def _rope_for(cfg: ArchConfig, positions):
 def _scan_layers(cfg, stacked, x, rope_cs, positions, pctx, caches=None):
     """Run the decoder layers in order over the stacked axis; ``caches``
     (stacked, optional) are updated in place and returned."""
-    for i in range(cfg.n_layers):
-        lcache = None if caches is None else _layer(caches, i)
-        x, ncache = _decoder_layer_apply(_layer(stacked, i), cfg, x, rope_cs,
-                                         positions, pctx, cache=lcache)
-        if caches is not None:
-            _store(caches, i, lcache, ncache)
+    lps = _layers(stacked, cfg.n_layers)
+    if caches is None:
+        def body(xc, lp):
+            return _decoder_layer_apply(lp, cfg, xc, rope_cs, positions,
+                                        pctx)[0]
+
+        body = _remat(cfg, body)
+        for lp in lps:
+            x = body(x, lp)
+        return x, None
+    for i, lp in enumerate(lps):
+        lcache = _layer(caches, i)
+        x, ncache = _decoder_layer_apply(lp, cfg, x, rope_cs, positions, pctx,
+                                         cache=lcache)
+        _store(caches, i, lcache, ncache)
     return x, caches
 
 
@@ -337,11 +369,16 @@ def _xlstm_pair_apply(lp, cfg, x, pctx, cache=None):
 
 
 def _xlstm_run(cfg, params, x, pctx, caches=None):
-    for i in range(cfg.n_layers // 2):
-        lcache = None if caches is None else _layer(caches, i)
-        x, ncache = _xlstm_pair_apply(_layer(params["pairs"], i), cfg, x,
-                                      pctx, cache=lcache)
-        if caches is not None:
+    lps = _layers(params["pairs"], cfg.n_layers // 2)
+    if caches is None:
+        body = _remat(cfg, lambda xc, lp: _xlstm_pair_apply(lp, cfg, xc,
+                                                            pctx)[0])
+        for lp in lps:
+            x = body(x, lp)
+    else:
+        for i, lp in enumerate(lps):
+            lcache = _layer(caches, i)
+            x, ncache = _xlstm_pair_apply(lp, cfg, x, pctx, cache=lcache)
             _store(caches, i, lcache, ncache)
     x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
@@ -410,22 +447,32 @@ def _zamba_shared_attn(sp, cfg, x, x0, rope_cs, pctx, cache=None):
 def _zamba_run(cfg, params, x, rope_cs, pctx, caches=None):
     x0 = x
     sp = params["shared_attn"]
-    for i in range(cfg.n_layers):
-        if i % cfg.attn_every == 0:
-            site = i // cfg.attn_every
-            acache = None if caches is None else _layer(caches["attn"], site)
-            x, nac = _zamba_shared_attn(sp, cfg, x, x0, rope_cs, pctx,
-                                        cache=acache)
-            if caches is not None:
+    lps = _layers(params["mamba_layers"], cfg.n_layers)
+    if caches is None:
+        def body(xc, lp, i):
+            if i % cfg.attn_every == 0:
+                xc, _ = _zamba_shared_attn(sp, cfg, xc, x0, rope_cs, pctx)
+            h = layers.rmsnorm_apply(lp["ln"], xc, cfg.norm_eps)
+            a, _ = ssm.mamba2_apply(lp["mamba"], cfg, h, cst=pctx.cst)
+            return xc + a
+
+        body = _remat(cfg, body)
+        for i, lp in enumerate(lps):
+            x = body(x, lp, i)
+    else:
+        for i, lp in enumerate(lps):
+            if i % cfg.attn_every == 0:
+                site = i // cfg.attn_every
+                acache = _layer(caches["attn"], site)
+                x, nac = _zamba_shared_attn(sp, cfg, x, x0, rope_cs, pctx,
+                                            cache=acache)
                 _store(caches["attn"], site, acache, nac)
-        lp = _layer(params["mamba_layers"], i)
-        mcache = None if caches is None else _layer(caches["mamba"], i)
-        h = layers.rmsnorm_apply(lp["ln"], x, cfg.norm_eps)
-        a, nmc = ssm.mamba2_apply(lp["mamba"], cfg, h, cst=pctx.cst,
-                                  cache=mcache)
-        if caches is not None:
+            mcache = _layer(caches["mamba"], i)
+            h = layers.rmsnorm_apply(lp["ln"], x, cfg.norm_eps)
+            a, nmc = ssm.mamba2_apply(lp["mamba"], cfg, h, cst=pctx.cst,
+                                      cache=mcache)
             _store(caches["mamba"], i, mcache, nmc)
-        x = x + a
+            x = x + a
     x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
     return pctx.cst(logits, ("batch", "seq", "vocab"))
@@ -493,15 +540,18 @@ def whisper_encode(cfg, params, frames, pctx):
     S = frames.shape[1]
     x = pctx.cst(frames + params["enc_pos"][:S][None],
                  ("batch", "seq", "embed"))
-    for i in range(cfg.enc_layers):
-        lp = _layer(params["enc_layers"], i)
-        h = layers.layernorm_apply(lp["ln1"], x, cfg.norm_eps)
+    def body(xc, lp):
+        h = layers.layernorm_apply(lp["ln1"], xc, cfg.norm_eps)
         a, _ = layers.attention_apply(lp["attn"], cfg, h, None, None,
                                       cst=pctx.cst, causal=False,
                                       use_rope=False)
-        x = x + a
-        h = layers.layernorm_apply(lp["ln2"], x, cfg.norm_eps)
-        x = x + layers.gelu_mlp_apply(lp["mlp"], h, cst=pctx.cst)
+        xc = xc + a
+        h = layers.layernorm_apply(lp["ln2"], xc, cfg.norm_eps)
+        return xc + layers.gelu_mlp_apply(lp["mlp"], h, cst=pctx.cst)
+
+    body = _remat(cfg, body)
+    for lp in _layers(params["enc_layers"], cfg.enc_layers):
+        x = body(x, lp)
     return layers.layernorm_apply(params["ln_enc"], x, cfg.norm_eps)
 
 
@@ -519,11 +569,17 @@ def _whisper_dec_layer(lp, cfg, x, enc_out, pctx, cache=None):
 
 
 def _whisper_decode(cfg, params, x, enc_out, pctx, caches=None):
-    for i in range(cfg.n_layers):
-        lcache = None if caches is None else _layer(caches, i)
-        x, ncache = _whisper_dec_layer(_layer(params["dec_layers"], i), cfg,
-                                       x, enc_out, pctx, cache=lcache)
-        if caches is not None:
+    lps = _layers(params["dec_layers"], cfg.n_layers)
+    if caches is None:
+        body = _remat(cfg, lambda xc, lp: _whisper_dec_layer(
+            lp, cfg, xc, enc_out, pctx)[0])
+        for lp in lps:
+            x = body(x, lp)
+    else:
+        for i, lp in enumerate(lps):
+            lcache = _layer(caches, i)
+            x, ncache = _whisper_dec_layer(lp, cfg, x, enc_out, pctx,
+                                           cache=lcache)
             _store(caches, i, lcache, ncache)
     x = layers.layernorm_apply(params["ln_f"], x, cfg.norm_eps)
     logits = torch.einsum("bsd,vd->bsv", x, params["embed"])

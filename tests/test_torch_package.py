@@ -61,7 +61,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.examples.brusselator_sparse, "
             "repro_torch.models, repro_torch.configs, "
             "repro_torch.serve.decode, repro_torch.examples.serve_demo, "
-            "repro_torch.analysis.lint, repro_torch.analysis.hotloop\n"
+            "repro_torch.analysis.lint, repro_torch.analysis.hotloop, "
+            "repro_torch.data.pipeline, repro_torch.optim.adamw, "
+            "repro_torch.optim.gradflow, repro_torch.train.step, "
+            "repro_torch.train.checkpoint, repro_torch.train.fault, "
+            "repro_torch.launch.train, repro_torch.examples.quickstart\n"
             "from repro_torch import configs\n"
             "configs.names()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
