@@ -250,13 +250,18 @@ of which prints the seconds it took:
      global norm) launched once a leaf a step; ms a step (median of steps
      2-6), tokens/s, the share of 989 TFLOP/s given by 6*N*T plus remat's
      2*N_layers*T, the device's busy share (one profiled step) and peak
-     memory printed; Q.2 step 0's batch with 4 microbatches against one
-     (loss within 1e-4 relative; params within 3e-2*|p| + 2*lr + one bf16
-     ulp, the reference's own check); Q.3 the width cut to 2 layers in
-     float32, one step (batch 2 x 64) on the card against the port's CPU
-     run with the same weights (loss within 1e-5 relative, gradient norm
-     1e-4, moments 1e-4 of each leaf's scale, params 2*lr + 1e-6) and
-     remat on against off on the card bit for bit; Q.4 the launcher on
+     memory printed; row 16 on the full-width gradients against its plain
+     version (each leaf's dot and the global norm within 1e-4 relative);
+     Q.2 step 0's batch with 4 microbatches against one, both from the
+     same initial weights (loss within 1e-4 relative, gradient norm 1e-3,
+     the float32 gradient each fed AdamW 0.1 of each leaf's norm; params
+     within 3e-2*|p| + 2*lr + one bf16 ulp, the reference's own check);
+     Q.3 the width cut to 2 layers in float32 (weights drawn on the CPU),
+     one step (batch 2 x 64) on the card against the port's CPU run with
+     the same weights (loss within 1e-5 relative, params 2*lr + 1e-6,
+     gradients, their norm and the moments within 3x the CPU's own
+     float32 error + 1e-4) and remat on against off on the card bit for
+     bit; Q.4 the launcher on
      ``internlm2-1.8b-smoke`` (6 steps, checkpoints every 3) run twice
      uninterrupted and once crashed after 3 steps (its data stream dies)
      then resumed: the resume line printed, the resumed losses and final
@@ -3434,19 +3439,36 @@ Q4_ARCH, Q4_STEPS, Q4_CRASH, Q4_BATCH, Q4_SEQ = \
 Q5_TAU, Q5_MAX_STEPS = 0.1, 6
 #: the H100 SXM's dense bf16 tensor-core peak (FLOP/s)
 BF16_DENSE_FLOPS = 989e12
+#: Q.1: row 16 against its plain version on the full-width gradients,
+#: each leaf's dot and the global norm within Q_DOT_RTOL relative.
 #: Q.2 (the reference's own microbatch check, tests/test_train_infra.py:
 #: 53-62, with atol 2*lr + one bf16 ulp): the loss within Q2_LOSS_RTOL
 #: relative, params within Q2_RTOL*|p| + 2*lr + ulp(max(|p|, |p'|)), the
-#: ulp of the larger of the two bf16 results.  Q.3 (card against CPU,
-#: float32): the loss within 1e-5 relative, params within 2*lr + 1e-6;
-#: the gradients, by leaf in the norm, within Q3_SPREAD times the CPU's
-#: own float32 error (its float32 gradient against one with float64
-#: weights) + 1e-4, the gradient norm likewise + 1e-4 relative, and the
-#: moments within the bound of their gradients and clip scales.  A
-#: random-weight model at this width loses 1-6 % of its attention
-#: gradients to float32 rounding on either device (PERF.md §6), so a
-#: fixed 1e-4 cannot hold, while a wrong gradient misses by far more
-Q2_LOSS_RTOL, Q2_RTOL = 1e-4, 3e-2
+#: ulp of the larger of the two bf16 results.  The float32 gradient each
+#: run fed AdamW (its first moment over (1 - b1) times the clip scale),
+#: leaf by leaf within Q2_GRAD_RTOL of its norm, and the gradient norm
+#: within Q2_NORM_RTOL relative.  The bounds sit below the smallest
+#: accumulation fault: a lost or doubled microbatch of four moves a
+#: leaf's gradient by 25 % or more and the norm by 13 % or more, a
+#: missing 1/microbatches scale both by 300 %, a flipped sign the
+#: gradient by 200 %.  Legitimately the bf16 backward differs with the
+#: batch it runs (its GEMMs' shapes): 2.0-2.3 % a leaf and 1.2e-4 in the
+#: norm at this width, well inside the bf16 gradient's own distance from
+#: a float32 run of the same weights (printed beside them; 1.3 of its
+#: norm on the layers' leaves).  Q.3 (card against CPU, float32): the
+#: loss within 1e-5 relative, params within 2*lr + 1e-6; the gradients,
+#: by leaf in the norm, within Q3_SPREAD times the CPU's own float32
+#: error (its float32 gradient against one with float64 weights) + 1e-4,
+#: the gradient norm likewise + 1e-4 relative, and the moments within
+#: the bound of their gradients and clip scales.  The "scaled" init
+#: reads a stacked leaf's layers axis as its fan-in (the reference's
+#: too), so the attention softmax is one-hot and its backward cancels:
+#: float32 loses about 1 % of those gradients on either device and in
+#: either package (tools/grad_float64_witness.py: the same weights
+#: against a float64 truth), so a fixed 1e-4 cannot hold, while a wrong
+#: gradient misses by far more
+Q_DOT_RTOL = 1e-4
+Q2_LOSS_RTOL, Q2_GRAD_RTOL, Q2_NORM_RTOL, Q2_RTOL = 1e-4, 0.1, 1e-3, 3e-2
 Q3_LOSS_RTOL, Q3_NORM_RTOL, Q3_MOMENT_TOL, Q3_PARAM_ATOL = \
     1e-5, 1e-4, 1e-4, 1e-6
 Q3_SPREAD = 3.0
@@ -3517,25 +3539,22 @@ def q_train(card, dev, total):
     n_leaves = len(spec.tree_leaves(state.params))
     train = tstep.make_train_step(model, ocfg=ocfg)
     times, mets = [], []
-    step0 = {}
 
     def steps():
         nonlocal state
-        for i, b in enumerate(batches):
+        for b in batches:
             p_sync()
             t0 = time.perf_counter()
             state, met = train(state, b)
             p_sync()
             times.append(1e3 * (time.perf_counter() - t0))
             mets.append(met)
-            if i == 0:      # Q.2's reference: params after one full step
-                step0["params"] = spec.tree_map(torch.clone, state.params)
-                step0["loss"] = met["loss"].clone()
 
     _, counts = q_counted("Q.1", steps, Q_KERNELS["Q.1"],
                           {"dot": n_leaves * Q_STEPS})
     q_add(total, counts)
     peak = p_peak_gib()
+    norm_check = q_norm_check(model, state, batches[-1])
     loss = [float(m["loss"]) for m in mets]
     gnorm = [float(m["grad_norm"]) for m in mets]
     lr = [float(m["lr"]) for m in mets]
@@ -3553,7 +3572,8 @@ def q_train(card, dev, total):
            "tokens_per_s": tokens / (ms / 1e3), "model_flops": flops,
            "peak_flops_share": flops / (ms / 1e3) / BF16_DENSE_FLOPS,
            "peak_gib": peak, "dot_launches": counts["dot"][0],
-           "device_busy_share": busy, "profile": prof}
+           "device_busy_share": busy, "profile": prof,
+           "global_norm_check": norm_check}
     print(f"Q.1 {Q_ARCH} bf16 remat, {n_params / 1e9:.3f} B params in "
           f"{n_leaves} leaves, batch {Q_BATCH} x {Q_SEQ}, {Q_STEPS} AdamW "
           f"steps: loss " + " ".join(f"{x:.4f}" for x in loss) + ", grad "
@@ -3567,27 +3587,95 @@ def q_train(card, dev, total):
           f"{counts['dot'][0]} times ({n_leaves} a step)", flush=True)
     del state, train
     torch.cuda.empty_cache()
-    return rec, model, ocfg, batches[0], step0
+    return rec, model, ocfg, batches[0]
 
 
-def q_microbatches(model, ocfg, batch, step0, dev, total):
-    """Q.2: step 0's batch with Q2_MICRO microbatches against Q.1's first
-    step (one microbatch), from the same initial weights."""
+def q_norm_check(model, state, batch):
+    """Row 16 at Q.1's shapes: the gradients at the last step's params
+    and batch (every full-width leaf, 2048 to 189.5 M elements), each
+    leaf's float32 dot by the kernel (``adamw.global_norm``'s route)
+    against its plain version, and the global norm against theirs, each
+    within Q_DOT_RTOL relative.  These launches compare and are not
+    counted."""
     import torch
+    from repro_torch.core import dispatch
+    from repro_torch.core.policies import ExecPolicy
     from repro_torch.models import spec
+    from repro_torch.optim import adamw
     from repro_torch.train import step as tstep
-    state = tstep.init_state(model, 0, ocfg, device=dev)
-    train = tstep.make_train_step(model, ocfg=ocfg, microbatches=Q2_MICRO)
-    (state, met), counts = q_counted("Q.2", lambda: train(state, batch),
-                                     ("dot",))
-    q_add(total, counts)
-    loss, want = float(met["loss"]), float(step0["loss"])
+    _, grads = tstep.value_and_grad(model.loss, state.params, batch)
+    pin = ExecPolicy().override(dot="torch")
+    errs, plain = [], []
+    for g in spec.tree_leaves(grads):
+        g32 = g.to(torch.float32)
+        k = float(dispatch.dot(g32, g32))
+        w = float(dispatch.dot(g32, g32, pin))
+        errs.append((g.numel(), abs(k - w) / abs(w)))
+        plain.append(w)
+        del g32
+    gn = float(adamw.global_norm(grads))
+    want = math.sqrt(sum(plain))
+    norm_err = abs(gn - want) / want
+    bad = [(i, n, e) for i, (n, e) in enumerate(errs) if not e <= Q_DOT_RTOL]
+    check(not bad, f"Q.1: row 16 against its plain version past "
+          f"{Q_DOT_RTOL} relative (leaf, elements, rel): {bad}")
+    check(norm_err <= Q_DOT_RTOL, f"Q.1: global_norm {gn} against the "
+          f"plain dots' {want} (rel {norm_err:.3g})")
+    del grads
+    torch.cuda.empty_cache()
+    print(f"Q.1 row 16 (dot) against its plain version on the last step's "
+          f"gradients, per leaf (elements: rel) "
+          + ", ".join(f"{n}: {e:.2g}" for n, e in errs)
+          + f"; global norm {gn:.6g} against {want:.6g} (rel "
+          f"{norm_err:.3g}, gate {Q_DOT_RTOL})", flush=True)
+    return {"leaf_rel": [e for _, e in errs],
+            "leaf_elements": [n for n, _ in errs], "norm_rel": norm_err}
+
+
+def q_microbatches(model, ocfg, batch, loss_q1, dev, total):
+    """Q.2: step 0's batch with Q2_MICRO microbatches against one, each
+    from the same initial weights: the loss, the gradient norm, the
+    float32 gradient AdamW took (read back from the first moment, so a
+    fault in the float32 sum or the 1/microbatches scale shows there) and
+    the params; beside them the one-microbatch bf16 gradient against a
+    float32 run of the same weights."""
+    import torch
+    from repro_torch.models import Model, spec
+    from repro_torch.train import step as tstep
+    runs = {}
+    for micro in (1, Q2_MICRO):
+        state = tstep.init_state(model, 0, ocfg, device=dev)
+        train = tstep.make_train_step(model, ocfg=ocfg, microbatches=micro)
+        (state, met), counts = q_counted(f"Q.2 ({micro})",
+                                         lambda: train(state, batch),
+                                         ("dot",))
+        q_add(total, counts)
+        runs[micro] = (state, met)
+        del train
+    (one, met1), (four, met4) = runs[1], runs[Q2_MICRO]
+    loss, want = float(met4["loss"]), float(met1["loss"])
     check(abs(loss - want) <= Q2_LOSS_RTOL * abs(want),
           f"Q.2: loss {loss} with {Q2_MICRO} microbatches against {want}")
-    lr = float(met["lr"])
+    gn, gn1 = float(met4["grad_norm"]), float(met1["grad_norm"])
+    gn_rel = abs(gn - gn1) / gn1
+    check(gn_rel <= Q2_NORM_RTOL, f"Q.2: gradient norm {gn} with "
+          f"{Q2_MICRO} microbatches against {gn1} (rel {gn_rel:.3g})")
+
+    def grads(state, gnorm):
+        # m = (1 - b1) * g * min(1, clip / |g|) after one step from m = 0
+        k = (1 - ocfg.b1) * min(1.0, ocfg.clip_norm / max(gnorm, 1e-9))
+        return [m / k for m in spec.tree_leaves(state.opt.m)]
+
+    g1, g4 = grads(one, gn1), grads(four, gn)
+    g_rel = [q_rel(a, b) for a, b in zip(g4, g1)]
+    del g4
+    bad = [(i, r) for i, r in enumerate(g_rel) if not r <= Q2_GRAD_RTOL]
+    check(not bad, f"Q.2: gradients (leaf, norm-relative) past "
+          f"{Q2_GRAD_RTOL}: {bad}")
+    lr = float(met4["lr"])
     over, strict = -math.inf, 0.0
-    for a, b in zip(spec.tree_leaves(state.params),
-                    spec.tree_leaves(step0["params"])):
+    for a, b in zip(spec.tree_leaves(four.params),
+                    spec.tree_leaves(one.params)):
         diff = (a.float() - b.float()).abs()
         # each side rounded to bf16 at its own magnitude: one ulp of the
         # larger
@@ -3597,30 +3685,51 @@ def q_microbatches(model, ocfg, batch, step0, dev, total):
                                .max()))
         strict = max(strict, float((diff - slack).max()))
     check(over <= 0, f"Q.2: params past the reference's bound by {over:.3g}")
+    del runs, one, four
+    torch.cuda.empty_cache()
+    # the bf16 gradient's own distance from float32 on the same weights
+    m32 = Model(model.cfg.replace(dtype=torch.float32))
+    p32 = spec.tree_map(lambda a: a.float(), model.init(0, device=dev))
+    _, gf = tstep.value_and_grad(m32.loss, p32, batch)
+    del p32
+    bf16_rel = [q_rel(a, b) for a, b in zip(g1, spec.tree_leaves(gf))]
+    del g1, gf
+    torch.cuda.empty_cache()
     print(f"Q.2 {Q2_MICRO} microbatches against 1, step 0: loss {loss:.6f} "
           f"against {want:.6f} (rel {abs(loss - want) / want:.3g}, gate "
-          f"{Q2_LOSS_RTOL}); params max(|diff| - 2*lr - ulp) {strict:.3g} "
-          f"(gate also {Q2_RTOL}*|p|)", flush=True)
-    del state, train
-    torch.cuda.empty_cache()
-    return {"loss": loss, "loss_one": want, "param_excess": strict}
+          f"{Q2_LOSS_RTOL}; Q.1's step 0 {loss_q1:.6f}); gradient norm "
+          f"{gn:.7g} against {gn1:.7g} (rel {gn_rel:.3g}, gate "
+          f"{Q2_NORM_RTOL}); gradients per leaf (norm-relative, gate "
+          f"{Q2_GRAD_RTOL}) " + " ".join(f"{r:.3g}" for r in g_rel)
+          + "; one microbatch's bf16 gradient against float32 on the same "
+          "weights " + " ".join(f"{r:.3g}" for r in bf16_rel)
+          + f"; params max(|diff| - 2*lr - ulp) {strict:.3g} (gate also "
+          f"{Q2_RTOL}*|p|)", flush=True)
+    return {"loss": loss, "loss_one": want, "grad_norm": gn,
+            "grad_norm_one": gn1, "grad_rel": g_rel,
+            "bf16_vs_float32_rel": bf16_rel, "param_excess": strict}
 
 
 def q_cut_model(dev):
     """Q.3's and Q.5's model: the FULL width cut to Q3_LAYERS layers,
-    float32, remat on; weights drawn on the card."""
+    float32, remat on; weights drawn on the CPU (seed 0, the weights of
+    ``tools/grad_float64_witness.py``) and moved to the card."""
     import torch
     from repro_torch import configs
-    from repro_torch.models import Model
+    from repro_torch.models import Model, spec
     cfg = configs.get(Q_ARCH).replace(n_layers=Q3_LAYERS,
                                       dtype=torch.float32)
     model = Model(cfg)
-    return model, model.init(0, device=dev)
+    params = spec.tree_map(lambda a: a.to(dev),
+                           model.init(0, device="cpu"))
+    return model, params
 
 
 def q_rel(a, b) -> float:
-    """||a - b|| / ||b||, on the host in float64."""
-    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    """||a - b|| / ||b||, in float64 on ``b``'s device."""
+    import torch
+    b = b.detach().double()
+    a = a.detach().to(b.device, torch.float64)
     return float((a - b).norm() / b.norm().clamp(min=1e-300))
 
 
@@ -3712,6 +3821,7 @@ def q_card_vs_cpu(model, params, dev, total):
         errs[name] = max(rel)
     errs["gradient"] = max(grad)
     errs["cpu_float32_spread"] = max(spread)
+    checksum = sum(float(a.double().sum()) for a in spec.tree_leaves(p32))
     del runs, cs, hs, gc, g32, g64, p32
     print(f"Q.3 {Q3_LAYERS} layers float32 remat, batch {Q3_BATCH} x "
           f"{Q3_SEQ}, one step, card against CPU (norm-relative by leaf, "
@@ -3720,10 +3830,11 @@ def q_card_vs_cpu(model, params, dev, total):
           + " ".join(f"{x:.2g}" for x in grad) + ", CPU float32 against "
           "float64 weights " + " ".join(f"{x:.2g}" for x in spread)
           + f" (walls card {cwall:.2f} s, CPU {hwall:.2f} s); remat on "
-          "against off on the card: loss and gradients bit for bit",
-          flush=True)
+          "against off on the card: loss and gradients bit for bit; "
+          f"weights' sum {checksum!r}", flush=True)
     return {"rel_err": errs, "gradient_rel": grad, "cpu_spread": spread,
-            "card_s": cwall, "cpu_s": hwall, "remat_bitwise": same}
+            "card_s": cwall, "cpu_s": hwall, "remat_bitwise": same,
+            "weights_sum": checksum}
 
 
 class QCrash(Exception):
@@ -3895,11 +4006,11 @@ def phase_path_q(card):
         rec["seconds"][name] = time.perf_counter() - t0
         return out
 
-    rec["Q.1"], model, ocfg, batch0, step0 = timed("Q.1", q_train, card,
-                                                   dev, total)
-    rec["Q.2"] = timed("Q.2", q_microbatches, model, ocfg, batch0, step0,
-                       dev, total)
-    del step0, batch0
+    rec["Q.1"], model, ocfg, batch0 = timed("Q.1", q_train, card, dev,
+                                            total)
+    rec["Q.2"] = timed("Q.2", q_microbatches, model, ocfg, batch0,
+                       rec["Q.1"]["loss"][0], dev, total)
+    del batch0
     torch.cuda.empty_cache()
     cut, params = q_cut_model(dev)
     rec["Q.3"] = timed("Q.3", q_card_vs_cpu, cut, params, dev, total)

@@ -92,13 +92,27 @@ def _layers(tree, n: int) -> list:
     return [tree_map(lambda t: t[i], per_leaf) for i in range(n)]
 
 
-def _remat(cfg, fn: Callable) -> Callable:
+def _remat(cfg, fn: Callable, caches=None) -> Callable:
     """``fn`` recomputed in the backward pass (``torch.utils.checkpoint``)
-    when ``cfg.remat`` is set and autograd records; else ``fn``."""
-    if cfg.remat and torch.is_grad_enabled():
+    when ``cfg.remat`` is set, autograd records and no cache is carried;
+    else ``fn``."""
+    if cfg.remat and caches is None and torch.is_grad_enabled():
         return functools.partial(torch.utils.checkpoint.checkpoint, fn,
                                  use_reentrant=False)
     return fn
+
+
+def _run_stack(cfg, body: Callable, lps, x, caches=None):
+    """``x`` through ``body(x, lp, lcache) -> (x, ncache)`` for each layer
+    of ``lps`` in order (under :func:`_remat`); ``caches`` (stacked,
+    optional) are updated in place."""
+    step = _remat(cfg, body, caches)
+    for i, lp in enumerate(lps):
+        lcache = None if caches is None else _layer(caches, i)
+        x, ncache = step(x, lp, lcache)
+        if caches is not None:
+            _store(caches, i, lcache, ncache)
+    return x
 
 
 def _store(stacked, i: int, before, after) -> None:
@@ -219,21 +233,11 @@ def _rope_for(cfg: ArchConfig, positions):
 def _scan_layers(cfg, stacked, x, rope_cs, positions, pctx, caches=None):
     """Run the decoder layers in order over the stacked axis; ``caches``
     (stacked, optional) are updated in place and returned."""
-    lps = _layers(stacked, cfg.n_layers)
-    if caches is None:
-        def body(xc, lp):
-            return _decoder_layer_apply(lp, cfg, xc, rope_cs, positions,
-                                        pctx)[0]
+    def body(xc, lp, lcache):
+        return _decoder_layer_apply(lp, cfg, xc, rope_cs, positions, pctx,
+                                    cache=lcache)
 
-        body = _remat(cfg, body)
-        for lp in lps:
-            x = body(x, lp)
-        return x, None
-    for i, lp in enumerate(lps):
-        lcache = _layer(caches, i)
-        x, ncache = _decoder_layer_apply(lp, cfg, x, rope_cs, positions, pctx,
-                                         cache=lcache)
-        _store(caches, i, lcache, ncache)
+    x = _run_stack(cfg, body, _layers(stacked, cfg.n_layers), x, caches)
     return x, caches
 
 
@@ -369,17 +373,11 @@ def _xlstm_pair_apply(lp, cfg, x, pctx, cache=None):
 
 
 def _xlstm_run(cfg, params, x, pctx, caches=None):
-    lps = _layers(params["pairs"], cfg.n_layers // 2)
-    if caches is None:
-        body = _remat(cfg, lambda xc, lp: _xlstm_pair_apply(lp, cfg, xc,
-                                                            pctx)[0])
-        for lp in lps:
-            x = body(x, lp)
-    else:
-        for i, lp in enumerate(lps):
-            lcache = _layer(caches, i)
-            x, ncache = _xlstm_pair_apply(lp, cfg, x, pctx, cache=lcache)
-            _store(caches, i, lcache, ncache)
+    def body(xc, lp, lcache):
+        return _xlstm_pair_apply(lp, cfg, xc, pctx, cache=lcache)
+
+    x = _run_stack(cfg, body, _layers(params["pairs"], cfg.n_layers // 2),
+                   x, caches)
     x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
     return pctx.cst(logits, ("batch", "seq", "vocab"))
@@ -447,32 +445,27 @@ def _zamba_shared_attn(sp, cfg, x, x0, rope_cs, pctx, cache=None):
 def _zamba_run(cfg, params, x, rope_cs, pctx, caches=None):
     x0 = x
     sp = params["shared_attn"]
-    lps = _layers(params["mamba_layers"], cfg.n_layers)
-    if caches is None:
-        def body(xc, lp, i):
-            if i % cfg.attn_every == 0:
-                xc, _ = _zamba_shared_attn(sp, cfg, xc, x0, rope_cs, pctx)
-            h = layers.rmsnorm_apply(lp["ln"], xc, cfg.norm_eps)
-            a, _ = ssm.mamba2_apply(lp["mamba"], cfg, h, cst=pctx.cst)
-            return xc + a
+    def body(xc, lp, i, acache, mcache):
+        nac = None
+        if i % cfg.attn_every == 0:
+            xc, nac = _zamba_shared_attn(sp, cfg, xc, x0, rope_cs, pctx,
+                                         cache=acache)
+        h = layers.rmsnorm_apply(lp["ln"], xc, cfg.norm_eps)
+        a, nmc = ssm.mamba2_apply(lp["mamba"], cfg, h, cst=pctx.cst,
+                                  cache=mcache)
+        return xc + a, nac, nmc
 
-        body = _remat(cfg, body)
-        for i, lp in enumerate(lps):
-            x = body(x, lp, i)
-    else:
-        for i, lp in enumerate(lps):
-            if i % cfg.attn_every == 0:
-                site = i // cfg.attn_every
-                acache = _layer(caches["attn"], site)
-                x, nac = _zamba_shared_attn(sp, cfg, x, x0, rope_cs, pctx,
-                                            cache=acache)
-                _store(caches["attn"], site, acache, nac)
-            mcache = _layer(caches["mamba"], i)
-            h = layers.rmsnorm_apply(lp["ln"], x, cfg.norm_eps)
-            a, nmc = ssm.mamba2_apply(lp["mamba"], cfg, h, cst=pctx.cst,
-                                      cache=mcache)
+    step = _remat(cfg, body, caches)
+    for i, lp in enumerate(_layers(params["mamba_layers"], cfg.n_layers)):
+        site = i // cfg.attn_every
+        attn = caches is not None and i % cfg.attn_every == 0
+        acache = _layer(caches["attn"], site) if attn else None
+        mcache = None if caches is None else _layer(caches["mamba"], i)
+        x, nac, nmc = step(x, lp, i, acache, mcache)
+        if attn:
+            _store(caches["attn"], site, acache, nac)
+        if caches is not None:
             _store(caches["mamba"], i, mcache, nmc)
-            x = x + a
     x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
     return pctx.cst(logits, ("batch", "seq", "vocab"))
@@ -569,18 +562,11 @@ def _whisper_dec_layer(lp, cfg, x, enc_out, pctx, cache=None):
 
 
 def _whisper_decode(cfg, params, x, enc_out, pctx, caches=None):
-    lps = _layers(params["dec_layers"], cfg.n_layers)
-    if caches is None:
-        body = _remat(cfg, lambda xc, lp: _whisper_dec_layer(
-            lp, cfg, xc, enc_out, pctx)[0])
-        for lp in lps:
-            x = body(x, lp)
-    else:
-        for i, lp in enumerate(lps):
-            lcache = _layer(caches, i)
-            x, ncache = _whisper_dec_layer(lp, cfg, x, enc_out, pctx,
-                                           cache=lcache)
-            _store(caches, i, lcache, ncache)
+    def body(xc, lp, lcache):
+        return _whisper_dec_layer(lp, cfg, xc, enc_out, pctx, cache=lcache)
+
+    x = _run_stack(cfg, body, _layers(params["dec_layers"], cfg.n_layers),
+                   x, caches)
     x = layers.layernorm_apply(params["ln_f"], x, cfg.norm_eps)
     logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
     return pctx.cst(logits, ("batch", "seq", "vocab"))
