@@ -1999,27 +1999,30 @@ def n_overhead(dev):
     return rows
 
 
-def spawn_ranks(world, profile):
-    """N.2 and N.3: ``world`` processes of this script
-    (``--path-n-rank``), gloo over a ``file://`` store in a fresh
-    directory under chip_smoke_out/, all on this card; each must exit 0
-    within N_RANK_TIMEOUT s (else all are killed and the run fails).
-    ``profile`` adds a profiled run of each N.2 solve to each rank.
-    Returns each rank's record."""
+def spawn_ranks(world, profile, flag="--path-n-rank", tmp=None,
+                timeout=N_RANK_TIMEOUT, path="N"):
+    """N.2 and N.3 (R.2-R.4 with ``flag="--path-r-rank"``): ``world``
+    processes of this script, gloo over a ``file://`` store in a fresh
+    directory under chip_smoke_out/ (or ``tmp``), all on this card; each
+    must exit 0 within ``timeout`` s (else all are killed and the run
+    fails).  ``profile`` adds a profiled run of each N.2 solve to each
+    rank.  Returns each rank's record."""
     import shutil
     import tempfile
     import torch
     OUT.mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="path_n_", dir=OUT))
+    own = tmp is None
+    if own:
+        tmp = Path(tempfile.mkdtemp(prefix="path_n_", dir=OUT))
     # each rank writes to a file of its own: a rank blocked on a full
     # pipe would stall the other at its next collective
     logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               "--path-n-rank", str(r), str(world), str(tmp),
+                               flag, str(r), str(world), str(tmp),
                                *(["--profile"] if profile else [])],
                               stdout=logs[r], stderr=subprocess.STDOUT,
                               text=True, cwd=ROOT) for r in range(world)]
-    deadline = time.monotonic() + N_RANK_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 0.0))
@@ -2036,9 +2039,10 @@ def spawn_ranks(world, profile):
         log = (tmp / f"rank{r}.log").read_text()
         print("\n".join(f"  [rank {r}] {line}" for line in log.splitlines()),
               flush=True)
-        check(p.returncode == 0, f"N: rank {r} exited {p.returncode}")
+        check(p.returncode == 0, f"{path}: rank {r} exited {p.returncode}")
     outs = [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
-    shutil.rmtree(tmp)
+    if own:
+        shutil.rmtree(tmp)
     return outs
 
 
@@ -3605,14 +3609,19 @@ def q_norm_check(model, state, batch):
     from repro_torch.train import step as tstep
     _, grads = tstep.value_and_grad(model.loss, state.params, batch)
     pin = ExecPolicy().override(dot="torch")
-    errs, plain = [], []
+    errs, plain, k64, p64 = [], [], [], []
     for g in spec.tree_leaves(grads):
         g32 = g.to(torch.float32)
         k = float(dispatch.dot(g32, g32))
         w = float(dispatch.dot(g32, g32, pin))
         errs.append((g.numel(), abs(k - w) / abs(w)))
         plain.append(w)
-        del g32
+        # both against a float64 dot of the same float32 leaf
+        d = g32.double().ravel()
+        exact = float(torch.dot(d, d))
+        k64.append(abs(k - exact) / exact)
+        p64.append(abs(w - exact) / exact)
+        del g32, d
     gn = float(adamw.global_norm(grads))
     want = math.sqrt(sum(plain))
     norm_err = abs(gn - want) / want
@@ -3621,6 +3630,13 @@ def q_norm_check(model, state, batch):
           f"{Q_DOT_RTOL} relative (leaf, elements, rel): {bad}")
     check(norm_err <= Q_DOT_RTOL, f"Q.1: global_norm {gn} against the "
           f"plain dots' {want} (rel {norm_err:.3g})")
+    fault = [(i, a, b) for i, (a, b) in enumerate(zip(k64, p64))
+             if a > R_DOT_FAULT * b + 1e-6]
+    print("Q.1 row 16 and its plain version against a float64 dot of the "
+          "same leaf, rel per leaf (kernel/plain): " + ", ".join(
+              f"{a:.2g}/{b:.2g}" for a, b in zip(k64, p64)), flush=True)
+    check(not fault, f"Q.1: row 16's error past {R_DOT_FAULT}x its plain "
+          f"version's (leaf, kernel, plain): {fault}")
     del grads
     torch.cuda.empty_cache()
     print(f"Q.1 row 16 (dot) against its plain version on the last step's "
@@ -3629,7 +3645,8 @@ def q_norm_check(model, state, batch):
           + f"; global norm {gn:.6g} against {want:.6g} (rel "
           f"{norm_err:.3g}, gate {Q_DOT_RTOL})", flush=True)
     return {"leaf_rel": [e for _, e in errs],
-            "leaf_elements": [n for n, _ in errs], "norm_rel": norm_err}
+            "leaf_elements": [n for n, _ in errs], "norm_rel": norm_err,
+            "kernel_rel_f64": k64, "plain_rel_f64": p64}
 
 
 def q_microbatches(model, ocfg, batch, loss_q1, dev, total):
@@ -3822,7 +3839,7 @@ def q_card_vs_cpu(model, params, dev, total):
     errs["gradient"] = max(grad)
     errs["cpu_float32_spread"] = max(spread)
     checksum = sum(float(a.double().sum()) for a in spec.tree_leaves(p32))
-    del runs, cs, hs, gc, g32, g64, p32
+    del runs, cs, hs, g32, g64, p32
     print(f"Q.3 {Q3_LAYERS} layers float32 remat, batch {Q3_BATCH} x "
           f"{Q3_SEQ}, one step, card against CPU (norm-relative by leaf, "
           f"the largest): " + ", ".join(
@@ -3832,9 +3849,11 @@ def q_card_vs_cpu(model, params, dev, total):
           + f" (walls card {cwall:.2f} s, CPU {hwall:.2f} s); remat on "
           "against off on the card: loss and gradients bit for bit; "
           f"weights' sum {checksum!r}", flush=True)
+    # "_grads": the card's gradients (host copies), R.3's single-card
+    # reference, taken out before the record is written
     return {"rel_err": errs, "gradient_rel": grad, "cpu_spread": spread,
             "card_s": cwall, "cpu_s": hwall, "remat_bitwise": same,
-            "weights_sum": checksum}
+            "weights_sum": checksum, "_grads": gc}
 
 
 class QCrash(Exception):
@@ -4026,6 +4045,572 @@ def phase_path_q(card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# path R: the model-parallel layer (parallel/, models/moe_ep.py, the
+# sharded train step and checkpoints)
+# ---------------------------------------------------------------------------
+
+#: R.1/R.2: dbrx-132b's FULL MoE layer (d 6144, 16 experts, top 4,
+#: moe_d_ff 10752), bf16, drawn from R_SEED (one generator an expert, so
+#: that a rank draws only its own); the split layout's batch x sequence
+#: and the replicated layout's; the cap factors tried in turn until no
+#: item drops.  EP against the dense oracle: every token's output within
+#: R_TOKEN_RTOL of the oracle's in the 2-norm.  Both run bf16 GEMMs (f32
+#: accumulation) over differently shaped operands, so a token differs by
+#: the rounding of its last bf16 products (2^-9 an element, a few 1e-3 in
+#: a token's norm); an item routed to a wrong expert, dropped or combined
+#: with a wrong weight moves its token by a quarter of its norm or more
+R_MOE_ARCH, R_SEED = "dbrx-132b", 7
+R1_SPLIT, R1_REPL = (4, 512), (16, 1)
+R1_CAPS = (1.25, 2.0, 4.0, 8.0, 16.0)
+R_TOKEN_RTOL = 3e-2
+#: R.2-R.4: four gloo ranks on the card, mesh data=2 x model=2
+R_WORLD, R_DATA, R_MODEL, R_RANK_TIMEOUT = 4, 2, 2, 600
+#: R.3: Q's architecture at its FULL width cut to R3_LAYERS layers
+#: (depth only, for the time of gloo through the host), bf16, remat,
+#: Q.1's batch; R3_STEPS AdamW steps from Q's seeded init (R.4 saves
+#: before the last).  The sharded losses against the single-device run
+#: of the same init: step 0 within Q2_LOSS_RTOL (Q.2's gate: one batch,
+#: the same weights, only the order of the sums differs), the later
+#: steps within R3_DRIFT_RTOL (after a step the weights themselves
+#: differ by the bf16 rounding of the update).  The gradient norms
+#: within Q2_GRAD_RTOL, Q.2's gate on a bf16 gradient: at this init the
+#: bf16 gradient lies ~1.3 of its norm from float32's (PERF.md, PR 25),
+#: so its rounding moves the norm by a few % with the GEMMs' shapes; a
+#: data-parallel half lost or doubled moves it by 30 % or more.  The
+#: float32 cut holds the gradients leaf by leaf
+R3_LAYERS, R3_STEPS = 2, 3
+R3_DRIFT_RTOL = 2e-3
+#: row 16 against a float64 dot of the same leaf: a fault when the
+#: kernel's error exceeds its plain version's by more than R_DOT_FAULT
+#: times (and 1e-6, float32's floor of such a sum)
+R_DOT_FAULT = 4.0
+
+
+def r_moe_params(cfg, experts, dev):
+    """One MoE layer's ffn: the router (every rank's, float32) and the
+    experts ``experts`` (a range), each drawn from its own generator."""
+    import torch
+    d, f = cfg.d_model, cfg.moe_d_ff
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(R_SEED)
+    p = {"router": torch.randn((d, cfg.n_experts), generator=gen,
+                               device=dev) / math.sqrt(d)}
+    ws = {"w1": [], "w3": [], "w2": []}
+    for e in experts:
+        gen.manual_seed(R_SEED + 1 + e)
+        for n, shape, fan in (("w1", (d, f), d), ("w3", (d, f), d),
+                              ("w2", (f, d), f)):
+            ws[n].append((torch.randn(shape, generator=gen, device=dev)
+                          / math.sqrt(fan)).to(cfg.dtype))
+    p.update({n: torch.stack(v) for n, v in ws.items()})
+    return p
+
+
+def r_inputs(cfg, dev):
+    """The split layout's x (R1_SPLIT + (d,)) and the replicated one's."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(R_SEED + 1000)
+    return tuple(torch.randn(shape + (cfg.d_model,), generator=gen,
+                             device=dev).to(cfg.dtype)
+                 for shape in (R1_SPLIT, R1_REPL))
+
+
+def r_token_rel(y, want) -> float:
+    """max over tokens of ||y_t - want_t|| / ||want_t|| (float64)."""
+    a = y.double().reshape(-1, y.shape[-1])
+    b = want.to(a.device).double().reshape(-1, y.shape[-1])
+    return float(((a - b).norm(dim=1) / b.norm(dim=1).clamp(min=1e-30))
+                 .max())
+
+
+def r_ms(run, reps=3):
+    """Median wall ms of ``run()`` between device syncs."""
+    times = []
+    for _ in range(reps):
+        p_sync()
+        t0 = time.perf_counter()
+        run()
+        p_sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def r_ep(cfg, p, x, mesh, layout, ep_axis, caps, comm=None):
+    """moe_ep_apply at each cap factor of ``caps`` until no item drops
+    (over every rank when ``comm``): -> (y, cap factor, dropped share at
+    each cap factor tried)."""
+    import torch
+    from repro_torch.models import moe_ep
+    from repro_torch.parallel import collectives as coll
+    shares = {}
+    for cf in caps:
+        stats = {}
+        y = moe_ep.moe_ep_apply(p, cfg.replace(moe_cap_factor=cf), x, mesh,
+                                dp_axes=("data",), ep_axis=ep_axis,
+                                token_layout=layout, stats=stats)
+        counts = torch.stack([torch.as_tensor(stats["dropped"],
+                                              device=x.device).double(),
+                              torch.tensor(float(stats["items"]),
+                                           device=x.device,
+                                           dtype=torch.float64)])
+        if comm is not None:
+            counts = coll.all_reduce(counts, comm, comm.names)
+        shares[cf] = float(counts[0] / counts[1])
+        if shares[cf] == 0:
+            return y, cf, shares
+    check(False, f"R: items still drop at cap factor {caps[-1]}: {shares}")
+
+
+def r1_world_of_one(dev, tmp):
+    """R.1: moe_ep_apply over an NCCL group of one (a (1, 1) debug mesh)
+    at dbrx-132b's full width against the dense oracle; saves the inputs
+    and the oracle for R.2."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers, moe_ep
+    from repro_torch.parallel import collectives as coll
+    cfg = configs.get(R_MOE_ARCH)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        mesh = make_debug_mesh(1, 1)
+        p_peak_reset()
+        p = r_moe_params(cfg, range(cfg.n_experts), dev)
+        w_bytes = sum(p[n].numel() * p[n].element_size()
+                      for n in ("w1", "w3", "w2"))
+        xs, xr = r_inputs(cfg, dev)
+        rec = {"expert_bytes": w_bytes, "layouts": {}}
+        save = {"xs": xs.cpu(), "xr": xr.cpu()}
+        with torch.no_grad():
+            for layout, x, tag in (("split", xs, "s"), ("replicated", xr,
+                                                        "r")):
+                dense = layers.moe_dense_apply(p, cfg, x)
+                coll.reset_counts()
+                y, cf, shares = r_ep(cfg, p, x, mesh, layout, "model",
+                                     R1_CAPS)
+                colls = coll.counts()
+                rel = r_token_rel(y, dense)
+                check(rel <= R_TOKEN_RTOL, f"R.1 {layout}: a token's EP "
+                      f"output is {rel:.3g} from the dense oracle's (gate "
+                      f"{R_TOKEN_RTOL})")
+                c = cfg.replace(moe_cap_factor=cf)
+                ms = r_ms(lambda: moe_ep.moe_ep_apply(
+                    p, c, x, mesh, token_layout=layout))
+                dense_ms = r_ms(lambda: layers.moe_dense_apply(p, cfg, x))
+                save[f"dense_{tag}"], save[f"cap_{tag}"] = dense.cpu(), cf
+                rec["layouts"][layout] = {
+                    "tokens": x.shape[0] * x.shape[1], "dropped_share": shares,
+                    "cap_factor": cf, "token_rel": rel, "ms": ms,
+                    "dense_ms": dense_ms, "collectives": colls}
+                print(f"R.1 {R_MOE_ARCH} MoE layer, NCCL group of one, "
+                      f"{layout} {tuple(x.shape[:2])}: dropped share "
+                      + ", ".join(f"{k}: {v:.4g}" for k, v in shares.items())
+                      + f"; at cap factor {cf} no drop, max token rel "
+                      f"{rel:.3g} against the dense oracle (gate "
+                      f"{R_TOKEN_RTOL}); moe_ep_apply {ms:.2f} ms, dense "
+                      f"{dense_ms:.2f} ms; collectives {colls}", flush=True)
+                del dense, y
+        rec["peak_gib"] = p_peak_gib()
+        print(f"R.1 experts {w_bytes / 1e9:.2f} GB, peak "
+              f"{rec['peak_gib']:.2f} GiB", flush=True)
+    finally:
+        dist.destroy_process_group()
+    torch.save(save, tmp / "r_moe.pt")
+    del p, xs, xr, save
+    torch.cuda.empty_cache()
+    return rec
+
+
+def r_cut_config(dtype=None, layers=R3_LAYERS):
+    from repro_torch import configs
+    cfg = configs.get(Q_ARCH).replace(n_layers=layers)
+    return cfg if dtype is None else cfg.replace(dtype=dtype)
+
+
+def r3_single(dev):
+    """R.3's single-device run: the same init and batches, one card."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    model = Model(r_cut_config())
+    ocfg = adamw.AdamWConfig(lr=Q_LR, warmup_steps=1, total_steps=Q_STEPS)
+    batches = q_batches(model.cfg.vocab_size, Q_SEQ, Q_BATCH, R3_STEPS, dev)
+    state = tstep.init_state(model, 0, ocfg, device=dev)
+    train = tstep.make_train_step(model, ocfg=ocfg)
+    mets, times = [], []
+    for b in batches:
+        p_sync()
+        t0 = time.perf_counter()
+        state, met = train(state, b)
+        p_sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        mets.append(met)
+    out = {"loss": [float(m["loss"]) for m in mets],
+           "grad_norm": [float(m["grad_norm"]) for m in mets],
+           "ms": times}
+    del state, train, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_path_r(card, q3, dev=None):
+    """Path R, the model-parallel layer on the card: R.1 the expert-
+    parallel MoE at dbrx-132b's width over an NCCL group of one; R.2-R.4
+    in four gloo ranks on this card (data=2 x model=2, the collectives
+    staged through the host): R.2 single- and multi-axis EP in both
+    layouts against R.1's dense oracle, R.3 the sharded train step
+    (tp_fsdp) at internlm2-1.8b's width against the single-device run,
+    with its float32 cut's gradients against Q.3's, R.4 a sharded
+    checkpoint saved, restored into its layout and stepped."""
+    import shutil
+    import tempfile
+    import torch
+    dev = dev or torch.device("cuda")
+    print(card, flush=True)
+    torch.cuda.empty_cache()
+    OUT.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="path_r_", dir=OUT))
+    rec = {"seconds": {}}
+    try:
+        t = time.perf_counter()
+        rec["R.1"] = r1_world_of_one(dev, tmp)
+        rec["seconds"]["R.1"] = time.perf_counter() - t
+        t = time.perf_counter()
+        single = r3_single(dev)
+        grads, spread = q3.pop("_grads"), q3["cpu_spread"]
+        norm = math.sqrt(sum(float(g.double().pow(2).sum()) for g in grads))
+        torch.save({"grads": grads, "spread": spread, "norm": norm},
+                   tmp / "r3_grads.pt")
+        del grads
+        rec["seconds"]["R.3 single"] = time.perf_counter() - t
+        t = time.perf_counter()
+        ranks = spawn_ranks(R_WORLD, False, "--path-r-rank", tmp,
+                            R_RANK_TIMEOUT, "R")
+        rec["seconds"]["R.2-R.4 ranks"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r_check_ranks(ranks, single, spread, rec)
+    print("path R seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rec["seconds"].items()), flush=True)
+    return rec
+
+
+def r_check_ranks(ranks, single, spread, rec):
+    """R.2-R.4's records printed, then their gates."""
+    total = {}
+    for rk in ranks:
+        q_add(total, rk["R.3"]["counts"])
+    r3 = ranks[0]["R.3"]
+    loss, gn = r3["loss"], r3["grad_norm"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss, single["loss"])]
+    gn_rel = [abs(a - b) / abs(b) for a, b in zip(gn, single["grad_norm"])]
+    print(f"R.3 internlm2-1.8b width, {R3_LAYERS} layers, tp_fsdp data="
+          f"{R_DATA} x model={R_MODEL}, {R3_STEPS} steps: losses "
+          + " ".join(f"{x:.6f}" for x in loss) + " against one card's "
+          + " ".join(f"{x:.6f}" for x in single["loss"]) + " (rel "
+          + " ".join(f"{x:.3g}" for x in rel) + "); grad norms "
+          + " ".join(f"{x:.6g}" for x in gn) + " against "
+          + " ".join(f"{x:.6g}" for x in single["grad_norm"]) + " (rel "
+          + " ".join(f"{x:.3g}" for x in gn_rel) + "); ms a step "
+          + " ".join(f"{x:.1f}" for x in r3["ms"]) + " (gloo through the "
+          "host, four ranks on one card: not a measure of NCCL; one card "
+          + " ".join(f"{x:.1f}" for x in single["ms"]) + ")", flush=True)
+    for r, rk in enumerate(ranks):
+        x = rk["R.3"]
+        print(f"R rank {r}: R.3 state {x['state_bytes'] / 2**30:.3f} GiB "
+              f"(Q.1's one card: 31.7 GiB peak at 24 layers), peak "
+              f"{x['peak_gib']:.2f} GiB, collectives a step "
+              f"{x['collectives_per_step']}; R.2 expert bytes "
+              f"{rk['R.2']['expert_bytes']}, peak {rk['R.2']['peak_gib']:.2f}"
+              f" GiB; seconds {rk['seconds']}", flush=True)
+    cut = r3["cut"]
+    print(f"R.3 float32 cut ({Q3_LAYERS} layers, Q.3's weights and batch), "
+          f"sharded gradients against Q.3's single-card ones, per leaf "
+          + " ".join(f"{x:.2g}" for x in cut["leaf_rel"]) + " (Q.3's CPU "
+          "spread " + " ".join(f"{x:.2g}" for x in spread) + f"); global "
+          f"norm rel {cut['norm_rel']:.3g}", flush=True)
+    dots = [rk["R.3"]["dot64"] for rk in ranks]
+    print("R.3 row 16 and its plain version against a float64 dot of the "
+          "same float32 shard (the cut's gradients), max rel per rank: "
+          + ", ".join(f"kernel {d['kernel_max']:.3g} plain "
+                      f"{d['plain_max']:.3g}" for d in dots)
+          + f" (fault past {R_DOT_FAULT}x the plain's)", flush=True)
+    r4 = ranks[0]["R.4"]
+    print(f"R.4 sharded checkpoint of step {R3_STEPS - 1}: save "
+          f"{r4['save_s']:.2f} s, restore into the layout "
+          f"{r4['restore_s']:.2f} s; the step from it bit for bit: "
+          f"{[rk['R.4']['stepped_bitwise'] for rk in ranks]}; param leaves "
+          f"and step of the unsharded restore (one process) differing from "
+          f"the gathered state: {r4['unsharded_mismatches']} of "
+          f"{r4['leaves']}",
+          flush=True)
+    print("path R: kernel launches " + ", ".join(
+        f"{k} {v[0]}" for k, v in total.items() if v[0]), flush=True)
+    rec.update({"R.2": [rk["R.2"] for rk in ranks],
+                "R.3": {"single": single, "loss_rel": rel,
+                        "grad_norm_rel": gn_rel,
+                        "ranks": [{k: v for k, v in rk["R.3"].items()
+                                   if k != "counts"} for rk in ranks]},
+                "R.4": [rk["R.4"] for rk in ranks],
+                "rank_seconds": [rk["seconds"] for rk in ranks],
+                "kernels_run": {"counts": total}})
+    # the gates
+    for r, rk in enumerate(ranks):
+        for case, c in rk["R.2"]["cases"].items():
+            check(c["token_rel"] <= R_TOKEN_RTOL, f"R.2 rank {r} {case}: "
+                  f"token rel {c['token_rel']:.3g}")
+        check(rk["R.3"]["counts"]["dot"][0] > 0 and all(
+            v[1] == 0 for v in rk["R.3"]["counts"].values()),
+            f"R.3 rank {r}: row 16 not launched, or a plain version ran: "
+            f"{rk['R.3']['counts']}")
+        check(rk["R.3"]["loss"] == loss, "R.3: the ranks' losses differ")
+    check(rel[0] <= Q2_LOSS_RTOL, f"R.3: step 0's loss rel {rel[0]:.3g} "
+          f"(gate {Q2_LOSS_RTOL})")
+    check(all(x <= R3_DRIFT_RTOL for x in rel),
+          f"R.3: losses past {R3_DRIFT_RTOL}: {rel}")
+    check(all(x <= Q2_GRAD_RTOL for x in gn_rel),
+          f"R.3: grad norms past {Q2_GRAD_RTOL}: {gn_rel}")
+    bad = [(i, g, e) for i, (g, e) in enumerate(zip(cut["leaf_rel"], spread))
+           if g > Q3_SPREAD * e + Q3_MOMENT_TOL]
+    check(not bad, f"R.3 float32 cut: gradient leaves (index, sharded rel, "
+          f"CPU float32 spread) past Q.3's gate: {bad}")
+    check(cut["norm_rel"] <= Q3_NORM_RTOL + Q3_SPREAD * max(spread),
+          f"R.3 float32 cut: global norm rel {cut['norm_rel']:.3g}")
+    fault = [d for d in dots if d["kernel_max"] > R_DOT_FAULT *
+             d["plain_max"] + 1e-6]
+    check(not fault, f"R.3: row 16's error past {R_DOT_FAULT}x its plain "
+          f"version's: {fault}")
+    check(all(rk["R.4"]["stepped_bitwise"] for rk in ranks),
+          "R.4: the step from the restored checkpoint differs from the "
+          "uninterrupted step")
+    check(r4["unsharded_mismatches"] == 0, f"R.4: {r4['unsharded_mismatches']}"
+          " leaves of the unsharded restore differ from the gathered state")
+
+
+def path_r_rank(argv) -> int:
+    """One rank of R.2-R.4 (``--path-r-rank RANK WORLD DIR``): joins the
+    gloo group through ``DIR/store`` and saves its record to
+    ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as dist
+    rank, world, tmp = int(argv[0]), int(argv[1]), Path(argv[2])
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_debug_mesh, mesh_device
+        mesh = make_debug_mesh(R_DATA, R_MODEL)
+        dev = mesh_device(mesh)
+        check(dev.type == "cuda", f"R rank {rank}: device {dev}")
+        t0 = time.perf_counter()
+        rec = {"R.2": r2_ep(mesh, dev, tmp)}
+        sec = {"R.2": time.perf_counter() - t0}
+        rec.update(r3_train(mesh, dev, tmp, rank, sec))
+        rec["seconds"] = {k: round(v, 2) for k, v in sec.items()}
+        torch.save(rec, tmp / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def r2_ep(mesh, dev, tmp):
+    """R.2: single-axis EP over model (8 experts a rank) and multi-axis
+    over (model, data) (4 a rank), both layouts, against R.1's dense
+    oracle (this rank's rows)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import moe_ep
+    from repro_torch.parallel import collectives as coll
+    cfg = configs.get(R_MOE_ARCH)
+    comm = coll.comm_of(mesh)
+    mi, di = mesh.get_local_rank("model"), mesh.get_local_rank("data")
+    p_peak_reset()
+    per = cfg.n_experts // R_MODEL
+    p8 = r_moe_params(cfg, range(per * mi, per * (mi + 1)), dev)
+    q = per // R_DATA            # (model, data) block m*D + d: its experts
+    p4 = {"router": p8["router"], **{n: p8[n][q * di:q * (di + 1)]
+                                     for n in ("w1", "w3", "w2")}}
+    ref = torch.load(tmp / "r_moe.pt")
+    out = {"expert_bytes": {
+        "model": sum(p8[n].numel() * 2 for n in ("w1", "w3", "w2")),
+        "model,data": sum(p4[n].numel() * 2 for n in ("w1", "w3", "w2"))},
+        "cases": {}}
+    with torch.no_grad():
+        for layout, tag in (("split", "s"), ("replicated", "r")):
+            x, want = ref[f"x{tag}"], ref[f"dense_{tag}"]
+            rows = x.shape[0] // R_DATA
+            x = x[rows * di:rows * (di + 1)].to(dev)
+            want = want[rows * di:rows * (di + 1)]
+            caps = tuple(c for c in R1_CAPS if c >= ref[f"cap_{tag}"])
+            for ax, p in (("model", p8), (("model", "data"), p4)):
+                name = f"{layout} {ax}"
+                coll.reset_counts()
+                y, cf, shares = r_ep(cfg, p, x, mesh, layout, ax, caps,
+                                     comm)
+                colls = coll.counts()
+                c = cfg.replace(moe_cap_factor=cf)
+                ms = r_ms(lambda: moe_ep.moe_ep_apply(
+                    p, c, x, mesh, ep_axis=ax, token_layout=layout))
+                out["cases"][name] = {
+                    "cap_factor": cf, "dropped_share": shares,
+                    "token_rel": r_token_rel(y, want), "ms": ms,
+                    "collectives": colls}
+    out["peak_gib"] = p_peak_gib()
+    print(f"R.2 rank {comm.index(comm.names)}: " + "; ".join(
+        f"{k}: cap {v['cap_factor']}, token rel {v['token_rel']:.3g}, "
+        f"{v['ms']:.1f} ms" for k, v in out["cases"].items())
+        + f"; expert bytes {out['expert_bytes']}, peak "
+        f"{out['peak_gib']:.2f} GiB", flush=True)
+    del p8, p4
+    torch.cuda.empty_cache()
+    return out
+
+
+def r3_train(mesh, dev, tmp, rank, sec):
+    """R.3 and R.4 on this rank; ``sec`` gets their seconds."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import dispatch
+    from repro_torch.core.policies import ExecPolicy
+    from repro_torch.launch.train import make_pctx
+    from repro_torch.models import Model, spec
+    from repro_torch.models.sharded import Layout
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import step as tstep
+    comm = coll.comm_of(mesh)
+    model = Model(r_cut_config())
+    pctx = make_pctx(model.cfg, mesh)
+    sh = tstep.state_shardings(model, pctx)
+    ocfg = adamw.AdamWConfig(lr=Q_LR, warmup_steps=1, total_steps=Q_STEPS)
+    batches = q_batches(model.cfg.vocab_size, Q_SEQ, Q_BATCH, R3_STEPS, dev)
+    p_peak_reset()
+    t_all = time.perf_counter()
+    state = tstep.init_state(model, 0, ocfg, device=dev, shardings=sh)
+    state_bytes = sum(p_bytes(t) for t in (state.params, state.opt.m,
+                                           state.opt.v))
+    train = tstep.make_train_step(model, pctx, ocfg,
+                                  grad_shardings=sh.params)
+    ckdir = str(tmp / "ckpt")
+    mets, times, r4 = [], [], {}
+    p_sync()
+    kernels.reset_counts()
+    coll.reset_counts()
+    for i, b in enumerate(batches):
+        if i == R3_STEPS - 1:
+            counts, colls = kernels.counts(), coll.counts()
+            t0 = time.perf_counter()
+            ckpt.save(state, ckdir, i, shardings=sh)
+            r4["save_s"] = time.perf_counter() - t0
+            kernels.reset_counts()
+            coll.reset_counts()
+        p_sync()
+        t0 = time.perf_counter()
+        state, met = train(state, b)
+        p_sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        mets.append(met)
+    counts = {k: (v[0] + kernels.counts()[k][0], v[1] +
+                  kernels.counts()[k][1]) for k, v in counts.items()}
+    last = coll.counts()
+    colls = {k: (colls[k][0] + last[k][0], colls[k][1] + last[k][1])
+             for k in colls}
+    peak = p_peak_gib()
+    out = {"loss": [float(m["loss"]) for m in mets],
+           "grad_norm": [float(m["grad_norm"]) for m in mets],
+           "ms": times, "state_bytes": state_bytes, "peak_gib": peak,
+           "counts": counts,
+           "collectives_per_step": {k: (c // R3_STEPS, b // R3_STEPS)
+                                    for k, (c, b) in colls.items()}}
+    sec["R.3 steps"] = time.perf_counter() - t_all - r4["save_s"]
+    # R.4: the checkpoint of step R3_STEPS - 1 restored into the layout
+    t_all = time.perf_counter()
+    abstract = tstep.abstract_state(model, ocfg)
+    t0 = time.perf_counter()
+    st = ckpt.restore(abstract, ckdir, R3_STEPS - 1, shardings=sh,
+                      device=dev)
+    p_sync()
+    r4["restore_s"] = time.perf_counter() - t0
+    # one process (rank 0) restores it unsharded, on the host: its params
+    # and step against the gathered restored state (the moments reach
+    # the bitwise step below)
+    whole = ckpt.restore(abstract, ckdir, R3_STEPS - 1, device="cpu") \
+        if rank == 0 else None
+    refs = spec.tree_leaves(whole.params) if rank == 0 else None
+    mism = 0 if rank else int(not torch.equal(whole.opt.step,
+                                              st.opt.step.cpu()))
+    n = 1
+    for i, (x, s) in enumerate(zip(spec.tree_leaves(st.params),
+                                   spec.tree_leaves(sh.params))):
+        full = coll.gather_full(x, comm, s.dim_axes(x.dim()))
+        if refs is not None:
+            mism += not torch.equal(full.cpu(), refs[i])
+        n += 1
+        del full
+    del whole, refs
+    st, met = train(st, batches[-1])
+    same = float(met["loss"]) == out["loss"][-1] and all(
+        torch.equal(a, b) for a, b in zip(
+            spec.tree_leaves(st.params) + spec.tree_leaves(st.opt.m)
+            + spec.tree_leaves(st.opt.v),
+            spec.tree_leaves(state.params) + spec.tree_leaves(state.opt.m)
+            + spec.tree_leaves(state.opt.v)))
+    r4.update({"unsharded_mismatches": mism, "leaves": n,
+               "stepped_bitwise": same})
+    out_r4 = r4
+    del st, state, train
+    torch.cuda.empty_cache()
+    sec["R.4"] = time.perf_counter() - t_all + r4["save_s"]
+    t_all = time.perf_counter()
+    # R.3's float32 cut: Q.3's weights and batch, sharded gradients
+    cut = Model(r_cut_config(torch.float32, Q3_LAYERS))
+    cpctx = make_pctx(cut.cfg, mesh)
+    clay = Layout(cut.specs(), cpctx)
+    params = spec.tree_map(lambda t, s: s.shard(t).to(dev),
+                           cut.init(0, device="cpu"), clay.shardings)
+    batch = q_batches(cut.cfg.vocab_size, Q3_SEQ, Q3_BATCH, 1, dev, 3)[0]
+    _, g = tstep.value_and_grad(lambda p, bb: cut.loss(p, bb, cpctx),
+                                params, batch)
+    g = clay.reduce_grads(g)
+    want = torch.load(tmp / "r3_grads.pt", mmap=True)
+    sums = []
+    for x, s, w in zip(spec.tree_leaves(g), spec.tree_leaves(clay.shardings),
+                       want["grads"]):
+        wb = w[s.block(w.shape)].to(dev).double()
+        d2 = (x.double() - wb).pow(2).sum() if s.is_primary() else \
+            torch.zeros((), dtype=torch.float64, device=dev)
+        w2 = wb.pow(2).sum() if s.is_primary() else torch.zeros_like(d2)
+        sums.append(torch.stack([d2, w2]))
+    sums = coll.all_reduce(torch.stack(sums), comm, comm.names)
+    gn = float(adamw.global_norm(g, clay.shardings))
+    out["cut"] = {"leaf_rel": [float((a / b.clamp(min=1e-300)).sqrt())
+                               for a, b in sums],
+                  "norm_rel": abs(gn - want["norm"]) / want["norm"]}
+    # row 16 and its plain version against a float64 dot of the same
+    # float32 shard (these launches compare and are not counted)
+    pin = ExecPolicy().override(dot="torch")
+    ke, pe, sizes = [], [], []
+    for x in spec.tree_leaves(g):
+        d = x.double().ravel()
+        w = float(torch.dot(d, d))
+        ke.append(abs(float(dispatch.dot(x, x)) - w) / w)
+        pe.append(abs(float(dispatch.dot(x, x, pin)) - w) / w)
+        sizes.append(x.numel())
+    out["dot64"] = {"kernel": ke, "plain": pe, "elements": sizes,
+                    "kernel_max": max(ke), "plain_max": max(pe)}
+    del g
+    sec["R.3 cut"] = time.perf_counter() - t_all
+    print(f"R.3 rank {rank}: losses {out['loss']}, ms {times}, state "
+          f"{state_bytes / 2**30:.3f} GiB, peak {peak:.2f} GiB", flush=True)
+    return {"R.3": out, "R.4": out_r4}
+
+
 def profiled_paths(argv):
     """``--profile`` profiles every path, ``--profile=I,J`` only those
     named (``main`` for the main path): -> path name -> bool."""
@@ -4044,6 +4629,8 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if argv[:1] == ["--path-n-rank"]:
         return path_n_rank(argv[1:])
+    if argv[:1] == ["--path-r-rank"]:
+        return path_r_rank(argv[1:])
     # an empty autotune directory: no cache in the checkout changes the
     # decisions the paths report (path O tunes into a directory of its
     # own); the ranks of path N inherit it
@@ -4081,6 +4668,13 @@ def main(argv) -> int:
         print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
         return out
 
+    if "--only=R" in argv:
+        # path R alone, with Q.3 (its float32 cut's single-card gradients)
+        cut, params = q_cut_model(dev)
+        q3 = q_card_vs_cpu(cut, params, dev, {})
+        del params
+        phase("path R (model parallel)", phase_path_r, card, q3)
+        return 0
     # 3. kernels against their plain versions, then timings
     table = kernel_table()
     phase("compare", phase_compare, table, dev)
@@ -4175,6 +4769,12 @@ def main(argv) -> int:
     # (gradient flow's ERK)
     paths["Q: model training"] = phase("path Q (model training)",
                                        phase_path_q, card)
+    # the model-parallel layer: EP at dbrx-132b's width, the sharded
+    # train step and checkpoint in four gloo ranks on this card; row 16
+    # (the sharded AdamW norm)
+    paths["R: model parallel"] = phase(
+        "path R (model parallel)", phase_path_r, card,
+        paths["Q: model training"]["Q.3"])
     # 5. kernels line: launches summed over the kernel runs of the paths
     line = []
     for k, row in zip(table, rows):

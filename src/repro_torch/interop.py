@@ -23,7 +23,12 @@ cache as nested dicts of numpy leaves under the reference's keys
 ``{"params": ..., "opt": {"step", "m", "v"}}`` of numpy leaves
 (:func:`train_state_from_reference`, :func:`train_state_to_numpy`).  A
 bfloat16 leaf crosses through float32, which holds every bfloat16 value
-exactly.
+exactly.  A sharded state (each rank's local shards) crosses gathered
+(``train_state_to_numpy(state, shardings)``, every rank calling it), and
+a numpy tree reaches one rank as its shards (``shardings=`` of
+:func:`model_params_from_reference` and
+:func:`train_state_from_reference`), so the JAX package's weights and
+state reach a sharded port.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from .core.controller import ControllerConfig
 from .core.sunmatrix import SparseCSR
 from .models.config import ArchConfig
 from .models.spec import tree_map
+from .parallel import collectives as coll
 
 
 def params_from_numpy(params: dict, *, device, dtype=torch.float64) -> dict:
@@ -148,19 +154,30 @@ def _leaf(a, *, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def model_params_from_reference(tree: dict, model, *, device) -> dict:
+def model_params_from_reference(tree: dict, model, *, device,
+                                shardings=None) -> dict:
     """The port's parameters from the reference's ``Model(cfg).init(...)``
     as nested dicts of numpy leaves: copied key for key and shape for
-    shape into ``model``'s spec tree, each leaf in its spec's dtype."""
-    def copy(spec, a):
+    shape into ``model``'s spec tree, each leaf in its spec's dtype;
+    with ``shardings`` (``model.param_shardings(pctx)``) this rank's
+    blocks."""
+    specs = model.specs()
+    _same_keys(specs, tree)
+    shs = shardings if shardings is not None else tree_map(
+        lambda s: None, specs)
+
+    def copy(spec, a, sh):
         if tuple(np.shape(a)) != tuple(spec.shape):
             raise ValueError(f"reference leaf of shape {np.shape(a)}, spec "
                              f"{spec.shape}")
-        return _leaf(a, device=device, dtype=spec.dtype)
+        return _leaf(_block(a, sh), device=device, dtype=spec.dtype)
 
-    specs = model.specs()
-    _same_keys(specs, tree)
-    return tree_map(copy, specs, tree)
+    return tree_map(copy, specs, tree, shs)
+
+
+def _block(a, sh):
+    a = np.asarray(a)
+    return a if sh is None else a[sh.block(a.shape)]
 
 
 def _same_keys(a, b, where="params"):
@@ -190,32 +207,57 @@ def cache_to_numpy(caches: dict) -> dict:
     return tree_map(to_np, caches)
 
 
-def train_state_from_reference(tree: dict, model, *, device):
+def train_state_from_reference(tree: dict, model, *, device,
+                               shardings=None):
     """The port's ``train.step.TrainState`` from the reference's, given as
     ``{"params": params, "opt": {"step": ..., "m": ..., "v": ...}}`` of
     numpy leaves: the params in ``model``'s spec dtypes, ``step`` as
     int32, the moments in their own dtypes (a bfloat16 leaf as
-    bfloat16)."""
+    bfloat16); with ``shardings`` (``train.step.state_shardings``) this
+    rank's shards."""
     from .optim.adamw import AdamWState
     from .train.step import TrainState
+    ps = None if shardings is None else shardings.params
     params = model_params_from_reference(tree["params"], model,
-                                         device=device)
+                                         device=device, shardings=ps)
     opt = tree["opt"]
     _same_keys(tree["params"], opt["m"], "opt.m")
     _same_keys(tree["params"], opt["v"], "opt.v")
+    if ps is None:
+        ps = tree_map(lambda a: None, tree["params"])
 
-    def moment(a):
-        return _leaf(a, device=device)
+    def moment(a, sh):
+        return _leaf(_block(a, sh), device=device)
 
     return TrainState(params=params, opt=AdamWState(
         step=torch.tensor(np.asarray(opt["step"]), dtype=torch.int32,
                           device=device),
-        m=tree_map(moment, opt["m"]), v=tree_map(moment, opt["v"])))
+        m=tree_map(moment, opt["m"], ps), v=tree_map(moment, opt["v"], ps)))
 
 
-def train_state_to_numpy(state) -> dict:
+def _gathered(state, shardings):
+    """A sharded TrainState's global value (every rank calls it)."""
+    from .train.step import TrainState
+    from .optim.adamw import AdamWState
+    ps = shardings.params
+    comm = coll.comm_of(shardings.opt.step.mesh)
+
+    def full(t, sh):
+        return coll.gather_full(t.detach(), comm, sh.dim_axes(t.dim()))
+
+    return TrainState(
+        params=tree_map(full, state.params, ps),
+        opt=AdamWState(step=state.opt.step,
+                       m=tree_map(full, state.opt.m, ps),
+                       v=tree_map(full, state.opt.v, ps)))
+
+
+def train_state_to_numpy(state, shardings=None) -> dict:
     """A TrainState as ``{"params", "opt": {"step", "m", "v"}}`` of numpy
-    leaves (bfloat16 leaves as float32, ``step`` as int32)."""
+    leaves (bfloat16 leaves as float32, ``step`` as int32); a sharded
+    state (``shardings``) gathered."""
+    if shardings is not None:
+        state = _gathered(state, shardings)
     return {"params": cache_to_numpy(state.params),
             "opt": {"step": np.asarray(state.opt.step.detach().cpu().numpy(),
                                        dtype=np.int32),

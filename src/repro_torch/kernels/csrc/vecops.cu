@@ -52,7 +52,12 @@
 // its partial, fences, and takes a ticket; the last to arrive sums the
 // partials in index order (the same thread-strided sum and tree),
 // writes the result and resets the ticket counter to 0 for the next
-// launch on the stream.
+// launch on the stream.  A float32 reduction sums its float32 terms in
+// float64 (RedAcc: the threads' sums, the block sums, the partials)
+// and rounds once at the end: a thread's sequential sum runs over up to
+// n / (264 * 256) terms (~2800 on a 189.5 M-element gradient), where a
+// float32 sum lost 1.9e-6 against a float64 dot of the same leaf, 13x
+// the plain version's tree (PERF.md, PR 26).
 #include "common.cuh"
 
 #define LINCOMB_MAX_K 8
@@ -162,9 +167,9 @@ __device__ __forceinline__ T red_term(const T (&v)[3]) {
 // the end of a one-launch reduction: the block's sum of acc goes to
 // partial[blockIdx.x]; the last block to take a ticket sums the
 // gridDim.x partials in index order (thread-strided, then block_sum),
-// writes out[0] and sets the counter back to 0
-template <typename T>
-__device__ void finish_reduce(T acc, T* __restrict__ partial,
+// writes out[0] (rounded to T) and sets the counter back to 0
+template <typename A, typename T>
+__device__ void finish_reduce(A acc, A* __restrict__ partial,
                               unsigned* __restrict__ ticket,
                               T* __restrict__ out) {
   __shared__ int is_last;
@@ -178,12 +183,12 @@ __device__ void finish_reduce(T acc, T* __restrict__ partial,
   if (!is_last) return;
   // every other block's partial is written and fenced
   __threadfence();
-  T sum = T(0);
+  A sum = A(0);
   for (int i = threadIdx.x; i < (int)gridDim.x; i += REPRO_THREADS)
     sum = sum + __ldcg(partial + i);
   sum = block_sum(sum);
   if (threadIdx.x == 0) {
-    out[0] = sum;
+    out[0] = (T)sum;
     *ticket = 0u;
   }
 }
@@ -193,21 +198,34 @@ struct RedArgs {
   const T* p[3];
 };
 
+// a reduction's accumulator: float64 for float32 terms
+template <typename T>
+struct RedAcc {
+  using type = T;
+};
+template <>
+struct RedAcc<float> {
+  using type = double;
+};
+
 // sum over all n elements of red_term<T, OP> of the NIN inputs, into
-// out[0]; partial holds gridDim.x block sums, ticket is 0 at entry and
-// is left 0.  Block b owns elements [b*chunk, min((b+1)*chunk, n)).
+// out[0]; partial holds gridDim.x block sums (in RedAcc<T>), ticket is 0
+// at entry and is left 0.  Block b owns elements [b*chunk, min((b+1)*
+// chunk, n)).
 template <typename T, int NIN, int OP>
 __global__ void __launch_bounds__(REPRO_THREADS, 2)
-    onepass_reduce_kernel(RedArgs<T> a, T* __restrict__ partial,
+    onepass_reduce_kernel(RedArgs<T> a,
+                          typename RedAcc<T>::type* __restrict__ partial,
                           unsigned* __restrict__ ticket,
                           T* __restrict__ out, long long n,
                           long long chunk) {
+  using A = typename RedAcc<T>::type;
   const long long c0 = (long long)blockIdx.x * chunk;
   const long long len = n - c0 < chunk ? n - c0 : chunk;
   const T* p[NIN];
 #pragma unroll
   for (int v = 0; v < NIN; ++v) p[v] = a.p[v] + c0;
-  T acc = T(0);
+  A acc = A(0);
   for (long long base = threadIdx.x; base < len;
        base += (long long)RED_UNROLL * REPRO_THREADS) {
     T val[RED_UNROLL][3];
@@ -221,7 +239,7 @@ __global__ void __launch_bounds__(REPRO_THREADS, 2)
 #pragma unroll
     for (int u = 0; u < RED_UNROLL; ++u)
       if (base + (long long)u * REPRO_THREADS < len)
-        acc = acc + red_term<T, OP>(val[u]);
+        acc = acc + (A)red_term<T, OP>(val[u]);
   }
   finish_reduce(acc, partial, ticket, out);
 }
@@ -350,7 +368,8 @@ static int reduce(const void* const* ps, void* partial, void* ticket,
   for (int v = 0; v < 3; ++v) a.p[v] = v < NIN ? (const T*)ps[v] : nullptr;
   onepass_reduce_kernel<T, NIN, OP>
       <<<(unsigned)blocks, REPRO_THREADS, 0, (cudaStream_t)stream>>>(
-          a, (T*)partial, (unsigned*)ticket, (T*)out, n, chunk);
+          a, (typename RedAcc<T>::type*)partial, (unsigned*)ticket,
+          (T*)out, n, chunk);
   return (int)cudaGetLastError();
 }
 

@@ -142,7 +142,11 @@ def reduction_plan(n: int, dtype) -> tuple:
     return max(1, -(-n // chunk)), chunk
 
 
-#: (device, stream, dtype) -> (partial sums, ticket counter)
+#: a one-launch reduction's accumulator (its partial sums' dtype): a
+#: float32 reduction sums its float32 terms in float64 and rounds once
+ACC_DTYPE = {torch.float32: torch.float64}
+
+#: (device, stream, accumulator dtype) -> (partial sums, ticket counter)
 _SCRATCH: dict = {}
 
 
@@ -169,7 +173,8 @@ def _reduce(name, symbol, x, others: dict, extra=()):
     _build.check(name, x.device, x=(x, shape, _FLOATS),
                  **{k: (v, shape, (x.dtype,)) for k, v in others.items()})
     stream = _build.stream(x.device)
-    partial, ticket = _scratch(x.device, stream, x.dtype)
+    partial, ticket = _scratch(x.device, stream, ACC_DTYPE.get(x.dtype,
+                                                                x.dtype))
     out = torch.empty((), dtype=x.dtype, device=x.device)
     blocks, chunk = reduction_plan(x.numel(), x.dtype)
     ptrs = [v.data_ptr() for v in (x, *others.values())] + list(extra)

@@ -16,8 +16,12 @@ or else the rank: the card, unless the caller asks for ``"cpu"``.
 Without CUDA a ``"cuda"`` layout raises, as
 :func:`repro_torch.core.policies.resolve_device` does.
 
-The reference's ``make_production_mesh`` and ``make_debug_mesh`` serve
-its model launchers only (ROADMAP A.9) and are not ported here.
+:func:`make_production_mesh` and :func:`make_debug_mesh` are the model
+launchers' layouts (``src/repro/launch/mesh.py:13,19``): a
+``DeviceMesh`` over the default group with the reference's shapes and
+axis names.  Each needs a world of exactly its size and raises a
+``ValueError`` naming that size otherwise; neither builds a smaller mesh
+in its place.
 """
 from __future__ import annotations
 
@@ -77,6 +81,44 @@ def make_ensemble_mesh(n_devices: int = 0, device_type: str = "cuda"):
         # layout (and any NCCL communicator of it) is set up
         torch.cuda.set_device(_rank_card())
     return init_device_mesh(device_type, (world,), mesh_dim_names=(AXIS,))
+
+
+def _model_mesh(shape, names, device_type):
+    import math
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    need = math.prod(shape)
+    world = dist.get_world_size() if _initialised() else 1
+    if world != need:
+        raise ValueError(f"a {'x'.join(map(str, shape))} {names} mesh needs "
+                         f"a world of {need} ranks, not {world}")
+    resolve_device(device_type)
+    if not _initialised():
+        raise ValueError(f"a {names} mesh needs an initialised process "
+                         "group (init_process_group), even of one rank")
+    if device_type == "cuda":
+        torch.cuda.set_device(_rank_card())
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """16x16 ``("data", "model")`` (256 ranks, one pod) or 2x16x16
+    ``("pod", "data", "model")`` (512 ranks, two pods)."""
+    if multi_pod:
+        return _model_mesh((2, 16, 16), ("pod", "data", "model"),
+                           device_type)
+    return _model_mesh((16, 16), ("data", "model"), device_type)
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 2, pod: int = 0,
+                    device_type: str = "cuda"):
+    """A small ``("data", "model")`` mesh, or ``("pod", "data",
+    "model")`` with ``pod`` > 0, for tests and path R."""
+    if pod:
+        return _model_mesh((pod, n_data, n_model), ("pod", "data", "model"),
+                           device_type)
+    return _model_mesh((n_data, n_model), ("data", "model"), device_type)
 
 
 def _rank_card() -> torch.device:

@@ -5,10 +5,21 @@ The port's ``repro.models.layers``, function for function:
 * params are nested dicts of tensors, their specs built by the
   ``*_spec`` functions (one source of truth, see :mod:`.spec`);
 * every ``*_apply`` takes a ``cst(x, axes)`` callback, the reference's
-  logical sharding constraint (the identity here: the port runs the
-  model on one device);
+  logical sharding constraint: the identity on one device; under a mesh
+  a ``parallel.sharding.ShardCst``, also the identity on the local
+  blocks, whose ``comm`` the tensor-parallel layers issue their
+  collectives through;
 * activations are in ``cfg.dtype``; norms and softmax accumulate in
   float32.
+
+Under a mesh a layer computes what the reference's ``cst`` sites ask
+GSPMD for, on its parameters' local blocks (``models/sharded.py``):
+where a weight's heads (or ``mlp``) dim is kept split over ``model``
+(:func:`kept`), the input enters through ``collectives.copy_to`` (its
+gradient all-reduced), each rank computes its heads, and the
+row-parallel output product is followed by one all_reduce
+(``collectives.reduce_from``).  A dim left replicated computes
+replicated, with no collective.
 
 A KV cache is written in place (:func:`dus_seq`): a decode step writes
 its new keys and values into the cache it is given and returns that
@@ -24,6 +35,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives as coll
 from .config import ArchConfig
 from .spec import ParamSpec
 
@@ -33,6 +45,13 @@ f32 = torch.float32
 
 def _id_cst(x, axes):
     return x
+
+
+def kept(w: torch.Tensor, dim: int):
+    """The mesh axes dim ``dim`` of a parameter stays split over (``()``
+    on one device, or where the dim is gathered or replicated)."""
+    k = getattr(w, "_kept", None)
+    return k[dim] if k else ()
 
 
 def dus_seq(buf: torch.Tensor, upd: torch.Tensor, pos, axis: int = 1):
@@ -215,9 +234,12 @@ def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, cos, sin,
                     cache: Optional[Dict] = None, use_rope: bool = True):
     """Returns (out, new_cache).  cache = {'k','v','pos'} for decode: its
     'k' and 'v' are written in place and returned, 'pos' advanced."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    ax, kv_ax = kept(p["wq"], 1), kept(p["wk"], 1)
+    xq = coll.copy_to(x, cst.comm, ax) if ax else x
+    xk = xq if kv_ax else x
+    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xk, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xk, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"][None, None]
         k = k + p["bk"][None, None]
@@ -229,17 +251,28 @@ def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, cos, sin,
         k = apply_rope(k, cos, sin)
     new_cache = None
     S = x.shape[1]
+    kw = {}
     if cache is not None:
         pos = cache["pos"]                      # scalar int: filled length
-        ck = dus_seq(cache["k"], k, pos)
-        cv = dus_seq(cache["v"], v, pos)
-        out = _sdpa(q, ck, cv, causal=causal, window=cfg.sliding_window,
-                    q_offset=pos, kv_len=pos + S)
-        new_cache = {"k": ck, "v": cv, "pos": pos + S}
-    else:
-        out = _sdpa(q, k, v, causal=causal, window=cfg.sliding_window)
+        k = dus_seq(cache["k"], k, pos)
+        v = dus_seq(cache["v"], v, pos)
+        new_cache = {"k": k, "v": v, "pos": pos + S}
+        kw = {"q_offset": pos, "kv_len": pos + S}
+    if ax and not kv_ax:
+        # this rank's heads of a replicated K/V (the cache holds every kv
+        # head): each local query head's kv head, the GQA grouping of
+        # the global heads
+        H_loc = q.shape[2]
+        h0 = cst.comm.index(ax) * H_loc
+        rep = cfg.n_heads // cfg.n_kv_heads
+        idx = (h0 + torch.arange(H_loc, device=x.device)) // rep
+        k = coll.copy_to(k, cst.comm, ax).index_select(2, idx)
+        v = coll.copy_to(v, cst.comm, ax).index_select(2, idx)
+    out = _sdpa(q, k, v, causal=causal, window=cfg.sliding_window, **kw)
     out = cst(out, ("batch", "seq", "heads", "head_dim"))
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if ax:
+        y = coll.reduce_from(y, cst.comm, ax)
     return cst(y, ("batch", "seq", "embed")), new_cache
 
 
@@ -284,14 +317,19 @@ def mla_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, positions, *,
     """MLA with decoupled RoPE.  The cache stores the *latent* c_kv (+ the
     rope key), (kvr + dr) per token instead of 2*H*hd, written in
     place."""
-    H = cfg.n_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     kvr = cfg.kv_lora_rank
     S = x.shape[1]
+    ax = kept(p["wq_b"], 1)           # this rank's heads (tensor parallel)
+
+    def heads_in(t):
+        return coll.copy_to(t, cst.comm, ax) if ax else t
+
     # --- queries ---
     q_lat = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
     q_lat = rmsnorm_apply(p["q_norm"], q_lat, cfg.norm_eps)
-    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"])      # (B,S,H,dn+dr)
+    q = torch.einsum("bsr,rhk->bshk", heads_in(q_lat), p["wq_b"])
+    H = q.shape[2]                    # (B,S,H,dn+dr), H local
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     # --- compressed kv + decoupled rope key ---
     ckv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])          # (B,S,kvr+dr)
@@ -308,7 +346,8 @@ def mla_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, positions, *,
         c_use, kr_use, kv_len, q_off = c_all, kr_all, pos + S, pos
     else:
         c_use, kr_use, kv_len, q_off = c_kv, k_rope[:, :, 0, :], None, None
-    c_use = rmsnorm_apply(p["kv_norm"], c_use, cfg.norm_eps)
+    c_use = heads_in(rmsnorm_apply(p["kv_norm"], c_use, cfg.norm_eps))
+    kr_use = heads_in(kr_use)
     k_nope = torch.einsum("btr,rhk->bthk", c_use, p["wkv_b"][..., :dn])
     vv = torch.einsum("btr,rhk->bthk", c_use, p["wkv_b"][..., dn:])
     k_full = torch.cat(
@@ -319,6 +358,8 @@ def mla_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, positions, *,
     out = _sdpa(q_full, k_full, vv, causal=True, q_offset=q_off,
                 kv_len=kv_len)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if ax:
+        y = coll.reduce_from(y, cst.comm, ax)
     return cst(y, ("batch", "seq", "embed")), new_cache
 
 
@@ -337,11 +378,16 @@ def swiglu_spec(cfg: ArchConfig, d_ff: Optional[int] = None) -> Params:
 
 
 def swiglu_apply(p: Params, x: torch.Tensor, *, cst: Callable = _id_cst):
+    ax = kept(p["w1"], 1)             # this rank's mlp block
+    if ax:
+        x = coll.copy_to(x, cst.comm, ax)
     h = F.silu(torch.einsum("bsd,df->bsf", x, p["w1"])) * \
         torch.einsum("bsd,df->bsf", x, p["w3"])
     h = cst(h, ("batch", "seq", "mlp"))
-    return cst(torch.einsum("bsf,fd->bsd", h, p["w2"]),
-               ("batch", "seq", "embed"))
+    y = torch.einsum("bsf,fd->bsd", h, p["w2"])
+    if ax:
+        y = coll.reduce_from(y, cst.comm, ax)
+    return cst(y, ("batch", "seq", "embed"))
 
 
 def gelu_mlp_spec(cfg: ArchConfig, d_ff: Optional[int] = None) -> Params:
@@ -364,8 +410,8 @@ def gelu_mlp_apply(p: Params, x: torch.Tensor, *, cst: Callable = _id_cst):
 
 
 # ----------------------------------------------------------------------------
-# MoE: specs + the reference dense path (the expert-parallel path,
-# ``moe_ep``, waits: ROADMAP A.9)
+# MoE: specs + the reference dense path (the expert-parallel path is
+# ``moe_ep``)
 # ----------------------------------------------------------------------------
 
 

@@ -80,11 +80,18 @@ def _materialize(spec: ParamSpec, gen: torch.Generator, device):
     return x.mul_(std).to(spec.dtype)
 
 
-def init_params(specs, generator: torch.Generator, device=None) -> Any:
+def init_params(specs, generator: torch.Generator, device=None,
+                shardings=None) -> Any:
     """Materialise a spec tree on ``device`` (default: the generator's),
-    drawing every leaf from ``generator``."""
+    drawing every leaf from ``generator``.  With ``shardings`` (a tree
+    of ``parallel.sharding.NamedSharding``) each rank draws every leaf
+    whole, the values of the unsharded init, and keeps its block: one
+    whole leaf is alive at a time."""
     dev = torch.device(device) if device is not None else generator.device
-    return tree_map(lambda s: _materialize(s, generator, dev), specs)
+    if shardings is None:
+        return tree_map(lambda s: _materialize(s, generator, dev), specs)
+    return tree_map(lambda s, sh: sh.shard(_materialize(s, generator, dev)),
+                    specs, shardings)
 
 
 def abstract_params(specs) -> Any:

@@ -29,6 +29,21 @@ decode step never recomputes).
 
 Entry points that make tensors (``init``, ``init_cache``) run on the
 card unless given ``device="cpu"``.
+
+Under a mesh (``ParallelCtx(mesh=...)``; ``models/sharded.py``) each
+rank passes its local parameter shards and the global batch; the
+decoder-only LM (the dense GQA, MoE-over-GQA and MoE-with-MLA families)
+computes on its batch rows with tensor, FSDP and expert parallelism:
+the layers gather their parameters at use inside the layer body, the
+embedding and ``_lm_head`` are split over ``vocab`` and ``_xent`` takes
+its logsumexp and the target's logit across ``model`` ranks; the loss
+is the global batch's mean.  The other families (zamba2, xlstm,
+whisper, qwen2-vl's M-RoPE vision path) raise ``NotImplementedError``
+under a mesh (ROADMAP A item 2); none falls through to unsharded
+compute.  A decode step under a mesh runs on this rank's batch rows
+with the MoE's replicated token layout; its caches
+(``init_cache(..., pctx=)``) hold those rows and the kv heads the rank
+computes with (its own where the layers split them, else all).
 """
 from __future__ import annotations
 
@@ -41,7 +56,8 @@ import torch
 import torch.utils.checkpoint
 
 from ..core.policies import resolve_device
-from . import layers, ssm
+from ..parallel import collectives as coll
+from . import layers, moe_ep, ssm
 from .config import ArchConfig, ShapeConfig
 from .spec import (ParamSpec, abstract_params, axes_tree, init_params,
                    tree_map)
@@ -52,27 +68,24 @@ f32 = torch.float32
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """Distribution context threaded through the apply functions.
-
-    The port runs a model on one device: ``cst`` is the identity and
-    ``moe_impl="dense"`` the only MoE path.  The expert-parallel path
-    (``moe_impl="ep"`` over a mesh, the reference's ``moe_ep.py``) is
-    not ported yet (ROADMAP A.9) and raises rather than falling through
-    to the dense MoE."""
+    """Distribution context threaded through the apply functions: a
+    ``DeviceMesh`` (None: one device), the activation constraint
+    (``parallel.sharding.make_cst(mesh)``), the MoE path (``"ep"``
+    over a mesh is ``moe_ep.moe_ep_apply``; without one, and
+    ``"dense"``, the dense MoE), the data-parallel and EP axes.
+    ``layout`` is the port's own: the model fills it in from the mesh
+    (``models/sharded.py``) for the layers below it."""
     mesh: Any = None
     cst: Callable = layers._id_cst        # activation sharding constraint
     moe_impl: str = "dense"               # 'dense' | 'ep'
     dp_axes: Tuple[str, ...] = ("data",)
-    ep_axis: str = "model"
+    ep_axis: Any = "model"                # one axis or a tuple
     moe_token_layout: str = "split"       # 'split' | 'replicated'
+    layout: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if self.moe_impl not in ("dense", "ep"):
             raise ValueError(f"unknown moe_impl {self.moe_impl!r}")
-        if self.moe_impl == "ep" and self.mesh is not None:
-            raise NotImplementedError(
-                "moe_impl='ep' over a mesh (the reference's "
-                "models/moe_ep.py) is not ported yet: ROADMAP A.9")
 
 
 def _stack_specs(tree, n: int):
@@ -173,7 +186,13 @@ def _decoder_layer_apply(p: Params, cfg: ArchConfig, x, rope_cs, positions,
     x = x + a
     h = layers.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
-        f = layers.moe_dense_apply(p["ffn"], cfg, h, cst=cst)
+        if pctx.moe_impl == "ep" and pctx.mesh is not None:
+            f = moe_ep.moe_ep_apply(p["ffn"], cfg, h, pctx.mesh,
+                                    dp_axes=pctx.dp_axes,
+                                    ep_axis=pctx.ep_axis, cst=cst,
+                                    token_layout=pctx.moe_token_layout)
+        else:
+            f = layers.moe_dense_apply(p["ffn"], cfg, h, cst=cst)
     else:
         f = layers.swiglu_apply(p["ffn"], h, cst=cst)
     return x + f, new_cache
@@ -234,6 +253,8 @@ def _scan_layers(cfg, stacked, x, rope_cs, positions, pctx, caches=None):
     """Run the decoder layers in order over the stacked axis; ``caches``
     (stacked, optional) are updated in place and returned."""
     def body(xc, lp, lcache):
+        if pctx.layout is not None:      # gathered here: again in remat
+            lp = pctx.layout.use(lp, "layers")
         return _decoder_layer_apply(lp, cfg, xc, rope_cs, positions, pctx,
                                     cache=lcache)
 
@@ -241,9 +262,22 @@ def _scan_layers(cfg, stacked, x, rope_cs, positions, pctx, caches=None):
     return x, caches
 
 
+def _embed(w, tokens, pctx):
+    """Rows ``tokens`` of the embedding ``w``; split over ``vocab``, each
+    rank looks up its rows and the sum over ``model`` completes them."""
+    ax = layers.kept(w, 0)
+    if not ax:
+        return w[tokens]
+    V = w.shape[0]
+    ids = tokens.to(torch.long) - pctx.cst.comm.index(ax) * V
+    inside = (ids >= 0) & (ids < V)
+    x = w[ids.clamp(0, V - 1)] * inside[..., None].to(w.dtype)
+    return coll.reduce_from(x, pctx.cst.comm, ax)
+
+
 def _embed_inputs(cfg: ArchConfig, params, batch, pctx):
     """Token (+ vision stub) embedding -> (B, S, d), vis_len."""
-    x = params["embed"][batch["tokens"]]
+    x = _embed(params["embed"], batch["tokens"], pctx)
     vis_len = 0
     if cfg.mrope and "vis_embeds" in batch:
         ve = batch["vis_embeds"].to(x.dtype)            # (B, Sv, d)
@@ -252,10 +286,28 @@ def _embed_inputs(cfg: ArchConfig, params, batch, pctx):
     return pctx.cst(x, ("batch", "seq", "embed")), vis_len
 
 
+def _vocab_axes(cfg, params):
+    """The mesh axes the head's vocabulary stays split over."""
+    if cfg.tie_embeddings:
+        return layers.kept(params["embed"], 0)
+    return layers.kept(params["lm_head"], 1)
+
+
 def _lm_head(cfg, params, x, pctx):
+    """Logits; split over ``vocab``, this rank's vocabulary block."""
     w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    ax = _vocab_axes(cfg, params)
+    if ax:
+        x = coll.copy_to(x, pctx.cst.comm, ax)
     logits = torch.einsum("bsd,dv->bsv", x, w)
     return pctx.cst(logits, ("batch", "seq", "vocab"))
+
+
+def _whole_vocab(cfg, params, logits, pctx):
+    """Logits over the whole vocabulary (its blocks gathered)."""
+    vax = _vocab_axes(cfg, params)
+    return coll.gather_along(logits, pctx.cst.comm, vax, 2) if vax \
+        else logits
 
 
 def _xent(logits, targets, mask=None):
@@ -271,6 +323,63 @@ def _xent(logits, targets, mask=None):
     return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
 
 
+def _xent_mesh(logits, targets, vax, lay):
+    """:func:`_xent` on this rank's rows and vocabulary block (``vax``
+    the axes the vocabulary is split over): the logsumexp and the
+    target's logit summed across them, the numerator and the count
+    across the data-parallel axes; the global batch's mean."""
+    comm = lay.comm
+    lf = logits.to(f32)
+    tgt = torch.clamp(targets, min=0).to(torch.long)
+    if vax:
+        V = lf.shape[-1]
+        m = coll.all_reduce(lf.detach().amax(dim=-1), comm, vax, op="max")
+        se = coll.reduce_from(torch.exp(lf - m[..., None]).sum(dim=-1),
+                              comm, vax)
+        lse = torch.log(se) + m
+        ids = tgt - comm.index(vax) * V
+        inside = (ids >= 0) & (ids < V)
+        picked = torch.gather(lf, -1, ids.clamp(0, V - 1)[..., None])[..., 0]
+        picked = coll.reduce_from(picked * inside, comm, vax)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = torch.gather(lf, -1, tgt[..., None])[..., 0]
+    valid = (targets >= 0).to(f32)
+    tot = torch.stack([torch.sum((lse - picked) * valid), torch.sum(valid)])
+    if lay.dp_axes:
+        tot = coll.reduce_from(tot, comm, lay.dp_axes)
+    return tot[0] / torch.clamp(tot[1], min=1.0)
+
+
+def _loss_xent(cfg, params, logits, targets, pctx):
+    if pctx.layout is None:
+        return _xent(logits, targets)
+    return _xent_mesh(logits, targets, _vocab_axes(cfg, params), pctx.layout)
+
+
+def _on_mesh(cfg, params, batch, pctx):
+    """Under a mesh: (the top-level parameters gathered, this rank's
+    batch rows, the context with its layout); else as given."""
+    if pctx.mesh is None:
+        return params, batch, pctx
+    from .sharded import Layout
+    lay = Layout(lm_specs(cfg), pctx)
+    pctx = dataclasses.replace(pctx, cst=lay.cst, layout=lay)
+    return lay.use_top(params), lay.local_batch(batch), pctx
+
+
+def _mtp_proj(hcat, w, pctx):
+    """``hcat @ w``; ``w``'s rows split over ``model``: this rank's
+    features of ``hcat``, the partial products summed."""
+    ax = layers.kept(w, 0)
+    if not ax:
+        return torch.einsum("bse,ed->bsd", hcat, w)
+    comm = pctx.cst.comm
+    n = w.shape[0]
+    hc = coll.copy_to(hcat, comm, ax).narrow(-1, comm.index(ax) * n, n)
+    return coll.reduce_from(torch.einsum("bse,ed->bsd", hc, w), comm, ax)
+
+
 def _lm_trunk(cfg, params, batch, pctx):
     """-> (logits over the whole sequence, final hidden, vis_len)."""
     x, vis_len = _embed_inputs(cfg, params, batch, pctx)
@@ -284,24 +393,29 @@ def _lm_trunk(cfg, params, batch, pctx):
 
 def lm_forward(cfg: ArchConfig, params: Params, batch: Dict,
                pctx: ParallelCtx):
-    """Logits (B, S, V) over the whole sequence, vision prefix included."""
-    return _lm_trunk(cfg, params, batch, pctx)[0]
+    """Logits (B, S, V) over the whole sequence, vision prefix included
+    (under a mesh: this rank's rows, the whole vocabulary)."""
+    params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
+    return _whole_vocab(cfg, params, _lm_trunk(cfg, params, batch, pctx)[0],
+                        pctx)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict, pctx: ParallelCtx):
+    params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     logits, x, vis_len = _lm_trunk(cfg, params, batch, pctx)
     B = x.shape[0]
     if vis_len:
         # loss only over the text region
         logits = logits[:, vis_len:]
-    loss = _xent(logits, batch["targets"])
+    loss = _loss_xent(cfg, params, logits, batch["targets"], pctx)
     if cfg.mtp:
         # multi-token prediction: h with the next token's embedding, one
         # extra layer, predict t+2 (DeepSeek-V3 MTP, D=1)
-        emb_next = params["embed"][torch.clamp(batch["targets"], min=0)]
+        emb_next = _embed(params["embed"],
+                          torch.clamp(batch["targets"], min=0), pctx)
         h = x[:, vis_len:] if vis_len else x
         hcat = torch.cat([h, emb_next.to(h.dtype)], dim=-1)
-        hm = torch.einsum("bse,ed->bsd", hcat, params["mtp_proj"])
+        hm = _mtp_proj(hcat, params["mtp_proj"], pctx)
         pos2 = _positions_for(cfg, B, hm.shape[1], 0, hm.device)
         hm, _ = _decoder_layer_apply(params["mtp_layer"], _mtp_cfg(cfg), hm,
                                      _rope_for(cfg, pos2), pos2, pctx)
@@ -309,22 +423,29 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict, pctx: ParallelCtx):
         logits2 = _lm_head(cfg, params, hm, pctx)
         tgt2 = torch.cat([batch["targets"][:, 1:],
                           -torch.ones_like(batch["targets"][:, :1])], dim=1)
-        loss = loss + 0.3 * _xent(logits2, tgt2)
+        loss = loss + 0.3 * _loss_xent(cfg, params, logits2, tgt2, pctx)
     return loss
 
 
 def lm_decode_step(cfg: ArchConfig, params: Params, batch: Dict, caches,
                    pctx: ParallelCtx):
-    """One-token decode: batch = {'tokens': (B,1), 'pos': int or ()}."""
+    """One-token decode: batch = {'tokens': (B,1), 'pos': int or ()};
+    under a mesh this rank's rows of the logits (the whole vocabulary)
+    and its caches (``Model.init_cache(..., pctx=)``)."""
+    params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     tokens, pos = batch["tokens"], batch["pos"]
     B = tokens.shape[0]
-    x = params["embed"][tokens]
+    x = _embed(params["embed"], tokens, pctx)
     positions = _positions_for(cfg, B, 1, 0, x.device, offset=pos)
+    # one token cannot split over 'model': the MoE's replicated layout
     x, caches = _scan_layers(cfg, params["layers"], x,
-                             _rope_for(cfg, positions), positions, pctx,
+                             _rope_for(cfg, positions), positions,
+                             dataclasses.replace(
+                                 pctx, moe_token_layout="replicated"),
                              caches=caches)
     x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
-    return _lm_head(cfg, params, x, pctx), caches
+    return _whole_vocab(cfg, params, _lm_head(cfg, params, x, pctx),
+                        pctx), caches
 
 
 def lm_cache_specs(cfg: ArchConfig, batch: int, max_len: int):
@@ -627,13 +748,21 @@ class Model:
     def specs(self):
         return _SPECS[_family(self.cfg)](self.cfg)
 
-    def init(self, generator, device=None):
+    def init(self, generator, device=None, shardings=None):
         """Parameters drawn from ``generator`` (a ``torch.Generator``,
-        or an int seeding one on ``device``, default the card)."""
+        or an int seeding one on ``device``, default the card); with
+        ``shardings`` (``param_shardings`` on a mesh) this rank's
+        blocks of the same values."""
         if isinstance(generator, int):
             dev = resolve_device(device)
             generator = torch.Generator(device=dev).manual_seed(generator)
-        return init_params(self.specs(), generator, device)
+        return init_params(self.specs(), generator, device, shardings)
+
+    def param_shardings(self, pctx: "ParallelCtx"):
+        """Each parameter's layout on ``pctx.mesh`` (its profile's
+        parameter rules)."""
+        from .sharded import Layout
+        return Layout(self.specs(), pctx).shardings
 
     def abstract_params(self):
         return abstract_params(self.specs())
@@ -642,11 +771,28 @@ class Model:
         return axes_tree(self.specs())
 
     # --- forward paths ---
+    def _mesh_ok(self, pctx):
+        """Under a mesh only the decoder-only LM runs; the other
+        families raise rather than computing unsharded."""
+        if pctx.mesh is None:
+            return
+        fam = _family(self.cfg)
+        if fam != "lm":
+            name = f"the {fam} family"
+        elif self.cfg.mrope:
+            name = "qwen2-vl's M-RoPE vision path"
+        else:
+            return
+        raise NotImplementedError(f"{self.cfg.name}: {name} under a mesh "
+                                  "is not ported: ROADMAP A item 2")
+
     def forward(self, params, batch, pctx: ParallelCtx = ParallelCtx()):
         """Logits (B, S, V) of the full forward pass."""
+        self._mesh_ok(pctx)
         return _FORWARD[_family(self.cfg)](self.cfg, params, batch, pctx)
 
     def loss(self, params, batch, pctx: ParallelCtx = ParallelCtx()):
+        self._mesh_ok(pctx)
         if _family(self.cfg) == "lm":
             return lm_loss(self.cfg, params, batch, pctx)
         return _xent(self.forward(params, batch, pctx), batch["targets"])
@@ -655,17 +801,42 @@ class Model:
                     pctx: ParallelCtx = ParallelCtx()):
         """One token against ``caches``, which are updated in place:
         -> (logits (B, 1, V), caches)."""
+        self._mesh_ok(pctx)
         return _DECODE[_family(self.cfg)](self.cfg, params, batch, caches,
                                           pctx)
 
     def cache_specs(self, batch: int, max_len: int):
         return _CACHE_SPECS[_family(self.cfg)](self.cfg, batch, max_len)
 
-    def init_cache(self, batch: int, max_len: int, device=None):
+    def init_cache(self, batch: int, max_len: int, device=None,
+                   pctx: ParallelCtx = ParallelCtx()):
+        """Zero caches; under a mesh (``pctx``) this rank's: its batch
+        rows, and its kv heads where the layers split them (else every
+        kv head, replicated over ``model``)."""
+        self._mesh_ok(pctx)
         dev = resolve_device(device)
+        specs = self.cache_specs(batch, max_len)
+        if pctx.mesh is not None:
+            from .sharded import Layout
+            lay = Layout(self.specs(), pctx)
+            n_dp = lay.comm.size(lay.dp_axes) if lay.dp_axes else 1
+            kv = lay.shardings["layers"]["attn"].get("wk")
+            m = lay.comm.size(kv.dim_axes(4)[2]) if kv is not None else 1
+            if batch % n_dp:
+                raise ValueError(f"batch {batch} does not split over "
+                                 f"{lay.dp_axes} ({n_dp} ranks)")
+
+            def local(name, s):
+                shape = list(s.shape)
+                if len(shape) > 1:
+                    shape[1] //= n_dp
+                if name in ("k", "v"):
+                    shape[3] //= m
+                return _meta(tuple(shape), s.dtype)
+
+            specs = {k: local(k, v) for k, v in specs.items()}
         return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                              device=dev),
-                        self.cache_specs(batch, max_len))
+                                              device=dev), specs)
 
     # --- abstract inputs ---
     def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:

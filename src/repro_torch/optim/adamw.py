@@ -13,6 +13,13 @@ The global norm is the N_Vector dot of the float32 gradients
 (``core.dispatch.dot``, row 16's kernel on the card), one leaf at a time
 so that only one leaf's float32 cast is alive at once, the per-leaf dots
 summed in leaf order as the reference's ``vector.dot`` sums them.
+
+Over a mesh (``shardings``: each leaf's ``parallel.sharding``
+layout) the gradients, moments and parameters are this rank's local
+shards: row 16 runs on each local shard, a leaf replicated over some
+axes counts once (only its first replica adds its dot), and one
+all_reduce over the mesh sums the ranks' totals; the update runs on the
+local shards in place.
 """
 from __future__ import annotations
 
@@ -23,6 +30,11 @@ import torch
 
 from ..core import dispatch
 from ..models.spec import tree_leaves, tree_map
+from ..parallel import collectives as coll
+
+
+#: the global norm's dtype (the reference's float32 gradients)
+f32 = torch.float32
 
 
 class AdamWState(NamedTuple):
@@ -72,22 +84,34 @@ def init(params, cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def global_norm(tree):
-    """sqrt(sum ||g||^2): the sum of the leaves' float32 dots, in order."""
+def global_norm(tree, shardings=None):
+    """sqrt(sum ||g||^2): the sum of the leaves' float32 dots, in order;
+    over a mesh, of the local shards' dots, each block once, summed over
+    the ranks."""
+    leaves = tree_leaves(tree)
+    sh = tree_leaves(shardings) if shardings is not None else None
     total = None
-    for g in tree_leaves(tree):
-        g32 = g.to(torch.float32)
+    for i, g in enumerate(leaves):
+        if sh is not None and not sh[i].is_primary():
+            continue
+        g32 = g.to(f32)
         d = dispatch.dot(g32, g32)
         total = d if total is None else total + d
+    if sh is not None:
+        if total is None:
+            total = _const(leaves[0], 0.0)
+        comm = coll.comm_of(sh[0].mesh)
+        total = coll.all_reduce(total, comm, comm.names)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def update(grads, state: AdamWState, params,
-           cfg: AdamWConfig = AdamWConfig()):
+           cfg: AdamWConfig = AdamWConfig(), shardings=None):
     """Returns (params, state, stats), the params and the state's tensors
-    updated in place; stats ``{"grad_norm", "lr"}`` are 0-d tensors."""
-    gnorm = global_norm(grads)
+    updated in place; stats ``{"grad_norm", "lr"}`` are 0-d tensors.
+    ``shardings``: the params' layouts when they are local shards."""
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp(
         _const(gnorm, cfg.clip_norm) / torch.clamp(gnorm, min=1e-9), max=1.0)
     state.step.add_(1)

@@ -20,6 +20,15 @@ in the other:
   string ``"bfloat16"`` (numpy has no bfloat16 of its own).
 
 A tree is nested dicts, NamedTuples, tuples and lists of tensors.
+
+A sharded tree (each rank's local shards, ``shardings=`` their
+``parallel.sharding`` layouts) is saved in the same format, with no
+collective: every rank calls :func:`save`, rank 0 lays out each leaf's
+``.npy`` file at its global shape, each block's first replica writes
+its block into the file (memory-mapped: one shared directory, as the
+ranks of one host have), and rank 0 commits; either package restores it
+as an unsharded tree.  :func:`restore` with ``shardings=`` reads each
+leaf's file memory-mapped and keeps this rank's block.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core.policies import resolve_device
+from ..parallel import collectives as coll
 
 #: torch dtype -> the numpy dtype name the reference records
 _NP_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
@@ -90,10 +100,14 @@ def _np_name(dtype: torch.dtype) -> str:
     return _NP_NAMES[dtype]
 
 
-def _tree_fingerprint(tree) -> str:
+def _fingerprint_of(leaves) -> str:
     keys = [_leaf_key(p) + ":" + str(tuple(leaf.shape)) + ":" +
-            _np_name(leaf.dtype) for p, leaf in _leaves_with_path(tree)]
+            _np_name(leaf.dtype) for p, leaf in leaves]
     return hashlib.sha256("|".join(keys).encode()).hexdigest()[:16]
+
+
+def _tree_fingerprint(tree) -> str:
+    return _fingerprint_of(_leaves_with_path(tree))
 
 
 def _to_savable(t: torch.Tensor):
@@ -106,28 +120,67 @@ def _to_savable(t: torch.Tensor):
 
 def _from_saved(arr: np.ndarray, dtype_str: str) -> torch.Tensor:
     if dtype_str == "bfloat16" and arr.dtype == np.uint16:
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)) \
+        # a copy: ``arr`` may be a read-only memory map of the file
+        return torch.from_numpy(np.array(arr).view(np.int16)) \
             .view(torch.bfloat16)
     return torch.from_numpy(np.array(arr, dtype=np.dtype(dtype_str)))
 
 
+def _sharding_leaves(shardings, n: int) -> list:
+    if shardings is None:
+        return [None] * n
+    out = [s for _, s in _leaves_with_path(shardings)]
+    if len(out) != n:
+        raise ValueError(f"{len(out)} shardings for {n} leaves")
+    return out
+
+
 def save(tree: Any, ckpt_dir: str, step: int,
-         process_index: int = 0) -> str:
-    """Atomic save of (this process's view of) the tree."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+         process_index: int = 0, shardings: Any = None) -> str:
+    """Atomic save of (this process's view of) the tree; with
+    ``shardings``, of the sharded tree's global value (every rank calls
+    it; each writes its blocks, rank 0 commits)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + f".tmp{process_index}"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
     leaves = _leaves_with_path(tree)
-    dtypes = {}
-    for path, leaf in leaves:
-        savable, dtype_str = _to_savable(leaf)
+    shs = _sharding_leaves(shardings, len(leaves))
+    sharded = any(s is not None for s in shs)
+    writer = not sharded or torch.distributed.get_rank() == 0
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    dtypes, whole = {}, []
+    for (path, leaf), sh in zip(leaves, shs):
         key = _leaf_key(path)
-        dtypes[key] = dtype_str
-        np.save(os.path.join(tmp, key + ".npy"), savable)
-    meta = {"step": step, "fingerprint": _tree_fingerprint(tree),
+        shape = tuple(leaf.shape) if sh is None else \
+            sh.global_shape(leaf.shape)
+        whole.append((path, torch.empty(shape, dtype=leaf.dtype,
+                                        device="meta")))
+        dtypes[key] = _np_name(leaf.dtype)
+        if not sharded:
+            savable, dtypes[key] = _to_savable(leaf)
+            np.save(os.path.join(tmp, key + ".npy"), savable)
+        elif writer:
+            np.lib.format.open_memmap(
+                os.path.join(tmp, key + ".npy"), mode="w+", shape=shape,
+                dtype=np.uint16 if leaf.dtype == torch.bfloat16 else
+                np.dtype(_np_name(leaf.dtype)))
+    if sharded:
+        coll.barrier()
+        for (path, leaf), sh in zip(leaves, shs):
+            if sh.is_primary():
+                mm = np.load(os.path.join(tmp, _leaf_key(path) + ".npy"),
+                             mmap_mode="r+")
+                mm[sh.block(mm.shape)] = _to_savable(leaf)[0]
+                mm.flush()
+                del mm
+        coll.barrier()
+        if not writer:
+            coll.barrier()
+            return final
+    meta = {"step": step, "fingerprint": _fingerprint_of(whole),
             "n_leaves": len(leaves), "process_index": process_index,
             "dtypes": dtypes}
     with open(os.path.join(tmp, "meta.json"), "w") as f:
@@ -136,6 +189,8 @@ def save(tree: Any, ckpt_dir: str, step: int,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    if sharded:
+        coll.barrier()
     return final
 
 
@@ -154,12 +209,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore(abstract_tree: Any, ckpt_dir: str, step: int,
             shardings: Any = None, device=None) -> Any:
     """Load into the abstract tree's structure (tensors, ``meta`` ones
-    included, giving shapes and dtypes) on ``device`` (default the card);
-    verify the fingerprint.  ``shardings`` waits for the model-parallel
-    layer (ROADMAP A.9 item 2)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) is not ported yet: ROADMAP A.9 item 2")
+    included, giving the global shapes and dtypes) on ``device``
+    (default the card); verify the fingerprint.  ``shardings``: each
+    leaf's layout, of which this rank loads its block."""
     dev = resolve_device(device)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "meta.json")) as f:
@@ -170,10 +222,14 @@ def restore(abstract_tree: Any, ckpt_dir: str, step: int,
             f"checkpoint fingerprint {meta['fingerprint']} != expected {fp}"
             " — model/optimizer structure changed since save")
     vals = []
-    for path, leaf in _leaves_with_path(abstract_tree):
+    leaves = _leaves_with_path(abstract_tree)
+    for (path, leaf), sh in zip(leaves,
+                                _sharding_leaves(shardings, len(leaves))):
         key = _leaf_key(path)
-        t = _from_saved(np.load(os.path.join(final, key + ".npy")),
-                        meta["dtypes"][key])
+        arr = np.load(os.path.join(final, key + ".npy"), mmap_mode="r")
+        if sh is not None:
+            arr = arr[sh.block(arr.shape)]
+        t = _from_saved(arr, meta["dtypes"][key])
         vals.append(t.to(device=dev, dtype=leaf.dtype))
     return _unflatten(abstract_tree, vals)
 

@@ -14,8 +14,14 @@ canonical step:
   port's counterpart of the reference's state donation: the state passed
   in is the state returned.
 
-The gradient sharding constraints of the reference (``grad_shardings``)
-wait for the model-parallel layer (ROADMAP A.9 item 2).
+Over a mesh (``pctx.mesh``) the state holds this rank's shards
+(``init_state(..., shardings=state_shardings(model, pctx))``), every
+rank calls ``train(state, batch)`` with the global batch, and each
+gradient comes back in its parameter's layout: its FSDP dims
+reduce-scattered in the backward, then summed over the data-parallel
+axes it is replicated over (``models.sharded.Layout.reduce_grads``) —
+the reference's ``grad_shardings`` constraint.  ``grad_shardings=``,
+when given, must be that layout.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 from ..models.spec import tree_leaves, tree_map, tree_unflatten
 from ..models.transformer import Model, ParallelCtx
 from ..optim import adamw
+from ..parallel import sharding as shd
 
 
 class TrainState(NamedTuple):
@@ -34,10 +41,15 @@ class TrainState(NamedTuple):
 
 
 def init_state(model: Model, generator,
-               ocfg: adamw.AdamWConfig = adamw.AdamWConfig(), device=None):
+               ocfg: adamw.AdamWConfig = adamw.AdamWConfig(), device=None,
+               shardings=None):
     """Parameters drawn from ``generator`` (a ``torch.Generator``, or an
-    int seeding one on ``device``, default the card) and zero moments."""
-    params = model.init(generator, device=device)
+    int seeding one on ``device``, default the card) and zero moments;
+    with ``shardings`` (:func:`state_shardings`) this rank's shards of
+    the same state."""
+    params = model.init(generator, device=device,
+                        shardings=None if shardings is None
+                        else shardings.params)
     return TrainState(params=params, opt=adamw.init(params, ocfg))
 
 
@@ -58,10 +70,16 @@ def make_train_step(model: Model, pctx: ParallelCtx = ParallelCtx(),
     """Returns train_step(state, batch) -> (state, metrics); the state's
     tensors are updated in place and the metrics are 0-d float32 device
     tensors (``loss``, ``grad_norm``, ``lr``)."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings (reduce-scattered gradients over a mesh) is not "
-            "ported yet: ROADMAP A.9 item 2")
+    lay = None
+    if pctx.mesh is not None:
+        from ..models.sharded import Layout
+        lay = Layout(model.specs(), pctx)
+        if grad_shardings is not None and tree_leaves(grad_shardings) != \
+                tree_leaves(lay.shardings):
+            raise ValueError("grad_shardings differ from the parameters' "
+                             "layout on the mesh")
+    elif grad_shardings is not None:
+        raise ValueError("grad_shardings without a mesh (pctx.mesh)")
 
     def loss_fn(params, batch):
         return model.loss(params, batch, pctx)
@@ -91,8 +109,11 @@ def make_train_step(model: Model, pctx: ParallelCtx = ParallelCtx(),
 
     def train_step(state: TrainState, batch):
         loss, grads = compute_grads(state.params, batch)
-        new_params, new_opt, ostats = adamw.update(grads, state.opt,
-                                                   state.params, ocfg)
+        if lay is not None:
+            grads = lay.reduce_grads(grads)
+        new_params, new_opt, ostats = adamw.update(
+            grads, state.opt, state.params, ocfg,
+            None if lay is None else lay.shardings)
         metrics = {"loss": loss.to(torch.float32), **ostats}
         return TrainState(new_params, new_opt), metrics
 
@@ -114,6 +135,14 @@ def abstract_state(model: Model,
                                  p.shape, ocfg.moment_dtype), aparams),
                              v=tree_map(lambda p: meta(
                                  p.shape, ocfg.moment_dtype), aparams)))
+
+
+def state_shardings(model: Model, pctx: ParallelCtx):
+    """The TrainState's layouts on ``pctx.mesh``: the moments follow the
+    params, the step is replicated."""
+    ps = model.param_shardings(pctx)
+    return TrainState(params=ps, opt=adamw.AdamWState(
+        step=shd.NamedSharding(pctx.mesh, ()), m=ps, v=ps))
 
 
 def state_axes(model: Model):

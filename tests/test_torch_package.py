@@ -159,11 +159,11 @@ def test_unported_paths_raise():
         ivp.integrate(prob, 0.0, 1.0, "rk4", device="cpu")
     with pytest.raises(ValueError, match="lies on cpu"):
         ivp.integrate(prob, 0.0, 1.0, "ensemble_bdf", device="meta")
-    # the expert-parallel MoE (moe_ep.py) is not ported: no quiet
-    # fall-through to the dense MoE; without a mesh "ep" is the dense path
-    # in both packages
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        ParallelCtx(mesh=object(), moe_impl="ep")
+    # the expert-parallel MoE over a mesh builds (moe_ep.py; run across
+    # ranks by tests/test_torch_moe_ep.py); without a mesh "ep" is the
+    # dense path in both packages
+    mesh = object()
+    assert ParallelCtx(mesh=mesh, moe_impl="ep").mesh is mesh
     with pytest.raises(ValueError, match="moe_impl"):
         ParallelCtx(moe_impl="expert")
     moe = Model(configs.get("dbrx-132b-smoke").replace(dtype=torch.float32))

@@ -61,11 +61,13 @@ def kernel_order_sum(terms, blocks, chunk):
     the plan ``(blocks, chunk)``: block b's thread sums over its chunk
     (zeros past n change no bit: a sum that starts at +0 is never -0),
     its ``block_sum``, then the last block's thread-strided sum of the
-    partials in index order and its ``block_sum``."""
+    partials in index order and its ``block_sum``; float32 terms summed
+    in float64 (``vecops.ACC_DTYPE``) and the result rounded once."""
     flat = terms.reshape(-1)
+    flat = flat.to(vecops.ACC_DTYPE.get(flat.dtype, flat.dtype))
     flat = torch.cat([flat, flat.new_zeros(blocks * chunk - flat.numel())])
     partial = _block_sum(_strided_sums(flat.reshape(blocks, chunk)))
-    return _block_sum(_strided_sums(partial))
+    return _block_sum(_strided_sums(partial)).to(terms.dtype)
 
 
 def _terms(op, x, w, m):
