@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile[=main,A,...,N]] [--ptxas]
+                          [--only=R | --only=S]
 
 Run from the repository root.  It imports nothing of JAX or of the JAX
 package.  Phases, each of which fails the run (non-zero exit), and each
@@ -272,6 +273,28 @@ of which prints the seconds it took:
      attempts equal to a run with ``linear_combination``, ``wrms_norm``
      and ``dot`` pinned to their plain versions, params within
      10*(rtol*|p|+atol) of it, the loss falling;
+   - path R, the model-parallel layer, after Q: R.1 dbrx-132b's MoE
+     layer expert-parallel over an NCCL group of one against the dense
+     oracle; R.2-R.4 in four ``--path-r-rank`` processes of this script
+     on the card (gloo, data 2 x model 2): EP in both token layouts, the
+     tp_fsdp train step of internlm2-1.8b's width cut to 2 layers
+     against one card (row 16 on each rank's shards), a sharded
+     checkpoint saved, restored and stepped bit for bit;
+   - path S, after R: S.1 in four ``--path-s-rank`` processes (gloo,
+     data 2 x model 2) ``gradflow.step`` over the mesh on Q.3's cut
+     (rows 12 and 14 on every rank's float32 shards, the gradients in
+     float64 in both runs), its steps and attempts and its initial
+     step's norms equal to one card's unsharded step, the gathered
+     parameters within 3x the spread of runs from weights nudged by one
+     rounding, each row held to its plain version on a rank's shard, and
+     the fsdp profile's loss against one card's; S.2 the dry run
+     (``launch.dryrun.lower_cell`` on meta tensors, fake groups of 256,
+     4 and 1 in this process): internlm2-1.8b and dbrx-132b ``train_4k``
+     and internlm2-1.8b's fsdp profile on the 256-rank mesh, R.3's cell
+     (its collectives by kind and its state a rank equal to R.3's
+     record of this call) and Q.1's; each cell's roofline row (data-sheet
+     estimates) and seconds printed, no kernel launched and row 16's
+     plain version only on abstract tensors;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
@@ -4611,6 +4634,492 @@ def r3_train(mesh, dev, tmp, rank, sec):
     return {"R.3": out, "R.4": out_r4}
 
 
+# ---------------------------------------------------------------------------
+# path S: gradient flow and the fsdp profile over a mesh, and the dry run
+# (launch/dryrun.py, analysis/stepcost.py, analysis/roofline.py)
+# ---------------------------------------------------------------------------
+
+#: S.1: four gloo ranks on the card (data 2 x model 2), Q.3's cut of
+#: internlm2-1.8b (full width, Q3_LAYERS layers, its float32 weights
+#: drawn on the CPU) and Q.5's gradient flow, whose ERK state is the
+#: float32 parameters (rows 12 and 14 in float32), on a batch that
+#: splits over data (S_BATCH x Q3_SEQ).  The gradient each stage takes
+#: is evaluated in float64, in both runs alike (the float32 parameters
+#: cast up inside the loss, the model's float32 accumulations widened):
+#: at the reference's init this cut's float32 gradients carry ~1 %
+#: rounding noise (PERF.md, PRs 25-26), which moved the first gradient
+#: norm by 1.07 % between the layouts on the card and flipped an
+#: attempt, so only float64 gradients make the counts comparable.  The
+#: ERK's steps and attempts equal one card's unsharded step's, and its
+#: initial step's two norms (the mesh norm of the same vectors: the
+#: weights and their first gradient) within S_NORM_RTOL.  Later
+#: attempts take near the explicit method's stability limit on this
+#: stiff flow, where a rounding grows from attempt to attempt (weights
+#: moved by one float32 rounding leave the trajectory as fast), so the
+#: gathered parameters are held within S_SPREAD times the farther of two
+#: such nudged runs from one card's (+ S_PARAM_FLOOR), in the 2-norm over
+#: every leaf; the fsdp profile's loss within S_FSDP_RTOL of one card's
+#: (the reference's GSPMD check, tests/test_distribution.py)
+S_WORLD, S_DATA, S_MODEL, S_RANK_TIMEOUT = 4, 2, 2, 300
+S_BATCH = 2
+S_FSDP_RTOL = 1e-4
+S_SPREAD, S_PARAM_FLOOR, S_NORM_RTOL = 3.0, 1e-6, 1e-6
+#: S.2: the dry run's cells on fake groups of this process (meta
+#: tensors): two production cells on the 256-rank single mesh, the
+#: fsdp profile of the first, R.3's cell on the 2 x 2 debug mesh and
+#: Q.1's on a mesh of one
+S2_CELLS = (("internlm2-1.8b", "train_4k", "tp_fsdp"),
+            ("dbrx-132b", "train_4k", "tp_fsdp"),
+            ("internlm2-1.8b", "train_4k", "fsdp"))
+#: R.3's per-step collectives and state a rank (PERF.md, PR 26) when
+#: path R did not run in this call: (calls, bytes rounded to MB), GiB
+S_R3_PR26 = {"all_gather": (39, 315), "reduce_scatter": (21, 505),
+             "all_to_all": (0, 0), "all_reduce": (17, 101)}
+S_R3_STATE_GIB_PR26 = 1.176
+S_KERNELS = ("linear_combination", "wrms_ss")
+
+
+class SNorms:
+    """Records every WRMS norm the ERK takes inside ``with`` (the initial
+    step's two, then one an attempt): ``gradflow.step``'s integrator
+    wrapped so that its norm (``dispatch.wrms_norm``, or the mesh's)
+    notes each value."""
+
+    def __enter__(self):
+        from repro_torch.core import arkode
+        from repro_torch.core import dispatch as dv
+        self.values, self._mod = [], arkode
+        self._real = real = arkode.erk_integrate
+
+        def erk(*a, norm=None, **kw):
+            inner = norm or dv.wrms_norm
+
+            def noted(v, w, policy=None):
+                out = inner(v, w, policy)
+                self.values.append(float(out))
+                return out
+            return real(*a, norm=noted, **kw)
+
+        arkode.erk_integrate = erk
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.erk_integrate = self._real
+        return False
+
+
+def s_batch(dev):
+    return q_batches(r_cut_config().vocab_size, Q3_SEQ, S_BATCH, 1, dev, 3)[0]
+
+
+class SWide:
+    """Inside ``with``: the model's float32 accumulations (``f32`` of
+    ``layers``, ``transformer``, ``moe_ep`` and ``optim.adamw``) are
+    float64, as ``tests/test_torch_sharded_train.py`` widens them."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers, moe_ep, transformer
+        from repro_torch.optim import adamw
+        self._mods = (layers, transformer, moe_ep, adamw)
+        for m in self._mods:
+            m.f32 = torch.float64
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for m in self._mods:
+            m.f32 = torch.float32
+        return False
+
+
+def s_model():
+    """S.1's model (Q.3's cut, its float64 twin for the loss) and its
+    float32 weights drawn on the CPU."""
+    import torch
+    from repro_torch.models import Model
+    weights = Model(r_cut_config(torch.float32, Q3_LAYERS)).init(
+        0, device="cpu")
+    return Model(r_cut_config(torch.float64, Q3_LAYERS)), weights
+
+
+def s_loss(model, batch, pctx=None):
+    """The loss of float32 parameters evaluated in float64."""
+    import torch
+    from repro_torch.models import ParallelCtx, spec
+    pctx = pctx or ParallelCtx()
+    return lambda p: model.loss(spec.tree_map(torch.Tensor.double, p),
+                                batch, pctx)
+
+
+def s_single(dev):
+    """S.1's single-card runs: the unsharded gradient-flow step and the
+    loss of Q.3's cut (its kernels launched, no plain version)."""
+    import torch
+    from repro_torch.models import spec
+    from repro_torch.optim import gradflow
+    model, weights = s_model()
+    params = spec.tree_map(lambda a: a.to(dev), weights)
+    batch = s_batch(dev)
+    cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=Q5_MAX_STEPS)
+    t0 = time.perf_counter()
+    with SWide(), SNorms() as norms:
+        (p2, st), counts = q_counted(
+            "S.1 single", lambda: gradflow.step(
+                s_loss(model, batch), params, cfg), S_KERNELS)
+        wall = time.perf_counter() - t0
+        with torch.no_grad():
+            loss = float(s_loss(model, batch)(params))
+    out = {"steps": int(st.steps), "attempts": int(st.attempts),
+           "params": [x.cpu() for x in spec.tree_leaves(p2)],
+           "start": [x.cpu() for x in spec.tree_leaves(params)],
+           "loss": loss, "wall_s": wall, "counts": counts,
+           "norms": norms.values}
+    # the flow's own sensitivity: the same step from weights moved by
+    # one float32 rounding (each times 1 + 2**-23, then 1 - 2**-24)
+    out["nudged"] = []
+    for f in (1 + 2.0 ** -23, 1 - 2.0 ** -24):
+        nudged = spec.tree_map(lambda a: a * f, params)
+        with SWide(), SNorms() as norms2:
+            p3, st3 = gradflow.step(s_loss(model, batch), nudged, cfg)
+        out["nudged"].append({
+            "factor": f, "steps": int(st3.steps),
+            "attempts": int(st3.attempts), "norms": norms2.values,
+            "params": [x.cpu() for x in spec.tree_leaves(p3)]})
+        del nudged, p3
+    del params, p2
+    torch.cuda.empty_cache()
+    return out
+
+
+def s_gradflow_rank(mesh, dev, rank, tmp):
+    """S.1 on this rank: gradflow.step over the mesh, counted; rows 12
+    and 14 held to their plain versions on this rank's shards; the fsdp
+    profile's loss."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import vecops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import make_pctx
+    from repro_torch.models import spec
+    from repro_torch.models.sharded import Layout
+    from repro_torch.optim import gradflow
+    from repro_torch.parallel import collectives as coll
+    comm = coll.comm_of(mesh)
+    model, full = s_model()
+    pctx = make_pctx(model.cfg, mesh)
+    lay = Layout(model.specs(), pctx)
+    local = spec.tree_map(lambda t, s: s.shard(t).to(dev), full,
+                          lay.shardings)
+    batch = s_batch(dev)
+    cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=Q5_MAX_STEPS)
+    p_peak_reset()
+    t0 = time.perf_counter()
+    with SNorms() as norms:
+        (p2, st), counts = q_counted(
+            f"S.1 rank {rank}", lambda: gradflow.step(
+                s_loss(model, batch, pctx), local, cfg, layout=lay),
+            S_KERNELS)
+    wall = time.perf_counter() - t0
+    out = {"steps": int(st.steps), "attempts": int(st.attempts),
+           "norms": norms.values,
+           "wall_s": wall, "peak_gib": p_peak_gib(),
+           "counts": {k: list(v) for k, v in counts.items()},
+           "state_bytes": p_bytes(local)}
+    gathered = [coll.gather_full(x, comm, s.dim_axes(x.dim())).cpu()
+                for x, s in zip(spec.tree_leaves(p2),
+                                spec.tree_leaves(lay.shardings))]
+    if rank == 0:
+        torch.save(gathered, tmp / "s1_params.pt")
+    del gathered
+    # rows 12 and 14 against their plain versions on this rank's shards
+    # (these launches compare, after the counts were read)
+    leaves = [x for x in spec.tree_leaves(p2)]
+    big = max(leaves, key=lambda t: t.numel())
+    xs = [big, big.flip(0).contiguous(), (big * 0.5).contiguous()]
+    cs = [0.5, -1.25, 2.0]
+    k12 = vecops.linear_combination(cs, xs)
+    p12 = vecops.linear_combination_plain(cs, xs)
+    w = 1.0 / (1e-3 * big.abs() + 1e-6)
+    k14, p14 = vecops.wrms_ss(big, w), vecops.wrms_ss_plain(big, w)
+    scale = float(p12.abs().max())
+    out["compare"] = {
+        "elements": big.numel(),
+        "lincomb_max_abs_err": float((k12 - p12).abs().max()),
+        "lincomb_scale": scale,
+        "wrms_ss_rel_err": abs(float(k14) - float(p14)) / abs(float(p14))}
+    # the fsdp profile's loss on this rank's shards
+    fp = dryrun.make_pctx(model.cfg, mesh, "train", "fsdp")
+    fsh = model.param_shardings(fp)
+    fl = spec.tree_map(lambda t, s: s.shard(t).to(dev), full, fsh)
+    coll.reset_counts()
+    kernels.reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out["fsdp_loss"] = float(s_loss(model, batch, fp)(fl))
+        out["fsdp_s"] = time.perf_counter() - t0
+    out["fsdp_collectives"] = coll.counts()
+    out["fsdp_state_bytes"] = p_bytes(fl)
+    check(all(v == (0, 0) for v in kernels.counts().values()),
+          f"S.1 rank {rank}: the fsdp loss reached a kernel row")
+    del local, p2, fl, full, xs, k12, p12, w
+    torch.cuda.empty_cache()
+    print(f"S.1 rank {rank}: {out['steps']} steps / {out['attempts']} "
+          f"attempts, {wall:.2f} s, rows 12 and 14 launched "
+          f"{counts['linear_combination'][0]} and {counts['wrms_ss'][0]} "
+          f"times; fsdp loss {out['fsdp_loss']:.7f} in {out['fsdp_s']:.2f} "
+          f"s", flush=True)
+    return out
+
+
+def path_s_rank(argv) -> int:
+    """One rank of S.1 (``--path-s-rank RANK WORLD DIR``): joins the gloo
+    group through ``DIR/store`` and saves its record to
+    ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as dist
+    rank, world, tmp = int(argv[0]), int(argv[1]), Path(argv[2])
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_debug_mesh, mesh_device
+        mesh = make_debug_mesh(S_DATA, S_MODEL)
+        dev = mesh_device(mesh)
+        check(dev.type == "cuda", f"S rank {rank}: device {dev}")
+        with SWide():
+            rec = {"S.1": s_gradflow_rank(mesh, dev, rank, tmp)}
+        torch.save(rec, tmp / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def s_dist(a, b) -> float:
+    """||a - b|| / ||b|| over every leaf, in float64."""
+    num = sum(float((x.double() - y.double()).pow(2).sum())
+              for x, y in zip(a, b))
+    den = sum(float(y.double().pow(2).sum()) for y in b)
+    return math.sqrt(num / den)
+
+
+def s_check_ranks(ranks, single, tmp):
+    """S.1's records printed, then its gates: equal ERK counts, the
+    gathered parameters, rows 12 and 14 launched on every rank and held
+    to their plain versions, the fsdp loss."""
+    import torch
+    from repro_torch.optim import gradflow
+    cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=Q5_MAX_STEPS)
+    got = torch.load(tmp / "s1_params.pt")
+    want, start = single["params"], single["start"]
+    nudged = single["nudged"]
+    dist = s_dist(got, want)
+    spread = max(s_dist(n["params"], want) for n in nudged)
+    moved = s_dist(want, start)
+    # the initial step's two norms read the same vectors in both runs (the
+    # weights, their first gradient): only the mesh norm's sum differs
+    n0 = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["S.1"]["norms"][:2],
+                                              single["norms"][:2])]
+    total = dict(single["counts"])
+    print("S.1 the ERK's WRMS norms (the initial step's two, then one an "
+          "attempt; an attempt passes at <= 1): one card "
+          + " ".join(f"{v:.9g}" for v in single["norms"]) + "; from "
+          "weights nudged by one rounding "
+          + "; ".join(" ".join(f"{v:.9g}" for v in n["norms"])
+                      for n in nudged) + "; sharded "
+          + " ".join(f"{v:.9g}" for v in ranks[0]["S.1"]["norms"])
+          + f" (the initial step's two: rel {n0[0]:.3g}, {n0[1]:.3g})",
+          flush=True)
+    for r, rk in enumerate(ranks):
+        x = rk["S.1"]
+        q_add(total, {k: tuple(v) for k, v in x["counts"].items()})
+        c = x["compare"]
+        print(f"S.1 rank {r}: {x['steps']} steps / {x['attempts']} "
+              f"attempts; rows 12 and 14 against their plain versions "
+              f"on a {c['elements']}-element shard: lincomb max abs err "
+              f"{c['lincomb_max_abs_err']:.3g} (scale "
+              f"{c['lincomb_scale']:.3g}), wrms_ss rel err "
+              f"{c['wrms_ss_rel_err']:.3g} (tolerance "
+              f"{TOL['torch.float32']}); peak {x['peak_gib']:.2f} GiB, "
+              f"state {x['state_bytes'] / 2**30:.3f} GiB, fsdp state "
+              f"{x['fsdp_state_bytes'] / 2**30:.3f} GiB, fsdp loss's "
+              f"collectives {x['fsdp_collectives']}", flush=True)
+    fsdp_rel = max(abs(rk["S.1"]["fsdp_loss"] - single["loss"]) /
+                   abs(single["loss"]) for rk in ranks)
+    print(f"S.1 gradflow over data={S_DATA} x model={S_MODEL} (heun_euler, "
+          f"tau {Q5_TAU}, max_steps {Q5_MAX_STEPS}, Q.3's cut, batch "
+          f"{S_BATCH} x {Q3_SEQ}): one card {single['steps']} steps / "
+          f"{single['attempts']} attempts ({single['wall_s']:.2f} s), "
+          f"nudged " + ", ".join(f"{n['steps']} / {n['attempts']}"
+                                 for n in nudged) + ", sharded "
+          + ", ".join(f"{rk['S.1']['steps']} / {rk['S.1']['attempts']}"
+                      for rk in ranks)
+          + " (" + ", ".join(f"{rk['S.1']['wall_s']:.2f}" for rk in ranks)
+          + f" s a rank); params: the step moved them {moved:.3g} "
+          f"(relative), the sharded run lies {dist:.3g} from one card's, "
+          f"the nudged runs up to {spread:.3g}; fsdp loss max rel "
+          f"{fsdp_rel:.3g} "
+          f"(gate {S_FSDP_RTOL}); rows 12 and 14 launched "
+          + ", ".join(f"{k} {total[k][0]}" for k in S_KERNELS)
+          + " over the ranks", flush=True)
+    for r, rk in enumerate(ranks):
+        x, c = rk["S.1"], rk["S.1"]["compare"]
+        check(x["steps"] == single["steps"] and
+              x["attempts"] == single["attempts"],
+              f"S.1 rank {r}: {x['steps']}/{x['attempts']} steps/attempts "
+              f"against one card's {single['steps']}/{single['attempts']}")
+        check(all(x["counts"][k][0] > 0 for k in S_KERNELS) and
+              all(v[1] == 0 for v in x["counts"].values()),
+              f"S.1 rank {r}: rows 12 and 14 not launched, or a plain "
+              f"version ran on the card: {x['counts']}")
+        check(c["lincomb_max_abs_err"] <= TOL["torch.float32"] *
+              c["lincomb_scale"] and c["wrms_ss_rel_err"] <=
+              TOL["torch.float32"], f"S.1 rank {r}: a row disagrees with "
+              f"its plain version: {c}")
+    check(max(n0) <= S_NORM_RTOL, f"S.1: the initial step's norms lie "
+          f"{n0} from one card's (gate {S_NORM_RTOL})")
+    check(fsdp_rel <= S_FSDP_RTOL, f"S.1: the fsdp loss is {fsdp_rel:.3g} "
+          f"from one card's (gate {S_FSDP_RTOL})")
+    check(dist <= S_SPREAD * spread + S_PARAM_FLOOR, f"S.1: the gathered "
+          f"params lie {dist:.3g} from one card's, past {S_SPREAD}x the "
+          f"nudged run's {spread:.3g} + {S_PARAM_FLOOR}")
+    return {"steps": ranks[0]["S.1"]["steps"],
+            "attempts": ranks[0]["S.1"]["attempts"],
+            "params_dist": dist, "nudged_dist": spread, "moved": moved,
+            "initial_norms_rel": n0,
+            "fsdp_loss_rel": fsdp_rel, "single": {
+                k: v for k, v in single.items()
+                if k not in ("params", "start", "counts", "nudged")},
+            "nudged": [{k: v for k, v in n.items() if k != "params"}
+                       for n in nudged],
+            "ranks": [{k: v for k, v in rk["S.1"].items() if k != "counts"}
+                      for rk in ranks]}, total
+
+
+def s_cell(label, run, rows):
+    """One dry-run cell: run it, print its roofline row and seconds."""
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = run()
+    sec = time.perf_counter() - t0
+    counts = kernels.counts()
+    check(res["ok"], f"S.2 {label}: {res.get('error')}")
+    check(all(v[0] == 0 for v in counts.values()),
+          f"S.2 {label}: a kernel launched on abstract tensors: {counts}")
+    abstract = res["stepcost"]["rows"].get("dot", {}).get("calls", 0)
+    check(counts["dot"][1] == abstract, f"S.2 {label}: row 16's plain "
+          f"version ran {counts['dot'][1]} times, {abstract} of them on "
+          f"abstract tensors")
+    mem = res["memory"]
+    print(f"S.2 {label}: {sec:.2f} s; flops {res['stepcost']['flops']:.4g}, "
+          f"bytes {res['stepcost']['bytes']:.4g}, ring bytes "
+          f"{res['stepcost']['coll_total']:.4g} "
+          f"({res['stepcost']['coll_net']:.4g} across nodes) a rank; "
+          f"collectives {res['collectives']}; state "
+          f"{mem['state_bytes'] / 2**30:.4f} GiB, peak "
+          f"{mem['peak_bytes'] / 2**30:.2f} GiB a rank; row 16 on abstract "
+          f"tensors {abstract} calls; roofline (estimates) "
+          + dryrun.row_line(res["roofline"]), flush=True)
+    rows[label] = dict(res, seconds=sec)
+    return res
+
+
+def s_dryrun(r3):
+    """S.2: the dry run's cells in this process, each on a fake group of
+    its mesh's size; R.3's cell against R.3's own counts (``r3``: path
+    R's record of this call, or None for PR 26's figures)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    rows = {}
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh()
+        for arch, shape, profile in S2_CELLS:
+            s_cell(f"{arch} {shape} single {profile}",
+                   lambda: dryrun.lower_cell(arch, shape, mesh, "single",
+                                             profile=profile), rows)
+    ocfg = adamw.AdamWConfig(lr=Q_LR, warmup_steps=1, total_steps=Q_STEPS)
+    q1 = ShapeConfig("q1", Q_SEQ, Q_BATCH, "train")
+    with dryrun.fake_world(R_WORLD):
+        mesh = make_debug_mesh(R_DATA, R_MODEL)
+        res = s_cell("R.3's cell (2 layers, data 2 x model 2, tp_fsdp)",
+                     lambda: dryrun.lower_cell(Q_ARCH, q1, mesh, "debug",
+                                               ocfg=ocfg,
+                                               cfg=r_cut_config()), rows)
+    with dryrun.fake_world(1):
+        mesh = make_debug_mesh(1, 1)
+        q1res = s_cell("Q.1's cell (one card)", lambda: dryrun.lower_cell(
+            Q_ARCH, q1, mesh, "one", ocfg=ocfg), rows)
+    got = {k: tuple(v) for k, v in res["collectives"].items()}
+    state = res["memory"]["state_bytes"]
+    if r3 is not None:
+        want = {k: tuple(v) for k, v in
+                r3["ranks"][0]["collectives_per_step"].items()}
+        want_state = r3["ranks"][0]["state_bytes"]
+        check(got == want, f"S.2: R.3's cell counts {got}, R.3 counted "
+              f"{want} a step")
+        check(state == want_state, f"S.2: R.3's cell holds {state} bytes "
+              f"of state a rank, R.3 measured {want_state}")
+        source = "path R.3's own record in this call"
+    else:
+        mb = {k: (c, round(b / 1e6)) for k, (c, b) in got.items()}
+        check(mb == S_R3_PR26, f"S.2: R.3's cell counts {mb} (calls, MB), "
+              f"R.3 counted {S_R3_PR26} (PR 26)")
+        check(round(state / 2**30, 3) == S_R3_STATE_GIB_PR26,
+              f"S.2: R.3's cell holds {state / 2**30:.4f} GiB a rank, R.3 "
+              f"{S_R3_STATE_GIB_PR26}")
+        source = "PR 26's R.3 figures (path R did not run)"
+    print(f"S.2 R.3's cell: collectives {got} and state "
+          f"{state / 2**30:.4f} GiB a rank equal {source}; Q.1's cell "
+          f"counts {q1res['stepcost']['matmul_flops'] / 1e12:.2f} TFLOP of "
+          f"matmuls a step ({q1res['stepcost']['flops'] / 1e12:.2f} with "
+          f"row 16's), model flops 6*N*T "
+          f"{q1res['roofline']['model_flops'] / 1e12:.2f} TFLOP", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_path_s(card, r3=None, dev=None):
+    """Path S: S.1 gradient flow (and the fsdp profile's loss) over a
+    2 x 2 mesh in four gloo ranks on this card, against one card; S.2 the
+    dry run of production cells on fake groups in this process, R.3's
+    cell against R.3's counts."""
+    import shutil
+    import tempfile
+    import torch
+    dev = dev or torch.device("cuda")
+    print(card, flush=True)
+    torch.cuda.empty_cache()
+    OUT.mkdir(exist_ok=True)
+    rec = {"seconds": {}}
+    t = time.perf_counter()
+    single = s_single(dev)
+    rec["seconds"]["S.1 single"] = time.perf_counter() - t
+    tmp = Path(tempfile.mkdtemp(prefix="path_s_", dir=OUT))
+    try:
+        t = time.perf_counter()
+        ranks = spawn_ranks(S_WORLD, False, "--path-s-rank", tmp,
+                            S_RANK_TIMEOUT, "S")
+        rec["seconds"]["S.1 ranks"] = time.perf_counter() - t
+        rec["S.1"], total = s_check_ranks(ranks, single, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t = time.perf_counter()
+    rec["S.2"] = s_dryrun(r3)
+    rec["seconds"]["S.2"] = time.perf_counter() - t
+    print("path S seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rec["seconds"].items()), flush=True)
+    print("path S: kernel launches " + ", ".join(
+        f"{k} {v[0]}" for k, v in total.items() if v[0]), flush=True)
+    rec["kernels_run"] = {"counts": total}
+    return rec
+
+
 def profiled_paths(argv):
     """``--profile`` profiles every path, ``--profile=I,J`` only those
     named (``main`` for the main path): -> path name -> bool."""
@@ -4631,6 +5140,8 @@ def main(argv) -> int:
         return path_n_rank(argv[1:])
     if argv[:1] == ["--path-r-rank"]:
         return path_r_rank(argv[1:])
+    if argv[:1] == ["--path-s-rank"]:
+        return path_s_rank(argv[1:])
     # an empty autotune directory: no cache in the checkout changes the
     # decisions the paths report (path O tunes into a directory of its
     # own); the ranks of path N inherit it
@@ -4674,6 +5185,11 @@ def main(argv) -> int:
         q3 = q_card_vs_cpu(cut, params, dev, {})
         del params
         phase("path R (model parallel)", phase_path_r, card, q3)
+        return 0
+    if "--only=S" in argv:
+        # path S alone: R.3's cell held to PR 26's figures
+        phase("path S (gradflow and fsdp over a mesh, dry run)",
+              phase_path_s, card)
         return 0
     # 3. kernels against their plain versions, then timings
     table = kernel_table()
@@ -4775,6 +5291,11 @@ def main(argv) -> int:
     paths["R: model parallel"] = phase(
         "path R (model parallel)", phase_path_r, card,
         paths["Q: model training"]["Q.3"])
+    # gradient flow and the fsdp profile over a mesh (rows 12, 14 on
+    # every rank), and the dry run (row 16 on abstract tensors)
+    paths["S: mesh gradflow, dry run"] = phase(
+        "path S (gradflow and fsdp over a mesh, dry run)", phase_path_s,
+        card, paths["R: model parallel"]["R.3"])
     # 5. kernels line: launches summed over the kernel runs of the paths
     line = []
     for k, row in zip(table, rows):

@@ -97,13 +97,14 @@ def _ewt(y, rtol, atol):
     return nv.tmap(lambda yl: 1.0 / (rtol * yl.abs() + atol), y)
 
 
-def _initial_h(f, t0, y0, tf, rtol, atol, policy=None):
+def _initial_h(f, t0, y0, tf, rtol, atol, policy=None, norm=None):
     """Cheap h0 heuristic (Hairer-Wanner-style, simplified); t0 and tf
     are 0-d float64 tensors, the result is one too."""
+    norm = norm or dv.wrms_norm
     w = _ewt(y0, rtol, atol)
     f0 = f(t0, y0)
-    d0 = dv.wrms_norm(y0, w, policy)
-    d1 = dv.wrms_norm(f0, w, policy)
+    d0 = norm(y0, w, policy)
+    d1 = norm(f0, w, policy)
     span = tf - t0
     h = torch.where(d1 > 1e-10, 0.01 * d0 / torch.clamp(d1, min=1e-10),
                     1e-6 * span).to(_F64)
@@ -171,15 +172,21 @@ def _erk_step(f, t, y, h, table: ButcherTable, policy=None):
 
 
 def erk_integrate(f: Callable, y0, t0, tf, table: ButcherTable,
-                  opts: ODEOptions = ODEOptions(), mem=None):
-    """Adaptive explicit RK from t0 to tf.  Returns (y(tf), stats)."""
+                  opts: ODEOptions = ODEOptions(), mem=None, norm=None):
+    """Adaptive explicit RK from t0 to tf.  Returns (y(tf), stats).
+
+    ``norm(v, w, policy)``: the WRMS norm of the error test and the
+    initial step (None: ``dispatch.wrms_norm``); a state sharded across
+    ranks passes one that reduces across them, so that every rank takes
+    the same steps (``optim.gradflow``)."""
+    norm = norm or dv.wrms_norm
     dev, dtype = _device(y0), _dtype(y0)
     if mem is not None:
         mem.register("erk.stages", (table.stages, nv.tree_size(y0)), dtype)
     t, tf_t = _time(t0, dev), _time(tf, dev)
     t_host, tf_host = float(t0), float(tf)
     h = _time(opts.h0, dev) if opts.h0 > 0 else _initial_h(
-        f, t, y0, tf_t, opts.rtol, opts.atol, opts.policy)
+        f, t, y0, tf_t, opts.rtol, opts.atol, opts.policy, norm)
     p = _time(max(table.emb_order + 1, 2), dev)   # controller exponent
     one = torch.ones((), dtype=_F64, device=dev)
     cst = ctrl.ControllerState(one, one)
@@ -188,7 +195,7 @@ def erk_integrate(f: Callable, y0, t0, tf, table: ButcherTable,
         h_use = torch.minimum(h, tf_t - t)
         y_new, y_err, nfe = _erk_step(f, t, y, h_use, table, opts.policy)
         w = _ewt(y, opts.rtol, opts.atol)
-        err = dv.wrms_norm(y_err, w, opts.policy)
+        err = norm(y_err, w, opts.policy)
         # guard NaN/Inf: treat as a failed step
         bad = ~torch.isfinite(err)
         err = torch.where(bad, 2.0, err)

@@ -383,6 +383,13 @@ _CALL_KEYS.update({
 })
 
 
+#: set by ``analysis.stepcost.StepCost`` while it counts a step:
+#: ``ROW_RECORDER(op, kernel, args, kw)`` makes each ``"auto"`` call
+#: (it runs the kernel wrapper, and counts the call under the kernel's
+#: row when its tensors are abstract); no decision is recorded then
+ROW_RECORDER = None
+
+
 def _auto(op: str):
     """The ``"auto"`` callable of ``op``: the kernel wrapper, after one
     hit on the decision memoized under the call's key (resolved by the
@@ -391,6 +398,8 @@ def _auto(op: str):
         _at.memo_for(op)
 
     def impl(*args, **kw):
+        if ROW_RECORDER is not None:
+            return ROW_RECORDER(op, kernel, args, kw)
         key = key_of(args)
         dec = memo.get(key)
         if dec is None:

@@ -148,15 +148,20 @@ def _is_dtensor(t) -> bool:
 
 
 def on_cpu(op: str, t: torch.Tensor) -> bool:
-    """True if ``t`` lies on the CPU, where a wrapper runs its plain
-    version; False on the card, where it launches its kernel.  Any other
-    device, and a ``DTensor`` on any device, raises: no kernel takes a
-    sharded tensor, and its plain version runs only when the caller asks
-    for it (``ExecPolicy(backend="torch")``)."""
-    if type(t) is not torch.Tensor and _is_dtensor(t):
-        raise TypeError(f"{op}: the CUDA kernel takes no DTensor; run "
-                        f"DTensors under ExecPolicy(backend='torch')")
-    if t.device.type == "cpu":
+    """True if ``t`` lies on the CPU, or has no data (a ``meta`` tensor,
+    or a fake one whatever device it names: the dry run's), where a
+    wrapper runs its plain version; False on the card, where it launches
+    its kernel.  Any other device, and a ``DTensor`` on any device,
+    raises: no kernel takes a sharded tensor, and its plain version runs
+    only when the caller asks for it (``ExecPolicy(backend="torch")``)."""
+    if type(t) is not torch.Tensor:
+        if _is_dtensor(t):
+            raise TypeError(f"{op}: the CUDA kernel takes no DTensor; run "
+                            f"DTensors under ExecPolicy(backend='torch')")
+        from torch._subclasses.fake_tensor import is_fake
+        if is_fake(t):
+            return True
+    if t.device.type in ("cpu", "meta"):
         return True
     if t.device.type != "cuda":
         raise ValueError(f"{op}: no kernel for tensors on {t.device}")

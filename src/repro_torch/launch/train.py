@@ -77,10 +77,6 @@ def main(argv=None):
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none" and args.optimizer == "gradflow":
-        raise NotImplementedError(
-            "--optimizer gradflow over a mesh (its step control's norm over "
-            "sharded parameters) is not ported: ROADMAP A item 2")
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch)
     model = Model(cfg)
@@ -120,6 +116,10 @@ def main(argv=None):
     if args.optimizer == "gradflow":
         from ..optim import gradflow
         gf = gradflow.GradFlowConfig(tau=0.5, max_steps=10)
+        lay = None
+        if mesh is not None:
+            from ..models.sharded import Layout
+            lay = Layout(model.specs(), pctx)
 
     mon = fault.HeartbeatMonitor(n_workers=world)
     hist = []
@@ -131,7 +131,8 @@ def main(argv=None):
         if args.optimizer == "gradflow":
             def lf(p):
                 return model.loss(p, batch, pctx)
-            new_params, st = gradflow.step(lf, state.params, gf)
+            new_params, st = gradflow.step(lf, state.params, gf,
+                                           layout=lay)
             state = state._replace(params=new_params)
             with torch.no_grad():
                 metrics = {"loss": model.loss(state.params, batch, pctx),

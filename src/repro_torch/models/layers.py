@@ -13,7 +13,10 @@ The port's ``repro.models.layers``, function for function:
   float32.
 
 Under a mesh a layer computes what the reference's ``cst`` sites ask
-GSPMD for, on its parameters' local blocks (``models/sharded.py``):
+GSPMD for, on its parameters' local blocks (``models/sharded.py``);
+under the fsdp profile attention gathers K and V (MLA: the latent and
+the rope key) over the axes the sequence is split over
+(:func:`seq_gather`).  Under tp_fsdp:
 where a weight's heads (or ``mlp``) dim is kept split over ``model``
 (:func:`kept`), the input enters through ``collectives.copy_to`` (its
 gradient all-reduced), each rank computes its heads, and the
@@ -52,6 +55,19 @@ def kept(w: torch.Tensor, dim: int):
     on one device, or where the dim is gathered or replicated)."""
     k = getattr(w, "_kept", None)
     return k[dim] if k else ()
+
+
+def seq_gather(t: torch.Tensor, cst, dim: int = 1):
+    """(``t``'s blocks over the axes the sequence is split over,
+    concatenated along ``dim``; the global position of this rank's first
+    token): ``(t, 0)`` unless ``cst`` splits the sequence (the fsdp
+    profile).  The gradient of the gathered tensor is reduce-scattered
+    back, since each rank's queries read every block."""
+    ax = getattr(cst, "seq_axes", ())
+    if not ax:
+        return t, 0
+    return coll.gather_fsdp(t, cst.comm, ax, dim), \
+        cst.comm.index(ax) * t.shape[dim]
 
 
 def dus_seq(buf: torch.Tensor, upd: torch.Tensor, pos, axis: int = 1):
@@ -258,6 +274,11 @@ def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, cos, sin,
         v = dus_seq(cache["v"], v, pos)
         new_cache = {"k": k, "v": v, "pos": pos + S}
         kw = {"q_offset": pos, "kv_len": pos + S}
+    elif getattr(cst, "seq_axes", ()):
+        # this rank's queries against the whole sequence's keys
+        k, off = seq_gather(k, cst)
+        v, _ = seq_gather(v, cst)
+        kw = {"q_offset": off}
     if ax and not kv_ax:
         # this rank's heads of a replicated K/V (the cache holds every kv
         # head): each local query head's kv head, the GQA grouping of
@@ -345,7 +366,9 @@ def mla_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, positions, *,
         new_cache = {"c_kv": c_all, "k_rope": kr_all, "pos": pos + S}
         c_use, kr_use, kv_len, q_off = c_all, kr_all, pos + S, pos
     else:
-        c_use, kr_use, kv_len, q_off = c_kv, k_rope[:, :, 0, :], None, None
+        c_use, q_off = seq_gather(c_kv, cst)
+        kr_use, _ = seq_gather(k_rope[:, :, 0, :], cst)
+        kv_len, q_off = None, (q_off or None)
     c_use = heads_in(rmsnorm_apply(p["kv_norm"], c_use, cfg.norm_eps))
     kr_use = heads_in(kr_use)
     k_nope = torch.einsum("btr,rhk->bthk", c_use, p["wkv_b"][..., :dn])

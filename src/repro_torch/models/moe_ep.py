@@ -191,7 +191,9 @@ def moe_ep_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh, *,
     """Expert-parallel MoE layer, run by every rank of ``mesh``.
 
     ``x``: this rank's (B_loc, S, d) block, its batch rows over
-    ``dp_axes`` and replicated over ``model`` (the activations' layout);
+    ``dp_axes`` and replicated over ``model`` (the activations' layout;
+    under the fsdp profile, ``cst.seq_axes``, its sequence block over
+    ``model``, which the ``split`` layout dispatches as it is);
     -> the same block of the output.  ``p``: the router (replicated),
     the experts' ``w1``/``w3``/``w2`` (all E experts or this rank's
     E_loc, its block over the EP axes) and an optional ``shared``
@@ -212,7 +214,12 @@ def moe_ep_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh, *,
     k = cfg.experts_per_tok
     m = comm.sizes.get("model", 1)
     multi_axis = len(ep_axes) > 1
-    if token_layout == "split":
+    # the fsdp profile's activations: the sequence already split
+    pre_split = "model" in getattr(cst, "seq_axes", ())
+    if token_layout == "split" and pre_split:
+        T_loc = B * S
+        use_a2a, dup = True, 1
+    elif token_layout == "split":
         if S % m != 0:
             raise ValueError(f"sequence {S} does not split over model={m}")
         T_loc = B * (S // m)
@@ -234,7 +241,9 @@ def moe_ep_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh, *,
     w1, w3, w2 = (_local_experts(p[n], E, E_loc, comm, ep_axes)
                   for n in ("w1", "w3", "w2"))
     router, x_in = p["router"], x
-    if token_layout == "split":
+    if token_layout == "split" and pre_split:
+        pass                          # each rank's tokens are its own
+    elif token_layout == "split":
         # tokens split over model: the router's gradient sums over it
         if "model" in comm.sizes:
             router = coll.copy_to(router, comm, "model")
@@ -249,7 +258,7 @@ def moe_ep_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh, *,
                      my_shard=comm.index(coll_axes),
                      replicated_tokens=not use_a2a, stats=stats)
     out = out.reshape(Bl, Sl, d)
-    if token_layout == "split" and "model" in comm.sizes:
+    if token_layout == "split" and "model" in comm.sizes and not pre_split:
         out = coll.gather_along(out, comm, "model", 1)
     if "shared" in p:
         out = out + layers.swiglu_apply(p["shared"], x, cst=cst)

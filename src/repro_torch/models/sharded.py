@@ -21,6 +21,18 @@ rank passes the global batch and computes on its rows.  Gradients come
 back in the parameters' layout: the FSDP dims reduce-scattered, and the
 data-parallel axes a leaf is replicated over summed by
 :meth:`Layout.reduce_grads`.
+
+Under the ``fsdp`` profile (``parallel.sharding.FSDP_PARAM_RULES``)
+every parameter is sharded on ``embed`` over all the mesh's axes and
+gathered whole at use: no dim is kept split but ``experts`` under EP,
+so the layers compute with no tensor parallelism.  The activations
+split the batch over ``dp_axes`` and the sequence over ``model``
+(:attr:`Layout.seq_axes`; a sequence that does not divide, a decode
+step's one token, stays whole, and then no gradient may be taken):
+positions start at this rank's sequence block (:meth:`seq_offset`),
+attention gathers K and V over ``model`` (their gradient
+reduce-scattered back), and the loss and the gradients sum over every
+axis the tokens are split over (:attr:`token_axes`).
 """
 from __future__ import annotations
 
@@ -30,27 +42,31 @@ import torch
 
 from ..parallel import collectives as coll
 from ..parallel import sharding as shd
-from .spec import tree_map
+from .spec import tree_leaves, tree_map
 
 #: logical axes the tensor-parallel layers compute on locally (over 'model')
 TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "heads_x")
 
 
 class Layout:
-    """The layout of a model's parameters on ``pctx.mesh``."""
+    """The layout of a model's parameters on ``pctx.mesh``; ``tp=False``
+    for a family whose layers have no tensor-parallel form (zamba2,
+    xlstm, whisper): every parameter is gathered whole at use and the
+    layers compute on their batch rows, replicated over ``model``."""
 
-    def __init__(self, specs, pctx):
+    def __init__(self, specs, pctx, tp: bool = True):
         cst = pctx.cst
         if not isinstance(cst, shd.ShardCst):
             cst = shd.ShardCst(pctx.mesh)
-        if cst.profile != "tp_fsdp":
-            raise NotImplementedError(
-                f"the {cst.profile!r} profile's compute (sequence split "
-                "over 'model') is not ported: ROADMAP A item 2")
         self.cst = cst
+        self.fsdp = cst.profile == "fsdp"
+        self.tp = tp and not self.fsdp
+        self.seq_axes: Tuple[str, ...] = ("model",) if self.fsdp and \
+            cst.comm.sizes.get("model", 1) > 1 else ()
         self.mesh = pctx.mesh
         self.comm = cst.comm
         self.dp_axes = tuple(a for a in pctx.dp_axes if a in self.comm.sizes)
+        self.row_axes = self.dp_axes
         self.ep_axes = ((pctx.ep_axis,) if isinstance(pctx.ep_axis, str)
                         else tuple(pctx.ep_axis)) \
             if pctx.moe_impl == "ep" else ()
@@ -62,7 +78,7 @@ class Layout:
 
     # --- parameters ---------------------------------------------------
     def _keep(self, name) -> Tuple[str, ...]:
-        if name in TP_AXES:
+        if name in TP_AXES and self.tp:
             return ("model",)
         if name == "experts":
             return self.ep_axes
@@ -81,10 +97,25 @@ class Layout:
                 raise ValueError(f"experts sharded over {ax}: the EP axes "
                                  f"{keep} need a finer split")
             if ax[n:]:
-                t = coll.gather_fsdp(t, self.comm, ax[n:], d)
+                t = self._gather(t, ax[n:], d)
             kept.append(ax[:n])
         t = t.view_as(t)
         t._kept = tuple(kept)
+        return t
+
+    def _gather(self, t, ax, d):
+        """``t``'s blocks over the mesh axes ``ax`` joined along dim
+        ``d``.  Over axes the tokens are split over each rank's gradient
+        is a part, and the backward sums them (``gather_fsdp``); over the
+        others every rank computes the same, and each keeps its own
+        block of the gradient (``gather_along``), the fastest axis
+        first."""
+        tok = self.token_axes
+        if all(a in tok for a in ax):
+            return coll.gather_fsdp(t, self.comm, ax, d)
+        for a in reversed(ax):
+            t = (coll.gather_fsdp if a in tok else coll.gather_along)(
+                t, self.comm, a, d)
         return t
 
     def use(self, local, key: str):
@@ -93,39 +124,86 @@ class Layout:
         return tree_map(lambda t, s, a: self._use_leaf(t, s, a, 1),
                         local, self.shardings[key], self.axes[key])
 
+    def stacked(self, key: str) -> bool:
+        """Whether the top-level subtree ``key`` stacks layers (its
+        leaves' first axis ``layers``), which gather in a layer's body."""
+        return tree_leaves(self.axes[key])[0][:1] == ("layers",)
+
     def use_top(self, params) -> Dict[str, Any]:
         """Every top-level parameter gathered and tagged but the stacked
-        ``layers``, whose layers gather in the layer's body."""
-        return {k: (v if k == "layers" else
+        subtrees, whose layers gather in the layer's body."""
+        return {k: (v if self.stacked(k) else
                     tree_map(lambda t, s, a: self._use_leaf(t, s, a, 0),
                              v, self.shardings[k], self.axes[k]))
                 for k, v in params.items()}
 
     # --- batch and gradients --------------------------------------------
+    @property
+    def token_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the tokens are split over: the batch's
+        (``row_axes``), and the sequence's under ``fsdp``."""
+        return self.row_axes + self.seq_axes
+
+    def seq_offset(self, s_local: int) -> int:
+        """The global position of this rank's first token."""
+        return self.comm.index(self.seq_axes) * s_local \
+            if self.seq_axes else 0
+
+    def _split(self, v, axes, dim, what):
+        n, i = self.comm.size(axes), self.comm.index(axes)
+        if v.shape[dim] % n:
+            raise ValueError(f"{what} of {v.shape[dim]} does not split over "
+                             f"{axes} ({n} ranks)")
+        m = v.shape[dim] // n
+        return v.narrow(dim, i * m, m)
+
     def local_batch(self, batch: Dict[str, torch.Tensor]):
-        """This rank's rows of the global ``batch`` (split over
-        ``dp_axes``)."""
-        if not self.dp_axes:
-            return batch
-        n, i = self.comm.size(self.dp_axes), self.comm.index(self.dp_axes)
+        """This rank's block of the global ``batch``: its rows (split over
+        ``dp_axes``) and, under ``fsdp``, its sequence block over
+        ``model`` (with ``targets_next``, the targets shifted by one on
+        the whole sequence, for the multi-token head).  A batch or a
+        sequence that does not split stays whole on every rank, as the
+        reference's ``spec_for`` leaves it replicated; then no gradient
+        may be taken (it would be counted once a rank)."""
+        if self.dp_axes:
+            B, n = batch["tokens"].shape[0], self.comm.size(self.dp_axes)
+            if B % n and torch.is_grad_enabled():
+                raise ValueError(f"a batch of {B} rows does not split over "
+                                 f"{self.dp_axes} ({n} ranks)")
+            self.row_axes = self.dp_axes if B % n == 0 else ()
+        seq = bool(self.seq_axes)
+        if seq:
+            S, m = batch["tokens"].shape[1], self.comm.size(self.seq_axes)
+            seq = S % m == 0
+            if not seq and torch.is_grad_enabled():
+                raise ValueError(f"fsdp: a sequence of {S} does not split "
+                                 f"over {self.seq_axes} ({m} ranks)")
+            if seq and "targets" in batch:
+                t = batch["targets"]
+                batch = dict(batch, targets_next=torch.cat(
+                    [t[:, 1:], -torch.ones_like(t[:, :1])], dim=1))
+            if not seq:
+                self.seq_axes = ()
+            self.cst = self.cst.with_seq_axes(self.seq_axes)
         out = {}
         for k, v in batch.items():
             if not torch.is_tensor(v) or v.dim() == 0:
                 out[k] = v
                 continue
-            if v.shape[0] % n:
-                raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
-                                 f"split over {self.dp_axes} ({n} ranks)")
-            m = v.shape[0] // n
-            out[k] = v[i * m:(i + 1) * m]
+            if self.row_axes:
+                v = self._split(v, self.row_axes, 0, f"batch {k!r}")
+            if seq and v.dim() > 1:
+                v = self._split(v, self.seq_axes, 1, f"sequence {k!r}")
+            out[k] = v
         return out
 
     def reduce_grads(self, grads):
-        """Each leaf's gradient summed over the data-parallel axes its
-        parameter is replicated over (the FSDP axes were reduce-scattered
-        in the backward)."""
+        """Each leaf's gradient summed over the axes the tokens are split
+        over that its parameter is replicated over (the FSDP axes were
+        reduce-scattered in the backward)."""
         def one(g, sh):
-            axes = tuple(a for a in self.dp_axes if a not in sh.used_axes())
+            axes = tuple(a for a in self.token_axes
+                         if a not in sh.used_axes())
             return coll.all_reduce(g, self.comm, axes) if axes else g
 
         return tree_map(one, grads, self.shardings)

@@ -249,12 +249,17 @@ def _rope_for(cfg: ArchConfig, positions):
     return layers.rope_freqs(cfg.hd, cfg.rope_theta, positions)
 
 
+def _use_layer(pctx, lp, key):
+    """Layer ``lp`` of the stacked subtree ``key`` gathered for use under
+    a mesh (in the layer's body: again under remat); else as given."""
+    return lp if pctx.layout is None else pctx.layout.use(lp, key)
+
+
 def _scan_layers(cfg, stacked, x, rope_cs, positions, pctx, caches=None):
     """Run the decoder layers in order over the stacked axis; ``caches``
     (stacked, optional) are updated in place and returned."""
     def body(xc, lp, lcache):
-        if pctx.layout is not None:      # gathered here: again in remat
-            lp = pctx.layout.use(lp, "layers")
+        lp = _use_layer(pctx, lp, "layers")
         return _decoder_layer_apply(lp, cfg, xc, rope_cs, positions, pctx,
                                     cache=lcache)
 
@@ -327,7 +332,8 @@ def _xent_mesh(logits, targets, vax, lay):
     """:func:`_xent` on this rank's rows and vocabulary block (``vax``
     the axes the vocabulary is split over): the logsumexp and the
     target's logit summed across them, the numerator and the count
-    across the data-parallel axes; the global batch's mean."""
+    across the axes the tokens are split over; the global batch's
+    mean."""
     comm = lay.comm
     lf = logits.to(f32)
     tgt = torch.clamp(targets, min=0).to(torch.long)
@@ -346,8 +352,8 @@ def _xent_mesh(logits, targets, vax, lay):
         picked = torch.gather(lf, -1, tgt[..., None])[..., 0]
     valid = (targets >= 0).to(f32)
     tot = torch.stack([torch.sum((lse - picked) * valid), torch.sum(valid)])
-    if lay.dp_axes:
-        tot = coll.reduce_from(tot, comm, lay.dp_axes)
+    if lay.token_axes:
+        tot = coll.reduce_from(tot, comm, lay.token_axes)
     return tot[0] / torch.clamp(tot[1], min=1.0)
 
 
@@ -359,13 +365,24 @@ def _loss_xent(cfg, params, logits, targets, pctx):
 
 def _on_mesh(cfg, params, batch, pctx):
     """Under a mesh: (the top-level parameters gathered, this rank's
-    batch rows, the context with its layout); else as given."""
-    if pctx.mesh is None:
+    batch rows, the context with its layout); else, or when the layout
+    is already made, as given.  The decoder-only LM computes tensor
+    parallel; the other families gather every parameter whole
+    (``Layout(tp=False)``)."""
+    if pctx.mesh is None or pctx.layout is not None:
         return params, batch, pctx
     from .sharded import Layout
-    lay = Layout(lm_specs(cfg), pctx)
+    fam = _family(cfg)
+    lay = Layout(_SPECS[fam](cfg), pctx, tp=fam == "lm")
+    batch = lay.local_batch(batch)
     pctx = dataclasses.replace(pctx, cst=lay.cst, layout=lay)
-    return lay.use_top(params), lay.local_batch(batch), pctx
+    return lay.use_top(params), batch, pctx
+
+
+def _seq_offset(pctx, s_local: int) -> int:
+    """The global position of this rank's first token (0 but under the
+    fsdp profile's sequence split)."""
+    return 0 if pctx.layout is None else pctx.layout.seq_offset(s_local)
 
 
 def _mtp_proj(hcat, w, pctx):
@@ -384,7 +401,8 @@ def _lm_trunk(cfg, params, batch, pctx):
     """-> (logits over the whole sequence, final hidden, vis_len)."""
     x, vis_len = _embed_inputs(cfg, params, batch, pctx)
     B, S, _ = x.shape
-    positions = _positions_for(cfg, B, S, vis_len, x.device)
+    positions = _positions_for(cfg, B, S, vis_len, x.device,
+                               offset=_seq_offset(pctx, S))
     x, _ = _scan_layers(cfg, params["layers"], x, _rope_for(cfg, positions),
                         positions, pctx)
     x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
@@ -416,13 +434,17 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict, pctx: ParallelCtx):
         h = x[:, vis_len:] if vis_len else x
         hcat = torch.cat([h, emb_next.to(h.dtype)], dim=-1)
         hm = _mtp_proj(hcat, params["mtp_proj"], pctx)
-        pos2 = _positions_for(cfg, B, hm.shape[1], 0, hm.device)
+        pos2 = _positions_for(cfg, B, hm.shape[1], 0, hm.device,
+                              offset=_seq_offset(pctx, hm.shape[1]))
         hm, _ = _decoder_layer_apply(params["mtp_layer"], _mtp_cfg(cfg), hm,
                                      _rope_for(cfg, pos2), pos2, pctx)
         hm = layers.rmsnorm_apply(params["mtp_norm"], hm, cfg.norm_eps)
         logits2 = _lm_head(cfg, params, hm, pctx)
-        tgt2 = torch.cat([batch["targets"][:, 1:],
-                          -torch.ones_like(batch["targets"][:, :1])], dim=1)
+        tgt2 = batch.get("targets_next")     # a split sequence's
+        if tgt2 is None:
+            tgt2 = torch.cat([batch["targets"][:, 1:],
+                              -torch.ones_like(batch["targets"][:, :1])],
+                             dim=1)
         loss = loss + 0.3 * _loss_xent(cfg, params, logits2, tgt2, pctx)
     return loss
 
@@ -495,6 +517,7 @@ def _xlstm_pair_apply(lp, cfg, x, pctx, cache=None):
 
 def _xlstm_run(cfg, params, x, pctx, caches=None):
     def body(xc, lp, lcache):
+        lp = _use_layer(pctx, lp, "pairs")
         return _xlstm_pair_apply(lp, cfg, xc, pctx, cache=lcache)
 
     x = _run_stack(cfg, body, _layers(params["pairs"], cfg.n_layers // 2),
@@ -505,11 +528,13 @@ def _xlstm_run(cfg, params, x, pctx, caches=None):
 
 
 def xlstm_forward(cfg, params, batch, pctx):
+    params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     x = pctx.cst(params["embed"][batch["tokens"]], ("batch", "seq", "embed"))
     return _xlstm_run(cfg, params, x, pctx)
 
 
 def xlstm_decode_step(cfg, params, batch, caches, pctx):
+    params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     x = params["embed"][batch["tokens"]]
     return _xlstm_run(cfg, params, x, pctx, caches), caches
 
@@ -567,6 +592,7 @@ def _zamba_run(cfg, params, x, rope_cs, pctx, caches=None):
     x0 = x
     sp = params["shared_attn"]
     def body(xc, lp, i, acache, mcache):
+        lp = _use_layer(pctx, lp, "mamba_layers")
         nac = None
         if i % cfg.attn_every == 0:
             xc, nac = _zamba_shared_attn(sp, cfg, xc, x0, rope_cs, pctx,
@@ -593,6 +619,7 @@ def _zamba_run(cfg, params, x, rope_cs, pctx, caches=None):
 
 
 def zamba_forward(cfg, params, batch, pctx):
+    params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     x = pctx.cst(params["embed"][batch["tokens"]], ("batch", "seq", "embed"))
     positions = torch.arange(x.shape[1], device=x.device)
     rope_cs = layers.rope_freqs(cfg.hd, cfg.rope_theta, positions)
@@ -601,6 +628,7 @@ def zamba_forward(cfg, params, batch, pctx):
 
 def zamba_decode_step(cfg, params, batch, caches, pctx):
     """caches = {'mamba': stacked(L), 'attn': stacked(n_sites)}."""
+    params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     x = params["embed"][batch["tokens"]]
     positions = torch.arange(1, device=x.device) + batch["pos"]
     rope_cs = layers.rope_freqs(cfg.hd, cfg.rope_theta, positions)
@@ -655,6 +683,7 @@ def whisper_encode(cfg, params, frames, pctx):
     x = pctx.cst(frames + params["enc_pos"][:S][None],
                  ("batch", "seq", "embed"))
     def body(xc, lp):
+        lp = _use_layer(pctx, lp, "enc_layers")
         h = layers.layernorm_apply(lp["ln1"], xc, cfg.norm_eps)
         a, _ = layers.attention_apply(lp["attn"], cfg, h, None, None,
                                       cst=pctx.cst, causal=False,
@@ -684,6 +713,7 @@ def _whisper_dec_layer(lp, cfg, x, enc_out, pctx, cache=None):
 
 def _whisper_decode(cfg, params, x, enc_out, pctx, caches=None):
     def body(xc, lp, lcache):
+        lp = _use_layer(pctx, lp, "dec_layers")
         return _whisper_dec_layer(lp, cfg, xc, enc_out, pctx, cache=lcache)
 
     x = _run_stack(cfg, body, _layers(params["dec_layers"], cfg.n_layers),
@@ -694,6 +724,7 @@ def _whisper_decode(cfg, params, x, enc_out, pctx, caches=None):
 
 
 def whisper_forward(cfg, params, batch, pctx):
+    params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     enc_out = whisper_encode(cfg, params, batch["frames"], pctx)
     tokens = batch["tokens"]
     S = tokens.shape[1]
@@ -705,8 +736,12 @@ def whisper_forward(cfg, params, batch, pctx):
 def whisper_decode_step(cfg, params, batch, caches, pctx):
     """caches: the stacked decoder self-attention caches; the encoder
     output ``batch['enc_out']`` is computed once and carried outside."""
+    params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     tokens, pos = batch["tokens"], batch["pos"]
-    x = params["embed"][tokens] + params["dec_pos"][pos][None, None]
+    pe = params["dec_pos"]
+    # the row at pos, read on the device (no host read of pos)
+    x = params["embed"][tokens] + pe.index_select(
+        0, torch.as_tensor(pos, device=pe.device).reshape(1).long())[None]
     return _whisper_decode(cfg, params, x, batch["enc_out"], pctx,
                            caches), caches
 
@@ -772,19 +807,21 @@ class Model:
 
     # --- forward paths ---
     def _mesh_ok(self, pctx):
-        """Under a mesh only the decoder-only LM runs; the other
-        families raise rather than computing unsharded."""
-        if pctx.mesh is None:
+        """Under the fsdp profile (its sequence split over ``model``)
+        only the decoder-only LM without a vision prefix runs; the
+        others raise rather than computing unsharded."""
+        if pctx.mesh is None or getattr(pctx.cst, "profile", "") != "fsdp":
             return
         fam = _family(self.cfg)
         if fam != "lm":
             name = f"the {fam} family"
         elif self.cfg.mrope:
-            name = "qwen2-vl's M-RoPE vision path"
+            name = "qwen2-vl's M-RoPE vision prefix"
         else:
             return
-        raise NotImplementedError(f"{self.cfg.name}: {name} under a mesh "
-                                  "is not ported: ROADMAP A item 2")
+        raise NotImplementedError(
+            f"{self.cfg.name}: {name} under the fsdp profile (a sequence "
+            f"split over 'model') is not ported: ROADMAP A item 2")
 
     def forward(self, params, batch, pctx: ParallelCtx = ParallelCtx()):
         """Logits (B, S, V) of the full forward pass."""
@@ -793,9 +830,14 @@ class Model:
 
     def loss(self, params, batch, pctx: ParallelCtx = ParallelCtx()):
         self._mesh_ok(pctx)
-        if _family(self.cfg) == "lm":
+        fam = _family(self.cfg)
+        if fam == "lm":
             return lm_loss(self.cfg, params, batch, pctx)
-        return _xent(self.forward(params, batch, pctx), batch["targets"])
+        params, batch, pctx = _on_mesh(self.cfg, params, batch, pctx)
+        logits = _FORWARD[fam](self.cfg, params, batch, pctx)
+        if pctx.layout is None:
+            return _xent(logits, batch["targets"])
+        return _xent_mesh(logits, batch["targets"], (), pctx.layout)
 
     def decode_step(self, params, batch, caches,
                     pctx: ParallelCtx = ParallelCtx()):
@@ -811,22 +853,27 @@ class Model:
     def init_cache(self, batch: int, max_len: int, device=None,
                    pctx: ParallelCtx = ParallelCtx()):
         """Zero caches; under a mesh (``pctx``) this rank's: its batch
-        rows, and its kv heads where the layers split them (else every
-        kv head, replicated over ``model``)."""
+        rows (all of them where the batch does not split), and its kv
+        heads where the layers split them (else every kv head, replicated
+        over ``model``)."""
         self._mesh_ok(pctx)
         dev = resolve_device(device)
         specs = self.cache_specs(batch, max_len)
         if pctx.mesh is not None:
             from .sharded import Layout
-            lay = Layout(self.specs(), pctx)
+            fam = _family(self.cfg)
+            lay = Layout(self.specs(), pctx, tp=fam == "lm")
             n_dp = lay.comm.size(lay.dp_axes) if lay.dp_axes else 1
-            kv = lay.shardings["layers"]["attn"].get("wk")
-            m = lay.comm.size(kv.dim_axes(4)[2]) if kv is not None else 1
-            if batch % n_dp:
-                raise ValueError(f"batch {batch} does not split over "
-                                 f"{lay.dp_axes} ({n_dp} ranks)")
+            if batch % n_dp:                  # rows kept whole, as the step
+                n_dp = 1
+            kv = lay.shardings["layers"]["attn"].get("wk") \
+                if fam == "lm" else None
+            m = lay.comm.size(kv.dim_axes(4)[2]) \
+                if kv is not None and lay.tp else 1
 
             def local(name, s):
+                if isinstance(s, dict):
+                    return {k: local(k, v) for k, v in s.items()}
                 shape = list(s.shape)
                 if len(shape) > 1:
                     shape[1] //= n_dp
@@ -834,7 +881,7 @@ class Model:
                     shape[3] //= m
                 return _meta(tuple(shape), s.dtype)
 
-            specs = {k: local(k, v) for k, v in specs.items()}
+            specs = local("", specs)
         return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                               device=dev), specs)
 

@@ -7,7 +7,12 @@ plain tensors and issues each collective itself, here and nowhere else:
 ``all_gather``, ``reduce_scatter``, ``all_to_all`` and ``all_reduce``
 over a sub-group of one or more mesh axes (:class:`Comm`), each counted
 by kind in calls and bytes (:func:`counts`; the bytes a rank hands to
-the collective: its input).  DTensor's own redistributions are not
+the collective: its input), and by group (:func:`by_group`: the global
+ranks of each group beside its calls and bytes, from which
+``analysis.roofline.ring_bytes`` gives the bytes a rank sends).  A
+``meta`` tensor has no data: its call is counted and its output shaped,
+and nothing is handed to the group (the dry run's fake group moves no
+data either).  DTensor's own redistributions are not
 used: they call the process group directly, and path R's ranks share
 one card over gloo (NCCL refuses two ranks on one device), where gloo
 runs no collective on CUDA tensors but all_reduce and broadcast.  So a
@@ -46,6 +51,8 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
 
 KINDS = ("all_gather", "reduce_scatter", "all_to_all", "all_reduce")
 _COUNTS: Dict[str, list] = {k: [0, 0] for k in KINDS}
+#: kind -> the global ranks of a group -> [calls, bytes]
+_GROUPS: Dict[str, Dict[Tuple[int, ...], list]] = {k: {} for k in KINDS}
 
 
 def counts() -> Dict[str, Tuple[int, int]]:
@@ -53,14 +60,28 @@ def counts() -> Dict[str, Tuple[int, int]]:
     return {k: (c, b) for k, (c, b) in _COUNTS.items()}
 
 
+def by_group() -> Dict[str, Dict[Tuple[int, ...], Tuple[int, int]]]:
+    """kind -> the global ranks of a group -> (calls, bytes) since the
+    last :func:`reset_counts`; the bytes are the inputs', as in
+    :func:`counts`."""
+    return {k: {m: (c, b) for m, (c, b) in v.items()}
+            for k, v in _GROUPS.items()}
+
+
 def reset_counts() -> None:
     for v in _COUNTS.values():
         v[0] = v[1] = 0
+    for v in _GROUPS.values():
+        v.clear()
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def _count(kind: str, t: torch.Tensor, comm: "Comm", axes) -> None:
+    n = t.numel() * t.element_size()
     _COUNTS[kind][0] += 1
-    _COUNTS[kind][1] += t.numel() * t.element_size()
+    _COUNTS[kind][1] += n
+    rec = _GROUPS[kind].setdefault(comm.members(axes), [0, 0])
+    rec[0] += 1
+    rec[1] += n
 
 
 def _axes(axes) -> Tuple[str, ...]:
@@ -77,6 +98,7 @@ class Comm:
         self.names = tuple(mesh.mesh_dim_names)
         self.sizes = dict(zip(self.names, mesh.mesh.shape))
         self._groups = {}
+        self._members = {}
 
     def size(self, axes) -> int:
         return math.prod(self.sizes[a] for a in _axes(axes))
@@ -100,6 +122,16 @@ class Comm:
             else:
                 self._groups[axes] = self._new_group(axes)
         return self._groups[axes]
+
+    def members(self, axes) -> Tuple[int, ...]:
+        """The global ranks of this rank's group of ``axes``, sorted."""
+        axes = _axes(axes)
+        m = self._members.get(axes)
+        if m is None:
+            pg, _ = self.group(axes)
+            m = self._members[axes] = tuple(sorted(
+                dist.get_process_group_ranks(pg)))
+        return m
 
     def _new_group(self, axes):
         grid = self.mesh.mesh
@@ -142,10 +174,11 @@ def all_gather(t: torch.Tensor, comm: Comm, axes, dim: int = 0):
     """The members' tensors concatenated along ``dim`` in member order."""
     pg, perm = comm.group(axes)
     n = len(perm)
-    _count("all_gather", t)
+    _count("all_gather", t, comm, axes)
     x, dev = _staged(t.movedim(dim, 0).contiguous(), pg)
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    _ALL_GATHER(out, x, group=pg)
+    if not x.is_meta:
+        _ALL_GATHER(out, x, group=pg)
     if perm != list(range(n)):
         out = out.reshape((n,) + tuple(x.shape))[perm].reshape(out.shape)
     return _back(out, dev).movedim(0, dim)
@@ -156,7 +189,7 @@ def reduce_scatter(t: torch.Tensor, comm: Comm, axes, dim: int = 0):
     block at its position along ``dim``."""
     pg, perm = comm.group(axes)
     n = len(perm)
-    _count("reduce_scatter", t)
+    _count("reduce_scatter", t, comm, axes)
     x, dev = _staged(t.movedim(dim, 0), pg)
     m = x.shape[0] // n
     if perm != list(range(n)):
@@ -164,7 +197,8 @@ def reduce_scatter(t: torch.Tensor, comm: Comm, axes, dim: int = 0):
         x = x.reshape((n, m) + tuple(x.shape[1:]))[inv].reshape(x.shape)
     x = x.contiguous()
     out = x.new_empty((m,) + tuple(x.shape[1:]))
-    _REDUCE_SCATTER(out, x, group=pg)
+    if not x.is_meta:
+        _REDUCE_SCATTER(out, x, group=pg)
     return _back(out, dev).movedim(0, dim)
 
 
@@ -173,14 +207,15 @@ def all_to_all_raw(t: torch.Tensor, comm: Comm, axes):
     -> block j received from the member at position j."""
     pg, perm = comm.group(axes)
     n = len(perm)
-    _count("all_to_all", t)
+    _count("all_to_all", t, comm, axes)
     x, dev = _staged(t, pg)
     ident = perm == list(range(n))
     if not ident:
         x = x[[perm.index(g) for g in range(n)]]
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=pg)
+    if not x.is_meta:
+        dist.all_to_all_single(out, x, group=pg)
     if not ident:
         out = out[perm]
     return _back(out, dev)
@@ -189,11 +224,12 @@ def all_to_all_raw(t: torch.Tensor, comm: Comm, axes):
 def all_reduce(t: torch.Tensor, comm: Comm, axes, op: str = "sum"):
     """The members' elementwise sum (or ``op="max"``), a new tensor."""
     pg, _ = comm.group(axes)
-    _count("all_reduce", t)
+    _count("all_reduce", t, comm, axes)
     x, dev = _staged(t, pg)
     x = x.clone() if dev is None else x
-    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else
-                    dist.ReduceOp.SUM, group=pg)
+    if not x.is_meta:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else
+                        dist.ReduceOp.SUM, group=pg)
     return _back(x, dev)
 
 

@@ -26,6 +26,7 @@ collectives (``parallel.collectives``).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -272,8 +273,11 @@ class ShardCst:
     tensors are already this rank's local blocks in the layout the
     reference asks GSPMD for, so the call returns ``x``; the object
     carries the layout the layers read: the mesh, the activation rules
-    and the parameter rules of their profile, and the mesh's
-    collectives (``comm``)."""
+    and the parameter rules of their profile, the mesh's collectives
+    (``comm``), and the axes a batch's sequence is split over
+    (``seq_axes``: none but under the fsdp profile)."""
+
+    seq_axes: Tuple[str, ...] = ()
 
     def __init__(self, mesh, rules: Dict = None):
         from .collectives import comm_of
@@ -285,6 +289,13 @@ class ShardCst:
 
     def __call__(self, x, axes):
         return x
+
+    def with_seq_axes(self, axes: Tuple[str, ...]) -> "ShardCst":
+        """A copy whose activations split the sequence over ``axes``
+        (``seq_axes``: the fsdp profile's, which attention reads)."""
+        out = copy.copy(self)
+        out.seq_axes = tuple(axes)
+        return out
 
     def __repr__(self):
         return (f"ShardCst({dict(mesh_axis_sizes(self.mesh))}, "

@@ -135,5 +135,6 @@ def test_dispatch_routes_block_solve():
         assert torch.equal(dv.block_solve_soa(_t(A), _t(r), policy), want)
     with pytest.raises(ValueError, match="backend 'cuda'"):
         dv.block_solve_soa(_t(A), _t(r), ExecPolicy(backend="cuda"))
-    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
-        block_solve.block_solve_soa(_t(A).to("meta"), _t(r).to("meta"))
+    # a meta tensor (the dry run's: no data) takes the plain version
+    out = block_solve.block_solve_soa(_t(A).to("meta"), _t(r).to("meta"))
+    assert out.device.type == "meta" and out.shape == want.shape

@@ -1238,3 +1238,29 @@ def test_checkpoint_round_trip_of_a_card_state(tmp_path):
                                 ckpt._leaves_with_path(back)):
         assert pa == pb and b.is_cuda and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_card_tensors_never_take_the_abstract_route():
+    """Under ``analysis.stepcost.StepCost`` (the dry run's counter) a
+    call on the card's tensors launches its kernel and is counted under
+    no row; only a meta tensor takes the plain version, under its row."""
+    _need_card()
+    from repro_torch.analysis.stepcost import StepCost
+    x = torch.arange(1, 1025, dtype=torch.float32, device="cuda")
+    meta = torch.empty(1024, dtype=torch.float32, device="meta")
+    kernels.reset_counts()
+    with StepCost() as sc:
+        d = dv.dot(x, x)
+        w = dv.wrms_ss(x, x)
+        z = dv.linear_combination([1.0, 2.0], [x, x])
+    assert sc.rows == {}
+    counts = kernels.counts()
+    for name in ("dot", "wrms_ss", "linear_combination"):
+        assert counts[name] == (1, 0), (name, counts[name])
+    assert float(d) == float((x.double() * x.double()).sum())
+    assert float(w) > 0 and torch.equal(z, 3 * x)
+    kernels.reset_counts()
+    with StepCost() as sc:
+        dv.dot(meta, meta)
+    assert sc.rows["dot"][0] == 1 and kernels.counts()["dot"] == (0, 1)

@@ -288,22 +288,44 @@ def test_cuda_backend_rejects_cpu_tensors(op):
         _op_calls(_data(7), ExecPolicy(backend="cuda"))[op]()
 
 
+class _OnXpu(torch.Tensor):
+    """A tensor that names a device with no kernel (no data is read)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu", 0)
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
-    """A wrapper takes its plain version only for CPU tensors."""
-    d = {k: _t(v).to("meta") for k, v in _data(7).items()}
-    calls = [
-        lambda: newton.newton_residual(d["z"], d["f"], d["psi"], d["gam"]),
-        lambda: newton.masked_update_wrms(d["z"], d["f"], d["w"], d["mask"]),
-        lambda: newton.history_rescale(d["W"], d["Z"], d["mask"]),
-        lambda: newton.lagrange_rescale(d["gam"], d["gam"].int(), d["Z"],
-                                        d["mask"]),
-        lambda: newton.wrms_soa(d["z"], d["w"]),
-        lambda: blockdiag_spmv.blockdiag_spmv_soa(d["A"], d["z"]),
-        lambda: block_solve.block_inverse_soa(d["A"]),
-        lambda: block_solve.block_solve_soa(d["A"], d["z"]),
-    ]
-    for call in calls:
-        with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+    """A wrapper takes its plain version for CPU tensors and for ``meta``
+    ones (the dry run's abstract tensors, which have no data: the plain
+    version gives the output's shape); a device with no kernel raises."""
+    def calls(d):
+        return [
+            lambda: newton.newton_residual(d["z"], d["f"], d["psi"],
+                                           d["gam"]),
+            lambda: newton.masked_update_wrms(d["z"], d["f"], d["w"],
+                                              d["mask"]),
+            lambda: newton.history_rescale(d["W"], d["Z"], d["mask"]),
+            lambda: newton.lagrange_rescale(d["gam"], d["gam"].int(),
+                                            d["Z"], d["mask"]),
+            lambda: newton.wrms_soa(d["z"], d["w"]),
+            lambda: blockdiag_spmv.blockdiag_spmv_soa(d["A"], d["z"]),
+            lambda: block_solve.block_inverse_soa(d["A"]),
+            lambda: block_solve.block_solve_soa(d["A"], d["z"]),
+        ]
+
+    data = {k: _t(v) for k, v in _data(7).items()}
+    meta = {k: v.to("meta") for k, v in data.items()}
+    kernels.reset_counts()
+    for call in calls(meta):
+        out = call()
+        for t in (out if isinstance(out, tuple) else (out,)):
+            assert t.device.type == "meta"
+    assert all(launched == 0 for launched, _ in kernels.counts().values())
+    other = {k: v.as_subclass(_OnXpu) for k, v in data.items()}
+    for call in calls(other):
+        with pytest.raises(ValueError, match="no kernel for tensors on xpu"):
             call()
 
 

@@ -65,7 +65,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.data.pipeline, repro_torch.optim.adamw, "
             "repro_torch.optim.gradflow, repro_torch.train.step, "
             "repro_torch.train.checkpoint, repro_torch.train.fault, "
-            "repro_torch.launch.train, repro_torch.examples.quickstart\n"
+            "repro_torch.launch.train, repro_torch.examples.quickstart, "
+            "repro_torch.launch.dryrun, repro_torch.analysis.stepcost, "
+            "repro_torch.analysis.roofline\n"
             "from repro_torch import configs\n"
             "configs.names()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -24,6 +24,7 @@ from repro.models.spec import is_spec as ref_is_spec
 from repro.parallel import sharding as ref_shd
 from repro_torch import configs
 from repro_torch.models import Model, ParallelCtx
+from repro_torch.models.spec import tree_map
 from repro_torch.parallel import sharding as shd
 
 
@@ -195,7 +196,9 @@ def test_launcher_wrong_world_raises(fake_world):
         make_debug_mesh(2, 2, pod=2, device_type="cpu")
     mesh = make_debug_mesh(2, 2, device_type="cpu")
     assert tuple(mesh.mesh.shape) == (2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 2"):
+    # gradient flow runs over a mesh (tests/test_torch_gradflow_mesh.py):
+    # on the wrong world it raises as AdamW does
+    with pytest.raises(ValueError, match="256"):
         ltrain.main(["--mesh", "production", "--device", "cpu",
                      "--optimizer", "gradflow"])
 
@@ -204,30 +207,47 @@ def test_launcher_wrong_world_raises(fake_world):
                                   "whisper-tiny-smoke", "qwen2-vl-2b-smoke",
                                   "internlm2-1.8b-smoke"])
 def test_families_left_for_later_raise_under_a_mesh(arch, fake_world):
-    """zamba2, xlstm, whisper and qwen2-vl's M-RoPE path raise under a
-    mesh, every entry point: no unsharded compute; so does the ``fsdp``
-    profile's compute (its sequence split)."""
+    """Under the tp_fsdp profile every family runs on this rank's shards
+    (zamba2, xlstm and whisper gathering each parameter whole, on their
+    batch rows; tests/test_torch_gradflow_mesh.py holds their values).
+    Under the ``fsdp`` profile (its sequence split over ``model``) the
+    decoder-only LM runs, and zamba2, xlstm, whisper and qwen2-vl's
+    M-RoPE vision prefix, left for later, raise at every entry point: no
+    unsharded compute."""
     from repro_torch.launch.mesh import make_debug_mesh
     fake_world(4)
     mesh = make_debug_mesh(2, 2, device_type="cpu")
     model = Model(configs.get(arch))
+    cfg = model.cfg
     pctx = ParallelCtx(mesh=mesh, cst=shd.make_cst(mesh))
+    fsdp = ParallelCtx(mesh=mesh, cst=shd.make_cst(mesh, shd.FSDP_ACT_RULES))
     batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32),
              "targets": torch.zeros((2, 4), dtype=torch.int32)}
+    if cfg.mrope:
+        batch["vis_embeds"] = torch.zeros((2, 4, cfg.d_model), dtype=cfg.dtype)
+    if cfg.enc_dec:
+        batch["frames"] = torch.zeros((2, 8, cfg.d_model), dtype=cfg.dtype)
+    meta = {k: v.to("meta") for k, v in batch.items()}
+
+    def local(p):
+        return tree_map(lambda t, s: torch.empty(
+            s.local_shape(t.shape), dtype=t.dtype, device="meta"),
+            model.abstract_params(), model.param_shardings(p))
+
+    loss = model.loss(local(pctx), meta, pctx)
+    assert loss.shape == () and loss.device.type == "meta"
     if arch == "internlm2-1.8b-smoke":
-        fsdp = ParallelCtx(mesh=mesh, cst=shd.make_cst(mesh,
-                                                       shd.FSDP_ACT_RULES))
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 2"):
-            model.loss(model.abstract_params(), batch, fsdp)
+        loss = model.loss(local(fsdp), meta, fsdp)
+        assert loss.shape == () and loss.device.type == "meta"
         # the decoder-only LM's caches: this rank's rows and kv heads
         cache = model.init_cache(8, 16, device="cpu", pctx=pctx)
         assert tuple(cache["k"].shape) == (2, 4, 16, 1, 16)
         return
-    for run in (lambda: model.loss({}, batch, pctx),
-                lambda: model.forward({}, batch, pctx),
-                lambda: model.init_cache(2, 8, device="cpu", pctx=pctx),
+    for run in (lambda: model.loss({}, batch, fsdp),
+                lambda: model.forward({}, batch, fsdp),
+                lambda: model.init_cache(2, 8, device="cpu", pctx=fsdp),
                 lambda: model.decode_step(
                     {}, {"tokens": batch["tokens"][:, :1], "pos": 0}, {},
-                    pctx)):
+                    fsdp)):
         with pytest.raises(NotImplementedError, match="ROADMAP A item 2"):
             run()
