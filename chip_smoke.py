@@ -285,8 +285,10 @@ of which prints the seconds it took:
      (rows 12 and 14 on every rank's float32 shards, the gradients in
      float64 in both runs), its steps and attempts and its initial
      step's norms equal to one card's unsharded step, the gathered
-     parameters within 3x the spread of runs from weights nudged by one
-     rounding, each row held to its plain version on a rank's shard, and
+     parameters after the first accepted attempt within 1 % of that
+     attempt's movement from one card's (a planted no-op, half update
+     and wrong stage sum past it), replicated blocks equal on every
+     replica, each row held to its plain version on a rank's shard, and
      the fsdp profile's loss against one card's; S.2 the dry run
      (``launch.dryrun.lower_cell`` on meta tensors, fake groups of 256,
      4 and 1 in this process): internlm2-1.8b and dbrx-132b ``train_4k``
@@ -2083,6 +2085,7 @@ def phase_path_n(y_main, st_main, syncs_main, y_d, profile):
     from repro_torch.core.arkode import ODEOptions
     from repro_torch.core.policies import ExecPolicy
     from repro_torch.launch.mesh import WorldOfOne, make_ensemble_mesh
+    from repro_torch.parallel import collectives as coll
     path, key = "N: multi-device", "N: sharded ensemble_bdf"
     dev = y_main.device
     opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
@@ -2127,7 +2130,7 @@ def phase_path_n(y_main, st_main, syncs_main, y_d, profile):
     # N.4: MeshVector's overhead, gspmd and explicit (group of one)
     t = time.perf_counter()
     out["N.4"] = n_overhead(dev)
-    dist.destroy_process_group()
+    coll.close()
     sub_s["N.4"] = time.perf_counter() - t
     print(f"N.4: {sub_s['N.4']:.1f} s", flush=True)
     del f, jac, y0, params
@@ -2190,6 +2193,7 @@ def path_n_rank(argv) -> int:
     share and saves its record to ``DIR/rank{RANK}.pt``."""
     import torch
     import torch.distributed as dist
+    from repro_torch.parallel import collectives as coll
     rank, world, tmp = int(argv[0]), int(argv[1]), Path(argv[2])
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             rank=rank, world_size=world)
@@ -2198,7 +2202,7 @@ def path_n_rank(argv) -> int:
         torch.save(rec, tmp / f"rank{rank}.pt")
         dist.barrier()
     finally:
-        dist.destroy_process_group()
+        coll.close()
     return 0
 
 
@@ -4241,7 +4245,7 @@ def r1_world_of_one(dev, tmp):
         print(f"R.1 experts {w_bytes / 1e9:.2f} GB, peak "
               f"{rec['peak_gib']:.2f} GiB", flush=True)
     finally:
-        dist.destroy_process_group()
+        coll.close()
     torch.save(save, tmp / "r_moe.pt")
     del p, xs, xr, save
     torch.cuda.empty_cache()
@@ -4421,6 +4425,7 @@ def path_r_rank(argv) -> int:
     ``DIR/rank{RANK}.pt``."""
     import torch
     import torch.distributed as dist
+    from repro_torch.parallel import collectives as coll
     rank, world, tmp = int(argv[0]), int(argv[1]), Path(argv[2])
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             rank=rank, world_size=world)
@@ -4437,7 +4442,7 @@ def path_r_rank(argv) -> int:
         torch.save(rec, tmp / f"rank{rank}.pt")
         dist.barrier()
     finally:
-        dist.destroy_process_group()
+        coll.close()
     return 0
 
 
@@ -4502,7 +4507,6 @@ def r3_train(mesh, dev, tmp, rank, sec):
     from repro_torch.core.policies import ExecPolicy
     from repro_torch.launch.train import make_pctx
     from repro_torch.models import Model, spec
-    from repro_torch.models.sharded import Layout
     from repro_torch.optim import adamw
     from repro_torch.parallel import collectives as coll
     from repro_torch.train import checkpoint as ckpt
@@ -4594,7 +4598,7 @@ def r3_train(mesh, dev, tmp, rank, sec):
     # R.3's float32 cut: Q.3's weights and batch, sharded gradients
     cut = Model(r_cut_config(torch.float32, Q3_LAYERS))
     cpctx = make_pctx(cut.cfg, mesh)
-    clay = Layout(cut.specs(), cpctx)
+    clay = cut.layout(cpctx)
     params = spec.tree_map(lambda t, s: s.shard(t).to(dev),
                            cut.init(0, device="cpu"), clay.shardings)
     batch = q_batches(cut.cfg.vocab_size, Q3_SEQ, Q3_BATCH, 1, dev, 3)[0]
@@ -4646,24 +4650,30 @@ def r3_train(mesh, dev, tmp, rank, sec):
 #: splits over data (S_BATCH x Q3_SEQ).  The gradient each stage takes
 #: is evaluated in float64, in both runs alike (the float32 parameters
 #: cast up inside the loss, the model's float32 accumulations widened):
-#: at the reference's init this cut's float32 gradients carry ~1 %
-#: rounding noise (PERF.md, PRs 25-26), which moved the first gradient
-#: norm by 1.07 % between the layouts on the card and flipped an
-#: attempt, so only float64 gradients make the counts comparable.  The
-#: ERK's steps and attempts equal one card's unsharded step's, and its
-#: initial step's two norms (the mesh norm of the same vectors: the
-#: weights and their first gradient) within S_NORM_RTOL.  Later
-#: attempts take near the explicit method's stability limit on this
-#: stiff flow, where a rounding grows from attempt to attempt (weights
-#: moved by one float32 rounding leave the trajectory as fast), so the
-#: gathered parameters are held within S_SPREAD times the farther of two
-#: such nudged runs from one card's (+ S_PARAM_FLOOR), in the 2-norm over
-#: every leaf; the fsdp profile's loss within S_FSDP_RTOL of one card's
-#: (the reference's GSPMD check, tests/test_distribution.py)
+#: the first float32 gradient's norm lies ~0.5 % from the float64 one in
+#: either layout, on opposite sides (printed as "float32 gradients"),
+#: enough to flip an attempt of the flow, so only float64 gradients make
+#: the two layouts' steps comparable.  Gates: the ERK's steps and
+#: attempts equal one card's unsharded step's; its initial step's two
+#: norms (the mesh norm of the same vectors: the weights and their first
+#: gradient) within S_NORM_RTOL; the parameters after the first accepted
+#: attempt within S_FIRST_GATE of that step's own movement from the
+#: weights (2-norm over every leaf); every replicated block equal, bit
+#: for bit, on each of its replicas.  Three planted faults of one card's
+#: step must lie past that gate: the weights unchanged, half the
+#: update, and a wrong stage sum (the heun_euler table's second weight
+#: halved).  The end parameters and the last norms are printed beside
+#: those of runs of one card whose every norm was nudged by about the
+#: mesh norm's own rounding (S_NUDGE, signs drawn from each run's seed),
+#: which show how far that rounding alone carries the flow.  The
+#: fsdp profile's loss within S_FSDP_RTOL of one card's (the reference's
+#: GSPMD check, tests/test_distribution.py)
 S_WORLD, S_DATA, S_MODEL, S_RANK_TIMEOUT = 4, 2, 2, 300
 S_BATCH = 2
 S_FSDP_RTOL = 1e-4
-S_SPREAD, S_PARAM_FLOOR, S_NORM_RTOL = 3.0, 1e-6, 1e-6
+S_NORM_RTOL = 1e-6
+S_FIRST_GATE = 0.01
+S_NUDGE, S_NUDGE_RUNS = 1e-7, 8
 #: S.2: the dry run's cells on fake groups of this process (meta
 #: tensors): two production cells on the 256-rank single mesh, the
 #: fsdp profile of the first, R.3's cell on the 2 x 2 debug mesh and
@@ -4679,32 +4689,53 @@ S_R3_STATE_GIB_PR26 = 1.176
 S_KERNELS = ("linear_combination", "wrms_ss")
 
 
-class SNorms:
-    """Records every WRMS norm the ERK takes inside ``with`` (the initial
-    step's two, then one an attempt): ``gradflow.step``'s integrator
-    wrapped so that its norm (``dispatch.wrms_norm``, or the mesh's)
-    notes each value."""
+class SWatch:
+    """Inside ``with``: ``gradflow.step``'s integrator watched.  Every
+    WRMS norm it takes (the initial step's two, then one an attempt) is
+    noted in ``values``, after it is multiplied by ``1 + d`` when
+    ``nudge`` (a seed) is given, ``d`` of size S_NUDGE with a sign and a
+    factor in [0.5, 1.5] drawn from the seed; ``first`` holds a copy of
+    the state after the first accepted attempt."""
+
+    def __init__(self, nudge=None):
+        self.nudge = nudge
 
     def __enter__(self):
+        import random
         from repro_torch.core import arkode
         from repro_torch.core import dispatch as dv
-        self.values, self._mod = [], arkode
+        self.values, self.first, self._mod = [], None, arkode
         self._real = real = arkode.erk_integrate
+        self._real_step = real_step = arkode._erk_step
+        rng = None if self.nudge is None else random.Random(self.nudge)
+        pending = []
+
+        def step(*a, **kw):
+            out = real_step(*a, **kw)
+            pending[:] = [out[0]]
+            return out
 
         def erk(*a, norm=None, **kw):
             inner = norm or dv.wrms_norm
 
             def noted(v, w, policy=None):
                 out = inner(v, w, policy)
+                if rng is not None:
+                    d = S_NUDGE * rng.choice((-1, 1)) * rng.uniform(0.5, 1.5)
+                    out = out * (1 + d)
                 self.values.append(float(out))
+                if pending and self.first is None and self.values[-1] <= 1:
+                    self.first = tuple(x.clone() for x in pending[0])
+                pending.clear()
                 return out
             return real(*a, norm=noted, **kw)
 
-        arkode.erk_integrate = erk
+        arkode.erk_integrate, arkode._erk_step = erk, step
         return self
 
     def __exit__(self, *exc):
         self._mod.erk_integrate = self._real
+        self._mod._erk_step = self._real_step
         return False
 
 
@@ -4733,105 +4764,191 @@ class SWide:
         return False
 
 
-def s_model():
-    """S.1's model (Q.3's cut, its float64 twin for the loss) and its
-    float32 weights drawn on the CPU."""
+def s_model(dtype=None):
+    """S.1's model (Q.3's cut; float64 by default, for the loss of
+    float32 weights) and its float32 weights drawn on the CPU."""
     import torch
     from repro_torch.models import Model
     weights = Model(r_cut_config(torch.float32, Q3_LAYERS)).init(
         0, device="cpu")
-    return Model(r_cut_config(torch.float64, Q3_LAYERS)), weights
+    return Model(r_cut_config(dtype or torch.float64, Q3_LAYERS)), weights
 
 
 def s_loss(model, batch, pctx=None):
-    """The loss of float32 parameters evaluated in float64."""
-    import torch
+    """The loss of float32 parameters evaluated at the model's dtype."""
     from repro_torch.models import ParallelCtx, spec
     pctx = pctx or ParallelCtx()
-    return lambda p: model.loss(spec.tree_map(torch.Tensor.double, p),
+    dt = model.cfg.dtype
+    return lambda p: model.loss(spec.tree_map(lambda a: a.to(dt), p),
                                 batch, pctx)
 
 
-def s_single(dev):
-    """S.1's single-card runs: the unsharded gradient-flow step and the
-    loss of Q.3's cut (its kernels launched, no plain version)."""
+def s_grad_norm(loss, params, norm, lay=None):
+    """The norm the ERK's initial step takes of the first gradient
+    (``gradflow.step``'s right-hand side at ``params``): ``norm`` of the
+    float32 gradient in the error weights of ``params``."""
     import torch
+    from repro_torch.models import spec
+    from repro_torch.optim import gradflow
+    cfg = gradflow.GradFlowConfig()
+    leaves = [x.detach().requires_grad_() for x in spec.tree_leaves(params)]
+    with torch.enable_grad():
+        val = loss(spec.tree_unflatten(params, leaves)).to(torch.float32)
+        g = torch.autograd.grad(val, leaves, allow_unused=True,
+                                materialize_grads=True)
+    if lay is not None:
+        g = spec.tree_leaves(lay.reduce_grads(spec.tree_unflatten(
+            params, list(g))))
+    w = tuple(1.0 / (cfg.rtol * x.detach().abs() + cfg.atol) for x in leaves)
+    return float(norm(tuple(x.to(torch.float32) for x in g), w))
+
+
+def s_dist(a, b) -> float:
+    """||a - b|| / ||b|| over every leaf, in float64."""
+    num = sum(float((x.double() - y.double()).pow(2).sum())
+              for x, y in zip(a, b))
+    den = sum(float(y.double().pow(2).sum()) for y in b)
+    return math.sqrt(num / den)
+
+
+def s_single(dev):
+    """S.1's single-card runs: the unsharded gradient-flow step (its
+    kernels launched, no plain version), its first accepted attempt,
+    the float32 gradient's norm, three planted faults and the runs with
+    nudged norms."""
+    import torch
+    from repro_torch.core import butcher
+    from repro_torch.core import dispatch as dv
     from repro_torch.models import spec
     from repro_torch.optim import gradflow
     model, weights = s_model()
     params = spec.tree_map(lambda a: a.to(dev), weights)
+    start = spec.tree_leaves(params)
     batch = s_batch(dev)
     cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=Q5_MAX_STEPS)
     t0 = time.perf_counter()
-    with SWide(), SNorms() as norms:
+    with SWide(), SWatch() as watch:
         (p2, st), counts = q_counted(
             "S.1 single", lambda: gradflow.step(
                 s_loss(model, batch), params, cfg), S_KERNELS)
         wall = time.perf_counter() - t0
         with torch.no_grad():
             loss = float(s_loss(model, batch)(params))
+    check(watch.first is not None, "S.1 single: no attempt was accepted")
+    first, end = watch.first, spec.tree_leaves(p2)
+    moved1 = s_dist(first, start)
     out = {"steps": int(st.steps), "attempts": int(st.attempts),
-           "params": [x.cpu() for x in spec.tree_leaves(p2)],
-           "start": [x.cpu() for x in spec.tree_leaves(params)],
-           "loss": loss, "wall_s": wall, "counts": counts,
-           "norms": norms.values}
-    # the flow's own sensitivity: the same step from weights moved by
-    # one float32 rounding (each times 1 + 2**-23, then 1 - 2**-24)
+           "first": [x.cpu() for x in first], "start": [x.cpu()
+                                                       for x in start],
+           "params": [x.cpu() for x in end], "moved": s_dist(end, start),
+           "moved_first": moved1, "loss": loss, "wall_s": wall,
+           "counts": counts, "norms": watch.values}
+    # the first gradient's norm in float32 against float64
+    m32 = s_model(torch.float32)[0]
+    with SWide():
+        g64 = s_grad_norm(s_loss(model, batch), params, dv.wrms_norm)
+    g32 = s_grad_norm(s_loss(m32, batch), params, dv.wrms_norm)
+    out["grad_norms"] = {"float32": g32, "float64": g64}
+    # planted faults: the gate must fail each of them
+    half = [s + 0.5 * (f - s) for s, f in zip(start, first)]
+    plants = {"no-op": s_dist(start, first) / moved1,
+              "half update": s_dist(half, first) / moved1}
+    del half
+    wrong = butcher.ERK_TABLES[cfg.table]._replace(
+        b=(butcher.ERK_TABLES[cfg.table].b[0],
+           0.5 * butcher.ERK_TABLES[cfg.table].b[1]))
+    real_tables = butcher.ERK_TABLES
+    butcher.ERK_TABLES = dict(real_tables, **{cfg.table: wrong})
+    try:
+        with SWide(), SWatch() as w:
+            gradflow.step(s_loss(model, batch), params, cfg)
+    finally:
+        butcher.ERK_TABLES = real_tables
+    plants["wrong stage sum"] = float("inf") if w.first is None else \
+        s_dist(w.first, first) / moved1
+    out["plants"] = plants
+    # the flow's own sensitivity: the same step with every norm nudged
     out["nudged"] = []
-    for f in (1 + 2.0 ** -23, 1 - 2.0 ** -24):
-        nudged = spec.tree_map(lambda a: a * f, params)
-        with SWide(), SNorms() as norms2:
-            p3, st3 = gradflow.step(s_loss(model, batch), nudged, cfg)
+    for seed in range(S_NUDGE_RUNS):
+        with SWide(), SWatch(nudge=seed) as w:
+            p3, st3 = gradflow.step(s_loss(model, batch), params, cfg)
         out["nudged"].append({
-            "factor": f, "steps": int(st3.steps),
-            "attempts": int(st3.attempts), "norms": norms2.values,
-            "params": [x.cpu() for x in spec.tree_leaves(p3)]})
-        del nudged, p3
-    del params, p2
+            "seed": seed, "steps": int(st3.steps),
+            "attempts": int(st3.attempts), "norms": w.values,
+            "first_rel": float("inf") if w.first is None else
+            s_dist(w.first, first) / moved1,
+            "end_dist": s_dist(spec.tree_leaves(p3), end)})
+        del p3, w
+    del params, p2, first, end, start
     torch.cuda.empty_cache()
     return out
 
 
+def s_replica_drift(leaves, shardings, comm) -> float:
+    """The largest difference between the replicas of a block (the
+    blocks of a leaf over the mesh axes its sharding does not use),
+    over the block's largest entry: 0 when every replica holds the same
+    bits, as one program's replicated values do."""
+    from repro_torch.parallel import collectives as coll
+    worst = 0.0
+    for x, s in zip(leaves, shardings):
+        rep = tuple(a for a in comm.names if a not in s.used_axes())
+        if not rep:
+            continue
+        every = coll.all_gather(x.reshape(1, -1), comm, rep, 0)
+        worst = max(worst, float((every - every[:1]).abs().max()
+                                 / every.abs().max().clamp(min=1e-30)))
+    return worst
+
+
 def s_gradflow_rank(mesh, dev, rank, tmp):
     """S.1 on this rank: gradflow.step over the mesh, counted; rows 12
-    and 14 held to their plain versions on this rank's shards; the fsdp
-    profile's loss."""
+    and 14 held to their plain versions on this rank's shards; the
+    float32 gradient's norm; the fsdp profile's loss."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import vecops
     from repro_torch.launch import dryrun
     from repro_torch.launch.train import make_pctx
     from repro_torch.models import spec
-    from repro_torch.models.sharded import Layout
     from repro_torch.optim import gradflow
     from repro_torch.parallel import collectives as coll
     comm = coll.comm_of(mesh)
     model, full = s_model()
     pctx = make_pctx(model.cfg, mesh)
-    lay = Layout(model.specs(), pctx)
+    lay = model.layout(pctx)
     local = spec.tree_map(lambda t, s: s.shard(t).to(dev), full,
                           lay.shardings)
     batch = s_batch(dev)
     cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=Q5_MAX_STEPS)
     p_peak_reset()
     t0 = time.perf_counter()
-    with SNorms() as norms:
+    with SWide(), SWatch() as watch:
         (p2, st), counts = q_counted(
             f"S.1 rank {rank}", lambda: gradflow.step(
                 s_loss(model, batch, pctx), local, cfg, layout=lay),
             S_KERNELS)
     wall = time.perf_counter() - t0
     out = {"steps": int(st.steps), "attempts": int(st.attempts),
-           "norms": norms.values,
+           "norms": watch.values,
            "wall_s": wall, "peak_gib": p_peak_gib(),
            "counts": {k: list(v) for k, v in counts.items()},
            "state_bytes": p_bytes(local)}
-    gathered = [coll.gather_full(x, comm, s.dim_axes(x.dim())).cpu()
-                for x, s in zip(spec.tree_leaves(p2),
-                                spec.tree_leaves(lay.shardings))]
-    if rank == 0:
-        torch.save(gathered, tmp / "s1_params.pt")
-    del gathered
+    check(watch.first is not None, f"S.1 rank {rank}: no attempt was "
+          f"accepted")
+    sh = spec.tree_leaves(lay.shardings)
+    for name, leaves in (("first", watch.first),
+                         ("params", spec.tree_leaves(p2))):
+        out[f"drift_{name}"] = s_replica_drift(leaves, sh, comm)
+        gathered = [coll.gather_full(x, comm, s.dim_axes(x.dim())).cpu()
+                    for x, s in zip(leaves, sh)]
+        if rank == 0:
+            torch.save(gathered, tmp / f"s1_{name}.pt")
+        del gathered
+    # the first gradient's norm in float32 (the mesh norm)
+    m32 = s_model(torch.float32)[0]
+    out["grad_norm32"] = s_grad_norm(s_loss(m32, batch, pctx), local,
+                                     gradflow.mesh_norm(lay.shardings), lay)
     # rows 12 and 14 against their plain versions on this rank's shards
     # (these launches compare, after the counts were read)
     leaves = [x for x in spec.tree_leaves(p2)]
@@ -4854,7 +4971,7 @@ def s_gradflow_rank(mesh, dev, rank, tmp):
     fl = spec.tree_map(lambda t, s: s.shard(t).to(dev), full, fsh)
     coll.reset_counts()
     kernels.reset_counts()
-    with torch.no_grad():
+    with SWide(), torch.no_grad():
         t0 = time.perf_counter()
         out["fsdp_loss"] = float(s_loss(model, batch, fp)(fl))
         out["fsdp_s"] = time.perf_counter() - t0
@@ -4862,7 +4979,7 @@ def s_gradflow_rank(mesh, dev, rank, tmp):
     out["fsdp_state_bytes"] = p_bytes(fl)
     check(all(v == (0, 0) for v in kernels.counts().values()),
           f"S.1 rank {rank}: the fsdp loss reached a kernel row")
-    del local, p2, fl, full, xs, k12, p12, w
+    del local, p2, fl, full, xs, k12, p12, w, watch
     torch.cuda.empty_cache()
     print(f"S.1 rank {rank}: {out['steps']} steps / {out['attempts']} "
           f"attempts, {wall:.2f} s, rows 12 and 14 launched "
@@ -4878,6 +4995,7 @@ def path_s_rank(argv) -> int:
     ``DIR/rank{RANK}.pt``."""
     import torch
     import torch.distributed as dist
+    from repro_torch.parallel import collectives as coll
     rank, world, tmp = int(argv[0]), int(argv[1]), Path(argv[2])
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             rank=rank, world_size=world)
@@ -4886,50 +5004,51 @@ def path_s_rank(argv) -> int:
         mesh = make_debug_mesh(S_DATA, S_MODEL)
         dev = mesh_device(mesh)
         check(dev.type == "cuda", f"S rank {rank}: device {dev}")
-        with SWide():
-            rec = {"S.1": s_gradflow_rank(mesh, dev, rank, tmp)}
+        rec = {"S.1": s_gradflow_rank(mesh, dev, rank, tmp)}
         torch.save(rec, tmp / f"rank{rank}.pt")
         dist.barrier()
     finally:
-        dist.destroy_process_group()
+        coll.close()
     return 0
 
 
-def s_dist(a, b) -> float:
-    """||a - b|| / ||b|| over every leaf, in float64."""
-    num = sum(float((x.double() - y.double()).pow(2).sum())
-              for x, y in zip(a, b))
-    den = sum(float(y.double().pow(2).sum()) for y in b)
-    return math.sqrt(num / den)
+def s_fmt(values):
+    return " ".join(f"{v:.9g}" for v in values)
 
 
 def s_check_ranks(ranks, single, tmp):
     """S.1's records printed, then its gates: equal ERK counts, the
-    gathered parameters, rows 12 and 14 launched on every rank and held
-    to their plain versions, the fsdp loss."""
+    initial norms, the first accepted attempt's parameters within the
+    gate and every planted fault past it, rows 12 and 14 launched on
+    every rank and held to their plain versions, the fsdp loss."""
     import torch
-    from repro_torch.optim import gradflow
-    cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=Q5_MAX_STEPS)
+    got1 = torch.load(tmp / "s1_first.pt")
     got = torch.load(tmp / "s1_params.pt")
-    want, start = single["params"], single["start"]
+    moved1 = single["moved_first"]
+    rel1 = s_dist(got1, single["first"]) / moved1
+    end = s_dist(got, single["params"])
+    del got1, got
+    x0 = ranks[0]["S.1"]
     nudged = single["nudged"]
-    dist = s_dist(got, want)
-    spread = max(s_dist(n["params"], want) for n in nudged)
-    moved = s_dist(want, start)
     # the initial step's two norms read the same vectors in both runs (the
     # weights, their first gradient): only the mesh norm's sum differs
-    n0 = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["S.1"]["norms"][:2],
+    n0 = [abs(a - b) / abs(b) for a, b in zip(x0["norms"][:2],
                                               single["norms"][:2])]
+    g = single["grad_norms"]
     total = dict(single["counts"])
     print("S.1 the ERK's WRMS norms (the initial step's two, then one an "
           "attempt; an attempt passes at <= 1): one card "
-          + " ".join(f"{v:.9g}" for v in single["norms"]) + "; from "
-          "weights nudged by one rounding "
-          + "; ".join(" ".join(f"{v:.9g}" for v in n["norms"])
-                      for n in nudged) + "; sharded "
-          + " ".join(f"{v:.9g}" for v in ranks[0]["S.1"]["norms"])
-          + f" (the initial step's two: rel {n0[0]:.3g}, {n0[1]:.3g})",
-          flush=True)
+          + s_fmt(single["norms"]) + "; sharded " + s_fmt(x0["norms"])
+          + f" (the initial step's two: rel {n0[0]:.3g}, {n0[1]:.3g}); "
+          f"with every norm nudged by ~{S_NUDGE:g}: "
+          + "; ".join(s_fmt(n["norms"]) for n in nudged), flush=True)
+    print(f"S.1 float32 gradients: the first gradient's norm {g['float32']:.9g}"
+          f" on one card, " + ", ".join(f"{rk['S.1']['grad_norm32']:.9g}"
+                                       for rk in ranks)
+          + f" sharded, against {g['float64']:.9g} in float64 on one card "
+          f"(rel {abs(g['float32'] / g['float64'] - 1):.3g}, "
+          + ", ".join(f"{abs(rk['S.1']['grad_norm32'] / g['float64'] - 1):.3g}"
+                      for rk in ranks) + ")", flush=True)
     for r, rk in enumerate(ranks):
         x = rk["S.1"]
         q_add(total, {k: tuple(v) for k, v in x["counts"].items()})
@@ -4940,28 +5059,38 @@ def s_check_ranks(ranks, single, tmp):
               f"{c['lincomb_max_abs_err']:.3g} (scale "
               f"{c['lincomb_scale']:.3g}), wrms_ss rel err "
               f"{c['wrms_ss_rel_err']:.3g} (tolerance "
-              f"{TOL['torch.float32']}); peak {x['peak_gib']:.2f} GiB, "
+              f"{TOL['torch.float32']}); replicas' largest difference "
+              f"after the first accepted attempt {x['drift_first']:.3g}, "
+              f"after the step {x['drift_params']:.3g}; peak "
+              f"{x['peak_gib']:.2f} GiB, "
               f"state {x['state_bytes'] / 2**30:.3f} GiB, fsdp state "
               f"{x['fsdp_state_bytes'] / 2**30:.3f} GiB, fsdp loss's "
               f"collectives {x['fsdp_collectives']}", flush=True)
     fsdp_rel = max(abs(rk["S.1"]["fsdp_loss"] - single["loss"]) /
                    abs(single["loss"]) for rk in ranks)
+    plants = single["plants"]
     print(f"S.1 gradflow over data={S_DATA} x model={S_MODEL} (heun_euler, "
           f"tau {Q5_TAU}, max_steps {Q5_MAX_STEPS}, Q.3's cut, batch "
           f"{S_BATCH} x {Q3_SEQ}): one card {single['steps']} steps / "
           f"{single['attempts']} attempts ({single['wall_s']:.2f} s), "
-          f"nudged " + ", ".join(f"{n['steps']} / {n['attempts']}"
-                                 for n in nudged) + ", sharded "
-          + ", ".join(f"{rk['S.1']['steps']} / {rk['S.1']['attempts']}"
-                      for rk in ranks)
+          f"sharded " + ", ".join(f"{rk['S.1']['steps']} / "
+                                  f"{rk['S.1']['attempts']}" for rk in ranks)
           + " (" + ", ".join(f"{rk['S.1']['wall_s']:.2f}" for rk in ranks)
-          + f" s a rank); params: the step moved them {moved:.3g} "
-          f"(relative), the sharded run lies {dist:.3g} from one card's, "
-          f"the nudged runs up to {spread:.3g}; fsdp loss max rel "
-          f"{fsdp_rel:.3g} "
-          f"(gate {S_FSDP_RTOL}); rows 12 and 14 launched "
-          + ", ".join(f"{k} {total[k][0]}" for k in S_KERNELS)
-          + " over the ranks", flush=True)
+          + f" s a rank); the first accepted attempt moved the params "
+          f"{moved1:.3g} (relative), the sharded run's lie {rel1:.3g} of "
+          f"that movement from one card's (gate {S_FIRST_GATE}), the "
+          f"nudged runs' " + ", ".join(f"{n['first_rel']:.3g}"
+                                       for n in nudged)
+          + "; planted faults " + ", ".join(f"{k} {v:.3g}"
+                                            for k, v in plants.items())
+          + f"; after the step (moved {single['moved']:.3g}): sharded "
+          f"{end:.3g} from one card's, nudged " + ", ".join(
+              f"{n['end_dist']:.3g}" for n in nudged) + "; counts nudged "
+          + ", ".join(f"{n['steps']} / {n['attempts']}" for n in nudged)
+          + f"; fsdp loss max rel {fsdp_rel:.3g} (gate {S_FSDP_RTOL}); "
+          f"rows 12 and 14 launched " + ", ".join(
+              f"{k} {total[k][0]}" for k in S_KERNELS) + " over the ranks",
+          flush=True)
     for r, rk in enumerate(ranks):
         x, c = rk["S.1"], rk["S.1"]["compare"]
         check(x["steps"] == single["steps"] and
@@ -4972,6 +5101,10 @@ def s_check_ranks(ranks, single, tmp):
               all(v[1] == 0 for v in x["counts"].values()),
               f"S.1 rank {r}: rows 12 and 14 not launched, or a plain "
               f"version ran on the card: {x['counts']}")
+        check(x["drift_first"] == 0 and x["drift_params"] == 0,
+              f"S.1 rank {r}: the replicas of a block differ: after the "
+              f"first accepted attempt {x['drift_first']:.3g}, after the "
+              f"step {x['drift_params']:.3g}")
         check(c["lincomb_max_abs_err"] <= TOL["torch.float32"] *
               c["lincomb_scale"] and c["wrms_ss_rel_err"] <=
               TOL["torch.float32"], f"S.1 rank {r}: a row disagrees with "
@@ -4980,18 +5113,21 @@ def s_check_ranks(ranks, single, tmp):
           f"{n0} from one card's (gate {S_NORM_RTOL})")
     check(fsdp_rel <= S_FSDP_RTOL, f"S.1: the fsdp loss is {fsdp_rel:.3g} "
           f"from one card's (gate {S_FSDP_RTOL})")
-    check(dist <= S_SPREAD * spread + S_PARAM_FLOOR, f"S.1: the gathered "
-          f"params lie {dist:.3g} from one card's, past {S_SPREAD}x the "
-          f"nudged run's {spread:.3g} + {S_PARAM_FLOOR}")
-    return {"steps": ranks[0]["S.1"]["steps"],
-            "attempts": ranks[0]["S.1"]["attempts"],
-            "params_dist": dist, "nudged_dist": spread, "moved": moved,
+    check(rel1 <= S_FIRST_GATE, f"S.1: after the first accepted attempt "
+          f"the gathered params lie {rel1:.3g} of the step's movement from "
+          f"one card's (gate {S_FIRST_GATE})")
+    check(all(v > S_FIRST_GATE for v in plants.values()), f"S.1: a planted "
+          f"fault passes the gate {S_FIRST_GATE}: {plants}")
+    return {"steps": x0["steps"], "attempts": x0["attempts"],
+            "first_rel": rel1, "moved_first": moved1,
+            "end_dist": end, "moved": single["moved"],
+            "plants": plants, "grad_norms": g,
             "initial_norms_rel": n0,
             "fsdp_loss_rel": fsdp_rel, "single": {
                 k: v for k, v in single.items()
-                if k not in ("params", "start", "counts", "nudged")},
-            "nudged": [{k: v for k, v in n.items() if k != "params"}
-                       for n in nudged],
+                if k not in ("params", "start", "first", "counts",
+                             "nudged")},
+            "nudged": nudged,
             "ranks": [{k: v for k, v in rk["S.1"].items() if k != "counts"}
                       for rk in ranks]}, total
 

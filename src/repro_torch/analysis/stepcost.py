@@ -285,15 +285,6 @@ class StepCost:
         return float(sum(r["ring_bytes"] for r in self.coll_rows()
                          if r["crosses_nodes"]))
 
-    def coll_counts(self) -> Dict[str, Tuple[int, int]]:
-        """kind -> (calls, input bytes), as ``collectives.counts()``."""
-        out = {k: [0, 0] for k in coll.KINDS}
-        for kind, groups in self.collectives.items():
-            for calls, nb in groups.values():
-                out[kind][0] += calls
-                out[kind][1] += nb
-        return {k: (c, b) for k, (c, b) in out.items()}
-
     # --- reports --------------------------------------------------------
     def top_ops(self, k: int = 14) -> List[tuple]:
         """The ``k`` aten ops (and kernel rows) moving the most bytes:
@@ -315,8 +306,8 @@ class StepCost:
         out = {"flops": self.flops, "matmul_flops": self.matmul_flops,
                "bytes": self.bytes, "coll_total": self.coll_bytes,
                "coll_net": self.coll_net_bytes,
-               "coll_count": float(sum(c for c, _ in
-                                       self.coll_counts().values())),
+               "coll_count": float(sum(c for c, _ in coll.counts(
+                   self.collectives).values())),
                "peak_bytes": float(self.peak_bytes)}
         for kind in coll.KINDS:
             out[f"coll_{kind}"] = float(sum(

@@ -54,6 +54,7 @@ from ..models import SHAPES, Model, ParallelCtx
 from ..models.config import ShapeConfig
 from ..models.spec import tree_map
 from ..optim import adamw
+from ..parallel import collectives as coll
 from ..parallel import sharding as shd
 from ..serve.decode import make_serve_step
 from ..train import step as tstep
@@ -69,7 +70,8 @@ MESH_WORLD = {"single": 256, "multi": 512}
 @contextlib.contextmanager
 def fake_world(n: int):
     """A fake default process group of ``n`` ranks, this process rank 0
-    (no other process, no data moved), destroyed on exit; a process
+    (no other process, no data moved), torn down on exit
+    (``collectives.close``); a process
     that already has a group raises."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -81,7 +83,7 @@ def fake_world(n: int):
     try:
         yield
     finally:
-        dist.destroy_process_group()
+        coll.close()
 
 
 def make_pctx(cfg, mesh, shape_kind: str, profile: str = "tp_fsdp"):
@@ -186,7 +188,7 @@ def lower_cell(arch: str, shape_name, mesh, mesh_name: str, ocfg=None,
             "chips": chips, "profile": profile,
             "microbatches": microbatches, "lower_s": lower_s, "ok": True,
             "stepcost": summary,
-            "collectives": sc.coll_counts(),
+            "collectives": coll.counts(sc.collectives),
             "collective_groups": sc.coll_rows(),
             "memory": mem, "roofline": row.to_dict(),
             "top_ops": sc.top_ops(), "top_collectives":

@@ -26,6 +26,7 @@ from ..core.policies import resolve_device
 from ..data import pipeline
 from ..models import Model, ParallelCtx
 from ..optim import adamw
+from ..parallel import collectives as coll
 from ..parallel import sharding as shd
 from ..train import checkpoint as ckpt
 from ..train import fault
@@ -80,6 +81,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch)
     model = Model(cfg)
+    # a group this launcher initialises (under torchrun) it tears down
+    owned = args.mesh != "none" and not torch.distributed.is_initialized()
     mesh = make_mesh(args.mesh, dev.type)
     pctx = make_pctx(cfg, mesh)
     ocfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
@@ -118,8 +121,7 @@ def main(argv=None):
         gf = gradflow.GradFlowConfig(tau=0.5, max_steps=10)
         lay = None
         if mesh is not None:
-            from ..models.sharded import Layout
-            lay = Layout(model.specs(), pctx)
+            lay = model.layout(pctx)
 
     mon = fault.HeartbeatMonitor(n_workers=world)
     hist = []
@@ -160,6 +162,8 @@ def main(argv=None):
     if rank == 0:
         print(f"done. first loss={hist[0]:.4f} last={hist[-1]:.4f} "
               f"(ckpt write {t_ckpt:.2f}s)")
+    if owned:
+        coll.close()
     return hist
 
 

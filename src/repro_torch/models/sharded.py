@@ -16,7 +16,8 @@ layers read (:func:`repro_torch.models.layers.kept`); a dim that
 ``spec_for`` left replicated (36 heads on 16) is kept over none and
 computes replicated, with no collective.
 
-The batch is split over ``dp_axes`` (:meth:`Layout.local_batch`): every
+The batch is split over ``dp_axes`` (:meth:`Layout.local_batch`, which
+returns the layout bound to that batch beside the rank's block): every
 rank passes the global batch and computes on its rows.  Gradients come
 back in the parameters' layout: the FSDP dims reduce-scattered, and the
 data-parallel axes a leaf is replicated over summed by
@@ -36,6 +37,7 @@ axis the tokens are split over (:attr:`token_axes`).
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Tuple
 
 import torch
@@ -49,18 +51,25 @@ TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "heads_x")
 
 
 class Layout:
-    """The layout of a model's parameters on ``pctx.mesh``; ``tp=False``
-    for a family whose layers have no tensor-parallel form (zamba2,
-    xlstm, whisper): every parameter is gathered whole at use and the
-    layers compute on their batch rows, replicated over ``model``."""
+    """The layout of the parameters of a model of ``cfg`` on
+    ``pctx.mesh``, and the axes its tokens split over.  The decoder-only
+    LM computes tensor parallel (``tp``); the families whose layers have
+    no tensor-parallel form (zamba2, xlstm, whisper) gather every
+    parameter whole at use and compute on their batch rows, replicated
+    over ``model``.  The token axes are those of a batch that splits,
+    the only batch a gradient may be taken of (:meth:`local_batch`), so
+    every layout of one ``(cfg, pctx)`` reduces gradients alike."""
 
-    def __init__(self, specs, pctx, tp: bool = True):
+    def __init__(self, cfg, pctx):
+        from .transformer import _SPECS, _family
+        fam = _family(cfg)
+        specs = _SPECS[fam](cfg)
         cst = pctx.cst
         if not isinstance(cst, shd.ShardCst):
             cst = shd.ShardCst(pctx.mesh)
         self.cst = cst
         self.fsdp = cst.profile == "fsdp"
-        self.tp = tp and not self.fsdp
+        self.tp = fam == "lm" and not self.fsdp
         self.seq_axes: Tuple[str, ...] = ("model",) if self.fsdp and \
             cst.comm.sizes.get("model", 1) > 1 else ()
         self.mesh = pctx.mesh
@@ -158,19 +167,22 @@ class Layout:
         return v.narrow(dim, i * m, m)
 
     def local_batch(self, batch: Dict[str, torch.Tensor]):
-        """This rank's block of the global ``batch``: its rows (split over
-        ``dp_axes``) and, under ``fsdp``, its sequence block over
-        ``model`` (with ``targets_next``, the targets shifted by one on
-        the whole sequence, for the multi-token head).  A batch or a
-        sequence that does not split stays whole on every rank, as the
-        reference's ``spec_for`` leaves it replicated; then no gradient
-        may be taken (it would be counted once a rank)."""
+        """(this layout bound to ``batch``, this rank's block of the
+        global ``batch``): its rows (split over ``dp_axes``) and, under
+        ``fsdp``, its sequence block over ``model`` (with
+        ``targets_next``, the targets shifted by one on the whole
+        sequence, for the multi-token head).  A batch or a sequence that
+        does not split stays whole on every rank, as the reference's
+        ``spec_for`` leaves it replicated, and the bound layout's token
+        axes leave it out; then no gradient may be taken (it would be
+        counted once a rank).  ``self`` is not changed."""
+        bound = copy.copy(self)
         if self.dp_axes:
             B, n = batch["tokens"].shape[0], self.comm.size(self.dp_axes)
             if B % n and torch.is_grad_enabled():
                 raise ValueError(f"a batch of {B} rows does not split over "
                                  f"{self.dp_axes} ({n} ranks)")
-            self.row_axes = self.dp_axes if B % n == 0 else ()
+            bound.row_axes = self.dp_axes if B % n == 0 else ()
         seq = bool(self.seq_axes)
         if seq:
             S, m = batch["tokens"].shape[1], self.comm.size(self.seq_axes)
@@ -183,19 +195,19 @@ class Layout:
                 batch = dict(batch, targets_next=torch.cat(
                     [t[:, 1:], -torch.ones_like(t[:, :1])], dim=1))
             if not seq:
-                self.seq_axes = ()
-            self.cst = self.cst.with_seq_axes(self.seq_axes)
+                bound.seq_axes = ()
+            bound.cst = self.cst.with_seq_axes(bound.seq_axes)
         out = {}
         for k, v in batch.items():
             if not torch.is_tensor(v) or v.dim() == 0:
                 out[k] = v
                 continue
-            if self.row_axes:
-                v = self._split(v, self.row_axes, 0, f"batch {k!r}")
+            if bound.row_axes:
+                v = bound._split(v, bound.row_axes, 0, f"batch {k!r}")
             if seq and v.dim() > 1:
-                v = self._split(v, self.seq_axes, 1, f"sequence {k!r}")
+                v = bound._split(v, bound.seq_axes, 1, f"sequence {k!r}")
             out[k] = v
-        return out
+        return bound, out
 
     def reduce_grads(self, grads):
         """Each leaf's gradient summed over the axes the tokens are split

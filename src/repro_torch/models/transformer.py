@@ -366,15 +366,13 @@ def _loss_xent(cfg, params, logits, targets, pctx):
 def _on_mesh(cfg, params, batch, pctx):
     """Under a mesh: (the top-level parameters gathered, this rank's
     batch rows, the context with its layout); else, or when the layout
-    is already made, as given.  The decoder-only LM computes tensor
-    parallel; the other families gather every parameter whole
-    (``Layout(tp=False)``)."""
+    is already made, as given (``sharded.Layout``: the decoder-only LM
+    computes tensor parallel; the other families gather every parameter
+    whole)."""
     if pctx.mesh is None or pctx.layout is not None:
         return params, batch, pctx
     from .sharded import Layout
-    fam = _family(cfg)
-    lay = Layout(_SPECS[fam](cfg), pctx, tp=fam == "lm")
-    batch = lay.local_batch(batch)
+    lay, batch = Layout(cfg, pctx).local_batch(batch)
     pctx = dataclasses.replace(pctx, cst=lay.cst, layout=lay)
     return lay.use_top(params), batch, pctx
 
@@ -796,8 +794,14 @@ class Model:
     def param_shardings(self, pctx: "ParallelCtx"):
         """Each parameter's layout on ``pctx.mesh`` (its profile's
         parameter rules)."""
+        return self.layout(pctx).shardings
+
+    def layout(self, pctx: "ParallelCtx"):
+        """The ``sharded.Layout`` of this model on ``pctx.mesh``: its
+        parameters' shardings and the axes a gradient sums over
+        (``reduce_grads``), as the loss lays them out."""
         from .sharded import Layout
-        return Layout(self.specs(), pctx).shardings
+        return Layout(self.cfg, pctx)
 
     def abstract_params(self):
         return abstract_params(self.specs())
@@ -860,9 +864,8 @@ class Model:
         dev = resolve_device(device)
         specs = self.cache_specs(batch, max_len)
         if pctx.mesh is not None:
-            from .sharded import Layout
             fam = _family(self.cfg)
-            lay = Layout(self.specs(), pctx, tp=fam == "lm")
+            lay = self.layout(pctx)
             n_dp = lay.comm.size(lay.dp_axes) if lay.dp_axes else 1
             if batch % n_dp:                  # rows kept whole, as the step
                 n_dp = 1

@@ -6,10 +6,10 @@ collectives a layout needs.  The port keeps each rank's local shards as
 plain tensors and issues each collective itself, here and nowhere else:
 ``all_gather``, ``reduce_scatter``, ``all_to_all`` and ``all_reduce``
 over a sub-group of one or more mesh axes (:class:`Comm`), each counted
-by kind in calls and bytes (:func:`counts`; the bytes a rank hands to
-the collective: its input), and by group (:func:`by_group`: the global
-ranks of each group beside its calls and bytes, from which
-``analysis.roofline.ring_bytes`` gives the bytes a rank sends).  A
+in calls and bytes (the bytes a rank hands to the collective: its
+input) by kind and group (:func:`by_group`: the global ranks of each
+group, from which ``analysis.roofline.ring_bytes`` gives the bytes a
+rank sends), and so by kind (:func:`counts`).  A
 ``meta`` tensor has no data: its call is counted and its output shaped,
 and nothing is handed to the group (the dry run's fake group moves no
 data either).  DTensor's own redistributions are not
@@ -50,38 +50,34 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 KINDS = ("all_gather", "reduce_scatter", "all_to_all", "all_reduce")
-_COUNTS: Dict[str, list] = {k: [0, 0] for k in KINDS}
 #: kind -> the global ranks of a group -> [calls, bytes]
 _GROUPS: Dict[str, Dict[Tuple[int, ...], list]] = {k: {} for k in KINDS}
 
 
-def counts() -> Dict[str, Tuple[int, int]]:
-    """kind -> (calls, bytes) since the last :func:`reset_counts`."""
-    return {k: (c, b) for k, (c, b) in _COUNTS.items()}
-
-
 def by_group() -> Dict[str, Dict[Tuple[int, ...], Tuple[int, int]]]:
-    """kind -> the global ranks of a group -> (calls, bytes) since the
-    last :func:`reset_counts`; the bytes are the inputs', as in
-    :func:`counts`."""
+    """kind -> the global ranks of a group -> (calls, input bytes) since
+    the last :func:`reset_counts`."""
     return {k: {m: (c, b) for m, (c, b) in v.items()}
             for k, v in _GROUPS.items()}
 
 
+def counts(groups=None) -> Dict[str, Tuple[int, int]]:
+    """kind -> (calls, input bytes) over every group: since the last
+    :func:`reset_counts`, or of ``groups``, a :func:`by_group` record."""
+    groups = by_group() if groups is None else groups
+    return {k: (sum(c for c, _ in groups[k].values()),
+                sum(b for _, b in groups[k].values())) for k in KINDS}
+
+
 def reset_counts() -> None:
-    for v in _COUNTS.values():
-        v[0] = v[1] = 0
     for v in _GROUPS.values():
         v.clear()
 
 
 def _count(kind: str, t: torch.Tensor, comm: "Comm", axes) -> None:
-    n = t.numel() * t.element_size()
-    _COUNTS[kind][0] += 1
-    _COUNTS[kind][1] += n
     rec = _GROUPS[kind].setdefault(comm.members(axes), [0, 0])
     rec[0] += 1
-    rec[1] += n
+    rec[1] += t.numel() * t.element_size()
 
 
 def _axes(axes) -> Tuple[str, ...]:
@@ -95,6 +91,8 @@ class Comm:
 
     def __init__(self, mesh):
         self.mesh = mesh
+        #: the default group its groups belong to (gone once it is)
+        self.world = dist.group.WORLD if dist.is_initialized() else None
         self.names = tuple(mesh.mesh_dim_names)
         self.sizes = dict(zip(self.names, mesh.mesh.shape))
         self._groups = {}
@@ -156,6 +154,27 @@ def comm_of(mesh) -> Comm:
     if c is None or c.mesh is not mesh:
         c = _COMMS[id(mesh)] = Comm(mesh)
     return c
+
+
+def close() -> None:
+    """Tear down this process's groups after its last collective: each
+    group of several mesh axes a :class:`Comm` of the current default
+    group made, then the meshes' axis groups with the default group
+    (``destroy_process_group``).  Every :class:`Comm` is forgotten (one
+    of a default group already destroyed holds no live group), so that
+    no group is left for the interpreter's exit to tear down in no set
+    order."""
+    world = dist.group.WORLD if dist.is_initialized() else None
+    for c in _COMMS.values():
+        if world is not None and c.world is world:
+            for axes, (pg, _) in c._groups.items():
+                if len(axes) > 1:
+                    dist.destroy_process_group(pg)
+        c._groups.clear()
+        c._members.clear()
+    _COMMS.clear()
+    if world is not None:
+        dist.destroy_process_group()
 
 
 def _staged(t: torch.Tensor, pg):

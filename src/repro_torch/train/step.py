@@ -72,8 +72,7 @@ def make_train_step(model: Model, pctx: ParallelCtx = ParallelCtx(),
     tensors (``loss``, ``grad_norm``, ``lr``)."""
     lay = None
     if pctx.mesh is not None:
-        from ..models.sharded import Layout
-        lay = Layout(model.specs(), pctx)
+        lay = model.layout(pctx)
         if grad_shardings is not None and tree_leaves(grad_shardings) != \
                 tree_leaves(lay.shardings):
             raise ValueError("grad_shardings differ from the parameters' "

@@ -44,19 +44,14 @@ dist.init_process_group("gloo", init_method=f"file://{TMP}/store",
                         rank=RANK, world_size=WORLD)
 OUT = {}
 """
-#: a rank saves its record after the last collective and leaves with
-#: ``os._exit``: under the full suite's load (``-n 6``) gloo's teardown
-#: (``destroy_process_group`` and the interpreter's exit, with the
-#: mesh's sub-groups still referenced) sometimes aborted a rank that had
-#: passed the last barrier ("terminate called without an active
-#: exception", exit -6), after its work was done and saved
+#: a rank saves its record after the last collective, then tears its
+#: groups down (``collectives.close``: the groups of several mesh axes
+#: first, then the default group with the rest)
 EPILOGUE = """
 dist.barrier()
 torch.save(OUT, f"{TMP}/rank{RANK}.pt")
-sys.stdout.flush()
-sys.stderr.flush()
-import os
-os._exit(0)
+from repro_torch.parallel import collectives as _coll
+_coll.close()
 """
 
 
@@ -65,7 +60,7 @@ def _run_ranks(tmp_path, world: int, body: str) -> list:
     and ``dist`` defined); returns each rank's ``OUT``."""
     script = PRELUDE + textwrap.dedent(body) + EPILOGUE
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               OMP_NUM_THREADS="1")
+               OMP_NUM_THREADS="1", PYTHONFAULTHANDLER="1")
     procs = [subprocess.Popen([sys.executable, "-c", script, str(r),
                                str(world), str(tmp_path)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -37,6 +37,8 @@ from repro.models import SHAPES as REF_SHAPES
 from repro.models import Model as RefModel
 from repro.optim import adamw as ref_adamw
 from repro.train import step as ref_step
+from torch.testing._internal.distributed.fake_pg import FakeStore
+
 from repro_torch import configs, kernels
 from repro_torch.analysis import roofline as rf
 from repro_torch.analysis.stepcost import StepCost, is_abstract
@@ -107,6 +109,24 @@ def test_ring_model_unknown_kind_raises():
         rf.ring_bytes("broadcast", 10, 2)
 
 
+def test_close_forgets_the_groups_of_a_world_already_destroyed():
+    """``collectives.close`` tears down the current world's groups and
+    only drops a Comm whose default group was destroyed without it."""
+    import torch.distributed as dist
+    with dryrun.fake_world(4):
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        coll.comm_of(mesh).group(("data", "model"))
+        dist.destroy_process_group()            # not through close()
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=4)
+        fresh = coll.comm_of(make_debug_mesh(2, 2, device_type="cpu"))
+        pg, _ = fresh.group(("model", "data"))
+    assert not dist.is_initialized() and coll._COMMS == {}
+    assert fresh.world is not None and not fresh._groups
+    with pytest.raises(ValueError):
+        dist.destroy_process_group(pg)          # already torn down
+
+
 def test_stepcost_reads_collectives_through_the_ring_model():
     with dryrun.fake_world(8):
         mesh = make_debug_mesh(2, 2, pod=2, device_type="cpu")
@@ -124,7 +144,7 @@ def test_stepcost_reads_collectives_through_the_ring_model():
     # ranks 0-7 lie in one node of 8: nothing crosses
     assert sc.coll_net_bytes == 0.0
     assert sc.coll_bytes == 128 + 96 + 224
-    assert sc.coll_counts()["all_gather"] == (1, 128)
+    assert coll.counts(sc.collectives)["all_gather"] == (1, 128)
     small = StepCost(node_cards=2)
     small.collectives = sc.collectives
     assert small.coll_net_bytes == 96 + 224                # groups of 4, 8

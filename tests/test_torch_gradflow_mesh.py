@@ -66,7 +66,6 @@ from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.train import make_pctx
 from repro_torch.models import Model
 from repro_torch.models import layers as L, moe_ep as ME, transformer as T
-from repro_torch.models.sharded import Layout
 from repro_torch.models.spec import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import adamw, gradflow
 from repro_torch.parallel import collectives as coll
@@ -88,7 +87,7 @@ tree = tree_unflatten(model.specs(), [saved[f"p{i}"] for i in
                                       range(len(tree_leaves(model.specs())))])
 full = interop.model_params_from_reference(tree, model, device="cpu")
 pctx = make_pctx(model.cfg, mesh)
-lay = Layout(model.specs(), pctx)
+lay = model.layout(pctx)
 local = tree_map(lambda t, s: s.shard(t), full, lay.shardings)
 cfg = gradflow.GradFlowConfig(tau=TAU, max_steps=MAX_STEPS)
 p2, st = gradflow.step(lambda p: model.loss(p, batch, pctx), local, cfg,
@@ -100,6 +99,7 @@ if RANK == 0:
     OUT["gf_single_counts"] = torch.tensor([int(st1.steps),
                                             int(st1.attempts)])
     OUT["gf_single"] = tuple(tree_leaves(p1))
+    OUT["gf_start"] = tuple(tree_leaves(full))
 
 # the fsdp profile's loss, float32
 losses = []
@@ -137,7 +137,7 @@ for arch in (ARCH, "deepseek-v3-671b-smoke"):
     cfg_a = configs.get(arch).replace(dtype=torch.float64, moe_cap_factor=8.0)
     m = Model(cfg_a)
     fp = dryrun.make_pctx(cfg_a, mesh, "train", "fsdp")
-    flay = Layout(m.specs(), fp)
+    flay = m.layout(fp)
     params = tree_map(torch.Tensor.double,
                       m.init(torch.Generator().manual_seed(0), device="cpu"))
     mine = tree_map(lambda t, s: s.shard(t), params, flay.shardings)
@@ -162,7 +162,6 @@ from repro_torch.launch.train import make_pctx
 from repro_torch.models import Model
 from repro_torch.models import layers as L, moe_ep as ME, ssm as SS
 from repro_torch.models import transformer as T
-from repro_torch.models.sharded import Layout
 from repro_torch.models.spec import tree_leaves, tree_map
 from repro_torch.optim import adamw
 from repro_torch.parallel import collectives as coll
@@ -182,7 +181,7 @@ for arch in FAMILIES:
     cfg = configs.get(arch).replace(dtype=torch.float64)
     model = Model(cfg)
     pctx = make_pctx(cfg, mesh)
-    lay = Layout(model.specs(), pctx, tp=False)
+    lay = model.layout(pctx)
     g = torch.Generator().manual_seed(1)
     B, S = 4, 16
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
@@ -253,6 +252,12 @@ def ranks(tmp_path_factory):
             "rmodel": rmodel}
 
 
+def _gf_errs(got, want):
+    """Each leaf's max abs difference over its largest entry."""
+    return [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            for a, b in zip(got, want)]
+
+
 def test_gradflow_over_a_mesh_equals_the_unsharded_step(ranks):
     outs = ranks["outs"]
     single = outs[0]["gf_single"]
@@ -262,8 +267,18 @@ def test_gradflow_over_a_mesh_equals_the_unsharded_step(ranks):
         assert out["gf_counts"].tolist() == counts
         for a, b in zip(out["gf_params"], single):
             assert a.shape == b.shape
-            err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-            assert err <= GF_RTOL
+        assert max(_gf_errs(out["gf_params"], single)) <= GF_RTOL
+
+
+def test_gradflow_mesh_gate_fails_a_wrong_step(ranks):
+    """The parameter gate above lies well below the step's own
+    movement: a step that returns its input, or half the update, lies
+    past it."""
+    out = ranks["outs"][0]
+    start, single = out["gf_start"], out["gf_single"]
+    assert max(_gf_errs(start, single)) > 100 * GF_RTOL
+    half = [s + 0.5 * (p - s) for s, p in zip(start, single)]
+    assert max(_gf_errs(half, single)) > 50 * GF_RTOL
 
 
 def test_gradflow_unsharded_step_matches_the_reference(ranks):

@@ -50,7 +50,6 @@ from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.train import make_pctx
 from repro_torch.models import Model, ParallelCtx
 from repro_torch.models import layers as L, moe_ep as ME, transformer as T
-from repro_torch.models.sharded import Layout
 from repro_torch.models.spec import tree_leaves, tree_map
 from repro_torch.optim import adamw
 from repro_torch.parallel import collectives as coll
@@ -72,7 +71,7 @@ for arch in ARCHS:
     cfg = configs.get(arch).replace(dtype=torch.float64, moe_cap_factor=8.0)
     model = Model(cfg)
     pctx = make_pctx(cfg, mesh)
-    lay = Layout(model.specs(), pctx)
+    lay = model.layout(pctx)
     sh = tstep.state_shardings(model, pctx)
     comm = lay.comm
 
@@ -110,7 +109,7 @@ for arch in ARCHS:
             errs[f"{name}{mb}"] = max(rel(full(x, s), w) for x, s, w in zip(
                 tree_leaves(a), tree_leaves(sh.params), tree_leaves(b)))
     # the forward pass and three decode steps: this rank's rows
-    lay_rows = lay.local_batch(batch)["tokens"].shape[0]
+    lay_rows = lay.local_batch(batch)[1]["tokens"].shape[0]
     r0 = lay.comm.index(lay.dp_axes) * lay_rows
     with torch.no_grad():
         full = model.forward(ref_state.params, batch)
