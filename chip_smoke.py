@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile[=main,A,...,N]] [--ptxas]
-                          [--only=R | --only=S]
+                          [--only=R | --only=S | --only=T]
 
 Run from the repository root.  It imports nothing of JAX or of the JAX
 package.  Phases, each of which fails the run (non-zero exit), and each
@@ -281,8 +281,9 @@ of which prints the seconds it took:
      against one card (row 16 on each rank's shards), a sharded
      checkpoint saved, restored and stepped bit for bit;
    - path S, after R: S.1 in four ``--path-s-rank`` processes (gloo,
-     data 2 x model 2) ``gradflow.step`` over the mesh on Q.3's cut
-     (rows 12 and 14 on every rank's float32 shards, the gradients in
+     data 2 x model 2) ``gradflow.step`` over the mesh on Q.3's cut,
+     its first 3 ERK attempts (rows 12 and 14 on every rank's float32
+     shards, the gradients in
      float64 in both runs), its steps and attempts and its initial
      step's norms equal to one card's unsharded step, the gathered
      parameters after the first accepted attempt within 1 % of that
@@ -297,6 +298,23 @@ of which prints the seconds it took:
      record of this call) and Q.1's; each cell's roofline row (data-sheet
      estimates) and seconds printed, no kernel launched and row 16's
      plain version only on abstract tensors;
+   - path T, after S: T.1 in four ``--path-t-rank`` processes (gloo,
+     data 2 x model 2) the fsdp profile's loss and gradients of zamba2-7b
+     (2 Mamba layers, one shared-attention site), xlstm-125m (one pair),
+     whisper-tiny and qwen2-vl-2b (2 layers, a vision prefix that ends
+     inside a sequence block) at their FULL widths, float32 weights
+     evaluated in float64, batch 2 x 256 (xlstm 2 x 64), against one
+     card's (every gradient leaf, NaN where one card's is; one card's
+     nudged runs inside the same gates, a planted fault past them), with
+     a rank's ms, collectives, state and peak; T.2 on data 1 x model 4
+     qwen2-vl-2b's 2-layer cut in float64, whose caches split head_dim 4
+     ways: a
+     4096-token prefill and 8 greedy steps against one card's, each
+     rank's K/V a quarter of one card's;
+     T.3 the dry run of the fsdp ``train_4k`` cells of zamba2-7b,
+     whisper-tiny and qwen2-vl-2b and qwen2-72b ``decode_32k`` on the
+     256-rank mesh, in this process while T.1-T.2's ranks run (their
+     times include it); no kernel of the port on the path;
 5. prints the ``{"kernels": [...]}`` line; 6. prints the ``ok`` line.
 
 ``--profile`` adds a profiled kernel run to each path (``--profile=I,J``
@@ -2034,11 +2052,20 @@ def spawn_ranks(world, profile, flag="--path-n-rank", tmp=None,
     rank.  Returns each rank's record."""
     import shutil
     import tempfile
-    import torch
     OUT.mkdir(exist_ok=True)
     own = tmp is None
     if own:
         tmp = Path(tempfile.mkdtemp(prefix="path_n_", dir=OUT))
+    outs = wait_ranks(start_ranks(world, profile, flag, tmp), tmp, timeout,
+                      path)
+    if own:
+        shutil.rmtree(tmp)
+    return outs
+
+
+def start_ranks(world, profile, flag, tmp):
+    """Start ``world`` rank processes of this script (``flag RANK WORLD
+    tmp``), each writing to ``tmp/rank{R}.log``: -> (processes, logs)."""
     # each rank writes to a file of its own: a rank blocked on a full
     # pipe would stall the other at its next collective
     logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
@@ -2047,6 +2074,15 @@ def spawn_ranks(world, profile, flag="--path-n-rank", tmp=None,
                                *(["--profile"] if profile else [])],
                               stdout=logs[r], stderr=subprocess.STDOUT,
                               text=True, cwd=ROOT) for r in range(world)]
+    return procs, logs
+
+
+def wait_ranks(started, tmp, timeout, path):
+    """Wait for the ranks :func:`start_ranks` started, at most ``timeout``
+    s (then every one left is killed), print their logs and fail unless
+    each exited 0: -> each rank's record (``tmp/rank{R}.pt``)."""
+    import torch
+    procs, logs = started
     deadline = time.monotonic() + timeout
     try:
         for p in procs:
@@ -2065,10 +2101,7 @@ def spawn_ranks(world, profile, flag="--path-n-rank", tmp=None,
         print("\n".join(f"  [rank {r}] {line}" for line in log.splitlines()),
               flush=True)
         check(p.returncode == 0, f"{path}: rank {r} exited {p.returncode}")
-    outs = [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
-    if own:
-        shutil.rmtree(tmp)
-    return outs
+    return [torch.load(tmp / f"rank{r}.pt") for r in range(len(procs))]
 
 
 def phase_path_n(y_main, st_main, syncs_main, y_d, profile):
@@ -4674,6 +4707,11 @@ S_FSDP_RTOL = 1e-4
 S_NORM_RTOL = 1e-6
 S_FIRST_GATE = 0.01
 S_NUDGE, S_NUDGE_RUNS = 1e-7, 8
+#: S.1's attempts (Q.5 takes 6): its first accepted attempt is the 3rd
+#: (PR 27), so 3 hold every gate at 7 float64 gradients through the
+#: host, not 13 (with 6, S.1's ranks took 233 s and the whole script
+#: 1095 s on an H100, past its 900 s budget: PERF.md, PR 28)
+S_MAX_STEPS = 3
 #: S.2: the dry run's cells on fake groups of this process (meta
 #: tensors): two production cells on the 256-rank single mesh, the
 #: fsdp profile of the first, R.3's cell on the 2 x 2 debug mesh and
@@ -4745,14 +4783,15 @@ def s_batch(dev):
 
 class SWide:
     """Inside ``with``: the model's float32 accumulations (``f32`` of
-    ``layers``, ``transformer``, ``moe_ep`` and ``optim.adamw``) are
-    float64, as ``tests/test_torch_sharded_train.py`` widens them."""
+    ``layers``, ``transformer``, ``moe_ep``, ``ssm`` and
+    ``optim.adamw``) are float64, as
+    ``tests/test_torch_sharded_train.py`` widens them."""
 
     def __enter__(self):
         import torch
-        from repro_torch.models import layers, moe_ep, transformer
+        from repro_torch.models import layers, moe_ep, ssm, transformer
         from repro_torch.optim import adamw
-        self._mods = (layers, transformer, moe_ep, adamw)
+        self._mods = (layers, transformer, moe_ep, ssm, adamw)
         for m in self._mods:
             m.f32 = torch.float64
         return self
@@ -4825,7 +4864,7 @@ def s_single(dev):
     params = spec.tree_map(lambda a: a.to(dev), weights)
     start = spec.tree_leaves(params)
     batch = s_batch(dev)
-    cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=Q5_MAX_STEPS)
+    cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=S_MAX_STEPS)
     t0 = time.perf_counter()
     with SWide(), SWatch() as watch:
         (p2, st), counts = q_counted(
@@ -4920,7 +4959,7 @@ def s_gradflow_rank(mesh, dev, rank, tmp):
     local = spec.tree_map(lambda t, s: s.shard(t).to(dev), full,
                           lay.shardings)
     batch = s_batch(dev)
-    cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=Q5_MAX_STEPS)
+    cfg = gradflow.GradFlowConfig(tau=Q5_TAU, max_steps=S_MAX_STEPS)
     p_peak_reset()
     t0 = time.perf_counter()
     with SWide(), SWatch() as watch:
@@ -5070,7 +5109,7 @@ def s_check_ranks(ranks, single, tmp):
                    abs(single["loss"]) for rk in ranks)
     plants = single["plants"]
     print(f"S.1 gradflow over data={S_DATA} x model={S_MODEL} (heun_euler, "
-          f"tau {Q5_TAU}, max_steps {Q5_MAX_STEPS}, Q.3's cut, batch "
+          f"tau {Q5_TAU}, max_steps {S_MAX_STEPS}, Q.3's cut, batch "
           f"{S_BATCH} x {Q3_SEQ}): one card {single['steps']} steps / "
           f"{single['attempts']} attempts ({single['wall_s']:.2f} s), "
           f"sharded " + ", ".join(f"{rk['S.1']['steps']} / "
@@ -5132,7 +5171,7 @@ def s_check_ranks(ranks, single, tmp):
                       for rk in ranks]}, total
 
 
-def s_cell(label, run, rows):
+def s_cell(label, run, rows, path="S.2"):
     """One dry-run cell: run it, print its roofline row and seconds."""
     from repro_torch import kernels
     from repro_torch.launch import dryrun
@@ -5141,19 +5180,21 @@ def s_cell(label, run, rows):
     res = run()
     sec = time.perf_counter() - t0
     counts = kernels.counts()
-    check(res["ok"], f"S.2 {label}: {res.get('error')}")
+    check(res["ok"], f"{path} {label}: {res.get('error')}")
     check(all(v[0] == 0 for v in counts.values()),
-          f"S.2 {label}: a kernel launched on abstract tensors: {counts}")
+          f"{path} {label}: a kernel launched on abstract tensors: {counts}")
     abstract = res["stepcost"]["rows"].get("dot", {}).get("calls", 0)
-    check(counts["dot"][1] == abstract, f"S.2 {label}: row 16's plain "
+    check(counts["dot"][1] == abstract, f"{path} {label}: row 16's plain "
           f"version ran {counts['dot'][1]} times, {abstract} of them on "
           f"abstract tensors")
     mem = res["memory"]
-    print(f"S.2 {label}: {sec:.2f} s; flops {res['stepcost']['flops']:.4g}, "
+    print(f"{path} {label}: {sec:.2f} s; flops "
+          f"{res['stepcost']['flops']:.4g}, "
           f"bytes {res['stepcost']['bytes']:.4g}, ring bytes "
           f"{res['stepcost']['coll_total']:.4g} "
           f"({res['stepcost']['coll_net']:.4g} across nodes) a rank; "
-          f"collectives {res['collectives']}; state "
+          f"collectives {res['collectives']}; arguments "
+          f"{mem['argument_bytes'] / 2**30:.4f} GiB, state "
           f"{mem['state_bytes'] / 2**30:.4f} GiB, peak "
           f"{mem['peak_bytes'] / 2**30:.2f} GiB a rank; row 16 on abstract "
           f"tensors {abstract} calls; roofline (estimates) "
@@ -5256,6 +5297,492 @@ def phase_path_s(card, r3=None, dev=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# path T: every family under the fsdp profile, the decode caches in the
+# reference's layout
+# ---------------------------------------------------------------------------
+
+T_WORLD, T_DATA, T_MODEL, T_RANK_TIMEOUT = 4, 2, 2, 600
+#: T.1: (arch, layers, tokens) of each family's FULL width cut in depth
+#: (None: whole), float32 weights drawn on the CPU (seed 0) evaluated in
+#: float64 (the modules' float32 accumulations widened); a batch of
+#: T_BATCH rows (numpy seed 5), whose sequence splits over `model`;
+#: qwen2-vl's first T_VIS positions a vision prefix, which ends inside
+#: the first model rank's block; whisper's frames as many as its tokens.
+#: xlstm-125m takes 64 tokens: its recurrence amplifies a rounding
+#: error ~e^0.1 a token, so at 256 a nudge of the embedding by 1e-15
+#: moves one card's float64 gradient 0.52 of its largest entry and by
+#: 1e-13 0.127 (at 64: 8.7e-8 for both, the float32 rounding of the
+#: gradient; tools/xlstm_nudge_witness.py), and no gate below 1 could
+#: hold the sharded run to it
+T1_CUTS = (("zamba2-7b", 2, 256), ("xlstm-125m", 2, 64),
+           ("whisper-tiny", None, 256), ("qwen2-vl-2b", 2, 256))
+T_BATCH, T_VIS = 2, 100
+#: T.1's gates, fixed: the float64 loss's relative difference from one
+#: card's; each float32 gradient leaf's largest difference over its
+#: largest entry, where both are finite (the float64 gradients rounded
+#: to float32: one ulp is 1.2e-7).  zamba2's and xlstm's gradients hold
+#: NaN at these widths in both packages (ROADMAP C): the sharded ones
+#: must hold it exactly where one card's do.  One card's own loss and
+#: gradients with the embedding nudged by a factor 1 + each T1_NUDGES
+#: must be finite and inside the same gates (else one card's result
+#: cannot resolve them and T.1 fails), and on every rank a planted
+#: fault, one gradient leaf halved, must lie past them
+T1_LOSS_RTOL, T1_GRAD_RTOL = 1e-9, 1e-6
+T1_NUDGES = (1e-15, 1e-13)
+#: T.2: qwen2-vl-2b's width cut to T2_LAYERS, float32 weights evaluated
+#: in float64, on data 1 x model 4 (12 heads split 4 ways; its 2 kv heads
+#: do not, so the caches split head_dim 128 = 4 x 32); a prefill of
+#: T2_PROMPT tokens (numpy seed 7) in one decode step, then T2_STEPS
+#: greedy steps
+T2_ARCH, T2_LAYERS, T2_DATA, T2_MODEL = "qwen2-vl-2b", 2, 1, 4
+T2_PROMPT, T2_STEPS = 4096, 8
+#: T.2's gate: each step's logits' largest difference from one card's
+#: over their largest magnitude (the tokens must be equal; in float32
+#: the two lay 1.49e-4 apart, past the 1e-4 first set: PERF.md, PR 28)
+T2_LOGIT_RTOL = 1e-9
+#: T.3: the dry run's cells (meta tensors, a fake group of 256 in this
+#: process while T.1 and T.2's ranks run: the script's time budget
+#: leaves no room to run it alone, so the ranks' times include its
+#: share of the host); qwen2-72b
+#: decode_32k's arguments a rank must fall below T3_ARG_GIB (80.68 GiB
+#: with every kv head on every model rank, PR 27; about 5.7 GiB in the
+#: reference's layout)
+T3_CELLS = (("zamba2-7b", "train_4k", "fsdp"),
+            ("whisper-tiny", "train_4k", "fsdp"),
+            ("qwen2-vl-2b", "train_4k", "fsdp"),
+            ("qwen2-72b", "decode_32k", "tp_fsdp"))
+T3_ARG_GIB = 8.0
+
+
+def t_model(arch, layers, dtype):
+    from repro_torch import configs
+    from repro_torch.models import Model
+    cfg = configs.get(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    return Model(cfg.replace(dtype=dtype))
+
+
+def t_weights(arch, layers):
+    """The float32 weights of a T config, drawn on the CPU."""
+    import torch
+    return t_model(arch, layers, torch.float32).init(0, device="cpu")
+
+
+def t1_batch(cfg, seq, dev):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    s = seq - T_VIS if cfg.mrope else seq
+    batch = {k: rng.integers(0, cfg.vocab_size, (T_BATCH, s), np.int32)
+             for k in ("tokens", "targets")}
+    if cfg.mrope:
+        batch["vis_embeds"] = 0.02 * rng.standard_normal(
+            (T_BATCH, T_VIS, cfg.d_model))
+    if cfg.enc_dec:
+        batch["frames"] = 0.02 * rng.standard_normal(
+            (T_BATCH, seq, cfg.d_model))
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def t1_grads(model, params, batch, pctx=None, nudge=0.0):
+    """(float64 loss, float32 gradients) of float32 ``params`` evaluated
+    in float64 (the embedding times ``1 + nudge``); under a mesh each
+    leaf's gradient in its layout."""
+    from repro_torch.models import ParallelCtx, spec
+    from repro_torch.train import step as tstep
+
+    def loss(p, b):
+        p = spec.tree_map(lambda a: a.to(model.cfg.dtype), p)
+        if nudge:
+            p = dict(p, embed=p["embed"] * (1 + nudge))
+        return model.loss(p, b, pctx or ParallelCtx())
+
+    with SWide():
+        val, g = tstep.value_and_grad(loss, params, batch)
+    if pctx is not None:
+        g = model.layout(pctx).reduce_grads(g)
+    return val, g
+
+
+def t1_scale(b) -> float:
+    """``b``'s largest finite magnitude (0 if none)."""
+    import torch
+    fin = b[torch.isfinite(b)]
+    return float(fin.abs().max()) if fin.numel() else 0.0
+
+
+def t1_rel(a, b, scale=None):
+    """The largest difference of ``a`` from ``b`` where both are finite,
+    over ``scale`` (default: ``b``'s largest finite magnitude); inf when
+    their non-finite entries lie apart."""
+    import torch
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb):
+        return float("inf")
+    if scale is None:
+        scale = t1_scale(b)
+    err = float((a[fb] - b[fb]).abs().max()) if fb.any() else 0.0
+    return err / max(scale, 1e-30)
+
+
+def t2_run(model, params, dev, pctx=None):
+    """T.2 on one card or a mesh: the prompt's prefill in one decode
+    step, then greedy steps: -> tokens, each step's logits (on the CPU),
+    ms a step, the prefill's seconds, the caches' bytes, collectives."""
+    import torch
+    from repro_torch.models import ParallelCtx
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serve.decode import sample_token
+    pctx = pctx or ParallelCtx()
+    prompt = p_tokens(7, (1, T2_PROMPT), model.cfg.vocab_size, dev)
+    out = {"tokens": [], "logits": [], "ms": []}
+    with torch.no_grad(), SWide():
+        caches = model.init_cache(1, T2_PROMPT + T2_STEPS, device=dev,
+                                  pctx=pctx)
+        coll.reset_counts()
+        p_sync()
+        t0 = time.perf_counter()
+        y, _ = model.decode_step(params, {"tokens": prompt, "pos": 0},
+                                 caches, pctx)
+        tok = sample_token(y)
+        p_sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_collectives"] = coll.counts()
+        del y
+        for i in range(T2_STEPS):
+            coll.reset_counts()
+            p_sync()
+            t0 = time.perf_counter()
+            y, _ = model.decode_step(params, {"tokens": tok,
+                                              "pos": T2_PROMPT + i},
+                                     caches, pctx)
+            p_sync()
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            out["tokens"].append(int(tok))
+            out["logits"].append(y.cpu())
+            tok = sample_token(y)
+        out["step_collectives"] = coll.counts()
+    out["cache_bytes"] = p_bytes(caches)
+    out["kv_bytes"] = p_bytes({k: caches[k] for k in ("k", "v")})
+    out["kv_shape"] = tuple(caches["k"].shape)
+    return out
+
+
+def t_single(dev, tmp):
+    """One card's T.1 gradients (saved for the ranks) and T.2 run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import spec
+    kernels.reset_counts()
+    out = {}
+    for arch, layers, seq in T1_CUTS:
+        model = t_model(arch, layers, torch.float64)
+        params = spec.tree_map(lambda a: a.to(dev), t_weights(arch, layers))
+        batch = t1_batch(model.cfg, seq, dev)
+        p_peak_reset()
+        t0 = time.perf_counter()
+        loss, g = t1_grads(model, params, batch)
+        p_sync()
+        out[arch] = {"loss": float(loss),
+                     "ms": 1e3 * (time.perf_counter() - t0),
+                     "peak_gib": p_peak_gib(),
+                     "state_bytes": p_bytes(params)}
+        # the model's own sensitivity: the same step, the embedding nudged
+        out[arch]["nudged"] = []
+        for nudge in T1_NUDGES:
+            loss_n, g_n = t1_grads(model, params, batch, nudge=nudge)
+            out[arch]["nudged"].append((
+                abs(float(loss_n - loss)) / abs(float(loss)),
+                max(t1_rel(a, b) for a, b in zip(spec.tree_leaves(g_n),
+                                                 spec.tree_leaves(g)))))
+            del g_n
+        out[arch]["nonfinite"] = sum(int((~torch.isfinite(x)).sum())
+                                     for x in spec.tree_leaves(g))
+        torch.save({"loss": float(loss),
+                    "grads": [x.cpu() for x in spec.tree_leaves(g)]},
+                   tmp / f"t1_{arch}.pt")
+        print(f"T.1 one card {arch}: loss {float(loss):.12g}, "
+              f"{out[arch]['ms']:.1f} ms (the first step), peak "
+              f"{out[arch]['peak_gib']:.2f} GiB; {out[arch]['nonfinite']} "
+              f"non-finite gradient entries; nudges "
+              f"{t1_fmt_nudged(out[arch])}", flush=True)
+        del params, g, batch
+        torch.cuda.empty_cache()
+    model = t_model(T2_ARCH, T2_LAYERS, torch.float64)
+    params = spec.tree_map(lambda a: a.to(dev, torch.float64),
+                           t_weights(T2_ARCH, T2_LAYERS))
+    out["T.2"] = t2_run(model, params, dev)
+    torch.save(out["T.2"], tmp / "t2.pt")
+    del params
+    torch.cuda.empty_cache()
+    counts = kernels.counts()
+    check(all(v == (0, 0) for v in counts.values()),
+          f"T one card launched a kernel or a plain version: {counts}")
+    return out
+
+
+def t1_fmt_nudged(one) -> str:
+    """One card's nudged readings: "n: loss rel, gradients rel; ..."."""
+    return "; ".join(f"{n:g}: loss {lr:.3g}, gradients {gr:.3g}"
+                     for n, (lr, gr) in zip(T1_NUDGES, one["nudged"]))
+
+
+def t1_planted(grads, shardings, ref, rank):
+    """A planted fault: the first gradient leaf from ``rank`` on (modulo
+    their number) with a finite non-zero entry on this rank, halved,
+    measured as T.1 measures each leaf: -> (leaf index, relative
+    difference)."""
+    import torch
+    n = len(grads)
+    for j in range(n):
+        i = (rank + j) % n
+        x = grads[i].cpu()
+        fin = x[torch.isfinite(x)]
+        if fin.numel() and bool((fin != 0).any()):
+            return i, t1_rel(0.5 * x, shardings[i].shard(ref[i]),
+                             t1_scale(ref[i]))
+    raise AssertionError(f"T.1 rank {rank}: no leaf to plant a fault in")
+
+
+def t1_rank(mesh, dev, tmp, rank):
+    """T.1 on this rank: each family's fsdp loss and gradients on its
+    shards (one step, this process's first of the family), against one
+    card's, and a planted fault measured alike."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import spec
+    from repro_torch.parallel import collectives as coll
+    out = {}
+    for arch, layers, seq in T1_CUTS:
+        model = t_model(arch, layers, torch.float64)
+        pctx = dryrun.make_pctx(model.cfg, mesh, "train", "fsdp")
+        sh = model.param_shardings(pctx)
+        local = spec.tree_map(lambda t, s: s.shard(t).to(dev),
+                              t_weights(arch, layers), sh)
+        batch = t1_batch(model.cfg, seq, dev)
+        rec = {"state_bytes": p_bytes(local)}
+        coll.reset_counts()
+        p_peak_reset()
+        t0 = time.perf_counter()
+        loss, g = t1_grads(model, local, batch, pctx)
+        p_sync()
+        rec["ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["peak_gib"] = p_peak_gib()
+        rec["collectives"] = coll.counts()
+        ref = torch.load(tmp / f"t1_{arch}.pt", mmap=True)
+        rec["loss"] = float(loss)
+        rec["loss_rel"] = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+        errs = [t1_rel(x.cpu(), s.shard(w), t1_scale(w))
+                for x, s, w in zip(spec.tree_leaves(g), spec.tree_leaves(sh),
+                                   ref["grads"])]
+        rec["grad_rel"], rec["leaves"] = max(errs), len(errs)
+        rec["planted"] = t1_planted(spec.tree_leaves(g), spec.tree_leaves(sh),
+                                    ref["grads"], rank)
+        out[arch] = rec
+        print(f"T.1 rank {rank} {arch}: loss rel {rec['loss_rel']:.3g}, "
+              f"gradients rel {rec['grad_rel']:.3g} over {len(errs)} "
+              f"leaves; planted fault (leaf {rec['planted'][0]} halved) "
+              f"{rec['planted'][1]:.3g}; {rec['ms']:.0f} ms", flush=True)
+        del local, g, ref, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def t2_rank(mesh, dev, tmp, rank):
+    """T.2 on this rank: the prefill and greedy steps over caches whose
+    head_dim is split over `model`, against one card's."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import spec
+    model = t_model(T2_ARCH, T2_LAYERS, torch.float64)
+    pctx = dryrun.make_pctx(model.cfg, mesh, "decode", "tp_fsdp")
+    local = spec.tree_map(lambda t, s: s.shard(t).to(dev, torch.float64),
+                          t_weights(T2_ARCH, T2_LAYERS),
+                          model.param_shardings(pctx))
+    out = t2_run(model, local, dev, pctx)
+    ref = torch.load(tmp / "t2.pt")
+    out["logit_rel"] = [float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(out.pop("logits"), ref["logits"])]
+    out["tokens_equal"] = out["tokens"] == ref["tokens"]
+    print(f"T.2 rank {rank}: prefill {out['prefill_s']:.2f} s, steps "
+          + ", ".join(f"{m:.1f}" for m in out["ms"]) + " ms; logits rel "
+          f"{max(out['logit_rel']):.3g}; tokens equal {out['tokens_equal']}",
+          flush=True)
+    return out
+
+
+def path_t_rank(argv) -> int:
+    """One rank of T.1 and T.2 (``--path-t-rank RANK WORLD DIR``): joins
+    the gloo group through ``DIR/store`` and saves its record to
+    ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.parallel import collectives as coll
+    rank, world, tmp = int(argv[0]), int(argv[1]), Path(argv[2])
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_debug_mesh, mesh_device
+        mesh = make_debug_mesh(T_DATA, T_MODEL)
+        dev = mesh_device(mesh)
+        check(dev.type == "cuda", f"T rank {rank}: device {dev}")
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rec = {"T.1": t1_rank(mesh, dev, tmp, rank)}
+        sec = {"T.1": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        rec["T.2"] = t2_rank(make_debug_mesh(T2_DATA, T2_MODEL), dev, tmp,
+                             rank)
+        sec["T.2"] = time.perf_counter() - t0
+        rec["seconds"] = sec
+        rec["kernels"] = kernels.counts()
+        torch.save(rec, tmp / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        coll.close()
+    return 0
+
+
+def t3_dryrun():
+    """T.3: the dry run's cells in this process, on a fake group of 256
+    (meta tensors: no device work)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    rows = {}
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh()
+        for arch, shape, profile in T3_CELLS:
+            s_cell(f"{arch} {shape} single {profile}",
+                   lambda: dryrun.lower_cell(arch, shape, mesh, "single",
+                                             profile=profile), rows, "T.3")
+    dec = rows["qwen2-72b decode_32k single tp_fsdp"]["memory"]
+    check(dec["fits"] and dec["argument_bytes"] < T3_ARG_GIB * 2**30,
+          f"T.3 qwen2-72b decode_32k: arguments "
+          f"{dec['argument_bytes'] / 2**30:.3f} GiB a rank, fits "
+          f"{dec['fits']} (gate < {T3_ARG_GIB} GiB and fits)")
+    return rows
+
+
+def t_check_ranks(ranks, single):
+    """T.1 and T.2's records printed, then their gates."""
+    gl, gg = T1_LOSS_RTOL, T1_GRAD_RTOL
+    for arch, _, seq in T1_CUTS:
+        one = single[arch]
+        print(f"T.1 {arch} (fsdp, data {T_DATA} x model {T_MODEL}, batch "
+              f"{T_BATCH} x {seq}, float64): one card {one['ms']:.1f} ms "
+              f"(cold), peak {one['peak_gib']:.2f} GiB, state "
+              f"{one['state_bytes'] / 2**30:.3f} GiB; a rank's step "
+              + ", ".join(f"{rk['T.1'][arch]['ms']:.0f}" for rk in ranks)
+              + " ms; state " + ", ".join(
+                  f"{rk['T.1'][arch]['state_bytes'] / 2**30:.3f}"
+                  for rk in ranks) + " GiB, peak " + ", ".join(
+                  f"{rk['T.1'][arch]['peak_gib']:.2f}" for rk in ranks)
+              + f" GiB a rank; collectives a step (rank 0, calls, bytes) "
+              f"{ranks[0]['T.1'][arch]['collectives']}; loss rel "
+              + ", ".join(f"{rk['T.1'][arch]['loss_rel']:.3g}" for rk in ranks)
+              + f" (gate {gl:g}), gradients rel "
+              + ", ".join(f"{rk['T.1'][arch]['grad_rel']:.3g}" for rk in ranks)
+              + f" (gate {gg:g}); planted faults " + ", ".join(
+                  f"{rk['T.1'][arch]['planted'][1]:.3g}" for rk in ranks)
+              + f"; one card nudged {t1_fmt_nudged(one)}; one card's "
+              f"gradients hold {one['nonfinite']} non-finite entries",
+              flush=True)
+    one = single["T.2"]
+    print(f"T.2 {T2_ARCH} x {T2_LAYERS} layers (tp_fsdp, data {T2_DATA} x "
+          f"model {T2_MODEL}, float64): one card prefill "
+          f"{one['prefill_s']:.2f} s, steps " + ", ".join(
+              f"{m:.1f}" for m in one["ms"]) + f" ms, caches "
+          f"{one['cache_bytes']} B (K/V {one['kv_bytes']} B, k "
+          f"{one['kv_shape']}); a rank: prefill " + ", ".join(
+              f"{rk['T.2']['prefill_s']:.2f}" for rk in ranks) + " s, steps "
+          + "; ".join(", ".join(f"{m:.1f}" for m in rk["T.2"]["ms"])
+                      for rk in ranks) + " ms, caches " + ", ".join(
+              f"{rk['T.2']['cache_bytes']}" for rk in ranks) + " B (K/V "
+          + ", ".join(f"{rk['T.2']['kv_bytes']}" for rk in ranks)
+          + f" B, k {ranks[0]['T.2']['kv_shape']}); prefill collectives "
+          f"{ranks[0]['T.2']['prefill_collectives']}, a step's "
+          f"{ranks[0]['T.2']['step_collectives']}; tokens {one['tokens']}; "
+          f"logits rel " + ", ".join(
+              f"{max(rk['T.2']['logit_rel']):.3g}" for rk in ranks)
+          + f" (gate {T2_LOGIT_RTOL})", flush=True)
+    for arch, _, _ in T1_CUTS:
+        for n, (lr, gr) in zip(T1_NUDGES, single[arch]["nudged"]):
+            check(lr <= gl and gr <= gg, f"T.1 one card {arch}: a nudge of "
+                  f"{n:g} moves the loss {lr:.3g} and the gradients "
+                  f"{gr:.3g}, past the gates {gl:g}, {gg:g} (or not finite)")
+    for r, rk in enumerate(ranks):
+        check(all(v == (0, 0) for v in rk["kernels"].values()),
+              f"T rank {r} launched a kernel or a plain version: "
+              f"{rk['kernels']}")
+        for arch, _, _ in T1_CUTS:
+            x = rk["T.1"][arch]
+            check(x["loss_rel"] <= gl and x["grad_rel"] <= gg,
+                  f"T.1 rank {r} {arch}: loss rel {x['loss_rel']:.3g}, "
+                  f"gradients rel {x['grad_rel']:.3g} (gates {gl:g}, "
+                  f"{gg:g})")
+            check(x["planted"][1] > gg, f"T.1 rank {r} {arch}: leaf "
+                  f"{x['planted'][0]} halved lies {x['planted'][1]:.3g} "
+                  f"from one card's, inside the gate {gg:g}")
+        x = rk["T.2"]
+        check(x["tokens_equal"] and max(x["logit_rel"]) <= T2_LOGIT_RTOL,
+              f"T.2 rank {r}: tokens {x['tokens']} against one card's "
+              f"{one['tokens']}, logits rel {max(x['logit_rel']):.3g} "
+              f"(gate {T2_LOGIT_RTOL})")
+        check(4 * x["kv_bytes"] == one["kv_bytes"] and x["kv_shape"][:4] ==
+              one["kv_shape"][:4] and 4 * x["kv_shape"][4] ==
+              one["kv_shape"][4], f"T.2 rank {r}: K/V {x['kv_bytes']} B, k "
+              f"{x['kv_shape']}, one card's {one['kv_bytes']} B, "
+              f"{one['kv_shape']}: not a quarter (head_dim over model)")
+    return {"T.1": {arch: {"single": single[arch],
+                           "ranks": [rk["T.1"][arch] for rk in ranks]}
+                    for arch, _, _ in T1_CUTS},
+            "T.2": {"single": {k: v for k, v in one.items()
+                               if k != "logits"},
+                    "ranks": [rk["T.2"] for rk in ranks]},
+            "rank_seconds": [rk["seconds"] for rk in ranks]}
+
+
+def phase_path_t(card, dev=None):
+    """Path T: T.1 every family's fsdp gradients and T.2 a decode over
+    head_dim-split caches in four gloo ranks on this card, against one
+    card; T.3 the dry run's fsdp and decode cells in this process while
+    the ranks run."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import kernels
+    dev = dev or torch.device("cuda")
+    print(card, flush=True)
+    torch.cuda.empty_cache()
+    OUT.mkdir(exist_ok=True)
+    rec = {"seconds": {}}
+    tmp = Path(tempfile.mkdtemp(prefix="path_t_", dir=OUT))
+    try:
+        t = time.perf_counter()
+        single = t_single(dev, tmp)
+        rec["seconds"]["T one card"] = time.perf_counter() - t
+        t = time.perf_counter()
+        started = start_ranks(T_WORLD, False, "--path-t-rank", tmp)
+        try:
+            rec["T.3"] = t3_dryrun()
+            rec["seconds"]["T.3 (beside the ranks)"] = \
+                time.perf_counter() - t
+        finally:
+            ranks = wait_ranks(started, tmp, T_RANK_TIMEOUT, "T")
+        rec["seconds"]["T.1-T.2 ranks"] = time.perf_counter() - t
+        rec.update(t_check_ranks(ranks, single))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("path T seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rec["seconds"].items()), flush=True)
+    kernels.reset_counts()
+    rec["kernels_run"] = {"counts": kernels.counts()}
+    return rec
+
+
 def profiled_paths(argv):
     """``--profile`` profiles every path, ``--profile=I,J`` only those
     named (``main`` for the main path): -> path name -> bool."""
@@ -5278,6 +5805,8 @@ def main(argv) -> int:
         return path_r_rank(argv[1:])
     if argv[:1] == ["--path-s-rank"]:
         return path_s_rank(argv[1:])
+    if argv[:1] == ["--path-t-rank"]:
+        return path_t_rank(argv[1:])
     # an empty autotune directory: no cache in the checkout changes the
     # decisions the paths report (path O tunes into a directory of its
     # own); the ranks of path N inherit it
@@ -5326,6 +5855,10 @@ def main(argv) -> int:
         # path S alone: R.3's cell held to PR 26's figures
         phase("path S (gradflow and fsdp over a mesh, dry run)",
               phase_path_s, card)
+        return 0
+    if "--only=T" in argv:
+        phase("path T (every family under fsdp, reference-layout caches)",
+              phase_path_t, card)
         return 0
     # 3. kernels against their plain versions, then timings
     table = kernel_table()
@@ -5432,6 +5965,11 @@ def main(argv) -> int:
     paths["S: mesh gradflow, dry run"] = phase(
         "path S (gradflow and fsdp over a mesh, dry run)", phase_path_s,
         card, paths["R: model parallel"]["R.3"])
+    # every family under the fsdp profile and the decode caches in the
+    # reference's layout (no kernel of the port on its path)
+    paths["T: fsdp families, reference caches"] = phase(
+        "path T (every family under fsdp, reference-layout caches)",
+        phase_path_t, card)
     # 5. kernels line: launches summed over the kernel runs of the paths
     line = []
     for k, row in zip(table, rows):

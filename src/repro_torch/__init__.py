@@ -31,11 +31,14 @@ per-op policy pins (``core.dispatch``, ``core.policies``); the
 analysis layer: the cost-driven decisions of ``"auto"`` (``core.autotune``,
 ``analysis.opcost``, the card's row in ``analysis.roofline``) and
 sunlint's rules for the port (``analysis.lint``, with the dispatch
-walker ``analysis.hotloop``); the model stack's serving half:
-``models`` (every architecture's forward pass and decode step),
-``configs`` (the architecture registry) and ``serve.decode``
-(``generate``); and the examples ``examples.batched_kinetics``,
-``serve_solver_demo``, ``serve_demo``, ``brusselator`` and
-``brusselator_sparse``.  Everything else raises
-``NotImplementedError`` naming its ROADMAP item.
+walker ``analysis.hotloop``); the model stack: ``models`` (every
+architecture's forward pass, loss and decode step, on one device or
+over a mesh under both sharding profiles), ``configs`` (the architecture
+registry) and ``serve.decode`` (``generate``); training (``data``,
+``optim``, ``train``, ``launch.train``); the model-parallel layer
+(``parallel``, ``models.sharded``, ``models.moe_ep``, ``launch.mesh``);
+the dry run and the roofline (``launch.dryrun``, ``analysis.stepcost``,
+``analysis.roofline``); and the examples ``examples.batched_kinetics``,
+``serve_solver_demo``, ``serve_demo``, ``brusselator``,
+``brusselator_sparse`` and ``quickstart``.
 """

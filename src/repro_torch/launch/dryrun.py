@@ -20,9 +20,10 @@ state the abstract shards its layout gives it
 * ``roofline``: ``analysis.roofline.Roofline`` on the ``h100_sxm`` row
   (estimates from data-sheet ceilings, not measurements).
 
-A cell that does not run records ``ok: false`` and its exception (a
-family not yet ported to a mesh: "not lowered: <reason>"); the run goes
-on, and exits 1 if any cell failed.  Results go to ``--out`` (default
+A cell that does not run records ``ok: false`` and its exception
+("not lowered: <reason>" for a ``NotImplementedError``; every family
+lowers under both profiles, a batch its data axes cannot split under a
+gradient does not); the run goes on, and exits 1 if any cell failed.  Results go to ``--out`` (default
 ``build/dryrun/``), one JSON file a cell.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --device cpu \\

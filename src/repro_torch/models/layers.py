@@ -70,6 +70,36 @@ def seq_gather(t: torch.Tensor, cst, dim: int = 1):
         cst.comm.index(ax) * t.shape[dim]
 
 
+def cache_split(t: torch.Tensor, dim: int):
+    """The mesh axes dim ``dim`` of one layer's cache leaf is split over
+    beyond this rank's batch rows (``()``: whole).  ``Model.init_cache
+    (..., pctx=)`` tags each leaf with the cache rules' layout
+    (``parallel.sharding.cache_rules_from``) and ``Model.decode_step``
+    refuses an untagged leaf under a mesh: untagged is one device's
+    whole cache."""
+    s = getattr(t, "_split", None)
+    return s[dim] if s else ()
+
+
+def state_whole(t: torch.Tensor, cst):
+    """A recurrent state leaf whole (its split dims gathered), for a
+    family that computes it replicated over the axes it is split over."""
+    for d, ax in enumerate(getattr(t, "_split", ()) or ()):
+        if ax:
+            t = coll.all_gather(t, cst.comm, ax, d)
+    return t
+
+
+def state_own(new: torch.Tensor, like: torch.Tensor, cst):
+    """This rank's block of the whole state ``new`` in the layout of the
+    cache leaf ``like`` (written back in place of it)."""
+    for d, ax in enumerate(getattr(like, "_split", ()) or ()):
+        if ax:
+            m = like.shape[d]
+            new = new.narrow(d, cst.comm.index(ax) * m, m)
+    return new
+
+
 def dus_seq(buf: torch.Tensor, upd: torch.Tensor, pos, axis: int = 1):
     """Write ``upd`` into ``buf`` at position ``pos`` (an integer tensor
     on ``buf``'s device, as a cache's ``pos`` is: no host read) along
@@ -77,6 +107,29 @@ def dus_seq(buf: torch.Tensor, upd: torch.Tensor, pos, axis: int = 1):
     idx = torch.as_tensor(pos, device=buf.device).to(torch.long) + \
         torch.arange(upd.shape[axis], device=buf.device)
     return buf.index_copy_(axis, idx, upd.to(buf.dtype))
+
+
+def write_seq(buf: torch.Tensor, upd: torch.Tensor, pos, cst):
+    """:func:`dus_seq` into a cache whose positions (dim 1) are split
+    over ``cache_split(buf, 1)``: this rank holds positions ``[i * Sl,
+    (i + 1) * Sl)`` and writes those of ``upd`` (positions ``pos ...``)
+    that fall in it, in place, with no host read of ``pos``."""
+    ax = cache_split(buf, 1)
+    if not ax:
+        return dus_seq(buf, upd, pos)
+    Sl, S = buf.shape[1], upd.shape[1]
+    dev = buf.device
+    lo = torch.as_tensor(pos, device=dev).to(torch.long) - \
+        cst.comm.index(ax) * Sl
+    if S == 1:
+        j = lo.clamp(0, Sl - 1).reshape(1)
+        own = (lo >= 0) & (lo < Sl)
+        return buf.index_copy_(1, j, torch.where(
+            own, upd.to(buf.dtype), buf.index_select(1, j)))
+    src = torch.arange(Sl, device=dev) - lo
+    inside = ((src >= 0) & (src < S)).reshape((1, Sl) + (1,) * (buf.dim() - 2))
+    new = upd.to(buf.dtype).index_select(1, src.clamp(0, S - 1))
+    return buf.copy_(torch.where(inside, new, buf))
 
 
 # ----------------------------------------------------------------------------
@@ -194,7 +247,8 @@ ATTN_KV_CHUNK = 1024  # blockwise-softmax KV chunk (memory/perf knob)
 
 
 def _sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset=None,
-          kv_len=None, kv_chunk: int = 0):
+          kv_len=None, kv_chunk: int = 0, k_offset=0, head_dim=None,
+          scores_over=None, keys_over=None):
     """Blockwise (flash-style) attention: q (B,Sq,H,Dq), k (B,Sk,KVH,Dq),
     v (B,Sk,KVH,Dv) -> (B,Sq,H,Dv), with a float32 running max and sum
     over KV chunks of ``kv_chunk`` (default :data:`ATTN_KV_CHUNK`): the
@@ -205,6 +259,12 @@ def _sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset=None,
     integer tensors.  A last chunk shorter than the others is read as it
     is: the reference pads K and V to whole chunks, whose padded columns
     it masks, so the two agree without a copy of the cache.
+
+    A cache split over ranks (``(comm, axes)``): ``scores_over`` sums
+    each chunk's scores over them (q and k hold one block of the
+    ``head_dim`` features, whose root scales the scores), ``keys_over``
+    joins each rank's running max, sum and output over them (k and v
+    hold the positions from ``k_offset`` on).
     """
     B, Sq, H, Dq = q.shape
     KVH = k.shape[2]
@@ -215,7 +275,8 @@ def _sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset=None,
     dev = q.device
     valid_len = kv_len if kv_len is not None else Sk
 
-    qf = (q.to(f32) / math.sqrt(Dq)).reshape(B, Sq, KVH, rep, Dq)
+    qf = (q.to(f32) / math.sqrt(head_dim or Dq)).reshape(B, Sq, KVH, rep,
+                                                         Dq)
     qpos = torch.arange(Sq, device=dev)[:, None] + \
         (q_offset if q_offset is not None else 0)
 
@@ -226,7 +287,10 @@ def _sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset=None,
         kb = k[:, start:start + C]                # (B,C,KVH,Dq)
         vb = v[:, start:start + C]
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qf, kb.to(f32))
-        kpos = start + torch.arange(kb.shape[1], device=dev)[None, :]
+        if scores_over is not None:
+            logits = coll.all_reduce(logits, *scores_over)
+        kpos = k_offset + start + torch.arange(kb.shape[1],
+                                               device=dev)[None, :]
         mask = kpos < valid_len
         if causal:
             mask = mask & (kpos <= qpos)
@@ -240,6 +304,12 @@ def _sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset=None,
         acc = acc * scale_old[..., None] + torch.einsum(
             "bgrqk,bkgd->bgrqd", p, vb.to(f32))
         m = m_new
+    if keys_over is not None:
+        top = coll.all_reduce(m, *keys_over, op="max")
+        w = torch.exp(m - top)[..., None]
+        both = coll.all_reduce(torch.cat([acc * w, l[..., None] * w], -1),
+                               *keys_over)
+        acc, l = both[..., :Dv], both[..., Dv]
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
     return out.to(q.dtype)
@@ -266,30 +336,18 @@ def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, cos, sin,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     new_cache = None
-    S = x.shape[1]
-    kw = {}
     if cache is not None:
-        pos = cache["pos"]                      # scalar int: filled length
-        k = dus_seq(cache["k"], k, pos)
-        v = dus_seq(cache["v"], v, pos)
-        new_cache = {"k": k, "v": v, "pos": pos + S}
-        kw = {"q_offset": pos, "kv_len": pos + S}
-    elif getattr(cst, "seq_axes", ()):
-        # this rank's queries against the whole sequence's keys
-        k, off = seq_gather(k, cst)
-        v, _ = seq_gather(v, cst)
-        kw = {"q_offset": off}
-    if ax and not kv_ax:
-        # this rank's heads of a replicated K/V (the cache holds every kv
-        # head): each local query head's kv head, the GQA grouping of
-        # the global heads
-        H_loc = q.shape[2]
-        h0 = cst.comm.index(ax) * H_loc
-        rep = cfg.n_heads // cfg.n_kv_heads
-        idx = (h0 + torch.arange(H_loc, device=x.device)) // rep
-        k = coll.copy_to(k, cst.comm, ax).index_select(2, idx)
-        v = coll.copy_to(v, cst.comm, ax).index_select(2, idx)
-    out = _sdpa(q, k, v, causal=causal, window=cfg.sliding_window, **kw)
+        out, new_cache = _cache_attention(cfg, q, k, v, cache, cst, ax,
+                                          causal)
+    else:
+        kw = {}
+        if getattr(cst, "seq_axes", ()):
+            # this rank's queries against the whole sequence's keys
+            k, off = seq_gather(k, cst)
+            v, _ = seq_gather(v, cst)
+            kw = {"q_offset": off}
+        k, v = _heads_kv(cfg, q, k, v, cst, ax)
+        out = _sdpa(q, k, v, causal=causal, window=cfg.sliding_window, **kw)
     out = cst(out, ("batch", "seq", "heads", "head_dim"))
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if ax:
@@ -297,9 +355,87 @@ def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, cos, sin,
     return cst(y, ("batch", "seq", "embed")), new_cache
 
 
+def _heads_kv(cfg, q, k, v, cst, ax):
+    """K and V for this rank's query heads: where the heads are split
+    over ``ax`` and K/V hold every kv head, each local query head's kv
+    head (the GQA grouping of the global heads); else as given."""
+    H_loc = q.shape[2]
+    if not ax or k.shape[2] * (cfg.n_heads // cfg.n_kv_heads) == H_loc:
+        return k, v
+    h0 = cst.comm.index(ax) * H_loc
+    rep = cfg.n_heads // cfg.n_kv_heads
+    idx = (h0 + torch.arange(H_loc, device=q.device)) // rep
+    return (coll.copy_to(k, cst.comm, ax).index_select(2, idx),
+            coll.copy_to(v, cst.comm, ax).index_select(2, idx))
+
+
+def _cache_attention(cfg, q, k, v, cache, cst, ax, causal):
+    """Attention of the step's queries against a cache, whose ``k`` and
+    ``v`` are written in place, in the cache rules' layout
+    (:func:`cache_split`): whole, or split over a mesh axis along
+    positions (this rank's block, the softmax joined over the axis),
+    ``kv_heads`` (this rank's kv heads and their query heads, the output
+    gathered) or ``head_dim`` (this rank's features of every head, the
+    scores summed over the axis; the output handed back to the ranks
+    its heads lie on).  Queries split over the sequence (a prompt under
+    the fsdp profile) are gathered first and this rank's kept after."""
+    kc, vc, pos = cache["k"], cache["v"], cache["pos"]
+    comm = getattr(cst, "comm", None)
+    S = q.shape[1]
+    qax = getattr(cst, "seq_axes", ())
+    if qax:
+        q, off = seq_gather(q, cst)
+        k, _ = seq_gather(k, cst)
+        v, _ = seq_gather(v, cst)
+    sax, kax, dax = (cache_split(kc, d) for d in (1, 2, 3))
+    D = k.shape[3]
+    kw = {"q_offset": pos, "kv_len": pos + q.shape[1]}
+    own_heads = bool(kax) and k.shape[2] != kc.shape[2]
+    if own_heads:
+        # every kv head computed, this rank's kept: its query heads
+        n = kc.shape[2]
+        rep = cfg.n_heads // cfg.n_kv_heads
+        i0 = comm.index(kax) * n
+        k, v = k.narrow(2, i0, n), v.narrow(2, i0, n)
+        q = q.narrow(2, i0 * rep, n * rep)
+    if dax:
+        n = kc.shape[3]
+        d0 = comm.index(dax) * n
+        k, v = k.narrow(3, d0, n), v.narrow(3, d0, n)
+        if ax:
+            q = coll.gather_along(q, comm, ax, 2)
+        q = q.narrow(3, d0, n)
+        kw.update(scores_over=(comm, dax), head_dim=D)
+    if sax:
+        kw.update(keys_over=(comm, sax), k_offset=comm.index(sax) *
+                  kc.shape[1])
+    kc = write_seq(kc, k, pos, cst)
+    vc = write_seq(vc, v, pos, cst)
+    new_cache = {"k": kc, "v": vc, "pos": pos + q.shape[1]}
+    k, v = _heads_kv(cfg, q, kc, vc, cst, () if dax else ax)
+    out = _sdpa(q, k, v, causal=causal, window=cfg.sliding_window, **kw)
+    if own_heads:
+        out = coll.gather_along(out, comm, kax, 2)
+    if dax:
+        if ax:
+            # (B,S,H,n) -> each rank its heads' every feature block
+            B, Sq, H, _ = out.shape
+            m = comm.size(ax)
+            blocks = out.reshape(B, Sq, m, H // m, n).permute(2, 0, 1, 3, 4)
+            out = coll.all_to_all(blocks.contiguous(), comm, ax)
+            out = out.permute(1, 2, 3, 0, 4).reshape(B, Sq, H // m, m * n)
+        else:
+            out = coll.gather_along(out, comm, dax, 3)
+    if qax:
+        out = out.narrow(1, off, S)
+    return out, new_cache
+
+
 def cross_attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
                           kv_src: torch.Tensor, *, cst: Callable = _id_cst):
-    """Encoder-decoder cross attention (whisper); no rope, no cache mask."""
+    """Encoder-decoder cross attention (whisper); no rope, no cache mask.
+    ``kv_src`` is the whole encoder output (under the fsdp profile the
+    decoder gathers its blocks once for every layer)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
@@ -359,12 +495,24 @@ def mla_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, positions, *,
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)    # (B,S,1,dr)
     new_cache = None
+    kw = {}
+    qax = getattr(cst, "seq_axes", ()) if cache is not None else ()
     if cache is not None:
+        # a cache split over positions (the fsdp profile): this rank's
+        # block, the softmax joined over its axes (see _cache_attention)
         pos = cache["pos"]
-        c_all = dus_seq(cache["c_kv"], c_kv, pos)
-        kr_all = dus_seq(cache["k_rope"], k_rope[:, :, 0, :], pos)
-        new_cache = {"c_kv": c_all, "k_rope": kr_all, "pos": pos + S}
-        c_use, kr_use, kv_len, q_off = c_all, kr_all, pos + S, pos
+        if qax:
+            c_kv, off = seq_gather(c_kv, cst)
+            k_rope, _ = seq_gather(k_rope, cst)
+        Sn = c_kv.shape[1]
+        c_all = write_seq(cache["c_kv"], c_kv, pos, cst)
+        kr_all = write_seq(cache["k_rope"], k_rope[:, :, 0, :], pos, cst)
+        new_cache = {"c_kv": c_all, "k_rope": kr_all, "pos": pos + Sn}
+        c_use, kr_use, kv_len, q_off = c_all, kr_all, pos + Sn, pos
+        sax = cache_split(c_all, 1)
+        if sax:
+            kw = {"keys_over": (cst.comm, sax),
+                  "k_offset": cst.comm.index(sax) * c_all.shape[1]}
     else:
         c_use, q_off = seq_gather(c_kv, cst)
         kr_use, _ = seq_gather(k_rope[:, :, 0, :], cst)
@@ -378,8 +526,12 @@ def mla_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, positions, *,
         dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     q_full = cst(q_full, ("batch", "seq", "heads", "head_dim"))
+    if qax:
+        q_full, _ = seq_gather(q_full, cst)
     out = _sdpa(q_full, k_full, vv, causal=True, q_offset=q_off,
-                kv_len=kv_len)
+                kv_len=kv_len, **kw)
+    if qax:
+        out = out.narrow(1, off, S)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if ax:
         y = coll.reduce_from(y, cst.comm, ax)

@@ -31,9 +31,11 @@ split the batch over ``dp_axes`` and the sequence over ``model``
 (:attr:`Layout.seq_axes`; a sequence that does not divide, a decode
 step's one token, stays whole, and then no gradient may be taken):
 positions start at this rank's sequence block (:meth:`seq_offset`),
-attention gathers K and V over ``model`` (their gradient
-reduce-scattered back), and the loss and the gradients sum over every
-axis the tokens are split over (:attr:`token_axes`).
+attention gathers K and V over ``model`` and the recurrent mixers and
+whisper's cross-attention their input (each gradient reduce-scattered
+back), and the loss and the gradients sum over every axis the tokens
+are split over (:attr:`token_axes`).  Every family runs under both
+profiles.
 """
 from __future__ import annotations
 
@@ -53,12 +55,14 @@ TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "heads_x")
 class Layout:
     """The layout of the parameters of a model of ``cfg`` on
     ``pctx.mesh``, and the axes its tokens split over.  The decoder-only
-    LM computes tensor parallel (``tp``); the families whose layers have
-    no tensor-parallel form (zamba2, xlstm, whisper) gather every
-    parameter whole at use and compute on their batch rows, replicated
-    over ``model``.  The token axes are those of a batch that splits,
-    the only batch a gradient may be taken of (:meth:`local_batch`), so
-    every layout of one ``(cfg, pctx)`` reduces gradients alike."""
+    LM computes tensor parallel (``tp``) under tp_fsdp; the families
+    whose layers have no tensor-parallel form (zamba2, xlstm, whisper),
+    and every family under fsdp, gather every parameter whole at use and
+    compute on their batch rows (and, under fsdp, sequence block),
+    replicated over ``model`` under tp_fsdp.  The token axes are those
+    of a batch that splits, the only batch a gradient may be taken of
+    (:meth:`local_batch`), so every layout of one ``(cfg, pctx)``
+    reduces gradients alike."""
 
     def __init__(self, cfg, pctx):
         from .transformer import _SPECS, _family
@@ -158,6 +162,10 @@ class Layout:
         return self.comm.index(self.seq_axes) * s_local \
             if self.seq_axes else 0
 
+    def seq_block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole sequence ``t`` (dim 1)."""
+        return self._split(t, self.seq_axes, 1, "the sequence")
+
     def _split(self, v, axes, dim, what):
         n, i = self.comm.size(axes), self.comm.index(axes)
         if v.shape[dim] % n:
@@ -171,21 +179,30 @@ class Layout:
         global ``batch``): its rows (split over ``dp_axes``) and, under
         ``fsdp``, its sequence block over ``model`` (with
         ``targets_next``, the targets shifted by one on the whole
-        sequence, for the multi-token head).  A batch or a sequence that
-        does not split stays whole on every rank, as the reference's
-        ``spec_for`` leaves it replicated, and the bound layout's token
-        axes leave it out; then no gradient may be taken (it would be
-        counted once a rank).  ``self`` is not changed."""
+        sequence, for the multi-token head).  A vision prefix
+        (``vis_embeds``) and its text are one sequence, which the model
+        splits once joined: both stay whole here.  A batch or a sequence
+        that does not split stays whole on every rank (a batch the data
+        axes split only in part, over the first of them), as the
+        reference's ``spec_for`` lays it out and ``Model.init_cache``
+        lays out a cache's rows, and the bound layout's token axes leave
+        the rest out; then no gradient may be taken (it would be counted
+        once a replica).  ``self`` is not changed."""
         bound = copy.copy(self)
         if self.dp_axes:
             B, n = batch["tokens"].shape[0], self.comm.size(self.dp_axes)
             if B % n and torch.is_grad_enabled():
                 raise ValueError(f"a batch of {B} rows does not split over "
                                  f"{self.dp_axes} ({n} ranks)")
-            bound.row_axes = self.dp_axes if B % n == 0 else ()
+            spec = shd.spec_for((B,), ("batch",), self.mesh,
+                                {"batch": self.dp_axes})
+            bound.row_axes = shd.spec_axes(spec[0]) if spec else ()
         seq = bool(self.seq_axes)
+        joined = "vis_embeds" in batch
         if seq:
             S, m = batch["tokens"].shape[1], self.comm.size(self.seq_axes)
+            if joined:
+                S += batch["vis_embeds"].shape[1]
             seq = S % m == 0
             if not seq and torch.is_grad_enabled():
                 raise ValueError(f"fsdp: a sequence of {S} does not split "
@@ -204,7 +221,7 @@ class Layout:
                 continue
             if bound.row_axes:
                 v = bound._split(v, bound.row_axes, 0, f"batch {k!r}")
-            if seq and v.dim() > 1:
+            if seq and v.dim() > 1 and not joined:
                 v = bound._split(v, bound.seq_axes, 1, f"sequence {k!r}")
             out[k] = v
         return bound, out

@@ -7,6 +7,16 @@ chunked SSD) and a one-step form for decode that shares its cell.  The
 cache specs are ``meta`` tensors.  The chunk length is the ``chunk=``
 argument, default :data:`MAMBA2_CHUNK`; the reference's
 ``REPRO_SSM_CHUNK`` environment override (an A/B knob) is not kept.
+
+Under a mesh each block computes on its batch rows.  Under the fsdp
+profile, whose sequence is split over ``model``, a block gathers its
+input's sequence blocks (``layers.seq_gather``: the gradient
+reduce-scattered back), runs the unchanged recurrence over the whole
+sequence and keeps this rank's block: the op order of one device, and
+what GSPMD makes of the reference's ``lax.scan`` over a split axis.  A
+decode cache split over ``model`` (the cache rules' ``heads``, ``mlp``
+or ``head_dim``) is gathered at use and this rank's block written back
+(``layers.state_whole`` / ``state_own``).
 """
 from __future__ import annotations
 
@@ -149,10 +159,13 @@ def mamba2_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     and S > chunk, else the stepwise recurrence; decode is one step."""
     if chunk is None:
         chunk = MAMBA2_CHUNK
+    S_own = x.shape[1]
+    x, off = layers.seq_gather(x, cst)
     B, S, d = x.shape
     d_in, nh, ds, hd = mamba2_dims(cfg)
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    conv_state = cache["conv"] if cache is not None else None
+    conv_state = layers.state_whole(cache["conv"], cst) \
+        if cache is not None else None
     z, xBC, dt, new_conv = _mamba2_inner(p, cfg, xz, conv_state)
     xs = xBC[..., :d_in].reshape(B, S, nh, hd)
     Bmat = xBC[..., d_in:d_in + ds]                      # (B,S,ds)
@@ -163,7 +176,7 @@ def mamba2_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     xs = cst(xs, ("batch", "seq", "heads", "head_dim"))
     xs32 = xs.to(f32)
 
-    h0 = (cache["ssm"] if cache is not None else
+    h0 = (layers.state_whole(cache["ssm"], cst) if cache is not None else
           torch.zeros((B, nh, hd, ds), dtype=f32, device=x.device))
 
     if cache is None and chunk > 0 and S % chunk == 0 and S > chunk:
@@ -175,11 +188,22 @@ def mamba2_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     y = y.reshape(B, S, d_in)
     y = layers.rmsnorm_apply(p["norm"], (y * F.silu(z.to(f32))).to(x.dtype),
                              cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"]).narrow(1, off, S_own)
     new_cache = None
     if cache is not None:
-        new_cache = {"conv": new_conv, "ssm": hT}
+        new_cache = _own(cache, {"conv": new_conv, "ssm": hT}, cst)
     return cst(out, ("batch", "seq", "embed")), new_cache
+
+
+def _whole(cache, cst):
+    """Every leaf of one layer's recurrent state whole (gathered)."""
+    return {k: layers.state_whole(t, cst) for k, t in cache.items()}
+
+
+def _own(cache, new, cst):
+    """This rank's block of each whole new state leaf, in ``cache``'s
+    layout."""
+    return {k: layers.state_own(t, cache[k], cst) for k, t in new.items()}
 
 
 def mamba2_cache_spec(cfg: ArchConfig, batch: int):
@@ -216,6 +240,8 @@ def mlstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                 cst: Callable = layers._id_cst,
                 cache: Optional[Dict] = None):
     """Matrix-memory LSTM with exponential gating + stabilizer state."""
+    S_own = x.shape[1]
+    x, off = layers.seq_gather(x, cst)
     B, S, d = x.shape
     H = cfg.n_heads
     up = torch.einsum("bsd,de->bse", x, p["up"])
@@ -233,7 +259,8 @@ def mlstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     logf = -F.softplus(-fg)                              # log sigmoid(f)
 
     if cache is not None:
-        C, n, m = cache["C"], cache["n"], cache["m"]
+        whole = _whole(cache, cst)
+        C, n, m = whole["C"], whole["n"], whole["m"]
     else:
         C = torch.zeros((B, H, dh, dh), dtype=f32, device=x.device)
         n = torch.zeros((B, H, dh), dtype=f32, device=x.device)
@@ -259,8 +286,9 @@ def mlstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     h = torch.stack(hs, dim=1).reshape(B, S, d_up).to(x.dtype)
     h = layers.rmsnorm_apply(p["norm"], h, cfg.norm_eps)
     h = h * F.silu(gate_skip)
-    out = torch.einsum("bse,ed->bsd", h, p["down"])
-    new_cache = {"C": C, "n": n, "m": m} if cache is not None else None
+    out = torch.einsum("bse,ed->bsd", h, p["down"]).narrow(1, off, S_own)
+    new_cache = _own(cache, {"C": C, "n": n, "m": m}, cst) \
+        if cache is not None else None
     return cst(out, ("batch", "seq", "embed")), new_cache
 
 
@@ -292,13 +320,16 @@ def slstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     """Scalar-memory LSTM with exponential gating, normalizer state and
     block-diagonal (per-head) recurrence: the truly sequential xLSTM
     cell."""
+    S_own = x.shape[1]
+    x, off = layers.seq_gather(x, cst)
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
     wx = torch.einsum("bsd,de->bse", x, p["W"]).to(f32) + p["b"]
 
     if cache is not None:
-        c, n, h, m = cache["c"], cache["n"], cache["h"], cache["m"]
+        whole = _whole(cache, cst)
+        c, n, h, m = whole["c"], whole["n"], whole["h"], whole["m"]
     else:
         c = torch.zeros((B, d), dtype=f32, device=x.device)
         n = torch.ones((B, d), dtype=f32, device=x.device)
@@ -324,8 +355,8 @@ def slstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
         hs.append(h)
     hseq = torch.stack(hs, dim=1).to(x.dtype)             # (B,S,d)
     hseq = layers.rmsnorm_apply(p["norm"], hseq, cfg.norm_eps)
-    out = torch.einsum("bsd,de->bse", hseq, p["out"])
-    new_cache = ({"c": c, "n": n, "h": h, "m": m}
+    out = torch.einsum("bsd,de->bse", hseq, p["out"]).narrow(1, off, S_own)
+    new_cache = (_own(cache, {"c": c, "n": n, "h": h, "m": m}, cst)
                  if cache is not None else None)
     return cst(out, ("batch", "seq", "embed")), new_cache
 

@@ -37,13 +37,19 @@ computes on its batch rows with tensor, FSDP and expert parallelism:
 the layers gather their parameters at use inside the layer body, the
 embedding and ``_lm_head`` are split over ``vocab`` and ``_xent`` takes
 its logsumexp and the target's logit across ``model`` ranks; the loss
-is the global batch's mean.  The other families (zamba2, xlstm,
-whisper, qwen2-vl's M-RoPE vision path) raise ``NotImplementedError``
-under a mesh (ROADMAP A item 2); none falls through to unsharded
-compute.  A decode step under a mesh runs on this rank's batch rows
-with the MoE's replicated token layout; its caches
-(``init_cache(..., pctx=)``) hold those rows and the kv heads the rank
-computes with (its own where the layers split them, else all).
+is the global batch's mean.  zamba2, xlstm and whisper gather every
+parameter whole and compute on their batch rows.  Under the ``fsdp``
+profile every family also splits its sequence over ``model``: attention
+gathers K and V, the recurrent mixers (``ssm``) and whisper's
+cross-attention gather their input's blocks, positions (rope, M-RoPE,
+whisper's tables) start at this rank's block, and qwen2-vl's vision
+prefix and text are split as one sequence.  No family falls through to
+unsharded compute.  A decode step under a mesh runs on this rank's
+batch rows with the MoE's replicated token layout (a step whose tokens
+split over ``model`` under fsdp: the split layout); its caches
+(``init_cache(..., pctx=)``) lie as the reference's cache rules place
+them (``parallel.sharding.cache_rules_from``), and the layers attend
+over them, or gather a recurrent state at use, in that layout.
 """
 from __future__ import annotations
 
@@ -57,6 +63,7 @@ import torch.utils.checkpoint
 
 from ..core.policies import resolve_device
 from ..parallel import collectives as coll
+from ..parallel import sharding as shd
 from . import layers, moe_ep, ssm
 from .config import ArchConfig, ShapeConfig
 from .spec import (ParamSpec, abstract_params, axes_tree, init_params,
@@ -94,9 +101,27 @@ def _stack_specs(tree, n: int):
                                         s.dtype, s.init, s.scale), tree)
 
 
+def _cache_block(shape, axes, mesh, rules):
+    """(this rank's block shape, the mesh axes of each dim beyond the
+    batch rows) of a cache leaf of global ``shape`` and logical ``axes``
+    under the cache ``rules``: its layout, ``layers.cache_split``."""
+    sh = shd.NamedSharding(mesh, shd.spec_for(shape, axes, mesh, rules))
+    return sh.local_shape(shape), tuple(
+        () if a == "batch" else ax
+        for a, ax in zip(axes, sh.dim_axes(len(axes))))
+
+
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree: views, no copy."""
-    return tree_map(lambda a: a[i], tree)
+    """Layer ``i`` of a stacked tree: views, no copy (a cache leaf's
+    layout, ``layers.cache_split``, carried over)."""
+    def one(a):
+        v = a[i]
+        split = getattr(a, "_split", None)
+        if split is not None:
+            v._split = split[1:]
+        return v
+
+    return tree_map(one, tree)
 
 
 def _layers(tree, n: int) -> list:
@@ -227,17 +252,19 @@ def _mtp_cfg(cfg: ArchConfig) -> ArchConfig:
 
 def _positions_for(cfg: ArchConfig, B: int, S: int, vis_len: int, device,
                    offset=0):
-    """Position ids; for mrope (B,S,3) else (S,)."""
-    i = torch.arange(S, device=device)
+    """Position ids of the ``S`` tokens from global position ``offset``
+    on; for mrope (B,S,3), its grid read at the global index, else
+    (S,)."""
+    i = torch.arange(S, device=device) + offset
     if not cfg.mrope:
-        return i + offset
+        return i
     # M-RoPE: vision prefix on a (t=0, h, w) grid, text sequential
     grid_w = max(int(math.sqrt(max(vis_len, 1))), 1)
     is_vis = i < vis_len
     t = torch.where(is_vis, 0, i - vis_len + (vis_len + grid_w - 1) // grid_w)
     hpos = torch.where(is_vis, i // grid_w, t)
     wpos = torch.where(is_vis, i % grid_w, t)
-    pos3 = torch.stack([t, hpos, wpos], dim=-1) + offset   # (S, 3)
+    pos3 = torch.stack([t, hpos, wpos], dim=-1)            # (S, 3)
     return pos3[None].expand(B, S, 3)
 
 
@@ -281,14 +308,24 @@ def _embed(w, tokens, pctx):
 
 
 def _embed_inputs(cfg: ArchConfig, params, batch, pctx):
-    """Token (+ vision stub) embedding -> (B, S, d), vis_len."""
+    """Token (+ vision stub) embedding -> (B, S, d), vis_len.  Under a
+    split sequence the vision prefix and the text (each whole:
+    ``Layout.local_batch``) are one sequence, of which this rank keeps
+    its block."""
     x = _embed(params["embed"], batch["tokens"], pctx)
     vis_len = 0
     if cfg.mrope and "vis_embeds" in batch:
         ve = batch["vis_embeds"].to(x.dtype)            # (B, Sv, d)
         vis_len = ve.shape[1]
         x = torch.cat([ve, x], dim=1)
+        if _split_seq(pctx):
+            x = pctx.layout.seq_block(x)
     return pctx.cst(x, ("batch", "seq", "embed")), vis_len
+
+
+def _split_seq(pctx) -> bool:
+    """Whether this step's sequence is split over ranks (fsdp)."""
+    return pctx.layout is not None and bool(pctx.layout.seq_axes)
 
 
 def _vocab_axes(cfg, params):
@@ -420,10 +457,17 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict, pctx: ParallelCtx):
     params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     logits, x, vis_len = _lm_trunk(cfg, params, batch, pctx)
     B = x.shape[0]
-    if vis_len:
+    targets = batch["targets"]
+    if vis_len and _split_seq(pctx):
+        # loss only over the text region: this rank's block of the
+        # joined sequence, whose vision positions have no target
+        targets = pctx.layout.seq_block(torch.cat(
+            [torch.full((B, vis_len), -1, dtype=targets.dtype,
+                        device=targets.device), targets], dim=1))
+    elif vis_len:
         # loss only over the text region
         logits = logits[:, vis_len:]
-    loss = _loss_xent(cfg, params, logits, batch["targets"], pctx)
+    loss = _loss_xent(cfg, params, logits, targets, pctx)
     if cfg.mtp:
         # multi-token prediction: h with the next token's embedding, one
         # extra layer, predict t+2 (DeepSeek-V3 MTP, D=1)
@@ -454,14 +498,18 @@ def lm_decode_step(cfg: ArchConfig, params: Params, batch: Dict, caches,
     and its caches (``Model.init_cache(..., pctx=)``)."""
     params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     tokens, pos = batch["tokens"], batch["pos"]
-    B = tokens.shape[0]
+    B, S = tokens.shape
     x = _embed(params["embed"], tokens, pctx)
-    positions = _positions_for(cfg, B, 1, 0, x.device, offset=pos)
+    positions = _positions_for(cfg, B, S, 0, x.device,
+                               offset=pos + _seq_offset(pctx, S))
     # one token cannot split over 'model': the MoE's replicated layout
+    # (a step whose tokens split over it, under fsdp, dispatches them as
+    # they lie)
+    layout = "split" if _split_seq(pctx) else "replicated"
     x, caches = _scan_layers(cfg, params["layers"], x,
                              _rope_for(cfg, positions), positions,
                              dataclasses.replace(
-                                 pctx, moe_token_layout="replicated"),
+                                 pctx, moe_token_layout=layout),
                              caches=caches)
     x = layers.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
     return _whole_vocab(cfg, params, _lm_head(cfg, params, x, pctx),
@@ -619,7 +667,8 @@ def _zamba_run(cfg, params, x, rope_cs, pctx, caches=None):
 def zamba_forward(cfg, params, batch, pctx):
     params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     x = pctx.cst(params["embed"][batch["tokens"]], ("batch", "seq", "embed"))
-    positions = torch.arange(x.shape[1], device=x.device)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device) + _seq_offset(pctx, S)
     rope_cs = layers.rope_freqs(cfg.hd, cfg.rope_theta, positions)
     return _zamba_run(cfg, params, x, rope_cs, pctx)
 
@@ -628,7 +677,9 @@ def zamba_decode_step(cfg, params, batch, caches, pctx):
     """caches = {'mamba': stacked(L), 'attn': stacked(n_sites)}."""
     params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     x = params["embed"][batch["tokens"]]
-    positions = torch.arange(1, device=x.device) + batch["pos"]
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device) + batch["pos"] + \
+        _seq_offset(pctx, S)
     rope_cs = layers.rope_freqs(cfg.hd, cfg.rope_theta, positions)
     return _zamba_run(cfg, params, x, rope_cs, pctx, caches), caches
 
@@ -677,9 +728,11 @@ def whisper_specs(cfg: ArchConfig, max_len: int = 65536) -> Params:
 
 
 def whisper_encode(cfg, params, frames, pctx):
+    """The encoder's output for ``frames`` (this rank's block of them
+    under a split sequence)."""
     S = frames.shape[1]
-    x = pctx.cst(frames + params["enc_pos"][:S][None],
-                 ("batch", "seq", "embed"))
+    pe = params["enc_pos"].narrow(0, _seq_offset(pctx, S), S)
+    x = pctx.cst(frames + pe[None], ("batch", "seq", "embed"))
     def body(xc, lp):
         lp = _use_layer(pctx, lp, "enc_layers")
         h = layers.layernorm_apply(lp["ln1"], xc, cfg.norm_eps)
@@ -724,9 +777,13 @@ def _whisper_decode(cfg, params, x, enc_out, pctx, caches=None):
 def whisper_forward(cfg, params, batch, pctx):
     params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     enc_out = whisper_encode(cfg, params, batch["frames"], pctx)
+    # every query reads the whole encoder output: under a split sequence
+    # its blocks, gathered once for every layer (gradient reduce-scattered)
+    enc_out, _ = layers.seq_gather(enc_out, pctx.cst)
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = pctx.cst(params["embed"][tokens] + params["dec_pos"][:S][None],
+    pe = params["dec_pos"].narrow(0, _seq_offset(pctx, S), S)
+    x = pctx.cst(params["embed"][tokens] + pe[None],
                  ("batch", "seq", "embed"))
     return _whisper_decode(cfg, params, x, enc_out, pctx)
 
@@ -737,11 +794,14 @@ def whisper_decode_step(cfg, params, batch, caches, pctx):
     params, batch, pctx = _on_mesh(cfg, params, batch, pctx)
     tokens, pos = batch["tokens"], batch["pos"]
     pe = params["dec_pos"]
-    # the row at pos, read on the device (no host read of pos)
-    x = params["embed"][tokens] + pe.index_select(
-        0, torch.as_tensor(pos, device=pe.device).reshape(1).long())[None]
-    return _whisper_decode(cfg, params, x, batch["enc_out"], pctx,
-                           caches), caches
+    S = tokens.shape[1]
+    # the rows from pos on, read on the device (no host read of pos)
+    rows = torch.as_tensor(pos, device=pe.device).long() + \
+        torch.arange(S, device=pe.device) + _seq_offset(pctx, S)
+    x = params["embed"][tokens] + pe.index_select(0, rows)[None]
+    # a step whose tokens split over ranks splits enc_out with them
+    enc_out, _ = layers.seq_gather(batch["enc_out"], pctx.cst)
+    return _whisper_decode(cfg, params, x, enc_out, pctx, caches), caches
 
 
 def whisper_cache_specs(cfg, batch, max_len):
@@ -810,30 +870,11 @@ class Model:
         return axes_tree(self.specs())
 
     # --- forward paths ---
-    def _mesh_ok(self, pctx):
-        """Under the fsdp profile (its sequence split over ``model``)
-        only the decoder-only LM without a vision prefix runs; the
-        others raise rather than computing unsharded."""
-        if pctx.mesh is None or getattr(pctx.cst, "profile", "") != "fsdp":
-            return
-        fam = _family(self.cfg)
-        if fam != "lm":
-            name = f"the {fam} family"
-        elif self.cfg.mrope:
-            name = "qwen2-vl's M-RoPE vision prefix"
-        else:
-            return
-        raise NotImplementedError(
-            f"{self.cfg.name}: {name} under the fsdp profile (a sequence "
-            f"split over 'model') is not ported: ROADMAP A item 2")
-
     def forward(self, params, batch, pctx: ParallelCtx = ParallelCtx()):
         """Logits (B, S, V) of the full forward pass."""
-        self._mesh_ok(pctx)
         return _FORWARD[_family(self.cfg)](self.cfg, params, batch, pctx)
 
     def loss(self, params, batch, pctx: ParallelCtx = ParallelCtx()):
-        self._mesh_ok(pctx)
         fam = _family(self.cfg)
         if fam == "lm":
             return lm_loss(self.cfg, params, batch, pctx)
@@ -845,9 +886,13 @@ class Model:
 
     def decode_step(self, params, batch, caches,
                     pctx: ParallelCtx = ParallelCtx()):
-        """One token against ``caches``, which are updated in place:
-        -> (logits (B, 1, V), caches)."""
-        self._mesh_ok(pctx)
+        """The S tokens ``batch["tokens"]`` (B, S) at positions ``pos``,
+        ``pos + 1``, ... ``pos + S - 1`` against ``caches``, which are
+        updated in place: -> (logits (B, S, V), or this rank's sequence
+        block of them under fsdp, caches).  Under a mesh the caches are
+        those of ``init_cache(..., pctx=)``, checked leaf by leaf."""
+        if pctx.mesh is not None:
+            self._check_cache(caches, pctx)
         return _DECODE[_family(self.cfg)](self.cfg, params, batch, caches,
                                           pctx)
 
@@ -856,37 +901,60 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, device=None,
                    pctx: ParallelCtx = ParallelCtx()):
-        """Zero caches; under a mesh (``pctx``) this rank's: its batch
-        rows (all of them where the batch does not split), and its kv
-        heads where the layers split them (else every kv head, replicated
-        over ``model``)."""
-        self._mesh_ok(pctx)
+        """Zero caches; under a mesh (``pctx``) this rank's block of each
+        leaf as the reference lays it out: ``spec_for`` under the cache
+        rules of the profile's activation rules
+        (``parallel.sharding.cache_rules_from``): the batch over the data
+        axes; K/V's kv heads over ``model`` where they divide it, else
+        its ``head_dim`` (under fsdp its positions first); a recurrent
+        state's ``heads``/``mlp``/``head_dim`` likewise.  Each leaf is
+        tagged with the mesh axes its dims beyond the batch rows are
+        split over (``layers.cache_split``), which the decode step
+        checks against the rules and reads."""
         dev = resolve_device(device)
         specs = self.cache_specs(batch, max_len)
-        if pctx.mesh is not None:
-            fam = _family(self.cfg)
-            lay = self.layout(pctx)
-            n_dp = lay.comm.size(lay.dp_axes) if lay.dp_axes else 1
-            if batch % n_dp:                  # rows kept whole, as the step
-                n_dp = 1
-            kv = lay.shardings["layers"]["attn"].get("wk") \
-                if fam == "lm" else None
-            m = lay.comm.size(kv.dim_axes(4)[2]) \
-                if kv is not None and lay.tp else 1
+        if pctx.mesh is None:
+            return tree_map(lambda s: torch.zeros(
+                s.shape, dtype=s.dtype, device=dev), specs)
+        rules = self._cache_rules(pctx)
 
-            def local(name, s):
-                if isinstance(s, dict):
-                    return {k: local(k, v) for k, v in s.items()}
-                shape = list(s.shape)
-                if len(shape) > 1:
-                    shape[1] //= n_dp
-                if name in ("k", "v"):
-                    shape[3] //= m
-                return _meta(tuple(shape), s.dtype)
+        def one(s, axes):
+            local, split = _cache_block(s.shape, axes, pctx.mesh, rules)
+            t = torch.zeros(local, dtype=s.dtype, device=dev)
+            t._split = split
+            return t
 
-            specs = local("", specs)
-        return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                              device=dev), specs)
+        return tree_map(one, specs, shd.cache_axes_like(specs, self.cfg))
+
+    def _cache_rules(self, pctx):
+        """The cache rules of ``pctx``'s profile."""
+        return shd.cache_rules_from(self.layout(pctx).cst.rules)
+
+    def _check_cache(self, caches, pctx) -> None:
+        """Raise unless every leaf of ``caches`` carries the layout
+        :meth:`init_cache` gave it under ``pctx`` (a copy of a cache, by
+        ``clone``, ``.to`` or ``torch.save``, drops it) and that layout
+        is the cache rules' for the global shape it implies."""
+        sizes = shd.mesh_axis_sizes(pctx.mesh)
+        rules = self._cache_rules(pctx)
+
+        def one(t, axes):
+            split = getattr(t, "_split", None)
+            if split is None or len(split) != t.dim():
+                raise ValueError(
+                    f"a cache leaf of shape {tuple(t.shape)} has no mesh "
+                    f"layout: under a mesh decode_step takes the caches of "
+                    f"init_cache(..., pctx=), updated in place")
+            glob = tuple(n * math.prod(sizes[a] for a in ax)
+                         for n, ax in zip(t.shape, split))
+            _, want = _cache_block(glob, axes, pctx.mesh, rules)
+            if want != split:
+                raise ValueError(
+                    f"a cache leaf of shape {tuple(t.shape)} split over "
+                    f"{split} is not the cache rules' block ({want}) of "
+                    f"{glob}")
+
+        tree_map(one, caches, shd.cache_axes_like(caches, self.cfg))
 
     # --- abstract inputs ---
     def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:

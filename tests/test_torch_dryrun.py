@@ -16,8 +16,10 @@ package, on the CPU.
 * ``lower_cell`` on an 8-rank fake debug mesh (pod 2 x data 2 x model 2)
   for internlm2-1.8b-smoke and deepseek-v3-671b-smoke at a tiny train
   and decode shape, the other families at a tiny train shape and a
-  decode batch of one, and the CLI on a full-size cell and a cell that is
-  not lowered (whisper under the fsdp profile);
+  decode batch of one (and under the fsdp profile at the tiny train and
+  decode shapes), and the CLI on a full-size cell and a cell that
+  does not lower (whisper under the fsdp profile at 32 microbatches,
+  whose 8 rows a microbatch do not split over 16 data ranks);
 * the abstract route: meta tensors take a kernel's plain version and
   are counted under its row; a tensor typed for the card never does.
 """
@@ -228,6 +230,26 @@ def test_lower_cell_of_the_other_families(arch, shape):
         assert res["memory"]["batch_bytes"] > 0
 
 
+@pytest.mark.parametrize("kind", list(TINY))
+@pytest.mark.parametrize("arch", ["zamba2-7b-smoke", "xlstm-125m-smoke",
+                                  "whisper-tiny-smoke", "qwen2-vl-2b-smoke"])
+def test_lower_cell_of_the_other_families_under_fsdp(arch, kind):
+    """The fsdp profile's train step (the sequence split over ``model``,
+    the recurrent mixers gathering theirs) and decode step (the caches
+    split over positions) lower for every family on the 8-rank fake
+    mesh, at a cut shape (xlstm's per-timestep loops make its full
+    ``train_4k`` meta run tens of minutes)."""
+    with dryrun.fake_world(8):
+        mesh = make_debug_mesh(2, 2, pod=2, device_type="cpu")
+        res = dryrun.lower_cell(arch, TINY[kind], mesh, "debug",
+                                profile="fsdp")
+    assert res["ok"] and res["stepcost"]["flops"] > 0
+    assert res["memory"]["fits"]
+    assert res["collectives"]["all_gather"][0] > 0
+    if kind == "train":
+        assert res["collectives"]["reduce_scatter"][0] > 0
+
+
 def test_dryrun_cli_records_a_cell_and_a_family_not_lowered(tmp_path):
     summary = dryrun.main(["--device", "cpu", "--arch", "internlm2-1.8b",
                            "--shape", "train_4k", "--out", str(tmp_path)])
@@ -237,14 +259,17 @@ def test_dryrun_cli_records_a_cell_and_a_family_not_lowered(tmp_path):
                        .read_text())
     assert saved["roofline"]["hlo_flops"] == cell["stepcost"]["flops"]
     assert saved["roofline"]["coll_net_bytes"] > 0   # data groups of 16
+    # 32 microbatches of 256 rows: 8 rows a microbatch, which the 16
+    # data ranks cannot split, and a gradient may not be taken of a
+    # batch every rank holds whole
     with pytest.raises(SystemExit) as exc:
         dryrun.main(["--device", "cpu", "--arch", "whisper-tiny",
                      "--shape", "train_4k", "--profile", "fsdp",
-                     "--out", str(tmp_path)])
+                     "--microbatches", "32", "--out", str(tmp_path)])
     assert exc.value.code == 1
     bad = json.loads((tmp_path / "whisper-tiny__train_4k__single.json")
                      .read_text())
-    assert not bad["ok"] and bad["error"].startswith("not lowered: ")
+    assert not bad["ok"] and "does not split" in bad["error"]
     with pytest.raises(RuntimeError, match="no process group"):
         with dryrun.fake_world(2), dryrun.fake_world(2):
             pass

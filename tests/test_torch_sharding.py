@@ -7,7 +7,8 @@ leaf of every arch in ``configs`` (FULL and smoke), both profiles, the
 production single- and multi-pod meshes and the debug (2, 2) and
 (2, 2, 2) meshes; specs equal and each leaf's local shard shape equal.
 The production and debug ``DeviceMesh`` builders, the launcher's
-``ParallelCtx`` and the families left for later run under PyTorch's fake
+``ParallelCtx``, every family under both profiles and the decode caches'
+layout against the reference's cache rules run under PyTorch's fake
 process group (``backend="fake"``), which builds a mesh of any size in
 one process and moves no data.
 """
@@ -23,7 +24,7 @@ from repro.models import Model as RefModel
 from repro.models.spec import is_spec as ref_is_spec
 from repro.parallel import sharding as ref_shd
 from repro_torch import configs
-from repro_torch.models import Model, ParallelCtx
+from repro_torch.models import SHAPES, Model, ParallelCtx
 from repro_torch.models.spec import tree_map
 from repro_torch.parallel import sharding as shd
 
@@ -203,24 +204,38 @@ def test_launcher_wrong_world_raises(fake_world):
                      "--optimizer", "gradflow"])
 
 
+def _ref_cache_shapes(arch, batch, max_len, sizes, profile):
+    """The reference's shard shape of each cache leaf under the cache
+    rules of ``profile``'s activation rules, in tree order."""
+    rcfg = ref_configs.get(arch)
+    rcs = RefModel(rcfg).cache_specs(batch, max_len)
+    rax = ref_shd.cache_axes_like(rcs, rcfg)
+    rules = ref_shd.cache_rules_from(ref_shd.PROFILES[profile][1])
+    mesh = FakeMesh(sizes)
+    return [_local(s.shape, ref_shd.spec_for(s.shape, a, mesh, rules), sizes)
+            for s, a in zip(jax.tree_util.tree_leaves(rcs),
+                            jax.tree_util.tree_leaves(
+                                rax, is_leaf=lambda x: isinstance(x, tuple)))]
+
+
 @pytest.mark.parametrize("arch", ["zamba2-7b-smoke", "xlstm-125m-smoke",
                                   "whisper-tiny-smoke", "qwen2-vl-2b-smoke",
                                   "internlm2-1.8b-smoke"])
-def test_families_left_for_later_raise_under_a_mesh(arch, fake_world):
-    """Under the tp_fsdp profile every family runs on this rank's shards
-    (zamba2, xlstm and whisper gathering each parameter whole, on their
-    batch rows; tests/test_torch_gradflow_mesh.py holds their values).
-    Under the ``fsdp`` profile (its sequence split over ``model``) the
-    decoder-only LM runs, and zamba2, xlstm, whisper and qwen2-vl's
-    M-RoPE vision prefix, left for later, raise at every entry point: no
-    unsharded compute."""
+def test_every_family_runs_under_both_profiles(arch, fake_world):
+    """No family is left for later: under both profiles every family's
+    loss, forward pass, ``init_cache`` and decode step run on this rank's
+    meta shards of a data 2 x model 2 mesh (tests/test_torch_fsdp_families.py
+    holds their values), with this rank's rows (and, under fsdp, sequence
+    block) of the logits, and each cache leaf in the reference's shard
+    shape under its cache rules.  The decode step refuses a copy of the
+    caches (which drops their layout) and a leaf whose layout is not the
+    cache rules'."""
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.spec import tree_leaves
     fake_world(4)
     mesh = make_debug_mesh(2, 2, device_type="cpu")
     model = Model(configs.get(arch))
     cfg = model.cfg
-    pctx = ParallelCtx(mesh=mesh, cst=shd.make_cst(mesh))
-    fsdp = ParallelCtx(mesh=mesh, cst=shd.make_cst(mesh, shd.FSDP_ACT_RULES))
     batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32),
              "targets": torch.zeros((2, 4), dtype=torch.int32)}
     if cfg.mrope:
@@ -228,26 +243,88 @@ def test_families_left_for_later_raise_under_a_mesh(arch, fake_world):
     if cfg.enc_dec:
         batch["frames"] = torch.zeros((2, 8, cfg.d_model), dtype=cfg.dtype)
     meta = {k: v.to("meta") for k, v in batch.items()}
-
-    def local(p):
-        return tree_map(lambda t, s: torch.empty(
+    S = 8 if cfg.mrope else 4
+    for profile in ("tp_fsdp", "fsdp"):
+        pctx = ParallelCtx(mesh=mesh, cst=shd.make_cst(
+            mesh, shd.PROFILES[profile][1]))
+        local = tree_map(lambda t, s: torch.empty(
             s.local_shape(t.shape), dtype=t.dtype, device="meta"),
-            model.abstract_params(), model.param_shardings(p))
-
-    loss = model.loss(local(pctx), meta, pctx)
-    assert loss.shape == () and loss.device.type == "meta"
-    if arch == "internlm2-1.8b-smoke":
-        loss = model.loss(local(fsdp), meta, fsdp)
+            model.abstract_params(), model.param_shardings(pctx))
+        loss = model.loss(local, meta, pctx)
         assert loss.shape == () and loss.device.type == "meta"
-        # the decoder-only LM's caches: this rank's rows and kv heads
-        cache = model.init_cache(8, 16, device="cpu", pctx=pctx)
-        assert tuple(cache["k"].shape) == (2, 4, 16, 1, 16)
-        return
-    for run in (lambda: model.loss({}, batch, fsdp),
-                lambda: model.forward({}, batch, fsdp),
-                lambda: model.init_cache(2, 8, device="cpu", pctx=fsdp),
-                lambda: model.decode_step(
-                    {}, {"tokens": batch["tokens"][:, :1], "pos": 0}, {},
-                    fsdp)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 2"):
-            run()
+        with torch.no_grad():
+            logits = model.forward(local, meta, pctx)
+        seq = S // 2 if profile == "fsdp" else S
+        assert tuple(logits.shape) == (1, seq, cfg.vocab_size), profile
+        cache = model.init_cache(8, 16, device="meta", pctx=pctx)
+        assert [tuple(t.shape) for t in tree_leaves(cache)] == \
+            _ref_cache_shapes(arch, 8, 16, {"data": 2, "model": 2}, profile)
+        step = {"tokens": torch.zeros((8, 1), dtype=torch.int32,
+                                      device="meta"), "pos": 0}
+        if cfg.enc_dec:
+            step["enc_out"] = torch.zeros((8, 8, cfg.d_model),
+                                          dtype=cfg.dtype, device="meta")
+        with torch.no_grad():
+            y, _ = model.decode_step(local, step, cache, pctx)
+        assert tuple(y.shape) == (4, 1, cfg.vocab_size), profile
+        with pytest.raises(ValueError, match="no mesh layout"):
+            model.decode_step(local, step, tree_map(torch.clone, cache), pctx)
+        leaf = tree_leaves(cache)[0]
+        leaf._split = ((),) + (("data",),) * (leaf.dim() - 1)
+        with pytest.raises(ValueError, match="not the cache rules' block"):
+            model.decode_step(local, step, cache, pctx)
+
+
+DECODE_SHAPES = [n for n, s in SHAPES.items() if s.kind == "decode"]
+
+
+@pytest.mark.parametrize("profile", ["tp_fsdp", "fsdp"])
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_init_cache_leaves_take_the_reference_shard_shapes(arch, profile,
+                                                           fake_world):
+    """Every cache leaf's local shape from ``init_cache(..., pctx=)`` on
+    the production single- (256 ranks) and multi-pod (512) meshes, for
+    every decode shape, equals the reference's shard shape under
+    ``cache_rules_from`` of the profile's activation rules: kv heads over
+    ``model`` where they divide it, else ``head_dim`` (qwen2-72b's 8 kv
+    heads on 16), under fsdp the positions first."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.spec import tree_leaves
+    model = Model(configs.get(arch))
+    for name, world in (("single", 256), ("multi", 512)):
+        fake_world(world)
+        mesh = dryrun._mesh(name, "cpu")
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        for shape in DECODE_SHAPES:
+            sh = SHAPES[shape]
+            pctx = dryrun.make_pctx(model.cfg, mesh, "decode", profile)
+            cache = model.init_cache(sh.global_batch, sh.seq_len,
+                                     device="meta", pctx=pctx)
+            got = [tuple(t.shape) for t in tree_leaves(cache)]
+            assert got == _ref_cache_shapes(arch, sh.global_batch,
+                                            sh.seq_len, sizes, profile), \
+                (name, shape)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "zamba2-7b-smoke"])
+def test_decode_rows_split_in_part_as_spec_for_splits_them(arch, fake_world):
+    """A decode batch of 2 on pod 2 x data 2 x model 2: ``spec_for``
+    splits its rows over ``pod`` alone; the caches and the step's rows
+    agree (one row a rank), under both profiles."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    fake_world(8)
+    mesh = make_debug_mesh(2, 2, pod=2, device_type="cpu")
+    model = Model(configs.get(arch))
+    cfg = model.cfg
+    for profile in ("tp_fsdp", "fsdp"):
+        pctx = dryrun.make_pctx(cfg, mesh, "decode", profile)
+        local = tree_map(lambda t, s: torch.empty(
+            s.local_shape(t.shape), dtype=t.dtype, device="meta"),
+            model.abstract_params(), model.param_shardings(pctx))
+        cache = model.init_cache(2, 8, device="meta", pctx=pctx)
+        step = {"tokens": torch.zeros((2, 1), dtype=torch.int32,
+                                      device="meta"), "pos": 0}
+        with torch.no_grad():
+            y, _ = model.decode_step(local, step, cache, pctx)
+        assert tuple(y.shape) == (1, 1, cfg.vocab_size), profile
