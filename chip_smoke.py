@@ -12,11 +12,14 @@ of which prints the seconds it took:
 2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``
    (one process per source, all at once) unless already built;
 3. kernels: each ported kernel body against its plain PyTorch version
-   on the card, in float64 and float32: the six of the ensemble-BDF path
-   and the fused history rebuild ``lagrange_rescale`` (W formed from
-   eta and q) at the main-path shape (2**20 systems, n = b = 3) and at
-   ragged batches (7, 130, 516), the six and the fused rebuild also at
-   path M's decay chain, n = b = 6, over those and 16384 systems, both
+   on the card, in float64 and float32: the six of the ensemble-BDF path,
+   the fused history rebuild ``lagrange_rescale`` (W formed from eta
+   and q) and the fused Newton iteration ``newton_residual_lsolve``
+   (rows 1 and 2 and the gamma-drift correction in one launch, bit for
+   bit) at the main-path shape (2**20 systems, n = b = 3) and at ragged
+   batches (7, 130, 516), the eight also at path M's decay chain, n = b
+   = 6, over those and 16384 systems, the fused Newton iteration also
+   at b = 1, 2, 4, 5, 7, 8 over the ragged batches, both
    rebuild entries and ``wrms_soa`` also at n = 32 over those and 2**16
    systems, both rebuild entries bit for bit (also with no system and
    with every system active),
@@ -52,9 +55,11 @@ of which prints the seconds it took:
    2**20 (path D's ``BlockJacobiPrecond(2)``), the Newton loop's five
    (``newton_residual``, ``masked_update_wrms``, ``history_rescale``,
    ``lagrange_rescale``, ``wrms_soa``) also at n = 32 over 2**16 (paths
-   B, K, D, E, F), the six of the ensemble-BDF path also at n = 6 over
-   16384 (path M's decay chain), the two rebuild entries also with
-   every system active, the
+   B, K, D, E, F), the six of the ensemble-BDF path and the fused Newton
+   iteration also at n = 6 over 16384 (path M's decay chain), the two
+   rebuild entries also with every system active, the fused Newton
+   iteration also as the route it replaced (rows 1 and 2 and the plain
+   ``2/(1+gamrat)``), the
    dot also at 3*2**20 elements (paths H and I) and at 32 (the floor of
    one timed launch);
 4. paths, each driven through ``integrate`` with the launch counts set
@@ -68,7 +73,11 @@ of which prints the seconds it took:
    the same systems).  rtol 1e-5, atol 1e-10, float64:
    - ensemble BDF, the main path: ``"ensemble_bdf"`` with
      ``BlockDiagGJ()`` over 2**20 batched Robertson systems (rates from
-     numpy seed 0) to t = 10; 256 classic-Robertson lanes must match
+     numpy seed 0) to t = 10, one launch of ``newton_residual_lsolve``
+     a Newton trip; held bit for bit (y, every stats field, host syncs
+     and trips) to a run with ``newton_residual_soa`` pinned to its
+     plain version (the two-op route: the residual, then
+     ``blockdiag_spmv``); 256 classic-Robertson lanes must match
      scipy's Radau IIA (rtol 1e-12) within 10*(rtol*|y|+atol);
    - path A: ``"ensemble_dirk:sdirk2"`` on the same 2**20 systems (the
      plain run on the first 2**16 of them: the lanes are independent),
@@ -148,7 +157,7 @@ of which prints the seconds it took:
      timed as served (one gather a leaf) against every warm lane joined
      by ``concat`` (the reference's construction, bit for bit the same
      session); the async facade (3000 + 1000
-     requests); every kernel bundle launching rows 1-6 (4f) at b = 3 and
+     requests); every kernel bundle launching rows 1+2f, 3-6 (4f) at b = 3 and
      b = 6 and no plain version, no failure, no degraded bundle, mass
      conserved, the Prometheus scrape equal to ``metrics()``, cache
      misses equal to the distinct keys and no steady-state miss; a
@@ -169,7 +178,7 @@ of which prints the seconds it took:
      path's 2**20 systems to t = 10 as a world of one, with no process
      group and under an NCCL group of one, each equal to the main
      path's kernel run bit for bit (y, every stats field, its host
-     syncs), rows 1-6 (4f) and no plain version; N.4 the Fig. 4 analog
+     syncs), rows 1+2f, 3-6 (4f) and no plain version; N.4 the Fig. 4 analog
      (the reference's ``benchmarks/meshvector_overhead.py``): host us a
      call over 200 calls ending in a synchronize, ``MeshVector``'s
      ``linear_sum`` and ``wrms_norm`` against the raw ``dispatch`` calls
@@ -188,7 +197,8 @@ of which prints the seconds it took:
      one collective and its row's one launch (row 12, 16, 14); N.5
      the main path's problem at 2**16 systems under
      ``ExecPolicy().override(blockdiag_spmv_soa="torch")``: rows 1, 3,
-     4f, 5, 6 launched, row 2 never (its plain version instead), within
+     4f, 5, 6 launched, row 2 never (its plain version instead) and the
+     fused Newton iteration (row 1+2f) never, within
      10*(rtol*|y|+atol) of the main path's lanes, retcodes equal; a
      failed rank fails the run;
    - path O, the analysis layer, right after N: O.1 the ``h100_sxm``
@@ -197,17 +207,17 @@ of which prints the seconds it took:
      op, back to back, and the streamed bandwidth of a 1 GiB device copy
      and of a plain elementwise product), printed beside the row's, and
      ``device_for`` finding this card's row; O.2 ``autotune.tune()``
-     over its grid (the reference tuner's signatures and
-     ``lagrange_rescale_soa``'s, and :func:`path_o_grid`: the paths'
+     over its grid (the reference tuner's signatures and the port's own
+     ops', and :func:`path_o_grid`: the paths'
      shapes of phase 3) into a temporary directory,
      every time finite and above 0, the cache read back equal, each
      entry's winner and torch/cuda ratio, the model's agreement and
-     every misprediction printed, the main path's signatures (rows 1-6
-     and 4f at 2**20 systems) won by the kernels and the model agreeing
+     every misprediction printed, the main path's signatures (rows 1-6,
+     4f and 1+2f at 2**20 systems) won by the kernels and the model agreeing
      on at least 80 % of the entries; O.3 the main path under
      ``Context(policy=ExecPolicy())`` with that cache, bit for bit the
      main path's kernel run (y, every stats field, its host syncs),
-     rows 1-6 (4f) and no plain version, one decision a signature, each
+     rows 1+2f, 3-6 (4f) and no plain version, one decision a signature, each
      the kernel from the cache, their hits the op calls, the three
      ``repro_autotune_*`` gauges exported, its wall printed beside the
      main path's; O.4 sunlint's kernel-contract with the card present
@@ -292,7 +302,7 @@ of which prints the seconds it took:
      replica, each row held to its plain version on a rank's shard, and
      the fsdp profile's loss against one card's; S.2 the dry run
      (``launch.dryrun.lower_cell`` on meta tensors, fake groups of 256,
-     4 and 1 in this process): internlm2-1.8b and dbrx-132b ``train_4k``
+     4 and 1 in this process, while S.1's ranks run): internlm2-1.8b and dbrx-132b ``train_4k``
      and internlm2-1.8b's fsdp profile on the 256-rank mesh, R.3's cell
      (its collectives by kind and its state a rank equal to R.3's
      record of this call) and Q.1's; each cell's roofline row (data-sheet
@@ -366,7 +376,8 @@ TOL = {"torch.float64": 1e-10, "torch.float32": 1e-4}
 #: clock cycles of the spin before each timed call (~0.5 ms)
 SPIN_CYCLES = 1_000_000
 #: the __global__ functions of kernels/csrc, as the profiler names them
-KERNEL_SYMBOLS = ("newton_residual_kernel", "masked_update_wrms_kernel",
+KERNEL_SYMBOLS = ("newton_residual_kernel", "newton_residual_lsolve_kernel",
+                  "masked_update_wrms_kernel",
                   "history_rescale_kernel", "history_rescale_loop_kernel",
                   "wrms_soa_kernel",
                   "spmv_fixed_kernel", "spmv_rows_kernel",
@@ -384,11 +395,17 @@ RANGES = ("lagrange_matrix_soa", "spsolve.numeric_lu", "spsolve.lu_solve",
 #: the Newton loop's kernels, on every BDF path
 BDF_LOOP = ("newton_residual", "masked_update_wrms", "lagrange_rescale",
             "wrms_soa")
+#: the main path's kernels under BlockDiagGJ() at b <= 8: each Newton
+#: iteration the fused residual and lsolve, then the masked update
+MAIN_BDF = ("newton_residual_lsolve", "masked_update_wrms",
+            "lagrange_rescale", "wrms_soa", "block_inverse")
 #: path -> the kernel bodies (registry names) it must launch
 PATH_KERNELS = {
-    "ensemble_bdf": ("newton_residual", "blockdiag_spmv",
-                     "masked_update_wrms", "lagrange_rescale", "wrms_soa",
-                     "block_inverse"),
+    "ensemble_bdf": MAIN_BDF,
+    # the main path with newton_residual_soa pinned to its plain version:
+    # the two-op Newton iteration, held to the fused one bit for bit
+    "main: two-op route": ("blockdiag_spmv", "masked_update_wrms",
+                           "lagrange_rescale", "wrms_soa", "block_inverse"),
     "A: ensemble_dirk": ("newton_residual", "block_solve", "wrms_soa"),
     "B: ensemble_bdf direct": ("newton_residual", "block_solve_tiled",
                                "masked_update_wrms", "lagrange_rescale",
@@ -407,23 +424,17 @@ PATH_KERNELS = {
     "I: bdf csr": ("csr_spmv", "block_solve", "linear_combination", "wrms_ss",
                    "dot"),
     "J: adams": ("wrms_ss",),
-    "L: coupled legs": ("newton_residual", "blockdiag_spmv",
-                        "masked_update_wrms", "lagrange_rescale", "wrms_soa",
-                        "block_inverse"),
-    "M: serving": ("newton_residual", "blockdiag_spmv", "masked_update_wrms",
-                   "lagrange_rescale", "wrms_soa", "block_inverse"),
-    "N: sharded ensemble_bdf": ("newton_residual", "blockdiag_spmv",
-                                "masked_update_wrms", "lagrange_rescale",
-                                "wrms_soa", "block_inverse"),
+    "L: coupled legs": MAIN_BDF,
+    "M: serving": MAIN_BDF,
+    "N: sharded ensemble_bdf": MAIN_BDF,
     "N.5: pinned": ("newton_residual", "masked_update_wrms",
                     "lagrange_rescale", "wrms_soa", "block_inverse"),
-    "O: auto main path": ("newton_residual", "blockdiag_spmv",
-                          "masked_update_wrms", "lagrange_rescale",
-                          "wrms_soa", "block_inverse"),
+    "O: auto main path": MAIN_BDF,
 }
 #: path -> the plain versions its kernel run takes by a per-op pin (and
 #: must take); a kernel run of any other path takes none
-PATH_PLAIN = {"N.5: pinned": ("blockdiag_spmv",)}
+PATH_PLAIN = {"N.5: pinned": ("blockdiag_spmv",),
+              "main: two-op route": ("newton_residual",)}
 #: path L: slots of the step-telemetry ring, and the legs' intervals
 L_RING = 256
 L_LEG1, L_LEG2 = (0.0, 10.0), (10.0, 20.0)
@@ -597,7 +608,9 @@ def make_inputs(nb, dtype, gen, dev, b=3):
     loop's vectors, weights, mask, W and history Z (6, n, nb); the
     fused rebuild's step ratios eta over [0.1, 10] (every fifth exactly
     1) and valid history counts q over 0..5 (int32); blocks A (b, b,
-    nb), diagonally dominant, and r."""
+    nb), diagonally dominant, and r; the gamma ratios since lsetup,
+    gamrat over [0.7, 1.3] (the fused Newton iteration's, with A as its
+    saved inverse)."""
     import torch
 
     def r(*shape):
@@ -608,13 +621,16 @@ def make_inputs(nb, dtype, gen, dev, b=3):
     eta[::5] = 1.0
     q = torch.randint(0, 6, (nb,), generator=gen, device=dev,
                       dtype=torch.int32)
-    return {"z": r(b, nb), "f": r(b, nb), "psi": r(b, nb),
-            "gam": r(nb).abs(), "w": r(b, nb).abs() + 0.1,
-            "mask": torch.rand(nb, generator=gen, device=dev) > 0.4,
-            "W": r(6, 6, nb), "Z": r(6, b, nb), "r": r(b, nb),
-            "eta": eta, "q": q,
-            "A": r(b, b, nb) + b * torch.eye(b, device=dev,
-                                              dtype=dtype)[:, :, None]}
+    d = {"z": r(b, nb), "f": r(b, nb), "psi": r(b, nb),
+         "gam": r(nb).abs(), "w": r(b, nb).abs() + 0.1,
+         "mask": torch.rand(nb, generator=gen, device=dev) > 0.4,
+         "W": r(6, 6, nb), "Z": r(6, b, nb), "r": r(b, nb),
+         "eta": eta, "q": q,
+         "A": r(b, b, nb) + b * torch.eye(b, device=dev,
+                                           dtype=dtype)[:, :, None]}
+    d["gamrat"] = 0.7 + 0.6 * torch.rand(nb, generator=gen, device=dev,
+                                         dtype=dtype)
+    return d
 
 
 def brusselator_pattern():
@@ -784,6 +800,19 @@ def kernel_table():
                lambda d: (d["z"], d["f"], d["psi"], d["gam"]),
                {"negate": True}, lambda d: 3 * d["z"].numel(), b3 + b6,
                more_timings=n6 + n32),
+        # rows 1 and 2 fused with the correction: the Newton iteration of
+        # BlockDiagGJ() at b <= 8, one launch for six; no single PyTorch
+        # call computes it
+        Kernel("newton_residual_lsolve", newton.newton_residual_lsolve,
+               newton.newton_residual_lsolve_plain,
+               ref + "newton.py:40, " + ref + "blockdiag_spmv.py:20",
+               csrc + "newton.cu",
+               lambda d: (d["z"], d["f"], d["psi"], d["gam"], d["gamrat"],
+                          d["A"]), {},
+               # per system 3b (residual), (2b - 1)b (SpMV), 3 (corr), b
+               lambda d: (2 * b_of(d) ** 2 + 3 * b_of(d) + 3) * nb_of(d),
+               b3 + b6 + [(b, nb) for b in (1, 2, 4, 5, 7, 8)
+                          for nb in RAGGED], more_timings=n6, exact=True),
         Kernel("blockdiag_spmv", blockdiag_spmv.blockdiag_spmv_soa,
                blockdiag_spmv.blockdiag_spmv_soa_plain,
                ref + "blockdiag_spmv.py:20", csrc + "blockdiag_spmv.cu",
@@ -1109,8 +1138,10 @@ def compare_misaligned_reductions(gen, dev):
 
 def phase_timings(table, dev):
     """Each body, its plain version and its library yardstick at the
-    shape its path gives it, float64, against its bound."""
+    shape its path gives it, float64, against its bound; row 1+2f also
+    as the two-op route."""
     import torch
+    from repro_torch.kernels import blockdiag_spmv, newton
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
@@ -1164,6 +1195,19 @@ def phase_timings(table, dev):
               f"{row['ms_all_active']:.4f} ms  bound "
               f"{row['bound_ms_all_active']:.4f} ms  library "
               f"{row['library_ms_all_active']}", flush=True)
+    # the fused Newton iteration beside the route it replaced: rows 1
+    # and 2 and the plain correction (six launches)
+    for row in rows + more:
+        if row["name"] != "newton_residual_lsolve":
+            continue
+        d = inputs[("make_inputs", (row["b"], row["nb"]))]
+        row["ms_two_op"] = time_ms(lambda: (2.0 / (1.0 + d["gamrat"]))[
+            None, :] * blockdiag_spmv.blockdiag_spmv_soa(
+                d["A"], newton.newton_residual(
+                    d["z"], d["f"], d["psi"], d["gam"], negate=True)), flush)
+        print(f"  newton_residual_lsolve, b={row['b']}: fused {row['ms']:.4f} "
+              f"ms, rows 1 and 2 with the plain correction "
+              f"{row['ms_two_op']:.4f} ms", flush=True)
     del inputs, flush
     return rows, more
 
@@ -1315,6 +1359,7 @@ def phase_main_path(profile):
     from repro_torch.core import problems
     from repro_torch.core.arkode import ODEOptions
     from repro_torch.core.policies import ExecPolicy
+    import torch
     path = "ensemble_bdf"
     prob = robertson_problem(NSYS, problems.robertson_rates(NSYS, seed=0))
     opts = ODEOptions(rtol=RTOL, atol=ATOL, max_steps=100_000)
@@ -1325,15 +1370,39 @@ def phase_main_path(profile):
                                 policy=ExecPolicy(backend="torch")))
     agreement = agree(path, sol.y, ref.y, sol.retcodes, ref.retcodes,
                       mass=True)
+    del ref
+    # the two-op route: the residual's plain version (which rounds as
+    # row 1) and row 2's kernel with the plain correction, bit for bit
+    # the fused Newton iteration, with the same syncs and trips
+    two = "main: two-op route"
+    sol2, two_rec = run_path(two, "kernels, newton_residual_soa pinned",
+                             prob, "ensemble_bdf", 10.0, opts._replace(
+                                 policy=ExecPolicy().override(
+                                     newton_residual_soa="torch")))
+    check(torch.equal(sol2.y, sol.y), f"{two}: y is not the fused run's "
+          "bit for bit")
+    same_stats(two, "the fused run", sol2.stats, sol.stats)
+    check(two_rec["loop"] == rec["loop"], f"{two}: loop counts "
+          f"{two_rec['loop']}, the fused run {rec['loop']}")
+    trips = rec["loop"]["newton_trips"]
+    check(rec["counts"]["newton_residual_lsolve"][0] == trips and
+          two_rec["counts"]["blockdiag_spmv"][0] == trips,
+          f"{path}: one fused launch a Newton trip ({trips}), "
+          f"{rec['counts']['newton_residual_lsolve'][0]} and "
+          f"{two_rec['counts']['blockdiag_spmv'][0]}")
+    print(f"{path}: the fused Newton iteration equals the two-op route bit "
+          f"for bit (y, stats, {rec['loop']['host_syncs']} host syncs, "
+          f"{trips} Newton trips)", flush=True)
     y, stats = sol.y, sol.stats
-    del sol, ref
+    del sol, sol2
     prof = None
     if profile:
         prof = profile_run(path, integrate_call(prob, "ensemble_bdf", 10.0,
                                                 opts), rec["wall_s"], True)
         prof["lagrange_alone_ms"] = lagrange_alone_ms()
     return {"kernels_run": rec, "plain_run": ref_rec,
-            "agreement": agreement, "profile": prof, "y": y, "stats": stats}
+            "two_op_run": two_rec, "agreement": agreement, "profile": prof,
+            "y": y, "stats": stats}
 
 
 def run_leg(path, label, ctx, prob, t_span, opts, summarise=False, **kw):
@@ -2458,13 +2527,15 @@ def o_constants(card, dev):
 
 
 def main_path_grid():
-    """The main path's signatures: rows 1-6 and 4f at 2**20 systems,
-    n = b = 3 (and row 4, whose entry the paths no longer call)."""
+    """The main path's signatures: rows 1-6, 4f and 1+2f at 2**20
+    systems, n = b = 3 (and rows 1, 2 and 4, whose entries its loop no
+    longer calls)."""
     from repro_torch.analysis.opcost import OpSig
 
     def sig(op, **kw):
         return OpSig(op, "float64", n=3, nsys=NSYS, **kw)
-    return [sig("newton_residual_soa"), sig("blockdiag_spmv_soa", b=3),
+    return [sig("newton_residual_lsolve_soa", b=3),
+            sig("newton_residual_soa"), sig("blockdiag_spmv_soa", b=3),
             sig("masked_update_wrms_soa"), sig("history_rescale_soa", k=6),
             sig("lagrange_rescale_soa", k=6), sig("wrms_soa"),
             sig("block_inverse_soa", b=3)]
@@ -2472,7 +2543,7 @@ def main_path_grid():
 
 def path_o_grid():
     """The tuner's grid of path O: ``autotune.tune_grid()`` (the
-    reference tuner's signatures and ``lagrange_rescale_soa``'s), then
+    reference tuner's signatures and the port's own ops'), then
     the paths' shapes of phase 3: the main path's, path M's decay chain,
     the n = 32 Brusselator ensemble of B, K, D-F, the §7 mesh's vectors
     and stage sums of G-J (a signature in both measured once)."""
@@ -2482,6 +2553,8 @@ def path_o_grid():
     def sig(op, n=0, nsys=0, b=0, k=0, nnz=0):
         return OpSig(op, "float64", n=n, nsys=nsys, b=b, k=k, nnz=nnz)
     out = autotune.tune_grid() + main_path_grid()
+    out.append(sig("newton_residual_lsolve_soa", n=O_DECAY_N, nsys=NDECAY,
+                   b=O_DECAY_N))
     for n, nb in ((O_DECAY_N, NDECAY), (32, NBRUSS)):
         out += [sig("newton_residual_soa", n=n, nsys=nb),
                 sig("masked_update_wrms_soa", n=n, nsys=nb),
@@ -2551,7 +2624,7 @@ def o_tune(card, tmp):
 def o_auto_main(card, y_main, st_main, syncs_main, main_wall):
     """O.3: the main path under ``Context(policy=ExecPolicy())`` with the
     tuned cache: bit for bit the main path's kernel run with its host
-    syncs, rows 1-6 (4f) and no plain version; one decision a
+    syncs, rows 1+2f, 3-6 (4f) and no plain version; one decision a
     signature, each the kernel from the cache, their hits the op calls;
     the autotune gauges exported."""
     import torch
@@ -3405,8 +3478,8 @@ def p_walker(dev):
     kernels.reset_counts()
     found = lint.run_rules(ctx, ["hot-loop-layout", "dtype-drift"])
     counts = kernels.counts()
-    for name in ("newton_residual", "blockdiag_spmv", "masked_update_wrms",
-                 "block_solve"):
+    for name in ("newton_residual_lsolve", "newton_residual",
+                 "masked_update_wrms", "block_solve"):
         check(counts[name][0] > 0, f"P.6: kernel {name} was not launched")
     check(all(v[1] == 0 for v in counts.values()),
           "P.6: a plain version ran on the card")
@@ -5264,8 +5337,8 @@ def s_dryrun(r3):
 def phase_path_s(card, r3=None, dev=None):
     """Path S: S.1 gradient flow (and the fsdp profile's loss) over a
     2 x 2 mesh in four gloo ranks on this card, against one card; S.2 the
-    dry run of production cells on fake groups in this process, R.3's
-    cell against R.3's counts."""
+    dry run of production cells on fake groups in this process while the
+    ranks run, R.3's cell against R.3's counts."""
     import shutil
     import tempfile
     import torch
@@ -5280,15 +5353,17 @@ def phase_path_s(card, r3=None, dev=None):
     tmp = Path(tempfile.mkdtemp(prefix="path_s_", dir=OUT))
     try:
         t = time.perf_counter()
-        ranks = spawn_ranks(S_WORLD, False, "--path-s-rank", tmp,
-                            S_RANK_TIMEOUT, "S")
+        started = start_ranks(S_WORLD, False, "--path-s-rank", tmp)
+        try:
+            rec["S.2"] = s_dryrun(r3)
+            rec["seconds"]["S.2 (beside the ranks)"] = \
+                time.perf_counter() - t
+        finally:
+            ranks = wait_ranks(started, tmp, S_RANK_TIMEOUT, "S")
         rec["seconds"]["S.1 ranks"] = time.perf_counter() - t
         rec["S.1"], total = s_check_ranks(ranks, single, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    t = time.perf_counter()
-    rec["S.2"] = s_dryrun(r3)
-    rec["seconds"]["S.2"] = time.perf_counter() - t
     print("path S seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in rec["seconds"].items()), flush=True)
     print("path S: kernel launches " + ", ".join(

@@ -238,7 +238,8 @@ class LintContext:
 def default_contract_sigs() -> Dict[str, list]:
     """The signatures kernel-contract checks per op: the reference's grid
     (``repro/analysis/lint.py:274-310``; block sizes on both sides of
-    the b <= 8 and b > 8 bodies) and ``lagrange_rescale_soa``."""
+    the b <= 8 and b > 8 bodies) and the port's own ops,
+    ``lagrange_rescale_soa`` and ``newton_residual_lsolve_soa``."""
     from .opcost import OpSig
     sigs: Dict[str, list] = {}
 
@@ -264,6 +265,8 @@ def default_contract_sigs() -> Dict[str, list]:
             add(op, n=n, nsys=nsys)
     add("history_rescale_soa", n=3, nsys=8, k=6)
     add("lagrange_rescale_soa", n=3, nsys=8, k=6)
+    for b, nsys in ((3, 8), (8, 40)):
+        add("newton_residual_lsolve_soa", n=b, nsys=nsys, b=b)
     for n in (4, 8):
         add("csr_spmv", n=n, nnz=3 * n - 2)
     for nblk, b, nsys in ((4, 3, 8),):

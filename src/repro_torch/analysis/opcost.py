@@ -3,7 +3,8 @@
 Counterpart of ``repro.analysis.opcost``.  Every op of
 :data:`repro_torch.core.dispatch.OP_TABLE` has a signature extractor
 (:data:`SIG_EXTRACTORS`) and a cost model (:data:`COST_MODELS`): the
-reference's nineteen ops and the port's own ``lagrange_rescale_soa``.
+reference's nineteen ops and the port's own ``lagrange_rescale_soa`` and
+``newton_residual_lsolve_soa``.
 :func:`predict` evaluates both implementations of an op at one
 signature against a row of :data:`repro_torch.analysis.roofline.DEVICES`
 and names the faster; the resolver of ``"auto"`` dispatch
@@ -62,7 +63,7 @@ BATCHED_OPS = frozenset({
     "block_solve_soa", "block_inverse_soa", "blockdiag_spmv_soa",
     "newton_residual_soa", "masked_update_wrms_soa", "history_rescale_soa",
     "wrms_soa", "bsr_spmv_soa", "bsr_block_jacobi_inverse_soa",
-    "lagrange_rescale_soa",
+    "lagrange_rescale_soa", "newton_residual_lsolve_soa",
 })
 
 REDUCTION_OPS = frozenset({
@@ -158,6 +159,12 @@ def _sig_soa_elementwise(op: str, args: Tuple) -> OpSig:
     return OpSig(op, dtype_name(z.dtype), n=n, nsys=nsys)
 
 
+def _sig_residual_lsolve(op: str, args: Tuple) -> OpSig:
+    z = args[0]                      # z, f, psi, gamma, gamrat, Minv
+    b, nsys = z.shape
+    return OpSig(op, dtype_name(z.dtype), n=b, nsys=nsys, b=b)
+
+
 def _sig_history(op: str, args: Tuple) -> OpSig:
     Z = args[-2]                     # (W | eta, q), Z, active
     q1, n, nsys = Z.shape
@@ -199,6 +206,7 @@ SIG_EXTRACTORS = {
     "bsr_spmv_soa": _sig_bsr,
     "bsr_block_jacobi_inverse_soa": _sig_bsr,
     "lagrange_rescale_soa": _sig_history,
+    "newton_residual_lsolve_soa": _sig_residual_lsolve,
 }
 
 
@@ -353,6 +361,19 @@ def _cost_newton_residual(sig: OpSig) -> OpCost:
     return OpCost(3 * n * nsys, io, 11 * n * nsys * s, 4)
 
 
+def _cost_residual_lsolve(sig: OpSig) -> OpCost:
+    s, nsys, b = sig.itemsize, sig.nsys, sig.b
+    # the kernel reads z, f, psi, gamma, gamrat and Minv and writes dz
+    io = (b * b + 4 * b + 2) * nsys * s
+    res, spmv = _cost_newton_residual(sig), _cost_blockdiag_spmv(sig)
+    # the plain correction: 1 + gamrat, its reciprocal, times 2 (each
+    # reads and writes nsys), then corr times the SpMV's output
+    corr = (6 + 2 * b + 1) * nsys * s
+    return OpCost(res.flops + spmv.flops + (b + 3) * nsys, io,
+                  res.plain_bytes + spmv.plain_bytes + corr,
+                  res.plain_launches + spmv.plain_launches + 4)
+
+
 def _cost_masked_update_wrms(sig: OpSig) -> OpCost:
     s, n, nsys = sig.itemsize, sig.n, sig.nsys
     io = (5 * n + 1) * nsys * s
@@ -457,6 +478,7 @@ COST_MODELS = {
     "bsr_spmv_soa": _cost_bsr_spmv,
     "bsr_block_jacobi_inverse_soa": _cost_bsr_diag_inverse,
     "lagrange_rescale_soa": _cost_lagrange_rescale,
+    "newton_residual_lsolve_soa": _cost_residual_lsolve,
 }
 
 

@@ -2,7 +2,7 @@
 and every kernel launch fits the card.
 
 Three parts, over the context's contract grid (the reference's,
-``repro/analysis/lint.py:274-310``, and ``lagrange_rescale_soa``):
+``repro/analysis/lint.py:274-310``, and the port's own ops'):
 
 (a) for each op and each signature, the inputs
     :func:`repro_torch.core.autotune.args_for` builds from it give back
@@ -22,8 +22,9 @@ Three parts, over the context's contract grid (the reference's,
     at every b the wrappers route to them, in both dtypes; the blocks'
     thread counts fit its thread limit; and the Python side's statement
     of those sizes (``kernels.block_solve.warp_smem_bytes``,
-    ``kernels.blockdiag_spmv.row_tile_bytes``, ``_build.REPRO_THREADS``)
-    still names the sources' ``#define``s.
+    ``kernels.blockdiag_spmv.row_tile_bytes``, ``_build.REPRO_THREADS``,
+    ``kernels.newton.RESIDUAL_MAX_N``) still names the sources'
+    ``#define``s.
 """
 import re
 
@@ -96,7 +97,7 @@ def _check_sigs(ctx, out):
 
 
 def _check_launches(ctx, out):
-    from ...kernels import _build, block_solve, blockdiag_spmv
+    from ...kernels import _build, block_solve, blockdiag_spmv, newton
     dev = ctx.device
     csrc = _build.CSRC
     stated = {
@@ -106,6 +107,7 @@ def _check_launches(ctx, out):
         "blockdiag_spmv.cu": {"SPMV_WARPS": blockdiag_spmv.SPMV_WARPS,
                               "SPMV_SYSTEMS": blockdiag_spmv.SPMV_SYSTEMS,
                               "SPMV_MAX_B": blockdiag_spmv.SPMV_MAX_B},
+        "newton.cu": {"RESIDUAL_MAX_N": newton.RESIDUAL_MAX_N},
         "common.cuh": {"REPRO_THREADS": _build.REPRO_THREADS},
     }
     for fname, names in stated.items():

@@ -442,6 +442,10 @@ def args_for(sig: OpSig, device="cpu", generator=None) -> tuple:
         return (rnd(n, nsys), rnd(n, nsys).abs() + 0.1)
     if op == "history_rescale_soa":
         return (rnd(k, k, nsys), rnd(k, n, nsys), mask(nsys))
+    if op == "newton_residual_lsolve_soa":
+        return (rnd(b, nsys), rnd(b, nsys), rnd(b, nsys),
+                rnd(nsys).abs() + 0.1, 0.5 + rnd(nsys).abs(),
+                blocks(b, nsys))
     if op == "lagrange_rescale_soa":
         eta = 10.0 ** (2 * torch.rand(nsys, generator=gen, device=dev,
                                       dtype=dtype) - 1)
@@ -513,16 +517,20 @@ def reference_grid() -> List[OpSig]:
 
 
 def port_grid() -> List[OpSig]:
-    """The port's own op, ``lagrange_rescale_soa``, where the
-    reference's grid has the history rebuild (n = 3, 8 over 4096
-    systems, six history rows)."""
+    """The port's own ops where the reference's grid has the ops they
+    fuse, at n = 3, 8 over 4096 systems: ``lagrange_rescale_soa`` (the
+    history rebuild, six history rows), then
+    ``newton_residual_lsolve_soa`` (the Newton residual and the b <= 8
+    SpMV, n = b)."""
     return [_sig("lagrange_rescale_soa", n=n, nsys=4096, k=6)
-            for n in (3, 8)]
+            for n in (3, 8)] + \
+        [_sig("newton_residual_lsolve_soa", n=b, nsys=4096, b=b)
+         for b in (3, 8)]
 
 
 def tune_grid() -> List[OpSig]:
     """Every signature :func:`tune` measures by default: the
-    reference's grid, then the port's own op's (a signature in both is
+    reference's grid, then the port's own ops' (a signature in both is
     measured once)."""
     seen, out = set(), []
     for sig in reference_grid() + port_grid():

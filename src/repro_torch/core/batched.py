@@ -29,9 +29,13 @@ one fused residual and one batched Gauss-Jordan solve
 BDF layout: structure of arrays with the system axis LAST, as in the
 reference: history ``Z (QMAX+1, n, nsys)``, Newton iterate and weights
 ``(n, nsys)``, saved inverse ``(n, n, nsys)``.  Each Newton iteration is
-one fused residual, one lsolve (block-diagonal SpMV against the saved
-inverse, or with ``BlockDiagGJ(factor_once=False)`` a block solve) and
-one fused masked update + correction norm; twice a step the history is
+the solver's residual and lsolve (``LinearSolver.soa_residual_solve``:
+for ``BlockDiagGJ()`` at n <= 8 one launch of
+``newton_residual_lsolve_soa``, the residual, the SpMV against the
+saved inverse and the gamma-drift correction; otherwise one fused
+residual and the solver's lsolve, with ``BlockDiagGJ(factor_once=False)``
+a block solve) and one fused masked update + correction norm; twice a
+step the history is
 rebuilt by ``lagrange_rescale_soa`` (``history_rescale_soa`` with its
 Lagrange matrix formed from each system's eta and history count inside
 the kernel) and once a step the error test runs ``wrms_soa``; lsetup
@@ -625,10 +629,9 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
                 break
             with _region("ensemble_bdf:newton"):
                 loop_counts["newton_trips"] += 1
-                rhs = dv.newton_residual_soa(z, f_s(t_new, z), psi, gamma,
-                                             policy, negate=True)
-                dz, nli_inc, nps_inc = ls.soa_solve(MJ, gamma, gamrat, rhs,
-                                                    policy, mem=mem)
+                dz, nli_inc, nps_inc = ls.soa_residual_solve(
+                    MJ, gamma, gamrat, z, f_s(t_new, z), psi, policy,
+                    mem=mem)
                 z, dn = dv.masked_update_wrms_soa(z, dz, w, iterate, policy)
                 crate_new = crate
                 if it > 0:

@@ -7,11 +7,15 @@ path, the N_Vector ops ``linear_sum``, ``axpy``,
 ``linear_combination``, ``scale_add_multi``, ``dot``,
 ``dot_prod_multi``, ``wrms_norm``, ``wrms_ss`` and ``wrms_norm_mask``,
 and the sparse ops ``csr_spmv`` (``SparseCSR.matvec``),
-``bsr_spmv_soa`` and ``bsr_block_jacobi_inverse_soa``.  One op is the
-port's own, not one of the nineteen: ``lagrange_rescale_soa``, the
-ensemble BDF's history rebuild with its Lagrange matrix formed inside
-the kernel (the reference builds W in its jitted step, where XLA fuses
-the build; eager PyTorch would spend some 60 launches on it).
+``bsr_spmv_soa`` and ``bsr_block_jacobi_inverse_soa``.  Two ops are the
+port's own, not among the nineteen, each a fusion that the reference's
+jitted step leaves to XLA and eager PyTorch would spend many launches
+on: ``lagrange_rescale_soa``, the ensemble BDF's history rebuild with
+its Lagrange matrix formed inside the kernel (some 60 launches plain),
+and ``newton_residual_lsolve_soa``, a Newton iteration's residual,
+saved-inverse lsolve and gamma-drift correction in one launch (six
+composed), which ``BlockDiagGJ`` takes at b <= 8
+(:meth:`~repro_torch.core.linsol.BlockDiagGJ.soa_residual_solve`).
 
 Each entry is ``{"torch": plain version, "cuda": kernel wrapper}``, two
 callables with one positional signature (:func:`validate_op_table`
@@ -265,8 +269,10 @@ OP_TABLE = {
     "bsr_spmv_soa": _op(_sx, "bsr_spmv_soa"),
     "bsr_block_jacobi_inverse_soa": _op(_bs, "block_inverse_soa",
                                         _bsr_block_jacobi_inverse_soa),
-    # the port's own: the BDF history rebuild with W formed in the kernel
+    # the port's own: the BDF history rebuild with W formed in the
+    # kernel, and the BlockDiagGJ Newton iteration in one launch
     "lagrange_rescale_soa": _op(_nw, "lagrange_rescale"),
+    "newton_residual_lsolve_soa": _op(_nw, "newton_residual_lsolve"),
 }
 
 
@@ -474,6 +480,8 @@ OP_NOTES = {
                                      "diag gather + rows 6, 7"),
     "lagrange_rescale_soa": ("lagrange_matrix_soa + row 4",
                              "row 4f (W formed from eta, q)"),
+    "newton_residual_lsolve_soa": ("rows 1, 2 plain + 2/(1+gr)",
+                                   "row 1+2f (one launch, b <= 8)"),
 }
 
 
@@ -553,6 +561,16 @@ def lagrange_rescale_soa(eta, q, Z, active,
     eta (nsys,), q (nsys,) int32, Z (6, n, nsys); the kernel forms W
     from (eta, q) and never stores it."""
     return dispatch("lagrange_rescale_soa", policy)(eta, q, Z, active)
+
+
+def newton_residual_lsolve_soa(z, fval, psi, gamma, gamrat, Minv,
+                               policy: Optional[ExecPolicy] = None):
+    """``dz = 2/(1+gamrat) * (Minv @ -(z - gamma*f - psi))`` per system:
+    ``newton_residual_soa(..., negate=True)``, ``blockdiag_spmv_soa``
+    with the saved inverse Minv (b, b, nsys) and CVODE's correction, in
+    one launch at b <= 8; z/f/psi (b, nsys), gamma/gamrat (nsys,)."""
+    return dispatch("newton_residual_lsolve_soa", policy)(
+        z, fval, psi, gamma, gamrat, Minv)
 
 
 def wrms_soa(v, w, policy: Optional[ExecPolicy] = None):

@@ -28,6 +28,12 @@ lsetup/lsolve split; the system batch rides the last axis):
 * :meth:`LinearSolver.soa_solve` ``(MJ, gamma, gamrat, rhs, policy,
   mem)`` -> ``(dz, nli, npsolves)``, the counts 0-d int32 tensors on
   the device (or 0 for the direct solvers);
+* :meth:`LinearSolver.soa_residual_solve` ``(MJ, gamma, gamrat, z, fz,
+  psi, policy, mem)``, what a Newton iteration calls: the residual's
+  negation ``-(z - gamma*fz - psi)`` solved as by ``soa_solve``.  By
+  default the two dispatch ops ``newton_residual_soa`` and the solver's
+  lsolve; :class:`BlockDiagGJ` takes the port's fused op
+  ``newton_residual_lsolve_soa`` instead (one launch) where it can;
 * :meth:`LinearSolver.soa_carry_init` / :meth:`soa_workspace_shapes`;
 * :meth:`LinearSolver.with_sparsity` binds a static ``jac_sparsity``
   (encoded ``(indptr, indices)``); solvers without a sparse path return
@@ -68,6 +74,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..kernels import newton as _nw
 from . import dispatch as dv
 from . import krylov
 from . import spsolve
@@ -160,6 +167,13 @@ class LinearSolver:
     def soa_solve(self, MJ, gamma, gamrat, rhs, policy=None, mem=None):
         raise NotImplementedError(
             f"{type(self).__name__} has no SoA batch path")
+
+    def soa_residual_solve(self, MJ, gamma, gamrat, z, fz, psi, policy=None,
+                           mem=None):
+        """One Newton iteration's correction: :meth:`soa_solve` of the
+        Newton right-hand side ``-(z - gamma*fz - psi)``."""
+        rhs = dv.newton_residual_soa(z, fz, psi, gamma, policy, negate=True)
+        return self.soa_solve(MJ, gamma, gamrat, rhs, policy, mem=mem)
 
     def soa_carry_init(self, n, nsys, dtype, device):
         return torch.zeros((n, n, nsys), dtype=dtype, device=device)
@@ -422,10 +436,22 @@ class BlockDiagGJ(LinearSolver):
     ``factor_once=False`` keeps the bare Jacobian and solves
     ``(I - gamma*J) dz = rhs`` with the current gamma every iteration.
     A ``jac_sparsity`` is ignored (the blocks stay dense).
+
+    With ``factor_once=True`` and blocks of at most
+    :data:`~repro_torch.kernels.newton.RESIDUAL_MAX_N` rows, a Newton
+    iteration (:meth:`soa_residual_solve`) is the one op
+    ``newton_residual_lsolve_soa``: the residual, the SpMV and the
+    correction in one launch, bit for bit their composition.  A policy
+    that pins ``newton_residual_soa`` or ``blockdiag_spmv_soa`` (to any
+    backend) keeps the two ops, so the pin reaches its op; larger blocks
+    and ``factor_once=False`` take them too.
     """
 
     name = "blockdiag_gj"
     factor_once: bool = True
+    #: the ops of the composed Newton iteration: a pin of either keeps
+    #: the composition
+    COMPOSED_OPS = ("newton_residual_soa", "blockdiag_spmv_soa")
 
     def soa_setup(self, Jsoa, gamma, policy=None):
         """lsetup: the saved inverse of M = I - gamma*J, (n,n,nsys), or
@@ -441,6 +467,18 @@ class BlockDiagGJ(LinearSolver):
                                       policy), 0, 0
         corr = 2.0 / (1.0 + gamrat)
         return corr[None, :] * dv.blockdiag_spmv_soa(MJ, rhs, policy), 0, 0
+
+    def soa_residual_solve(self, MJ, gamma, gamrat, z, fz, psi, policy=None,
+                           mem=None):
+        """The Newton iteration as ``newton_residual_lsolve_soa`` where
+        the class docstring says; else residual, then :meth:`soa_solve`."""
+        if not self.factor_once or MJ.shape[0] > _nw.RESIDUAL_MAX_N or (
+                policy is not None and
+                any(policy.pinned(op) for op in self.COMPOSED_OPS)):
+            return super().soa_residual_solve(MJ, gamma, gamrat, z, fz, psi,
+                                              policy, mem=mem)
+        return dv.newton_residual_lsolve_soa(z, fz, psi, gamma, gamrat, MJ,
+                                             policy), 0, 0
 
 
 @dataclass(frozen=True)

@@ -67,6 +67,7 @@ csr_spmv                      ELL gather + row sums         row 11 csr_spmv_kern
 bsr_spmv_soa                  block products by position    row 10 bsr_spmv_kernel
 bsr_block_jacobi_inverse_soa  diag gather + plain inverse   diag gather + rows 6, 7
 lagrange_rescale_soa          lagrange_matrix_soa + row 4   row 4f (W formed from eta, q)
+newton_residual_lsolve_soa    rows 1, 2 plain + 2/(1+gr)    row 1+2f (one launch, b <= 8)
 ============================  ============================  ===============================
 
 ``op_overrides`` pins single ops to a backend whatever the policy-wide
@@ -136,6 +137,10 @@ class ExecPolicy:
             if name == op:
                 return be
         return self.backend
+
+    def pinned(self, op: str) -> bool:
+        """Whether ``op_overrides`` pins ``op`` (to any backend)."""
+        return any(name == op for name, _ in self.op_overrides)
 
     def override(self, **ops: str) -> "ExecPolicy":
         """A copy with per-op pins added (a later pin of an op replaces

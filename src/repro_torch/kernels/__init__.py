@@ -19,6 +19,8 @@ KERNELS = {
                         newton.newton_residual_plain, ""),
     "blockdiag_spmv": (blockdiag_spmv.blockdiag_spmv_soa,
                        blockdiag_spmv.blockdiag_spmv_soa_plain, ""),
+    "newton_residual_lsolve": (newton.newton_residual_lsolve,
+                               newton.newton_residual_lsolve_plain, ""),
     "masked_update_wrms": (newton.masked_update_wrms,
                            newton.masked_update_wrms_plain, ""),
     "history_rescale": (newton.history_rescale,

@@ -29,12 +29,18 @@ def row_tile_bytes(b: int, itemsize: int) -> int:
     return width * SPMV_SYSTEMS * itemsize
 
 
-def blockdiag_spmv_soa_plain(A, x):
-    blockdiag_spmv_soa_plain.calls += 1
+def block_products(A, x):
+    """The plain version's arithmetic, uncounted: ``acc = A[:, 0] *
+    x[0]``, then ``acc + A[:, j] * x[j]`` for j = 1..b-1."""
     acc = A[:, 0, :] * x[0]
     for j in range(1, A.shape[1]):
         acc = acc + A[:, j, :] * x[j]
     return acc
+
+
+def blockdiag_spmv_soa_plain(A, x):
+    blockdiag_spmv_soa_plain.calls += 1
+    return block_products(A, x)
 
 
 def blockdiag_spmv_soa(A, x):

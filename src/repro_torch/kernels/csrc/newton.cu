@@ -1,7 +1,9 @@
 // Ensemble Newton hot-loop kernels, SoA layout.
 //
 // Replaces src/repro/kernels/newton.py:
-//   _newton_residual_kernel     -> newton_residual_kernel
+//   _newton_residual_kernel     -> newton_residual_kernel, and, fused
+//                                  with blockdiag_spmv.py's _spmv_kernel
+//                                  (b <= 8), newton_residual_lsolve_kernel
 //   _masked_update_wrms_kernel  -> masked_update_wrms_kernel
 //   _history_rescale_kernel     -> history_rescale_kernel (n <= 4),
 //                                  history_rescale_loop_kernel (n > 4)
@@ -19,6 +21,22 @@
 // of 8 warps over 32 systems for the WRMS at n > 4, warp g summing
 // components g, g+8, ..., times the same and sums in another order:
 // tools/rescale_variants.py, wrms_rows.)
+//
+// The Newton iteration of BlockDiagGJ(factor_once=True) at b <= 8 is
+// one launch, newton_residual_lsolve_kernel: dz = corr * (Minv @ -g),
+// g = z - gamma*f - psi, corr = 2/(1+gamrat), CVODE's correction for
+// the gamma drift since lsetup.  Composed, the same work took six
+// launches: the residual (row 1) wrote -g, the SpMV (row 2) read it
+// back, and four plain ops (1 + gamrat, its reciprocal, times 2, times
+// the SpMV's output) formed corr and rescaled all of dz.  Fused, a
+// thread reads z, f, psi (3b values), gamma, gamrat and its inverse
+// (b*b) once and writes dz (b) once: at b = 3 in float64, 184 bytes a
+// system against the composition's 328.  It forms -g in row 1's order
+// (z - g*f, then - psi, then the sign), sums each row of Minv @ x in
+// row 2's order (acc = A[i,0]*x[0], then acc + A[i,j]*x[j]) and corr as
+// PyTorch's 2.0 / t does (the reciprocal of 1 + gamrat, times 2), each
+// product, sum and quotient rounded alone: bit for bit the composition
+// of the plain versions, and of the two kernels with the plain corr.
 //
 // The history rescale Z'[j] = sum_i W[j,i] Z[i] (Z (q1, n, nb)) takes W
 // from one of two sources (RescaleSource):
@@ -65,8 +83,53 @@
 //   in path K's rescales (tools/rescale_variants.py, block).
 #include "common.cuh"
 
+#define RESIDUAL_MAX_N 8   // widest block of newton_residual_lsolve_kernel
+
 // g = z - gamma*f - psi over (n, nb); negate -> -g, the sign applied to
 // the computed g so both variants round alike (ref.py:67-74).
+template <typename T>
+__device__ __forceinline__ T residual(T z, T g_s, T f, T psi, int negate) {
+  const T g = z - g_s * f - psi;
+  return negate ? -g : g;
+}
+
+// dz = (2 / (1 + gamrat)) * (Minv @ -(z - gamma*f - psi)) per system,
+// b = B <= RESIDUAL_MAX_N: the fused Newton iteration (see the note
+// above).  Minv (B, B, nb) is BlockDiagGJ's saved inverse.
+template <typename T, int B>
+__global__ void newton_residual_lsolve_kernel(const T* __restrict__ z,
+                                              const T* __restrict__ f,
+                                              const T* __restrict__ psi,
+                                              const T* __restrict__ gam,
+                                              const T* __restrict__ gamrat,
+                                              const T* __restrict__ Minv,
+                                              T* __restrict__ dz,
+                                              long long nb) {
+  const long long s = system_index();
+  if (s >= nb) return;
+  T zr[B], fr[B], pr[B];
+#pragma unroll
+  for (int k = 0; k < B; ++k) {
+    zr[k] = z[k * nb + s];
+    fr[k] = f[k * nb + s];
+    pr[k] = psi[k * nb + s];
+  }
+  const T g_s = gam[s];
+  const T corr = (T(1) / (T(1) + gamrat[s])) * T(2);
+  T x[B];
+#pragma unroll
+  for (int k = 0; k < B; ++k) x[k] = residual(zr[k], g_s, fr[k], pr[k], 1);
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    T acc = Minv[(i * B) * nb + s] * x[0];
+#pragma unroll
+    for (int j = 1; j < B; ++j)
+      acc = acc + Minv[(i * B + j) * nb + s] * x[j];
+    dz[i * nb + s] = corr * acc;
+  }
+}
+
+// the residual, thread s over system s's n components
 template <typename T>
 __global__ void newton_residual_kernel(const T* __restrict__ z,
                                        const T* __restrict__ f,
@@ -79,8 +142,7 @@ __global__ void newton_residual_kernel(const T* __restrict__ z,
   const T g_s = gam[s];
   for (int k = 0; k < n; ++k) {
     const long long i = k * nb + s;
-    const T g = z[i] - g_s * f[i] - psi[i];
-    out[i] = negate ? -g : g;
+    out[i] = residual(z[i], g_s, f[i], psi[i], negate);
   }
 }
 
@@ -309,6 +371,29 @@ static int history_rescale(const void* W, const void* Z, const void* a,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int newton_residual_lsolve(const void* z, const void* f,
+                                  const void* psi, const void* gam,
+                                  const void* gamrat, const void* Minv,
+                                  void* dz, int b, long long nb,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (b) {
+#define REPRO_CASE(B)                                                       \
+  case B:                                                                   \
+    newton_residual_lsolve_kernel<T, B><<<system_grid(nb), REPRO_THREADS, 0, \
+                                          st>>>(                            \
+        (const T*)z, (const T*)f, (const T*)psi, (const T*)gam,             \
+        (const T*)gamrat, (const T*)Minv, (T*)dz, nb);                      \
+    break;
+    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
+    REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
+#undef REPRO_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 #define REPRO_EXPORT(T, SUF)                                                  \
   extern "C" int newton_residual_##SUF(const void* z, const void* f,          \
                                        const void* psi, const void* gam,      \
@@ -319,6 +404,13 @@ static int history_rescale(const void* W, const void* Z, const void* a,
         (const T*)z, (const T*)f, (const T*)psi, (const T*)gam, (T*)out, n,   \
         nb, negate);                                                          \
     return (int)cudaGetLastError();                                           \
+  }                                                                           \
+  extern "C" int newton_residual_lsolve_##SUF(                                \
+      const void* z, const void* f, const void* psi, const void* gam,         \
+      const void* gamrat, const void* Minv, void* dz, int b, long long nb,    \
+      void* stream) {                                                         \
+    return newton_residual_lsolve<T>(z, f, psi, gam, gamrat, Minv, dz, b, nb, \
+                                     stream);                                 \
   }                                                                           \
   extern "C" int masked_update_wrms_##SUF(const void* z, const void* dz,      \
                                           const void* w, const void* mask,    \

@@ -1,10 +1,14 @@
 """Ensemble Newton hot-loop ops, SoA layout (system axis LAST).
 
-Counterpart of ``repro/kernels/newton.py``.  Five ops, each a CUDA
+Counterpart of ``repro/kernels/newton.py``.  Six ops, each a CUDA
 kernel in ``csrc/newton.cu`` with its plain PyTorch version beside it:
 
 * :func:`newton_residual` — ``g = z - gamma*f - psi`` (``negate=True``
   returns ``-g``, the Newton right-hand side), every Newton iteration;
+* :func:`newton_residual_lsolve` — the residual fused with the lsolve of
+  ``BlockDiagGJ(factor_once=True)`` at b <= 8: ``dz = 2/(1+gamrat) *
+  (Minv @ -g)`` per system, every Newton iteration of the BDF's default
+  solver (one launch where the composition takes six);
 * :func:`masked_update_wrms` — ``z' = where(mask, z+dz, z)`` fused with
   the per-system WRMS of ``dz``, every Newton iteration;
 * :func:`history_rescale` — the history rebuild ``Z'[j] = sum_i
@@ -20,22 +24,30 @@ kernel in ``csrc/newton.cu`` with its plain PyTorch version beside it:
 A wrapper launches its kernel for CUDA tensors (and raises if it cannot)
 and runs the plain version for CPU tensors.  The plain versions
 accumulate in the kernels' order, so on the card the two round alike
-(both rescales give the same bits).
+(both rescales and the fused residual and lsolve give the same bits).
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .blockdiag_spmv import block_products
 
 _FLOATS = tuple(_build.SUFFIX)
 _MASKS = (torch.bool, torch.uint8)
+#: widest block of the fused residual and lsolve (``RESIDUAL_MAX_N`` in
+#: csrc/newton.cu)
+RESIDUAL_MAX_N = 8
+
+
+def _residual(z, fval, psi, gamma, negate):
+    g = z - gamma[None, :] * fval - psi
+    return -g if negate else g
 
 
 def newton_residual_plain(z, fval, psi, gamma, *, negate=False):
     newton_residual_plain.calls += 1
-    g = z - gamma[None, :] * fval - psi
-    return -g if negate else g
+    return _residual(z, fval, psi, gamma, negate)
 
 
 def newton_residual(z, fval, psi, gamma, *, negate=False):
@@ -54,6 +66,40 @@ def newton_residual(z, fval, psi, gamma, *, negate=False):
                   _build.stream(z.device))
     newton_residual.launches += 1
     return out
+
+
+def newton_residual_lsolve_plain(z, fval, psi, gamma, gamrat, Minv):
+    newton_residual_lsolve_plain.calls += 1
+    corr = 2.0 / (1.0 + gamrat)
+    return corr[None, :] * block_products(
+        Minv, _residual(z, fval, psi, gamma, True))
+
+
+def newton_residual_lsolve(z, fval, psi, gamma, gamrat, Minv):
+    """``dz = corr * (Minv @ -(z - gamma*f - psi))`` per system, corr =
+    ``2/(1+gamrat)``: the residual (``newton_residual(..., negate=True)``),
+    the SpMV of the saved inverse (``blockdiag_spmv_soa``) and CVODE's
+    gamma-drift correction in one launch, equal to their composition bit
+    for bit.  z/f/psi (b, NB), gamma/gamrat (NB,), Minv (b, b, NB), b <=
+    :data:`RESIDUAL_MAX_N`."""
+    if _build.on_cpu("newton_residual_lsolve", z):
+        return newton_residual_lsolve_plain(z, fval, psi, gamma, gamrat, Minv)
+    b, nb = z.shape
+    if b > RESIDUAL_MAX_N:
+        raise ValueError(f"newton_residual_lsolve: b={b} > {RESIDUAL_MAX_N} "
+                         f"is not supported")
+    dt = (z.dtype,)
+    _build.check("newton_residual_lsolve", z.device,
+                 z=(z, (b, nb), _FLOATS), fval=(fval, (b, nb), dt),
+                 psi=(psi, (b, nb), dt), gamma=(gamma, (nb,), dt),
+                 gamrat=(gamrat, (nb,), dt), Minv=(Minv, (b, b, nb), dt))
+    dz = torch.empty_like(z)
+    _build.launch("newton", "newton_residual_lsolve_" + _build.SUFFIX[z.dtype],
+                  "pppppppilp", z.data_ptr(), fval.data_ptr(), psi.data_ptr(),
+                  gamma.data_ptr(), gamrat.data_ptr(), Minv.data_ptr(),
+                  dz.data_ptr(), b, nb, _build.stream(z.device))
+    newton_residual_lsolve.launches += 1
+    return dz
 
 
 def masked_update_wrms_plain(z, dz, w, mask):
@@ -205,9 +251,10 @@ def wrms_soa(v, w):
     return out
 
 
-for _fn in (newton_residual, masked_update_wrms, history_rescale,
-            lagrange_rescale, wrms_soa):
+for _fn in (newton_residual, newton_residual_lsolve, masked_update_wrms,
+            history_rescale, lagrange_rescale, wrms_soa):
     _fn.launches = 0
-for _fn in (newton_residual_plain, masked_update_wrms_plain,
-            history_rescale_plain, lagrange_rescale_plain, wrms_soa_plain):
+for _fn in (newton_residual_plain, newton_residual_lsolve_plain,
+            masked_update_wrms_plain, history_rescale_plain,
+            lagrange_rescale_plain, wrms_soa_plain):
     _fn.calls = 0

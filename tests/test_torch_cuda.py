@@ -28,7 +28,10 @@ GJ_BS = (3, 8, 9, 16, 24, 32, 33)
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 #: bodies that sum in their plain version's order, each product and sum
 #: rounded alone: equal to it bit for bit
-EXACT = ("blockdiag_spmv", "history_rescale", "lagrange_rescale")
+EXACT = ("blockdiag_spmv", "history_rescale", "lagrange_rescale",
+         "newton_residual_lsolve")
+#: block sizes of the fused Newton residual and lsolve (b <= 8)
+LSOLVE_BS = range(1, 9)
 
 
 def _need_card():
@@ -53,6 +56,13 @@ def _inputs(nb, dtype):
          "mask": rng.uniform(size=nb) > 0.4,
          "W": rng.normal(size=(6, 6, nb)), "Z": rng.normal(size=(6, 3, nb))}
     d["eta"], d["q"] = _eta_q(nb, rng)
+    d["gamrat"] = rng.uniform(0.7, 1.3, size=nb)
+    for b in LSOLVE_BS:
+        for k in ("z", "f", "psi"):
+            d[f"{k}{b}"] = rng.normal(size=(b, nb))
+        M = rng.normal(size=(b, b, nb)) + b * np.eye(b)[:, :, None]
+        d[f"Minv{b}"] = np.linalg.inv(M.transpose(2, 0, 1)) \
+            .transpose(1, 2, 0).copy()
     for b in GJ_BS:
         d[f"A{b}"] = rng.normal(size=(b, b, nb)) + b * np.eye(b)[:, :, None]
         d[f"r{b}"] = rng.normal(size=(b, nb))
@@ -79,6 +89,10 @@ CASES = {
                          ("eta", "q", "Z", "mask"), "lagrange_rescale"),
     "wrms_soa": (newton.wrms_soa, newton.wrms_soa_plain, ("z", "w"),
                  "wrms_soa"),
+    **{f"newton_residual_lsolve_b{b}": (
+        newton.newton_residual_lsolve, newton.newton_residual_lsolve_plain,
+        (f"z{b}", f"f{b}", f"psi{b}", "gam", "gamrat", f"Minv{b}"),
+        "newton_residual_lsolve") for b in LSOLVE_BS},
     **{f"blockdiag_spmv_b{b}": (blockdiag_spmv.blockdiag_spmv_soa,
                                 blockdiag_spmv.blockdiag_spmv_soa_plain,
                                 (f"A{b}", f"r{b}"), "blockdiag_spmv")
@@ -119,6 +133,51 @@ def test_kernel_matches_plain_on_card(case, nb, dtype):
     if case in ("history_rescale", "lagrange_rescale"):
         off = ~d["mask"]
         assert torch.equal(got[0][:, :, off], d["Z"][:, :, off])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("b", LSOLVE_BS)
+def test_newton_residual_lsolve_bit_for_bit_at_the_main_paths_batch_on_card(
+        b, dtype):
+    """The fused Newton iteration over 2**20 systems (the main path's
+    batch) equals its plain version, and the composition of the row 1
+    and row 2 kernels with the plain correction, bit for bit."""
+    _need_card()
+    nb = 1 << 20
+    gen = torch.Generator(device="cuda").manual_seed(b)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    z, f, psi = rnd(b, nb), rnd(b, nb), rnd(b, nb)
+    gam, gamrat = rnd(nb).abs(), 0.7 + 0.6 * rnd(nb).abs().clamp(max=1)
+    Minv = rnd(b, b, nb) / b + torch.eye(b, device="cuda",
+                                         dtype=dtype)[:, :, None]
+    kernels.reset_counts()
+    got = newton.newton_residual_lsolve(z, f, psi, gam, gamrat, Minv)
+    assert kernels.counts()["newton_residual_lsolve"] == (1, 0)
+    assert torch.equal(got, newton.newton_residual_lsolve_plain(
+        z, f, psi, gam, gamrat, Minv))
+    two = (2.0 / (1.0 + gamrat))[None, :] * blockdiag_spmv.blockdiag_spmv_soa(
+        Minv, newton.newton_residual(z, f, psi, gam, negate=True))
+    assert torch.equal(got, two)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 8, 9, 32])
+def test_newton_residual_bit_for_bit_on_card(n, dtype):
+    """Row 1 equals its plain version bit for bit, both signs."""
+    _need_card()
+    rng = np.random.default_rng(n)
+    z, f, psi = (torch.from_numpy(rng.normal(size=(n, 516))).to("cuda", dtype)
+                 for _ in range(3))
+    gam = torch.from_numpy(np.abs(rng.normal(size=516))).to("cuda", dtype)
+    for negate in (False, True):
+        got = newton.newton_residual(z, f, psi, gam, negate=negate)
+        assert torch.equal(got, newton.newton_residual_plain(
+            z, f, psi, gam, negate=negate))
 
 
 #: state sizes of the rescale's two forms (n <= 4, the main path's 3;
@@ -259,6 +318,12 @@ def test_wrapper_rejects_bad_inputs_on_card():
     with pytest.raises(ValueError, match="history rows"):
         newton.lagrange_rescale(d["eta"], d["q"], d["Z"][:5].contiguous(),
                                 d["mask"])
+    with pytest.raises(ValueError, match="b=9 > 8"):
+        newton.newton_residual_lsolve(
+            d["r9"], d["r9"], d["r9"], d["gam"], d["gamrat"], d["A9"])
+    with pytest.raises(ValueError, match="Minv has shape"):
+        newton.newton_residual_lsolve(
+            d["z3"], d["f3"], d["psi3"], d["gam"], d["gamrat"], d["Minv2"])
 
 
 # ---------------------------------------------------------------------------
@@ -729,7 +794,7 @@ def test_server_bundles_match_a_direct_kernel_run_on_card():
                       **tol) for k in kdec]
     kernels.reset_counts()
     srv.drain()
-    for name in ("newton_residual", "blockdiag_spmv", "masked_update_wrms",
+    for name in ("newton_residual_lsolve", "masked_update_wrms",
                  "lagrange_rescale", "wrms_soa", "block_inverse"):
         launches, calls = kernels.counts()[name]
         assert launches > 0 and calls == 0, name
@@ -827,8 +892,11 @@ def test_a_kernel_refusing_its_inputs_fails_the_bundle_on_card():
 # ---------------------------------------------------------------------------
 
 NSHARD = 1 << 12
-BDF_KERNELS = ("newton_residual", "blockdiag_spmv", "masked_update_wrms",
+#: the BDF loop's kernels under BlockDiagGJ(): the fused Newton
+#: iteration; under a pin of row 2 the residual takes its place
+BDF_KERNELS = ("newton_residual_lsolve", "masked_update_wrms",
                "lagrange_rescale", "wrms_soa", "block_inverse")
+PINNED_KERNELS = ("newton_residual",) + BDF_KERNELS[1:]
 
 
 def _robertson_family_problem(nsys):
@@ -889,8 +957,9 @@ def test_sharded_world_of_one_is_the_unsharded_run_on_card(tmp_path):
 @pytest.mark.cuda
 def test_a_pinned_run_launches_all_but_the_pinned_kernel_on_card():
     """``override(blockdiag_spmv_soa="torch")``: rows 1, 3, 4f, 5, 6 on
-    their kernels, row 2 on its plain version only; y within
-    10*(rtol*|y|+atol) of the kernel run, retcodes equal."""
+    their kernels, row 2 on its plain version only, the fused Newton
+    iteration never; y within 10*(rtol*|y|+atol) of the kernel run,
+    retcodes equal."""
     _need_card()
     from repro_torch.core import ivp
     from repro_torch.core.arkode import ODEOptions
@@ -906,12 +975,44 @@ def test_a_pinned_run_launches_all_but_the_pinned_kernel_on_card():
     counts = kernels.counts()
     launched, plain = counts["blockdiag_spmv"]
     assert launched == 0 and plain > 0
-    for name in BDF_KERNELS:
-        if name != "blockdiag_spmv":
-            assert counts[name][0] > 0 and counts[name][1] == 0, name
+    assert counts["newton_residual_lsolve"] == (0, 0)
+    for name in PINNED_KERNELS:
+        assert counts[name][0] > 0 and counts[name][1] == 0, name
     assert torch.equal(sol.retcodes, ref.retcodes)
     assert bool(((sol.y - ref.y).abs()
                  <= 10 * (1e-5 * ref.y.abs() + 1e-10)).all())
+
+
+@pytest.mark.cuda
+def test_the_fused_newton_iteration_is_the_composed_route_on_card():
+    """``BlockDiagGJ()`` takes the fused Newton iteration; a pin of
+    ``newton_residual_soa`` to its plain version (which rounds as row 1)
+    takes the residual and row 2 instead.  The two runs agree bit for
+    bit: y, every stats field, host syncs and trips."""
+    _need_card()
+    from repro_torch.core import batched
+    from repro_torch.core.arkode import ODEOptions
+    from repro_torch.core.policies import ExecPolicy
+    f, jac, y0, params = _robertson_family_problem(NSHARD)
+    opts = ODEOptions(rtol=1e-5, atol=1e-10, max_steps=100_000)
+    runs = []
+    for policy in (ExecPolicy(),
+                   ExecPolicy().override(newton_residual_soa="torch")):
+        kernels.reset_counts()
+        batched.reset_loop_counts()
+        y, st = batched.ensemble_bdf_integrate(
+            lambda t, y: f(t, y, params), lambda t, y: jac(t, y, params), y0,
+            0.0, 10.0, opts=opts, policy=policy)
+        runs.append((y, st, dict(batched.loop_counts), kernels.counts()))
+    (y, st, loops, c), (y2, st2, loops2, c2) = runs
+    assert c["newton_residual_lsolve"][0] == loops["newton_trips"] > 0
+    assert c["newton_residual"] == c["blockdiag_spmv"] == (0, 0)
+    assert c2["newton_residual_lsolve"] == (0, 0)
+    assert c2["blockdiag_spmv"][0] == c2["newton_residual"][1] == \
+        loops2["newton_trips"]
+    assert loops == loops2 and torch.equal(y, y2)
+    for name, a, b in zip(st._fields, st, st2):
+        assert (a is None and b is None) or torch.equal(a, b), name
 
 
 @pytest.mark.cuda

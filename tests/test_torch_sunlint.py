@@ -218,6 +218,18 @@ def test_kernel_contract_holds_the_stated_sizes_to_the_sources(monkeypatch):
     assert any(v.where == "launch:block_solve.cu:GJ_WARPS" for v in found)
 
 
+def test_kernel_contract_holds_the_fused_newton_width_to_its_source(
+        monkeypatch):
+    """``kernels.newton.RESIDUAL_MAX_N`` (the widest block the fused
+    Newton iteration takes) must name ``newton.cu``'s ``#define``."""
+    from repro_torch.kernels import newton
+    ctx = lint.LintContext()
+    ctx.cuda = False
+    monkeypatch.setattr(newton, "RESIDUAL_MAX_N", 16)
+    found = lint.run_rules(ctx, ["kernel-contract"])
+    assert [v.where for v in found] == ["launch:newton.cu:RESIDUAL_MAX_N"]
+
+
 def test_kernel_contract_without_a_signature_grid():
     ctx = lint.LintContext()
     ctx.cuda = False
