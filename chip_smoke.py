@@ -14,12 +14,19 @@ of which prints the seconds it took:
 3. kernels: each ported kernel body against its plain PyTorch version
    on the card, in float64 and float32: the six of the ensemble-BDF path,
    the fused history rebuild ``lagrange_rescale`` (W formed from eta
-   and q) and the fused Newton iteration ``newton_residual_lsolve``
-   (rows 1 and 2 and the gamma-drift correction in one launch, bit for
-   bit) at the main-path shape (2**20 systems, n = b = 3) and at ragged
-   batches (7, 130, 516), the eight also at path M's decay chain, n = b
-   = 6, over those and 16384 systems, the fused Newton iteration also
-   at b = 1, 2, 4, 5, 7, 8 over the ragged batches, both
+   and q), the fused lsolve ``newton_residual_lsolve`` (rows 1 and 2
+   and the gamma-drift correction in one launch, bit for bit), the
+   whole Newton iteration ``newton_update`` (that and row 3 in one
+   launch: z' bit for bit, and both outputs bit for bit rows 1+2f and
+   3) and the fused lsetup ``newton_block_inverse`` (row 6 with the
+   Newton blocks formed in it, bit for bit, and bit for bit row 6 on the
+   plain blocks) at the main-path shape (2**20 systems, n = b = 3) and
+   at ragged batches (7, 130, 516), the ten also at path M's decay
+   chain, n = b = 6, over those and 16384 systems, the three fused
+   Newton kernels also at b = 1, 2, 4, 5, 7, 8 over the ragged batches,
+   ``newton_block_inverse`` also on stiff Robertson Jacobians over 2**20
+   systems and with NaN, inf and singular systems planted at b = 1..8
+   (non-finite output on exactly the plain version's systems), both
    rebuild entries and ``wrms_soa`` also at n = 32 over those and 2**16
    systems, both rebuild entries bit for bit (also with no system and
    with every system active),
@@ -61,7 +68,9 @@ of which prints the seconds it took:
    iteration also as the route it replaced (rows 1 and 2 and the plain
    ``2/(1+gamrat)``), the
    dot also at 3*2**20 elements (paths H and I) and at 32 (the floor of
-   one timed launch);
+   one timed launch); ``newton_update`` also as rows 1+2f and 3, and
+   ``newton_block_inverse`` also as the plain Newton blocks and row 6
+   (and the blocks alone), the routes they replaced;
 4. paths, each driven through ``integrate`` with the launch counts set
    to 0 just before and read just after; each must launch the kernels
    of its path and no plain version, and agree with a run of the plain
@@ -73,11 +82,16 @@ of which prints the seconds it took:
    the same systems).  rtol 1e-5, atol 1e-10, float64:
    - ensemble BDF, the main path: ``"ensemble_bdf"`` with
      ``BlockDiagGJ()`` over 2**20 batched Robertson systems (rates from
-     numpy seed 0) to t = 10, one launch of ``newton_residual_lsolve``
-     a Newton trip; held bit for bit (y, every stats field, host syncs
-     and trips) to a run with ``newton_residual_soa`` pinned to its
-     plain version (the two-op route: the residual, then
-     ``blockdiag_spmv``); 256 classic-Robertson lanes must match
+     numpy seed 0) to t = 10, one launch of ``newton_update`` a Newton
+     trip and one of ``newton_block_inverse`` a lsetup, and none of rows
+     1, 2, 1+2f, 3 and 6 (as on L, M, N.1 and O.3); held bit for bit (y,
+     every stats field, host syncs and trips) to a run with
+     ``masked_update_wrms_soa`` pinned to its kernel (rows 1+2f, then
+     3) and to one with ``newton_residual_soa`` pinned to its plain
+     version and ``block_inverse_soa`` to its kernel (the two-op route:
+     the residual, ``blockdiag_spmv``, row 3; row 6 on the plain Newton
+     blocks), each with one launch of those a trip or a lsetup; 256
+     classic-Robertson lanes must match
      scipy's Radau IIA (rtol 1e-12) within 10*(rtol*|y|+atol);
    - path A: ``"ensemble_dirk:sdirk2"`` on the same 2**20 systems (the
      plain run on the first 2**16 of them: the lanes are independent),
@@ -157,7 +171,7 @@ of which prints the seconds it took:
      timed as served (one gather a leaf) against every warm lane joined
      by ``concat`` (the reference's construction, bit for bit the same
      session); the async facade (3000 + 1000
-     requests); every kernel bundle launching rows 1+2f, 3-6 (4f) at b = 3 and
+     requests); every kernel bundle launching rows 1+2+3f, 4f, 5, 6f at b = 3 and
      b = 6 and no plain version, no failure, no degraded bundle, mass
      conserved, the Prometheus scrape equal to ``metrics()``, cache
      misses equal to the distinct keys and no steady-state miss; a
@@ -178,7 +192,7 @@ of which prints the seconds it took:
      path's 2**20 systems to t = 10 as a world of one, with no process
      group and under an NCCL group of one, each equal to the main
      path's kernel run bit for bit (y, every stats field, its host
-     syncs), rows 1+2f, 3-6 (4f) and no plain version; N.4 the Fig. 4 analog
+     syncs), rows 1+2+3f, 4f, 5, 6f and no plain version; N.4 the Fig. 4 analog
      (the reference's ``benchmarks/meshvector_overhead.py``): host us a
      call over 200 calls ending in a synchronize, ``MeshVector``'s
      ``linear_sum`` and ``wrms_norm`` against the raw ``dispatch`` calls
@@ -197,8 +211,8 @@ of which prints the seconds it took:
      one collective and its row's one launch (row 12, 16, 14); N.5
      the main path's problem at 2**16 systems under
      ``ExecPolicy().override(blockdiag_spmv_soa="torch")``: rows 1, 3,
-     4f, 5, 6 launched, row 2 never (its plain version instead) and the
-     fused Newton iteration (row 1+2f) never, within
+     4f, 5, 6f launched, row 2 never (its plain version instead) and the
+     fused Newton iterations (rows 1+2f, 1+2+3f) never, within
      10*(rtol*|y|+atol) of the main path's lanes, retcodes equal; a
      failed rank fails the run;
    - path O, the analysis layer, right after N: O.1 the ``h100_sxm``
@@ -213,11 +227,11 @@ of which prints the seconds it took:
      every time finite and above 0, the cache read back equal, each
      entry's winner and torch/cuda ratio, the model's agreement and
      every misprediction printed, the main path's signatures (rows 1-6,
-     4f and 1+2f at 2**20 systems) won by the kernels and the model agreeing
+     4f, 1+2f, 1+2+3f and 6f at 2**20 systems) won by the kernels and the model agreeing
      on at least 80 % of the entries; O.3 the main path under
      ``Context(policy=ExecPolicy())`` with that cache, bit for bit the
      main path's kernel run (y, every stats field, its host syncs),
-     rows 1+2f, 3-6 (4f) and no plain version, one decision a signature, each
+     rows 1+2+3f, 4f, 5, 6f and no plain version, one decision a signature, each
      the kernel from the cache, their hits the op calls, the three
      ``repro_autotune_*`` gauges exported, its wall printed beside the
      main path's; O.4 sunlint's kernel-contract with the card present
@@ -310,7 +324,7 @@ of which prints the seconds it took:
      plain version only on abstract tensors;
    - path T, after S: T.1 in four ``--path-t-rank`` processes (gloo,
      data 2 x model 2) the fsdp profile's loss and gradients of zamba2-7b
-     (2 Mamba layers, one shared-attention site), xlstm-125m (one pair),
+     (1 Mamba layer and its shared-attention site), xlstm-125m (one pair),
      whisper-tiny and qwen2-vl-2b (2 layers, a vision prefix that ends
      inside a sequence block) at their FULL widths, float32 weights
      evaluated in float64, batch 2 x 256 (xlstm 2 x 64), against one
@@ -377,12 +391,13 @@ TOL = {"torch.float64": 1e-10, "torch.float32": 1e-4}
 SPIN_CYCLES = 1_000_000
 #: the __global__ functions of kernels/csrc, as the profiler names them
 KERNEL_SYMBOLS = ("newton_residual_kernel", "newton_residual_lsolve_kernel",
-                  "masked_update_wrms_kernel",
+                  "masked_update_wrms_kernel", "newton_update_kernel",
                   "history_rescale_kernel", "history_rescale_loop_kernel",
                   "wrms_soa_kernel",
                   "spmv_fixed_kernel", "spmv_rows_kernel",
                   "spmv_any_kernel",
-                  "gj_inverse_unrolled_kernel", "gj_inverse_warp_kernel",
+                  "gj_inverse_unrolled_kernel", "newton_block_inverse_kernel",
+                  "gj_inverse_warp_kernel",
                   "gj_inverse_inplace_kernel", "gj_solve_unrolled_kernel",
                   "gj_solve_warp_kernel", "gj_solve_tiled_kernel",
                   "bsr_spmv_fixed_kernel", "bsr_spmv_any_kernel",
@@ -396,14 +411,27 @@ RANGES = ("lagrange_matrix_soa", "spsolve.numeric_lu", "spsolve.lu_solve",
 BDF_LOOP = ("newton_residual", "masked_update_wrms", "lagrange_rescale",
             "wrms_soa")
 #: the main path's kernels under BlockDiagGJ() at b <= 8: each Newton
-#: iteration the fused residual and lsolve, then the masked update
-MAIN_BDF = ("newton_residual_lsolve", "masked_update_wrms",
-            "lagrange_rescale", "wrms_soa", "block_inverse")
+#: iteration one launch of the whole iteration (row 1+2+3f), each lsetup
+#: one of the fused inverse (row 6f)
+MAIN_BDF = ("newton_update", "lagrange_rescale", "wrms_soa",
+            "newton_block_inverse")
+#: the kernels a path of MAIN_BDF's launches no time: rows 1, 2, 1+2f, 3
+#: and 6, which the fused ones replace there
+MAIN_REPLACED = ("newton_residual", "blockdiag_spmv", "newton_residual_lsolve",
+                 "masked_update_wrms", "block_inverse")
 #: path -> the kernel bodies (registry names) it must launch
 PATH_KERNELS = {
     "ensemble_bdf": MAIN_BDF,
-    # the main path with newton_residual_soa pinned to its plain version:
-    # the two-op Newton iteration, held to the fused one bit for bit
+    # the main path with masked_update_wrms_soa pinned to its kernel: the
+    # fused residual and lsolve, then row 3, held to the fused run bit
+    # for bit
+    "main: pinned update": ("newton_residual_lsolve", "masked_update_wrms",
+                            "lagrange_rescale", "wrms_soa",
+                            "newton_block_inverse"),
+    # the main path with newton_residual_soa pinned to its plain version
+    # and block_inverse_soa to its kernel: the two-op Newton iteration
+    # and row 6 on the plain Newton blocks, held to the fused run bit for
+    # bit
     "main: two-op route": ("blockdiag_spmv", "masked_update_wrms",
                            "lagrange_rescale", "wrms_soa", "block_inverse"),
     "A: ensemble_dirk": ("newton_residual", "block_solve", "wrms_soa"),
@@ -428,7 +456,7 @@ PATH_KERNELS = {
     "M: serving": MAIN_BDF,
     "N: sharded ensemble_bdf": MAIN_BDF,
     "N.5: pinned": ("newton_residual", "masked_update_wrms",
-                    "lagrange_rescale", "wrms_soa", "block_inverse"),
+                    "lagrange_rescale", "wrms_soa", "newton_block_inverse"),
     "O: auto main path": MAIN_BDF,
 }
 #: path -> the plain versions its kernel run takes by a per-op pin (and
@@ -537,6 +565,7 @@ class Kernel:
         # given (args, plain) -> float
         self.err_scale = err_scale
         #: the body sums in its plain version's order: equal bit for bit
+        #: (a tuple: per output)
         self.exact = exact
         self.max_err = 0.0
 
@@ -552,9 +581,11 @@ class Kernel:
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        for g, w in zip(got, want):
+        exact = self.exact if isinstance(self.exact, tuple) else \
+            (self.exact,) * len(got)
+        for g, w, ex in zip(got, want, exact):
             err = (g - w).abs().max().item()
-            check(not self.exact or torch.equal(g, w),
+            check(not ex or torch.equal(g, w),
                   f"{self.name} {what}: kernel and plain version differ in "
                   f"their bits (max |kernel-plain| {err})")
             scale = max(1.0, w.abs().max().item()) if self.err_scale is None \
@@ -570,6 +601,14 @@ def robertson_newton_blocks(nb, gen, dev, dtype):
     """M = I - gamma*J at Robertson states, gamma over eight decades:
     entries spanning many decades, the case the GJ row scaling is for."""
     import torch
+    J, gam = robertson_jacobians(nb, gen, dev, dtype)
+    return torch.eye(3, device=dev, dtype=dtype)[:, :, None] - gam * J
+
+
+def robertson_jacobians(nb, gen, dev, dtype):
+    """(J, gamma) of :func:`robertson_newton_blocks`: Robertson's
+    Jacobians (zeros in its third row) and gamma over eight decades."""
+    import torch
 
     def u(lo, hi):
         return lo + (hi - lo) * torch.rand(nb, generator=gen, device=dev,
@@ -581,8 +620,7 @@ def robertson_newton_blocks(nb, gen, dev, dtype):
     J = torch.stack([torch.stack([-k1, k2 * c, k2 * b]),
                      torch.stack([k1, -k2 * c - 2 * k3 * b, -k2 * b]),
                      torch.stack([z, 2 * k3 * b, z])])
-    gam = 10.0 ** u(-8, 0)
-    return torch.eye(3, device=dev, dtype=dtype)[:, :, None] - gam * J
+    return J.contiguous(), 10.0 ** u(-8, 0)
 
 
 def brusselator_newton_blocks(gen, dev):
@@ -610,7 +648,8 @@ def make_inputs(nb, dtype, gen, dev, b=3):
     1) and valid history counts q over 0..5 (int32); blocks A (b, b,
     nb), diagonally dominant, and r; the gamma ratios since lsetup,
     gamrat over [0.7, 1.3] (the fused Newton iteration's, with A as its
-    saved inverse)."""
+    saved inverse); Jacobians J (b, b, nb) whose Newton blocks I -
+    gam*J are diagonally dominant (the fused lsetup's)."""
     import torch
 
     def r(*shape):
@@ -630,6 +669,7 @@ def make_inputs(nb, dtype, gen, dev, b=3):
                                            dtype=dtype)[:, :, None]}
     d["gamrat"] = 0.7 + 0.6 * torch.rand(nb, generator=gen, device=dev,
                                          dtype=dtype)
+    d["J"] = r(b, b, nb) / (b * (d["gam"] + 1.0))
     return d
 
 
@@ -828,6 +868,24 @@ def kernel_table():
                lambda d: 3 * d["z"].numel()
                + d["z"].shape[0] * int(d["mask"].sum())
                + 2 * d["mask"].numel(), b3 + b6, more_timings=n6 + n32),
+        # rows 1, 2 and 3 fused with the correction: the whole Newton
+        # iteration of BlockDiagGJ() at b <= 8, one launch where rows 1+2f
+        # and 3 took two; z' equals the plain version's bits, the norm
+        # its tolerance (PyTorch's mean sums in its own order); no
+        # single PyTorch call computes it
+        Kernel("newton_update", newton.newton_update,
+               newton.newton_update_plain,
+               ref + "newton.py:40, " + ref + "blockdiag_spmv.py:20, "
+               + ref + "newton.py:73", csrc + "newton.cu",
+               lambda d: (d["z"], d["f"], d["psi"], d["gam"], d["gamrat"],
+                          d["A"], d["w"], d["mask"]), {},
+               # row 1+2f's, then per component a product, a square and
+               # a sum, the masked sums, and a quotient and a root
+               lambda d: (2 * b_of(d) ** 2 + 6 * b_of(d) + 5) * nb_of(d)
+               + b_of(d) * int(d["mask"].sum()),
+               b3 + b6 + [(b, nb) for b in (1, 2, 4, 5, 7, 8)
+                          for nb in RAGGED], more_timings=n6,
+               exact=(True, False)),
         Kernel("history_rescale", newton.history_rescale,
                newton.history_rescale_plain, ref + "newton.py:119",
                csrc + "newton.cu", lambda d: (d["W"], d["Z"], d["mask"]), {},
@@ -861,6 +919,17 @@ def kernel_table():
                lambda d: inverse_flops(b_of(d), nb_of(d)),
                b3 + b6 + [(1, 130), (8, 516), (8, 1 << 16)], more_timings=n6,
                library=lambda d: torch.linalg.inv(d["A"].permute(2, 0, 1))),
+        # row 6 with the Newton blocks I - gam*J formed in the kernel: the
+        # lsetup of BlockDiagGJ() at b <= 8; no single PyTorch call
+        # computes it from J and gamma
+        Kernel("newton_block_inverse", block_solve.newton_block_inverse_soa,
+               block_solve.newton_block_inverse_soa_plain,
+               ref + "block_solve.py:92", csrc + "block_solve.cu",
+               lambda d: (d["J"], d["gam"]), {},
+               lambda d: 2 * b_of(d) ** 2 * nb_of(d)
+               + inverse_flops(b_of(d), nb_of(d)),
+               b3 + b6 + [(b, nb) for b in (1, 2, 4, 5, 7, 8)
+                          for nb in RAGGED], more_timings=n6, exact=True),
         Kernel("block_inverse_tiled", block_solve.block_inverse_soa,
                block_solve.block_inverse_soa_plain,
                ref + "block_solve.py:161", csrc + "block_solve.cu",
@@ -1021,12 +1090,19 @@ def phase_compare(table, dev):
                     k.compare(d, f"b={b} nb={nb} {dtype}")
             if maker == "make_inputs" and b in (3, 6, 32):
                 compare_rescale_masks(d, f"n={b} nb={nb} {dtype}")
+            if maker == "make_inputs" and b <= 8:
+                compare_fused_routes(d, f"b={b} nb={nb} {dtype}")
     by_name = {k.name: k for k in table}
     M = robertson_newton_blocks(NSYS, gen, dev, torch.float64)
     r = torch.randn(3, NSYS, generator=gen, device=dev, dtype=M.dtype)
     stiff = {"A": M, "r": r}
     by_name["block_inverse"].compare(stiff, "Robertson Newton blocks")
     by_name["block_solve"].compare(stiff, "Robertson Newton blocks")
+    J, gam = robertson_jacobians(NSYS, gen, dev, torch.float64)
+    by_name["newton_block_inverse"].compare({"J": J, "gam": gam},
+                                            "Robertson Jacobians")
+    del J, gam
+    compare_nonfinite_blocks(gen, dev)
     Minv = block_solve.block_inverse_soa(M)
     eye = torch.einsum("ijs,jks->iks", M, Minv)
     resid = (eye - torch.eye(3, device=dev, dtype=eye.dtype)[:, :, None])
@@ -1065,8 +1141,64 @@ def phase_compare(table, dev):
     compare_misaligned_reductions(gen, dev)
     print(f"kernels: all {len(table)} bodies agree with their plain versions "
           f"(float64 tol 1e-10, float32 1e-4, relative to max(1,|plain|); "
-          + ", ".join(k.name for k in table if k.exact) + " bit for bit)",
+          + ", ".join(k.name if k.exact is True else f"{k.name}'s first "
+                      "output" for k in table if k.exact) + " bit for bit)",
           flush=True)
+
+
+def compare_fused_routes(d, what):
+    """Rows 1+2+3f and 6f against the launches they replace, bit for
+    bit: rows 1+2f then 3 (both outputs), and row 6 on the plain Newton
+    blocks."""
+    import torch
+    from repro_torch.core.linsol import newton_blocks_soa
+    from repro_torch.kernels import block_solve, newton
+    args = (d["z"], d["f"], d["psi"], d["gam"], d["gamrat"], d["A"])
+    got = newton.newton_update(*args, d["w"], d["mask"])
+    two = newton.masked_update_wrms(d["z"], newton.newton_residual_lsolve(
+        *args), d["w"], d["mask"])
+    check(all(torch.equal(g, t) for g, t in zip(got, two)),
+          f"newton_update {what}: not the bits of rows 1+2f and 3")
+    inv = block_solve.newton_block_inverse_soa(d["J"], d["gam"])
+    check(torch.equal(inv, block_solve.block_inverse_soa(
+        newton_blocks_soa(d["J"], d["gam"]))),
+          f"newton_block_inverse {what}: not the bits of row 6 on the plain "
+          "Newton blocks")
+
+
+def compare_nonfinite_blocks(gen, dev):
+    """Row 6f at b = 1..8 over 516 systems, both dtypes, with non-finite
+    and singular systems planted (a NaN and an inf entry of J, an inf
+    gamma, a zero row, an all-zero block): non-finite output on exactly
+    the plain version's non-finite systems, the same NaN and inf
+    entries, and the plain version's bits on every other."""
+    import torch
+    from repro_torch.kernels import block_solve
+    nb = 516
+    for dtype in (torch.float64, torch.float32):
+        for b in range(1, 9):
+            d = make_inputs(nb, dtype, gen, dev, b=b)
+            J, gam = d["J"].clone(), d["gam"].clone()
+            J[b - 1, 0, 1] = float("nan")
+            J[0, b - 1, 2] = float("inf")
+            gam[3] = float("inf")
+            gam[4] = gam[5] = 1.0
+            J[0, :, 4] = 0.0
+            J[0, 0, 4] = 1.0
+            J[:, :, 5] = torch.eye(b, device=dev, dtype=dtype)
+            got = block_solve.newton_block_inverse_soa(J, gam)
+            want = block_solve.newton_block_inverse_soa_plain(J, gam)
+            what = f"newton_block_inverse b={b} {dtype}, planted systems"
+            bad = (~want.isfinite()).reshape(-1, nb).any(dim=0)
+            check(torch.equal(bad, (~got.isfinite()).reshape(-1, nb)
+                              .any(dim=0)) and bool(bad[1:6].all()),
+                  f"{what}: non-finite systems differ from the plain "
+                  "version's")
+            check(torch.equal(got.isnan(), want.isnan()) and
+                  torch.equal(got.isinf(), want.isinf()),
+                  f"{what}: NaN or inf entries differ")
+            check(torch.equal(got[:, :, ~bad], want[:, :, ~bad]),
+                  f"{what}: finite systems not bit for bit")
 
 
 def compare_rescale_masks(d, what):
@@ -1138,8 +1270,8 @@ def compare_misaligned_reductions(gen, dev):
 
 def phase_timings(table, dev):
     """Each body, its plain version and its library yardstick at the
-    shape its path gives it, float64, against its bound; row 1+2f also
-    as the two-op route."""
+    shape its path gives it, float64, against its bound; rows 1+2f,
+    1+2+3f and 6f also as the routes they replaced."""
     import torch
     from repro_torch.kernels import blockdiag_spmv, newton
     gen = torch.Generator(device=dev)
@@ -1208,6 +1340,31 @@ def phase_timings(table, dev):
         print(f"  newton_residual_lsolve, b={row['b']}: fused {row['ms']:.4f} "
               f"ms, rows 1 and 2 with the plain correction "
               f"{row['ms_two_op']:.4f} ms", flush=True)
+    # the whole Newton iteration beside rows 1+2f and 3, the fused lsetup
+    # beside the plain Newton blocks and row 6 (and the build alone)
+    from repro_torch.core.linsol import newton_blocks_soa
+    from repro_torch.kernels import block_solve
+    for row in rows + more:
+        if row["name"] not in ("newton_update", "newton_block_inverse"):
+            continue
+        d = inputs[("make_inputs", (row["b"], row["nb"]))]
+        if row["name"] == "newton_update":
+            args = (d["z"], d["f"], d["psi"], d["gam"], d["gamrat"], d["A"])
+            row["ms_replaced"] = time_ms(lambda: newton.masked_update_wrms(
+                d["z"], newton.newton_residual_lsolve(*args), d["w"],
+                d["mask"]), flush)
+            print(f"  newton_update, b={row['b']} nb={row['nb']}: one launch "
+                  f"{row['ms']:.4f} ms, rows 1+2f and 3 "
+                  f"{row['ms_replaced']:.4f} ms", flush=True)
+        else:
+            row["ms_build"] = time_ms(lambda: newton_blocks_soa(
+                d["J"], d["gam"]), flush)
+            row["ms_replaced"] = time_ms(lambda: block_solve.block_inverse_soa(
+                newton_blocks_soa(d["J"], d["gam"])), flush)
+            print(f"  newton_block_inverse, b={row['b']} nb={row['nb']}: one "
+                  f"launch {row['ms']:.4f} ms, the plain Newton blocks and "
+                  f"row 6 {row['ms_replaced']:.4f} ms (the blocks alone "
+                  f"{row['ms_build']:.4f} ms)", flush=True)
     del inputs, flush
     return rows, more
 
@@ -1252,9 +1409,25 @@ def classic_robertson_reference(method):
             "max_diff_over_bound": ratio}
 
 
-def check_counts(path, counts, kernel_run):
+def check_fused(path, counts, loop):
+    """A kernel run of the main path's kernels: one launch of the whole
+    Newton iteration a Newton trip, one of the fused inverse a lsetup,
+    and none of the rows they replace."""
+    trips, lsetups = loop["newton_trips"], loop["lsetups"]
+    check(counts["newton_update"][0] == trips and
+          counts["newton_block_inverse"][0] == lsetups,
+          f"{path}: newton_update launched {counts['newton_update'][0]} times "
+          f"in {trips} Newton trips, newton_block_inverse "
+          f"{counts['newton_block_inverse'][0]} in {lsetups} lsetups")
+    launched = {k: counts[k][0] for k in MAIN_REPLACED if counts[k][0]}
+    check(not launched, f"{path}: launched {launched}, which the fused "
+          "kernels replace")
+
+
+def check_counts(path, counts, kernel_run, loop=None):
     """A kernel run launches every body of its path and no plain
-    version; a plain run launches nothing."""
+    version, a run of the main path's kernels one fused launch a Newton
+    trip and a lsetup (``loop`` given); a plain run launches nothing."""
     if not kernel_run:
         check(all(v[0] == 0 for v in counts.values()),
               f"{path}: the torch-backend run launched a kernel")
@@ -1275,6 +1448,8 @@ def check_counts(path, counts, kernel_run):
         else:
             check(plain_calls == 0, f"{path}: plain {name} ran "
                   f"{plain_calls} times")
+    if loop is not None and PATH_KERNELS[path] == MAIN_BDF:
+        check_fused(path, counts, loop)
 
 
 def run_path(path, label, prob, method, t1, opts, ctx=None, t0=0.0, **kw):
@@ -1319,7 +1494,7 @@ def run_path(path, label, prob, method, t1, opts, ctx=None, t0=0.0, **kw):
                       for k, v in rec.items() if isinstance(v, dict)
                       and "sum" in v)
           + "".join(f", {k} {v}" for k, v in krylov.items()), flush=True)
-    check_counts(path, counts, label != "plain versions")
+    check_counts(path, counts, label != "plain versions", rec["loop"])
     check(rec["lanes_ok"] == rec["lanes"],
           f"{path} [{label}]: {rec['lanes'] - rec['lanes_ok']} lanes failed")
     check(bool(torch.isfinite(sol.y).all()), f"{path}: non-finite y")
@@ -1371,38 +1546,54 @@ def phase_main_path(profile):
     agreement = agree(path, sol.y, ref.y, sol.retcodes, ref.retcodes,
                       mass=True)
     del ref
-    # the two-op route: the residual's plain version (which rounds as
-    # row 1) and row 2's kernel with the plain correction, bit for bit
-    # the fused Newton iteration, with the same syncs and trips
-    two = "main: two-op route"
-    sol2, two_rec = run_path(two, "kernels, newton_residual_soa pinned",
-                             prob, "ensemble_bdf", 10.0, opts._replace(
-                                 policy=ExecPolicy().override(
-                                     newton_residual_soa="torch")))
-    check(torch.equal(sol2.y, sol.y), f"{two}: y is not the fused run's "
-          "bit for bit")
-    same_stats(two, "the fused run", sol2.stats, sol.stats)
-    check(two_rec["loop"] == rec["loop"], f"{two}: loop counts "
-          f"{two_rec['loop']}, the fused run {rec['loop']}")
-    trips = rec["loop"]["newton_trips"]
-    check(rec["counts"]["newton_residual_lsolve"][0] == trips and
-          two_rec["counts"]["blockdiag_spmv"][0] == trips,
-          f"{path}: one fused launch a Newton trip ({trips}), "
-          f"{rec['counts']['newton_residual_lsolve'][0]} and "
-          f"{two_rec['counts']['blockdiag_spmv'][0]}")
-    print(f"{path}: the fused Newton iteration equals the two-op route bit "
-          f"for bit (y, stats, {rec['loop']['host_syncs']} host syncs, "
-          f"{trips} Newton trips)", flush=True)
+    # the routes the fused kernels replaced, each bit for bit the fused
+    # run with the same syncs and trips: with masked_update_wrms_soa
+    # pinned to its kernel, rows 1+2f and 3; with newton_residual_soa
+    # pinned to its plain version (which rounds as row 1) and
+    # block_inverse_soa to its kernel, the residual, rows 2 and 3, and
+    # row 6 on the plain Newton blocks
+    trips, lsetups = rec["loop"]["newton_trips"], rec["loop"]["lsetups"]
+    routes = {}
+    for route, label, pins, per_trip, per_lsetup in (
+            ("main: pinned update", "kernels, masked_update_wrms_soa pinned",
+             {"masked_update_wrms_soa": "cuda"},
+             ("newton_residual_lsolve", "masked_update_wrms"),
+             "newton_block_inverse"),
+            ("main: two-op route", "kernels, newton_residual_soa and "
+             "block_inverse_soa pinned",
+             {"newton_residual_soa": "torch", "block_inverse_soa": "cuda"},
+             ("blockdiag_spmv", "masked_update_wrms"), "block_inverse")):
+        sol2, rec2 = run_path(route, label, prob, "ensemble_bdf", 10.0,
+                              opts._replace(policy=ExecPolicy().override(
+                                  **pins)))
+        check(torch.equal(sol2.y, sol.y), f"{route}: y is not the fused "
+              "run's bit for bit")
+        same_stats(route, "the fused run", sol2.stats, sol.stats)
+        check(rec2["loop"] == rec["loop"], f"{route}: loop counts "
+              f"{rec2['loop']}, the fused run {rec['loop']}")
+        counts = rec2["counts"]
+        check(all(counts[k][0] == trips for k in per_trip) and
+              counts[per_lsetup][0] == lsetups, f"{route}: one launch of "
+              f"{per_trip} a Newton trip ({trips}) and of {per_lsetup} a "
+              f"lsetup ({lsetups}): {[counts[k] for k in per_trip]}, "
+              f"{counts[per_lsetup]}")
+        routes[route] = rec2
+        del sol2
+    print(f"{path}: the fused Newton iteration and lsetup equal rows 1+2f "
+          f"and 3, and the two-op route with row 6, bit for bit (y, stats, "
+          f"{rec['loop']['host_syncs']} host syncs, {trips} Newton trips, "
+          f"{lsetups} lsetups; one fused launch each)", flush=True)
     y, stats = sol.y, sol.stats
-    del sol, sol2
+    del sol
     prof = None
     if profile:
         prof = profile_run(path, integrate_call(prob, "ensemble_bdf", 10.0,
                                                 opts), rec["wall_s"], True)
         prof["lagrange_alone_ms"] = lagrange_alone_ms()
     return {"kernels_run": rec, "plain_run": ref_rec,
-            "two_op_run": two_rec, "agreement": agreement, "profile": prof,
-            "y": y, "stats": stats}
+            "pinned_update_run": routes["main: pinned update"],
+            "two_op_run": routes["main: two-op route"],
+            "agreement": agreement, "profile": prof, "y": y, "stats": stats}
 
 
 def run_leg(path, label, ctx, prob, t_span, opts, summarise=False, **kw):
@@ -1732,6 +1923,8 @@ def m_check_bundles(path, rows, kernel_run):
                       f"{where}: kernel {name} was never launched")
             for name, (_, calls) in r["counts"].items():
                 check(calls == 0, f"{where}: plain {name} ran {calls} times")
+            if PATH_KERNELS[path] == MAIN_BDF:
+                check_fused(where, r["counts"], r["loop"])
         else:
             check(all(v[0] == 0 for v in r["counts"].values()),
                   f"{where}: the plain-version server launched a kernel")
@@ -2030,7 +2223,7 @@ def n_run(path, label, run, kernel_path):
           f"{rec['loop']['newton_trips']}, Krylov trips "
           f"{rec['loop']['krylov_trips']}, peak "
           f"{rec['peak_bytes'] / 2**20:.1f} MiB", flush=True)
-    check_counts(kernel_path, rec["counts"], True)
+    check_counts(kernel_path, rec["counts"], True, rec["loop"])
     return out, rec
 
 
@@ -2527,14 +2720,16 @@ def o_constants(card, dev):
 
 
 def main_path_grid():
-    """The main path's signatures: rows 1-6, 4f and 1+2f at 2**20
-    systems, n = b = 3 (and rows 1, 2 and 4, whose entries its loop no
-    longer calls)."""
+    """The main path's signatures: rows 1-6, 4f, 1+2f, 1+2+3f and 6f at
+    2**20 systems, n = b = 3 (and rows 1, 2, 1+2f, 3, 4 and 6, whose
+    entries its loop no longer calls)."""
     from repro_torch.analysis.opcost import OpSig
 
     def sig(op, **kw):
         return OpSig(op, "float64", n=3, nsys=NSYS, **kw)
-    return [sig("newton_residual_lsolve_soa", b=3),
+    return [sig("newton_update_soa", b=3),
+            sig("newton_block_inverse_soa", b=3),
+            sig("newton_residual_lsolve_soa", b=3),
             sig("newton_residual_soa"), sig("blockdiag_spmv_soa", b=3),
             sig("masked_update_wrms_soa"), sig("history_rescale_soa", k=6),
             sig("lagrange_rescale_soa", k=6), sig("wrms_soa"),
@@ -2553,8 +2748,9 @@ def path_o_grid():
     def sig(op, n=0, nsys=0, b=0, k=0, nnz=0):
         return OpSig(op, "float64", n=n, nsys=nsys, b=b, k=k, nnz=nnz)
     out = autotune.tune_grid() + main_path_grid()
-    out.append(sig("newton_residual_lsolve_soa", n=O_DECAY_N, nsys=NDECAY,
-                   b=O_DECAY_N))
+    for op in ("newton_residual_lsolve_soa", "newton_update_soa",
+               "newton_block_inverse_soa"):
+        out.append(sig(op, n=O_DECAY_N, nsys=NDECAY, b=O_DECAY_N))
     for n, nb in ((O_DECAY_N, NDECAY), (32, NBRUSS)):
         out += [sig("newton_residual_soa", n=n, nsys=nb),
                 sig("masked_update_wrms_soa", n=n, nsys=nb),
@@ -2624,7 +2820,7 @@ def o_tune(card, tmp):
 def o_auto_main(card, y_main, st_main, syncs_main, main_wall):
     """O.3: the main path under ``Context(policy=ExecPolicy())`` with the
     tuned cache: bit for bit the main path's kernel run with its host
-    syncs, rows 1+2f, 3-6 (4f) and no plain version; one decision a
+    syncs, rows 1+2+3f, 4f, 5, 6f and no plain version; one decision a
     signature, each the kernel from the cache, their hits the op calls;
     the autotune gauges exported."""
     import torch
@@ -3478,8 +3674,8 @@ def p_walker(dev):
     kernels.reset_counts()
     found = lint.run_rules(ctx, ["hot-loop-layout", "dtype-drift"])
     counts = kernels.counts()
-    for name in ("newton_residual_lsolve", "newton_residual",
-                 "masked_update_wrms", "block_solve"):
+    for name in ("newton_update", "newton_block_inverse", "newton_residual",
+                 "block_solve"):
         check(counts[name][0] > 0, f"P.6: kernel {name} was not launched")
     check(all(v[1] == 0 for v in counts.values()),
           "P.6: a plain version ran on the card")
@@ -5390,7 +5586,9 @@ T_WORLD, T_DATA, T_MODEL, T_RANK_TIMEOUT = 4, 2, 2, 600
 #: 1e-13 0.127 (at 64: 8.7e-8 for both, the float32 rounding of the
 #: gradient; tools/xlstm_nudge_witness.py), and no gate below 1 could
 #: hold the sharded run to it
-T1_CUTS = (("zamba2-7b", 2, 256), ("xlstm-125m", 2, 64),
+#: zamba2-7b takes one layer, which keeps its shared-attention site
+#: (layer 0): the script's time (PERF.md, Open questions)
+T1_CUTS = (("zamba2-7b", 1, 256), ("xlstm-125m", 2, 64),
            ("whisper-tiny", None, 256), ("qwen2-vl-2b", 2, 256))
 T_BATCH, T_VIS = 2, 100
 #: T.1's gates, fixed: the float64 loss's relative difference from one

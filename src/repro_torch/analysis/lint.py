@@ -239,7 +239,9 @@ def default_contract_sigs() -> Dict[str, list]:
     """The signatures kernel-contract checks per op: the reference's grid
     (``repro/analysis/lint.py:274-310``; block sizes on both sides of
     the b <= 8 and b > 8 bodies) and the port's own ops,
-    ``lagrange_rescale_soa`` and ``newton_residual_lsolve_soa``."""
+    ``lagrange_rescale_soa``, ``newton_residual_lsolve_soa``,
+    ``newton_update_soa`` and ``newton_block_inverse_soa`` (the last two
+    at block sizes on both sides of their one-thread and group forms)."""
     from .opcost import OpSig
     sigs: Dict[str, list] = {}
 
@@ -267,6 +269,9 @@ def default_contract_sigs() -> Dict[str, list]:
     add("lagrange_rescale_soa", n=3, nsys=8, k=6)
     for b, nsys in ((3, 8), (8, 40)):
         add("newton_residual_lsolve_soa", n=b, nsys=nsys, b=b)
+    for b, nsys in ((3, 8), (6, 40), (8, 40)):
+        add("newton_update_soa", n=b, nsys=nsys, b=b)
+        add("newton_block_inverse_soa", n=b, nsys=nsys, b=b)
     for n in (4, 8):
         add("csr_spmv", n=n, nnz=3 * n - 2)
     for nblk, b, nsys in ((4, 3, 8),):

@@ -3,8 +3,9 @@
 Counterpart of ``repro.analysis.opcost``.  Every op of
 :data:`repro_torch.core.dispatch.OP_TABLE` has a signature extractor
 (:data:`SIG_EXTRACTORS`) and a cost model (:data:`COST_MODELS`): the
-reference's nineteen ops and the port's own ``lagrange_rescale_soa`` and
-``newton_residual_lsolve_soa``.
+reference's nineteen ops and the port's own four,
+``lagrange_rescale_soa``, ``newton_residual_lsolve_soa``,
+``newton_update_soa`` and ``newton_block_inverse_soa``.
 :func:`predict` evaluates both implementations of an op at one
 signature against a row of :data:`repro_torch.analysis.roofline.DEVICES`
 and names the faster; the resolver of ``"auto"`` dispatch
@@ -64,6 +65,7 @@ BATCHED_OPS = frozenset({
     "newton_residual_soa", "masked_update_wrms_soa", "history_rescale_soa",
     "wrms_soa", "bsr_spmv_soa", "bsr_block_jacobi_inverse_soa",
     "lagrange_rescale_soa", "newton_residual_lsolve_soa",
+    "newton_update_soa", "newton_block_inverse_soa",
 })
 
 REDUCTION_OPS = frozenset({
@@ -160,7 +162,7 @@ def _sig_soa_elementwise(op: str, args: Tuple) -> OpSig:
 
 
 def _sig_residual_lsolve(op: str, args: Tuple) -> OpSig:
-    z = args[0]                      # z, f, psi, gamma, gamrat, Minv
+    z = args[0]                      # z, f, psi, gamma, gamrat, Minv...
     b, nsys = z.shape
     return OpSig(op, dtype_name(z.dtype), n=b, nsys=nsys, b=b)
 
@@ -207,6 +209,8 @@ SIG_EXTRACTORS = {
     "bsr_block_jacobi_inverse_soa": _sig_bsr,
     "lagrange_rescale_soa": _sig_history,
     "newton_residual_lsolve_soa": _sig_residual_lsolve,
+    "newton_update_soa": _sig_residual_lsolve,
+    "newton_block_inverse_soa": _sig_block,
 }
 
 
@@ -346,6 +350,19 @@ def _cost_block_inverse(sig: OpSig) -> OpCost:
     return OpCost(4 * b ** 3 * nsys, io, plain, launches)
 
 
+def _cost_newton_block_inverse(sig: OpSig) -> OpCost:
+    s, nsys, b = sig.itemsize, sig.nsys, sig.b
+    # the kernel reads J and gamma and writes M^-1: 152 bytes a system at
+    # b = 3 in float64
+    io = (2 * b * b + 1) * nsys * s
+    inverse = _cost_block_inverse(sig)
+    # the plain blocks: the eye, gamma*J (reads J and gamma, writes) and
+    # the difference (reads the product, writes M)
+    build = (4 * b * b + 1) * nsys * s
+    return OpCost(inverse.flops + 2 * b * b * nsys, io,
+                  inverse.plain_bytes + build, inverse.plain_launches + 3)
+
+
 def _cost_blockdiag_spmv(sig: OpSig) -> OpCost:
     s, nsys, b = sig.itemsize, sig.nsys, sig.b
     io = (b * b + 2 * b) * nsys * s
@@ -372,6 +389,18 @@ def _cost_residual_lsolve(sig: OpSig) -> OpCost:
     return OpCost(res.flops + spmv.flops + (b + 3) * nsys, io,
                   res.plain_bytes + spmv.plain_bytes + corr,
                   res.plain_launches + spmv.plain_launches + 4)
+
+
+def _cost_newton_update(sig: OpSig) -> OpCost:
+    s, nsys, b = sig.itemsize, sig.nsys, sig.b
+    # the kernel reads z, f, psi, w, gamma, gamrat, Minv and the mask
+    # byte and writes z' and dn: 217 bytes a system at b = 3 in float64
+    io = (b * b + 5 * b + 3) * nsys * s + nsys
+    lsolve, update = _cost_residual_lsolve(sig), _cost_masked_update_wrms(
+        OpSig("masked_update_wrms_soa", sig.dtype, n=b, nsys=nsys))
+    return OpCost(lsolve.flops + update.flops, io,
+                  lsolve.plain_bytes + update.plain_bytes,
+                  lsolve.plain_launches + update.plain_launches)
 
 
 def _cost_masked_update_wrms(sig: OpSig) -> OpCost:
@@ -479,6 +508,8 @@ COST_MODELS = {
     "bsr_block_jacobi_inverse_soa": _cost_bsr_diag_inverse,
     "lagrange_rescale_soa": _cost_lagrange_rescale,
     "newton_residual_lsolve_soa": _cost_residual_lsolve,
+    "newton_update_soa": _cost_newton_update,
+    "newton_block_inverse_soa": _cost_newton_block_inverse,
 }
 
 

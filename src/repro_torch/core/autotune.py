@@ -446,6 +446,12 @@ def args_for(sig: OpSig, device="cpu", generator=None) -> tuple:
         return (rnd(b, nsys), rnd(b, nsys), rnd(b, nsys),
                 rnd(nsys).abs() + 0.1, 0.5 + rnd(nsys).abs(),
                 blocks(b, nsys))
+    if op == "newton_update_soa":
+        return (rnd(b, nsys), rnd(b, nsys), rnd(b, nsys),
+                rnd(nsys).abs() + 0.1, 0.5 + rnd(nsys).abs(),
+                blocks(b, nsys), rnd(b, nsys).abs() + 0.1, mask(nsys))
+    if op == "newton_block_inverse_soa":
+        return (0.05 * rnd(b, b, nsys) / b, rnd(nsys).abs() + 0.1)
     if op == "lagrange_rescale_soa":
         eta = 10.0 ** (2 * torch.rand(nsys, generator=gen, device=dev,
                                       dtype=dtype) - 1)
@@ -521,11 +527,14 @@ def port_grid() -> List[OpSig]:
     fuse, at n = 3, 8 over 4096 systems: ``lagrange_rescale_soa`` (the
     history rebuild, six history rows), then
     ``newton_residual_lsolve_soa`` (the Newton residual and the b <= 8
-    SpMV, n = b)."""
+    SpMV, n = b), ``newton_update_soa`` (those and the masked update)
+    and ``newton_block_inverse_soa`` (the Newton blocks and their b <= 8
+    inverse)."""
     return [_sig("lagrange_rescale_soa", n=n, nsys=4096, k=6)
             for n in (3, 8)] + \
-        [_sig("newton_residual_lsolve_soa", n=b, nsys=4096, b=b)
-         for b in (3, 8)]
+        [_sig(op, n=b, nsys=4096, b=b)
+         for op in ("newton_residual_lsolve_soa", "newton_update_soa",
+                    "newton_block_inverse_soa") for b in (3, 8)]
 
 
 def tune_grid() -> List[OpSig]:

@@ -29,18 +29,19 @@ one fused residual and one batched Gauss-Jordan solve
 BDF layout: structure of arrays with the system axis LAST, as in the
 reference: history ``Z (QMAX+1, n, nsys)``, Newton iterate and weights
 ``(n, nsys)``, saved inverse ``(n, n, nsys)``.  Each Newton iteration is
-the solver's residual and lsolve (``LinearSolver.soa_residual_solve``:
-for ``BlockDiagGJ()`` at n <= 8 one launch of
-``newton_residual_lsolve_soa``, the residual, the SpMV against the
-saved inverse and the gamma-drift correction; otherwise one fused
-residual and the solver's lsolve, with ``BlockDiagGJ(factor_once=False)``
-a block solve) and one fused masked update + correction norm; twice a
-step the history is
+the solver's ``LinearSolver.soa_newton_update``: for ``BlockDiagGJ()``
+at n <= 8 one launch of ``newton_update_soa`` (the residual, the SpMV
+against the saved inverse, the gamma-drift correction, the masked update
+and the correction norm); otherwise one fused residual, the solver's
+lsolve (with ``BlockDiagGJ(factor_once=False)`` a block solve) and one
+fused masked update + correction norm.  Twice a step the history is
 rebuilt by ``lagrange_rescale_soa`` (``history_rescale_soa`` with its
 Lagrange matrix formed from each system's eta and history count inside
 the kernel) and once a step the error test runs ``wrms_soa``; lsetup
-inverts the Newton blocks.  These ops are the CUDA
-kernels of :mod:`repro_torch.kernels` on the card.
+inverts the Newton blocks (for ``BlockDiagGJ()`` at n <= 8 one launch of
+``newton_block_inverse_soa``, the blocks formed inside the inverse).
+These ops are the CUDA kernels of :mod:`repro_torch.kernels` on the
+card.
 
 The BDF loop owns its state: the counters are updated in place, and each
 step's new history replaces the old one, so PyTorch's caching allocator
@@ -609,6 +610,7 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
                          (since_jac >= msbp) | ((gamrat - 1.0).abs() > dgmax))
         any_need, all_need = _read(torch.stack([need.any(), need.all()]))
         if any_need:
+            loop_counts["lsetups"] += 1
             MJ_new = ls.soa_setup(jac_s(t_new, y_pred), gamma, policy)
             MJ = MJ_new if all_need else _merge(need, MJ_new, MJ)
         gam_saved = torch.where(need, gamma, gam_saved)
@@ -629,10 +631,9 @@ def ensemble_bdf_integrate(f: Callable, jac: Callable, y0: torch.Tensor,
                 break
             with _region("ensemble_bdf:newton"):
                 loop_counts["newton_trips"] += 1
-                dz, nli_inc, nps_inc = ls.soa_residual_solve(
-                    MJ, gamma, gamrat, z, f_s(t_new, z), psi, policy,
-                    mem=mem)
-                z, dn = dv.masked_update_wrms_soa(z, dz, w, iterate, policy)
+                z, dn, nli_inc, nps_inc = ls.soa_newton_update(
+                    MJ, gamma, gamrat, z, f_s(t_new, z), psi, w, iterate,
+                    policy, mem=mem)
                 crate_new = crate
                 if it > 0:
                     crate_new = torch.maximum(

@@ -7,15 +7,20 @@ path, the N_Vector ops ``linear_sum``, ``axpy``,
 ``linear_combination``, ``scale_add_multi``, ``dot``,
 ``dot_prod_multi``, ``wrms_norm``, ``wrms_ss`` and ``wrms_norm_mask``,
 and the sparse ops ``csr_spmv`` (``SparseCSR.matvec``),
-``bsr_spmv_soa`` and ``bsr_block_jacobi_inverse_soa``.  Two ops are the
-port's own, not among the nineteen, each a fusion that the reference's
-jitted step leaves to XLA and eager PyTorch would spend many launches
-on: ``lagrange_rescale_soa``, the ensemble BDF's history rebuild with
-its Lagrange matrix formed inside the kernel (some 60 launches plain),
-and ``newton_residual_lsolve_soa``, a Newton iteration's residual,
-saved-inverse lsolve and gamma-drift correction in one launch (six
-composed), which ``BlockDiagGJ`` takes at b <= 8
-(:meth:`~repro_torch.core.linsol.BlockDiagGJ.soa_residual_solve`).
+``bsr_spmv_soa`` and ``bsr_block_jacobi_inverse_soa``.  Four ops are
+the port's own, not among the nineteen, each a fusion that the
+reference's jitted step leaves to XLA and eager PyTorch would spend
+many launches on: ``lagrange_rescale_soa``, the ensemble BDF's history
+rebuild with its Lagrange matrix formed inside the kernel (some 60
+launches plain); ``newton_residual_lsolve_soa``, a Newton iteration's
+residual, saved-inverse lsolve and gamma-drift correction in one launch
+(six composed); ``newton_update_soa``, that and the masked update with
+its correction norm, the whole Newton iteration in one launch where the
+two above took two, which ``BlockDiagGJ`` takes at b <= 8
+(:meth:`~repro_torch.core.linsol.BlockDiagGJ.soa_newton_update`); and
+``newton_block_inverse_soa``, its lsetup at b <= 8 with the Newton
+blocks ``I - gamma*J`` formed inside the inverse
+(:meth:`~repro_torch.core.linsol.BlockDiagGJ.soa_setup`).
 
 Each entry is ``{"torch": plain version, "cuda": kernel wrapper}``, two
 callables with one positional signature (:func:`validate_op_table`
@@ -270,9 +275,12 @@ OP_TABLE = {
     "bsr_block_jacobi_inverse_soa": _op(_bs, "block_inverse_soa",
                                         _bsr_block_jacobi_inverse_soa),
     # the port's own: the BDF history rebuild with W formed in the
-    # kernel, and the BlockDiagGJ Newton iteration in one launch
+    # kernel, the BlockDiagGJ Newton iteration's lsolve and the whole
+    # iteration in one launch, and its lsetup with M formed in the kernel
     "lagrange_rescale_soa": _op(_nw, "lagrange_rescale"),
     "newton_residual_lsolve_soa": _op(_nw, "newton_residual_lsolve"),
+    "newton_update_soa": _op(_nw, "newton_update"),
+    "newton_block_inverse_soa": _op(_bs, "newton_block_inverse_soa"),
 }
 
 
@@ -482,6 +490,10 @@ OP_NOTES = {
                              "row 4f (W formed from eta, q)"),
     "newton_residual_lsolve_soa": ("rows 1, 2 plain + 2/(1+gr)",
                                    "row 1+2f (one launch, b <= 8)"),
+    "newton_update_soa": ("rows 1, 2, 3 plain + 2/(1+gr)",
+                          "row 1+2+3f (one launch, b <= 8)"),
+    "newton_block_inverse_soa": ("I - gamma*J + row 6 plain",
+                                 "row 6f (M formed, b <= 8)"),
 }
 
 
@@ -571,6 +583,22 @@ def newton_residual_lsolve_soa(z, fval, psi, gamma, gamrat, Minv,
     one launch at b <= 8; z/f/psi (b, nsys), gamma/gamrat (nsys,)."""
     return dispatch("newton_residual_lsolve_soa", policy)(
         z, fval, psi, gamma, gamrat, Minv)
+
+
+def newton_update_soa(z, fval, psi, gamma, gamrat, Minv, w, mask,
+                      policy: Optional[ExecPolicy] = None):
+    """One Newton iteration in one launch at b <= 8 -> ``(z_new, dn)``:
+    ``masked_update_wrms_soa(z, newton_residual_lsolve_soa(z, fval, psi,
+    gamma, gamrat, Minv), w, mask)``; z/f/psi/w (b, nsys), gamma/gamrat
+    (nsys,), Minv (b, b, nsys), mask (nsys,)."""
+    return dispatch("newton_update_soa", policy)(
+        z, fval, psi, gamma, gamrat, Minv, w, mask)
+
+
+def newton_block_inverse_soa(J, gamma, policy: Optional[ExecPolicy] = None):
+    """``(I - gamma*J)^-1`` per block, the Newton blocks formed inside
+    the b <= 8 inverse: J (b, b, nsys), gamma (nsys,)."""
+    return dispatch("newton_block_inverse_soa", policy)(J, gamma)
 
 
 def wrms_soa(v, w, policy: Optional[ExecPolicy] = None):

@@ -29,11 +29,17 @@ lsetup/lsolve split; the system batch rides the last axis):
   mem)`` -> ``(dz, nli, npsolves)``, the counts 0-d int32 tensors on
   the device (or 0 for the direct solvers);
 * :meth:`LinearSolver.soa_residual_solve` ``(MJ, gamma, gamrat, z, fz,
-  psi, policy, mem)``, what a Newton iteration calls: the residual's
-  negation ``-(z - gamma*fz - psi)`` solved as by ``soa_solve``.  By
-  default the two dispatch ops ``newton_residual_soa`` and the solver's
-  lsolve; :class:`BlockDiagGJ` takes the port's fused op
-  ``newton_residual_lsolve_soa`` instead (one launch) where it can;
+  psi, policy, mem)``: the residual's negation ``-(z - gamma*fz - psi)``
+  solved as by ``soa_solve``.  By default the two dispatch ops
+  ``newton_residual_soa`` and the solver's lsolve; :class:`BlockDiagGJ`
+  takes the port's fused op ``newton_residual_lsolve_soa`` instead (one
+  launch) where it can;
+* :meth:`LinearSolver.soa_newton_update` ``(MJ, gamma, gamrat, z, fz,
+  psi, w, mask, policy, mem)`` -> ``(z_new, dn, nli, npsolves)``, what
+  a Newton iteration calls: :meth:`soa_residual_solve`, then the masked
+  update and correction norm ``masked_update_wrms_soa``;
+  :class:`BlockDiagGJ` takes the port's fused op ``newton_update_soa``
+  instead (one launch) where it can;
 * :meth:`LinearSolver.soa_carry_init` / :meth:`soa_workspace_shapes`;
 * :meth:`LinearSolver.with_sparsity` binds a static ``jac_sparsity``
   (encoded ``(indptr, indices)``); solvers without a sparse path return
@@ -74,6 +80,8 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..kernels import block_solve as _bs
+from ..kernels.block_solve import newton_blocks_soa
 from ..kernels import newton as _nw
 from . import dispatch as dv
 from . import krylov
@@ -118,14 +126,6 @@ def _pattern_index(indptr: tuple, indices: tuple,
         diag=torch.as_tensor(np.nonzero(rows == cols)[0], device=device),
         blocks=(tuple(int(r) for r in rows), tuple(int(c) for c in cols),
                 len(indptr) - 1))
-
-
-def newton_blocks_soa(Jsoa: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
-    """Dense SoA Newton blocks M = I - gamma*J: Jsoa (n,n,nsys), gamma
-    (nsys,) -> (n,n,nsys)."""
-    n = Jsoa.shape[0]
-    eye = torch.eye(n, dtype=Jsoa.dtype, device=Jsoa.device)
-    return eye[:, :, None] - gamma[None, None, :] * Jsoa
 
 
 def _shape_leaves(tree) -> list:
@@ -174,6 +174,15 @@ class LinearSolver:
         Newton right-hand side ``-(z - gamma*fz - psi)``."""
         rhs = dv.newton_residual_soa(z, fz, psi, gamma, policy, negate=True)
         return self.soa_solve(MJ, gamma, gamrat, rhs, policy, mem=mem)
+
+    def soa_newton_update(self, MJ, gamma, gamrat, z, fz, psi, w, mask,
+                          policy=None, mem=None):
+        """One Newton iteration: :meth:`soa_residual_solve`, then
+        ``masked_update_wrms_soa`` -> ``(z_new, dn, nli, npsolves)``."""
+        dz, nli, nps = self.soa_residual_solve(MJ, gamma, gamrat, z, fz, psi,
+                                               policy, mem=mem)
+        z_new, dn = dv.masked_update_wrms_soa(z, dz, w, mask, policy)
+        return z_new, dn, nli, nps
 
     def soa_carry_init(self, n, nsys, dtype, device):
         return torch.zeros((n, n, nsys), dtype=dtype, device=device)
@@ -439,25 +448,40 @@ class BlockDiagGJ(LinearSolver):
 
     With ``factor_once=True`` and blocks of at most
     :data:`~repro_torch.kernels.newton.RESIDUAL_MAX_N` rows, a Newton
-    iteration (:meth:`soa_residual_solve`) is the one op
-    ``newton_residual_lsolve_soa``: the residual, the SpMV and the
-    correction in one launch, bit for bit their composition.  A policy
-    that pins ``newton_residual_soa`` or ``blockdiag_spmv_soa`` (to any
-    backend) keeps the two ops, so the pin reaches its op; larger blocks
-    and ``factor_once=False`` take them too.
+    iteration (:meth:`soa_newton_update`) is the one op
+    ``newton_update_soa``: the residual, the SpMV, the correction, the
+    masked update and the correction norm in one launch, bit for bit
+    their composition; :meth:`soa_residual_solve` alone is the one op
+    ``newton_residual_lsolve_soa``.  A policy that pins any op of the
+    composition (:data:`UPDATE_OPS`, to any backend) keeps it, so the
+    pin reaches its op: a pin of ``masked_update_wrms_soa`` keeps
+    ``newton_residual_lsolve_soa`` and the update, a pin of
+    ``newton_residual_soa`` or ``blockdiag_spmv_soa`` the residual and
+    the SpMV.  Larger blocks and ``factor_once=False`` take the
+    composition too.  Likewise lsetup (:meth:`soa_setup`) at b <=
+    :data:`~repro_torch.kernels.block_solve.UNROLL_MAX_B` is the one op
+    ``newton_block_inverse_soa``, the Newton blocks formed inside the
+    inverse, unless ``block_inverse_soa`` is pinned.
     """
 
     name = "blockdiag_gj"
     factor_once: bool = True
-    #: the ops of the composed Newton iteration: a pin of either keeps
-    #: the composition
+    #: the ops of the composed Newton lsolve: a pin of either keeps the
+    #: residual and the SpMV
     COMPOSED_OPS = ("newton_residual_soa", "blockdiag_spmv_soa")
+    #: the ops a Newton iteration takes apart from newton_update_soa: a
+    #: pin of any keeps the composition
+    UPDATE_OPS = ("newton_residual_lsolve_soa",) + COMPOSED_OPS + (
+        "masked_update_wrms_soa",)
 
     def soa_setup(self, Jsoa, gamma, policy=None):
         """lsetup: the saved inverse of M = I - gamma*J, (n,n,nsys), or
         the bare Jacobian for ``factor_once=False``."""
         if not self.factor_once:
             return Jsoa
+        if Jsoa.shape[0] <= _bs.UNROLL_MAX_B and not (
+                policy is not None and policy.pinned("block_inverse_soa")):
+            return dv.newton_block_inverse_soa(Jsoa, gamma, policy)
         return dv.block_inverse_soa(newton_blocks_soa(Jsoa, gamma), policy)
 
     def soa_solve(self, MJ, gamma, gamrat, rhs, policy=None, mem=None):
@@ -479,6 +503,20 @@ class BlockDiagGJ(LinearSolver):
                                               policy, mem=mem)
         return dv.newton_residual_lsolve_soa(z, fz, psi, gamma, gamrat, MJ,
                                              policy), 0, 0
+
+    def soa_newton_update(self, MJ, gamma, gamrat, z, fz, psi, w, mask,
+                          policy=None, mem=None):
+        """The Newton iteration as ``newton_update_soa`` where the class
+        docstring says; else :meth:`soa_residual_solve`, then the
+        update."""
+        if not self.factor_once or MJ.shape[0] > _nw.RESIDUAL_MAX_N or (
+                policy is not None and
+                any(policy.pinned(op) for op in self.UPDATE_OPS)):
+            return super().soa_newton_update(MJ, gamma, gamrat, z, fz, psi, w,
+                                             mask, policy, mem=mem)
+        z_new, dn = dv.newton_update_soa(z, fz, psi, gamma, gamrat, MJ, w,
+                                         mask, policy)
+        return z_new, dn, 0, 0
 
 
 @dataclass(frozen=True)

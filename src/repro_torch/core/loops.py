@@ -5,7 +5,8 @@ The reference runs its step, Newton and Krylov loops as
 that read each loop condition with ONE device->host sync per trip
 (:func:`read`).  :data:`loop_counts` sums those reads and the loops'
 trip counts over every call since the last :func:`reset_loop_counts`
-(``batched.loop_counts`` is the same dict).
+(``batched.loop_counts`` is the same dict), and the ensemble BDF's
+lsetups (each one call of the solver's ``soa_setup``).
 
 :func:`region` marks a hot loop's trip (the ensemble integrators'
 Newton iterations): :data:`regions` holds the names of the regions the
@@ -20,7 +21,7 @@ import contextlib
 import torch
 
 loop_counts = {"host_syncs": 0, "step_trips": 0, "newton_trips": 0,
-               "krylov_trips": 0}
+               "krylov_trips": 0, "lsetups": 0}
 
 
 def reset_loop_counts() -> None:

@@ -44,31 +44,33 @@ matrix below is rendered from ``OP_TABLE`` itself (``python -m
 repro_torch.core.dispatch`` prints it; a test asserts it is embedded
 verbatim, so ops cannot drift out of this doc):
 
-============================  ============================  ===============================
-op                            'torch' backend               'cuda' backend
-============================  ============================  ===============================
-linear_sum                    vecops lincomb plain (K=2)    row 12 lincomb_kernel (K=2)
-linear_combination            vecops lincomb plain          row 12 lincomb_kernel
-scale_add_multi               vecops scale_add_multi plain  row 13 scale_add_multi_kernel
-axpy                          vecops lincomb plain (K=2)    row 12 lincomb_kernel (K=2)
-dot                           (x*y).sum()                   row 16 onepass_reduce (dot)
-wrms_norm                     sqrt(sum((x*w)^2)/N)          row 14 onepass_reduce (wrms)
-wrms_norm_mask                sqrt(sum((x*w*m)^2)/N)        row 15 onepass_reduce (mask)
-dot_prod_multi                stacked (x*y_k).sum()         row 17 multi_dot + final
-wrms_ss                       sum((x*w)^2)                  row 14 onepass_reduce (wrms)
-block_solve_soa               Gauss-Jordan, kernel order    rows 8, 9 gj_solve_*
-block_inverse_soa             Gauss-Jordan inverse          rows 6, 7 gj_inverse_*
-blockdiag_spmv_soa            per-block products, in order  row 2 spmv_*_kernel
-newton_residual_soa           z - gamma*f - psi             row 1 newton_residual_kernel
-masked_update_wrms_soa        where + per-system WRMS       row 3 masked_update_wrms_kernel
-history_rescale_soa           masked W Z products           row 4 history_rescale_kernel
-wrms_soa                      per-system WRMS               row 5 wrms_soa_kernel
-csr_spmv                      ELL gather + row sums         row 11 csr_spmv_kernel
-bsr_spmv_soa                  block products by position    row 10 bsr_spmv_kernel
-bsr_block_jacobi_inverse_soa  diag gather + plain inverse   diag gather + rows 6, 7
-lagrange_rescale_soa          lagrange_matrix_soa + row 4   row 4f (W formed from eta, q)
-newton_residual_lsolve_soa    rows 1, 2 plain + 2/(1+gr)    row 1+2f (one launch, b <= 8)
-============================  ============================  ===============================
+============================  =============================  ===============================
+op                            'torch' backend                'cuda' backend
+============================  =============================  ===============================
+linear_sum                    vecops lincomb plain (K=2)     row 12 lincomb_kernel (K=2)
+linear_combination            vecops lincomb plain           row 12 lincomb_kernel
+scale_add_multi               vecops scale_add_multi plain   row 13 scale_add_multi_kernel
+axpy                          vecops lincomb plain (K=2)     row 12 lincomb_kernel (K=2)
+dot                           (x*y).sum()                    row 16 onepass_reduce (dot)
+wrms_norm                     sqrt(sum((x*w)^2)/N)           row 14 onepass_reduce (wrms)
+wrms_norm_mask                sqrt(sum((x*w*m)^2)/N)         row 15 onepass_reduce (mask)
+dot_prod_multi                stacked (x*y_k).sum()          row 17 multi_dot + final
+wrms_ss                       sum((x*w)^2)                   row 14 onepass_reduce (wrms)
+block_solve_soa               Gauss-Jordan, kernel order     rows 8, 9 gj_solve_*
+block_inverse_soa             Gauss-Jordan inverse           rows 6, 7 gj_inverse_*
+blockdiag_spmv_soa            per-block products, in order   row 2 spmv_*_kernel
+newton_residual_soa           z - gamma*f - psi              row 1 newton_residual_kernel
+masked_update_wrms_soa        where + per-system WRMS        row 3 masked_update_wrms_kernel
+history_rescale_soa           masked W Z products            row 4 history_rescale_kernel
+wrms_soa                      per-system WRMS                row 5 wrms_soa_kernel
+csr_spmv                      ELL gather + row sums          row 11 csr_spmv_kernel
+bsr_spmv_soa                  block products by position     row 10 bsr_spmv_kernel
+bsr_block_jacobi_inverse_soa  diag gather + plain inverse    diag gather + rows 6, 7
+lagrange_rescale_soa          lagrange_matrix_soa + row 4    row 4f (W formed from eta, q)
+newton_residual_lsolve_soa    rows 1, 2 plain + 2/(1+gr)     row 1+2f (one launch, b <= 8)
+newton_update_soa             rows 1, 2, 3 plain + 2/(1+gr)  row 1+2+3f (one launch, b <= 8)
+newton_block_inverse_soa      I - gamma*J + row 6 plain      row 6f (M formed, b <= 8)
+============================  =============================  ===============================
 
 ``op_overrides`` pins single ops to a backend whatever the policy-wide
 ``backend`` says, e.g. ``ExecPolicy().override(blockdiag_spmv_soa=

@@ -23,6 +23,7 @@ KERNELS = {
                                newton.newton_residual_lsolve_plain, ""),
     "masked_update_wrms": (newton.masked_update_wrms,
                            newton.masked_update_wrms_plain, ""),
+    "newton_update": (newton.newton_update, newton.newton_update_plain, ""),
     "history_rescale": (newton.history_rescale,
                         newton.history_rescale_plain, ""),
     "lagrange_rescale": (newton.lagrange_rescale,
@@ -32,6 +33,8 @@ KERNELS = {
                       block_solve.block_inverse_soa_plain, "unrolled"),
     "block_inverse_tiled": (block_solve.block_inverse_soa,
                             block_solve.block_inverse_soa_plain, "tiled"),
+    "newton_block_inverse": (block_solve.newton_block_inverse_soa,
+                             block_solve.newton_block_inverse_soa_plain, ""),
     "block_solve": (block_solve.block_solve_soa,
                     block_solve.block_solve_soa_plain, "unrolled"),
     "block_solve_tiled": (block_solve.block_solve_soa,

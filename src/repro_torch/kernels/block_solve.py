@@ -4,6 +4,9 @@ Counterpart of ``repro/kernels/block_solve.py``:
 
 * :func:`block_inverse_soa` — ``A (b,b,NB) -> A^{-1} (b,b,NB)``, the
   lsetup product of ``BlockDiagGJ(factor_once=True)``;
+* :func:`newton_block_inverse_soa` — ``J (b,b,NB), gamma (NB,) ->
+  (I - gamma*J)^{-1}``, that lsetup at b <= 8 in one launch: the Newton
+  blocks (:func:`newton_blocks_soa`) formed inside the b <= 8 inverse;
 * :func:`block_solve_soa` — ``A (b,b,NB), r (b,NB) -> x (b,NB)``, the
   lsolve of ``BlockDiagGJ(factor_once=False)`` and the DIRK stage
   Newton solve.
@@ -101,6 +104,14 @@ def _inverse_inplace(A):
     return S * inv_m[None, :, :]
 
 
+def newton_blocks_soa(J, gamma):
+    """Dense SoA Newton blocks ``M = I - gamma*J``: J (b,b,NB), gamma
+    (NB,) -> (b,b,NB); entry (i, j) is ``(i == j) - gamma*J[i, j]``, the
+    product rounded alone."""
+    eye = torch.eye(J.shape[0], dtype=J.dtype, device=J.device)
+    return eye[:, :, None] - gamma[None, None, :] * J
+
+
 def _body(b: int) -> str:
     """Which kernel body a block size runs: 'unrolled' or 'tiled'."""
     return "unrolled" if b <= UNROLL_MAX_B else "tiled"
@@ -130,6 +141,33 @@ def block_inverse_soa(A):
                   "ppilp", A.data_ptr(), X.data_ptr(), b, nb,
                   _build.stream(A.device))
     _count(block_inverse_soa, "launches", b)
+    return X
+
+
+def newton_block_inverse_soa_plain(J, gamma):
+    newton_block_inverse_soa_plain.calls += 1
+    return _inverse_augmented(newton_blocks_soa(J, gamma))
+
+
+def newton_block_inverse_soa(J, gamma):
+    """``block_inverse_soa(newton_blocks_soa(J, gamma))`` in one launch that
+    never writes M, bit for bit the two: J (b,b,NB), gamma (NB,), b <=
+    :data:`UNROLL_MAX_B`."""
+    if _build.on_cpu("newton_block_inverse_soa", J):
+        return newton_block_inverse_soa_plain(J, gamma)
+    b, _, nb = J.shape
+    if b > UNROLL_MAX_B:
+        raise ValueError(f"newton_block_inverse_soa: b={b} > {UNROLL_MAX_B} "
+                         f"is not supported")
+    _build.check("newton_block_inverse_soa", J.device,
+                 J=(J, (b, b, nb), tuple(_build.SUFFIX)),
+                 gamma=(gamma, (nb,), (J.dtype,)))
+    X = torch.empty_like(J)
+    _build.launch("block_solve",
+                  "newton_block_inverse_" + _build.SUFFIX[J.dtype], "pppilp",
+                  J.data_ptr(), gamma.data_ptr(), X.data_ptr(), b, nb,
+                  _build.stream(J.device))
+    newton_block_inverse_soa.launches += 1
     return X
 
 
@@ -195,6 +233,8 @@ def block_solve_soa(A, r):
     return X
 
 
+newton_block_inverse_soa.launches = 0
+newton_block_inverse_soa_plain.calls = 0
 for _fn, _prefix in ((block_inverse_soa, "launches"),
                      (block_inverse_soa_plain, "calls"),
                      (block_solve_soa, "launches"),

@@ -3,7 +3,9 @@
 // factor_once=False lsolve, and the DIRK stage Newton solve).
 //
 // Replaces src/repro/kernels/block_solve.py:
-//   _gj_inverse_kernel        (b <= 8) -> gj_inverse_unrolled_kernel
+//   _gj_inverse_kernel        (b <= 8) -> gj_inverse_unrolled_kernel, and
+//                                         with the Newton blocks formed
+//                                         in it, newton_block_inverse_kernel
 //   _gj_tiled_inverse_kernel  (b > 8)  -> gj_inverse_warp_kernel (b <= 32),
 //                                         gj_inverse_inplace_kernel (b > 32)
 //   _gj_kernel                (b <= 8) -> gj_solve_unrolled_kernel
@@ -57,23 +59,38 @@
 //   allocates.  This form streams its working set about b times
 //   through L2 and HBM, once per pivot step, far above its bound; no
 //   path of the port has b > 32.
+//
+// The lsetup of BlockDiagGJ(factor_once=True) at b <= 8 is one launch,
+// newton_block_inverse_kernel: it forms each Newton block M = I -
+// gamma*J as the plain newton_blocks_soa does, entry (i, j) T(i == j) -
+// gamma*J[i][j] with the product rounded alone, and inverts it with
+// gj_inverse_unrolled_kernel's arithmetic.  Composed, the plain build
+// wrote M (an eye, a product and a difference over (b, b, nb)) and row
+// 6 read it back; fused, a system reads J and gamma and writes M^-1
+// once, 152 bytes at b = 3 in float64.  One thread a system, M and the
+// identity's half in registers (gj_inverse_regs: every update kept, so
+// the bits are row 6's, zero signs and non-finite systems included), in
+// blocks of INVERSE_THREADS = 64: 16384 systems (path M's decay chain at
+// b = 6) fill 256 blocks on the 132 SMs, where blocks of 256 filled 64.
+// Float64: 46 registers at b = 3, 116 at 6, 190 at 8, no spills.  Over
+// 16384 systems blocks of 256 took 7 % longer at b = 6 and 10 % at
+// b = 8; a group of 8 lanes a system, lane r holding row r of [M | I]
+// and taking the pivot row by shuffles, 24 % and 22 % longer (48
+// registers, 24 bytes spilled), its shuffles as costly as the updates
+// they spread (tools/newton_fused_variants.py: inverse_256; the group
+// form was timed by an earlier version of that tool and is not kept);
+// at b = 3 over 2**20 the three take the same time.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
 
+#define INVERSE_THREADS 64  // block of newton_block_inverse_kernel
+
+// [a | r] with r the identity, eliminated in registers: the row
+// scaling, then for each pivot the pivot row's scaling and the update of
+// every other row; r ends as a^-1
 template <typename T, int B>
-__global__ void gj_inverse_unrolled_kernel(const T* __restrict__ A,
-                                           T* __restrict__ X, long long nb) {
-  const long long s = system_index();
-  if (s >= nb) return;
-  T a[B][B], r[B][B];
-#pragma unroll
-  for (int i = 0; i < B; ++i)
-#pragma unroll
-    for (int j = 0; j < B; ++j) {
-      a[i][j] = A[(i * B + j) * nb + s];
-      r[i][j] = (i == j) ? T(1) : T(0);
-    }
+__device__ __forceinline__ void gj_inverse_regs(T (&a)[B][B], T (&r)[B][B]) {
 #pragma unroll
   for (int i = 0; i < B; ++i) {
     T m = fabs(a[i][0]);
@@ -105,6 +122,46 @@ __global__ void gj_inverse_unrolled_kernel(const T* __restrict__ A,
       }
     }
   }
+}
+
+template <typename T, int B>
+__global__ void gj_inverse_unrolled_kernel(const T* __restrict__ A,
+                                           T* __restrict__ X, long long nb) {
+  const long long s = system_index();
+  if (s >= nb) return;
+  T a[B][B], r[B][B];
+#pragma unroll
+  for (int i = 0; i < B; ++i)
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      a[i][j] = A[(i * B + j) * nb + s];
+      r[i][j] = (i == j) ? T(1) : T(0);
+    }
+  gj_inverse_regs<T, B>(a, r);
+#pragma unroll
+  for (int i = 0; i < B; ++i)
+#pragma unroll
+    for (int j = 0; j < B; ++j) X[(i * B + j) * nb + s] = r[i][j];
+}
+
+// (I - gamma*J)^-1 of every b = B <= 8 block (see the note above)
+template <typename T, int B>
+__global__ void __launch_bounds__(INVERSE_THREADS)
+newton_block_inverse_kernel(const T* __restrict__ J,
+                            const T* __restrict__ gam, T* __restrict__ X,
+                            long long nb) {
+  const long long s = system_index();
+  if (s >= nb) return;
+  const T g = gam[s];
+  T a[B][B], r[B][B];
+#pragma unroll
+  for (int i = 0; i < B; ++i)
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      a[i][j] = T(i == j) - g * J[(i * B + j) * nb + s];
+      r[i][j] = (i == j) ? T(1) : T(0);
+    }
+  gj_inverse_regs<T, B>(a, r);
 #pragma unroll
   for (int i = 0; i < B; ++i)
 #pragma unroll
@@ -597,6 +654,37 @@ extern "C" int block_inverse_f32(const void* A, void* X, int b, long long nb,
 extern "C" int block_inverse_f64(const void* A, void* X, int b, long long nb,
                                  void* stream) {
   return block_inverse<double>(A, X, b, nb, stream);
+}
+
+template <typename T>
+static int newton_block_inverse(const void* J, const void* gam, void* X,
+                                int b, long long nb, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 g((unsigned)((nb + INVERSE_THREADS - 1) / INVERSE_THREADS));
+  switch (b) {
+#define REPRO_CASE(B)                                                      \
+  case B:                                                                  \
+    newton_block_inverse_kernel<T, B><<<g, INVERSE_THREADS, 0, st>>>(      \
+        (const T*)J, (const T*)gam, (T*)X, nb);                            \
+    break;
+    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
+    REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
+#undef REPRO_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int newton_block_inverse_f32(const void* J, const void* gam,
+                                        void* X, int b, long long nb,
+                                        void* stream) {
+  return newton_block_inverse<float>(J, gam, X, b, nb, stream);
+}
+
+extern "C" int newton_block_inverse_f64(const void* J, const void* gam,
+                                        void* X, int b, long long nb,
+                                        void* stream) {
+  return newton_block_inverse<double>(J, gam, X, b, nb, stream);
 }
 
 template <typename T>

@@ -4,7 +4,9 @@
 //   _newton_residual_kernel     -> newton_residual_kernel, and, fused
 //                                  with blockdiag_spmv.py's _spmv_kernel
 //                                  (b <= 8), newton_residual_lsolve_kernel
-//   _masked_update_wrms_kernel  -> masked_update_wrms_kernel
+//   _masked_update_wrms_kernel  -> masked_update_wrms_kernel, and, fused
+//                                  with the two above (b <= 8),
+//                                  newton_update_kernel
 //   _history_rescale_kernel     -> history_rescale_kernel (n <= 4),
 //                                  history_rescale_loop_kernel (n > 4)
 //   _wrms_soa_kernel            -> wrms_soa_kernel
@@ -37,6 +39,45 @@
 // PyTorch's 2.0 / t does (the reciprocal of 1 + gamrat, times 2), each
 // product, sum and quotient rounded alone: bit for bit the composition
 // of the plain versions, and of the two kernels with the plain corr.
+//
+// The whole Newton iteration of BlockDiagGJ(factor_once=True) at b <= 8
+// is one launch, newton_update_kernel: the dz of
+// newton_residual_lsolve_kernel, never written, then the masked update
+// z' = where(mask, z + dz, z) and the correction norm dn = sqrt(sum_k
+// (dz*w)^2 / b) of masked_update_wrms_kernel, for every system, masked
+// or not, each in its kernel's order: bit for bit the two launches it
+// replaces.  A system reads z, f, psi, w (4b values), gamma, gamrat,
+// Minv (b*b) and its mask byte and writes z' (b) and dn once: at b = 3
+// in float64, 217 bytes a system against the two launches' 184 + 129
+// (dz written and read back, z read twice).  Two forms by the number
+// of systems nb, chosen at launch:
+//
+// * nb > GROUP_MAX_NB = 32768 (the main path's b = 3 over 2**20, path
+//   M's bundles of 65536): one thread a system, as in the two kernels
+//   it replaces, blocks of 256; float64 32 registers at b = 3, 48 at 6,
+//   63 at 8, no spills.
+//
+// * nb <= GROUP_MAX_NB (path M's bundles of 4096 and 16384, its decay
+//   chain at b = 6): a group of GROUP_LANES = 8 lanes a system, lane r
+//   its row: it reads z, f, psi, w of row r and row r of Minv, forms -g
+//   of its row, takes the other rows' from their lanes (group_shfl) to
+//   sum its row of Minv @ x in row 2's order, updates its z, and lane 0
+//   sums the rows' (dz*w)^2 in row 3's order; float64 32 registers at
+//   b = 3 and 6, 40 at 8, no spills.  One thread a system puts 32768
+//   systems in 128 blocks of 256, at most one a SM of the 132, each
+//   thread a serial chain of b*b products after b*b + 4b loads; the
+//   groups put 8x the threads on the card, each lane b products after
+//   b + 4 loads.
+//
+// Measured (tools/newton_fused_variants.py, float64, H100 80GB HBM3,
+// each form forced at every nb): over 4096 to 32768 systems the groups
+// take 5-45 % less time at b = 3..8 (at b = 6 over 16384, 0.0113
+// against 0.0146 ms), at b = 2 the same up to 16384 and 6 % more at
+// 32768, at b = 1 5 % more; over 65536 they are within 3 % at b = 5..8
+// and take 8-18 % more at b = 1..4 (b = 3: 0.0140 against 0.0129 ms);
+// over 2**17 to 2**20 7-81 % more (at b = 3 over 2**20, 0.1131 against
+// 0.0857 ms: five of eight lanes idle).  Blocks of 64 in place of 256
+// changed neither form's best time (update_thread64, update_group64).
 //
 // The history rescale Z'[j] = sum_i W[j,i] Z[i] (Z (q1, n, nb)) takes W
 // from one of two sources (RescaleSource):
@@ -84,6 +125,20 @@
 #include "common.cuh"
 
 #define RESIDUAL_MAX_N 8   // widest block of newton_residual_lsolve_kernel
+#define GROUP_MAX_NB 32768 // most systems newton_update_kernel runs as groups
+#define GROUP_LANES 8      // lanes of a group, one a row
+
+static inline dim3 group_grid(long long nb) {
+  return dim3((unsigned)((nb * GROUP_LANES + REPRO_THREADS - 1) /
+                         REPRO_THREADS));
+}
+
+// lane `lane` of the caller's group's value of v; every lane of the
+// warp must call it
+template <typename T>
+__device__ __forceinline__ T group_shfl(T v, int lane) {
+  return __shfl_sync(0xffffffffu, v, lane, GROUP_LANES);
+}
 
 // g = z - gamma*f - psi over (n, nb); negate -> -g, the sign applied to
 // the computed g so both variants round alike (ref.py:67-74).
@@ -170,6 +225,83 @@ __global__ void masked_update_wrms_kernel(const T* __restrict__ z,
     acc = acc + t * t;
   }
   dn[s] = sqrt(acc / T(n));
+}
+
+// The Newton iteration of BlockDiagGJ(factor_once=True) at b = B <=
+// RESIDUAL_MAX_N in one launch (see the note above): dz =
+// newton_residual_lsolve_kernel's, z' = where(mask, z + dz, z) and dn =
+// sqrt(sum_k (dz*w)^2 / B) as masked_update_wrms_kernel forms them.
+template <typename T, int B, bool GROUPED>
+__global__ void __launch_bounds__(REPRO_THREADS)
+newton_update_kernel(const T* __restrict__ z, const T* __restrict__ f,
+                     const T* __restrict__ psi, const T* __restrict__ gam,
+                     const T* __restrict__ gamrat,
+                     const T* __restrict__ Minv, const T* __restrict__ w,
+                     const unsigned char* __restrict__ mask,
+                     T* __restrict__ zout, T* __restrict__ dn, long long nb) {
+  if constexpr (!GROUPED) {
+    const long long s = system_index();
+    if (s >= nb) return;
+    const T g_s = gam[s];
+    const T corr = (T(1) / (T(1) + gamrat[s])) * T(2);
+    const bool m = mask[s] != 0;
+    T zr[B], x[B];
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      zr[k] = z[k * nb + s];
+      x[k] = residual(zr[k], g_s, f[k * nb + s], psi[k * nb + s], 1);
+    }
+    T ss = T(0);
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      T acc = Minv[(i * B) * nb + s] * x[0];
+#pragma unroll
+      for (int j = 1; j < B; ++j)
+        acc = acc + Minv[(i * B + j) * nb + s] * x[j];
+      const T d = corr * acc;
+      zout[i * nb + s] = m ? zr[i] + d : zr[i];
+      const T t = d * w[i * nb + s];
+      ss = ss + t * t;
+    }
+    dn[s] = sqrt(ss / T(B));
+  } else {
+    // lane r of the system's group owns row r; every lane stays for the
+    // shuffles
+    const long long s = system_index() / GROUP_LANES;
+    const int r = threadIdx.x % GROUP_LANES;
+    const bool live = s < nb, row = live && r < B;
+    T g_s = T(0), gr = T(0);
+    bool m = false;
+    if (live) {
+      g_s = gam[s];
+      gr = gamrat[s];
+      m = mask[s] != 0;
+    }
+    T zr = T(0), x = T(0), wr = T(0), a[B];
+    if (row) {
+      const long long i = (long long)r * nb + s;
+      zr = z[i];
+      x = residual(zr, g_s, f[i], psi[i], 1);
+      wr = w[i];
+    }
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      a[j] = row ? Minv[((long long)r * B + j) * nb + s] : T(0);
+    const T corr = (T(1) / (T(1) + gr)) * T(2);
+    T acc = a[0] * group_shfl(x, 0);
+#pragma unroll
+    for (int j = 1; j < B; ++j) acc = acc + a[j] * group_shfl(x, j);
+    const T d = corr * acc;
+    if (row) zout[(long long)r * nb + s] = m ? zr + d : zr;
+    const T t = d * wr;
+    T ss = T(0);
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      const T tk = group_shfl(t, k);
+      ss = ss + tk * tk;
+    }
+    if (live && r == 0) dn[s] = sqrt(ss / T(B));
+  }
 }
 
 #define SMALL_N 4          // widest state of the n <= 4 rescale
@@ -394,6 +526,41 @@ static int newton_residual_lsolve(const void* z, const void* f,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int B, bool GROUPED>
+static void launch_update(const void* z, const void* f, const void* psi,
+                          const void* gam, const void* gamrat,
+                          const void* Minv, const void* w, const void* mask,
+                          void* zout, void* dn, long long nb,
+                          cudaStream_t st) {
+  const dim3 g = GROUPED ? group_grid(nb) : system_grid(nb);
+  newton_update_kernel<T, B, GROUPED><<<g, REPRO_THREADS, 0, st>>>(
+      (const T*)z, (const T*)f, (const T*)psi, (const T*)gam,
+      (const T*)gamrat, (const T*)Minv, (const T*)w,
+      (const unsigned char*)mask, (T*)zout, (T*)dn, nb);
+}
+
+template <typename T>
+static int newton_update(const void* z, const void* f, const void* psi,
+                         const void* gam, const void* gamrat,
+                         const void* Minv, const void* w, const void* mask,
+                         void* zout, void* dn, int b, long long nb,
+                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool grouped = nb <= GROUP_MAX_NB;
+  switch (b) {
+#define REPRO_CASE(B)                                                       \
+  case B:                                                                   \
+    (grouped ? launch_update<T, B, true> : launch_update<T, B, false>)(     \
+        z, f, psi, gam, gamrat, Minv, w, mask, zout, dn, nb, st);           \
+    break;
+    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
+    REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
+#undef REPRO_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 #define REPRO_EXPORT(T, SUF)                                                  \
   extern "C" int newton_residual_##SUF(const void* z, const void* f,          \
                                        const void* psi, const void* gam,      \
@@ -411,6 +578,13 @@ static int newton_residual_lsolve(const void* z, const void* f,
       void* stream) {                                                         \
     return newton_residual_lsolve<T>(z, f, psi, gam, gamrat, Minv, dz, b, nb, \
                                      stream);                                 \
+  }                                                                           \
+  extern "C" int newton_update_##SUF(                                         \
+      const void* z, const void* f, const void* psi, const void* gam,         \
+      const void* gamrat, const void* Minv, const void* w, const void* mask,  \
+      void* zout, void* dn, int b, long long nb, void* stream) {              \
+    return newton_update<T>(z, f, psi, gam, gamrat, Minv, w, mask, zout, dn,  \
+                            b, nb, stream);                                   \
   }                                                                           \
   extern "C" int masked_update_wrms_##SUF(const void* z, const void* dz,      \
                                           const void* w, const void* mask,    \

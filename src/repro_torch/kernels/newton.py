@@ -1,6 +1,6 @@
 """Ensemble Newton hot-loop ops, SoA layout (system axis LAST).
 
-Counterpart of ``repro/kernels/newton.py``.  Six ops, each a CUDA
+Counterpart of ``repro/kernels/newton.py``.  Seven ops, each a CUDA
 kernel in ``csrc/newton.cu`` with its plain PyTorch version beside it:
 
 * :func:`newton_residual` — ``g = z - gamma*f - psi`` (``negate=True``
@@ -11,6 +11,9 @@ kernel in ``csrc/newton.cu`` with its plain PyTorch version beside it:
   solver (one launch where the composition takes six);
 * :func:`masked_update_wrms` — ``z' = where(mask, z+dz, z)`` fused with
   the per-system WRMS of ``dz``, every Newton iteration;
+* :func:`newton_update` — the two above in one launch: the whole Newton
+  iteration of ``BlockDiagGJ(factor_once=True)`` at b <= 8, ``dz`` never
+  written (every Newton iteration of the BDF's default solver);
 * :func:`history_rescale` — the history rebuild ``Z'[j] = sum_i
   W[j,i] Z[i]`` for active systems, a bit-exact copy for the others
   (the reference's op ``history_rescale_soa``);
@@ -24,7 +27,9 @@ kernel in ``csrc/newton.cu`` with its plain PyTorch version beside it:
 A wrapper launches its kernel for CUDA tensors (and raises if it cannot)
 and runs the plain version for CPU tensors.  The plain versions
 accumulate in the kernels' order, so on the card the two round alike
-(both rescales and the fused residual and lsolve give the same bits).
+(both rescales and the fused residual and lsolve give the same bits;
+:func:`newton_update` gives the bits of the fused residual and lsolve
+and the masked update's kernel).
 """
 from __future__ import annotations
 
@@ -70,9 +75,7 @@ def newton_residual(z, fval, psi, gamma, *, negate=False):
 
 def newton_residual_lsolve_plain(z, fval, psi, gamma, gamrat, Minv):
     newton_residual_lsolve_plain.calls += 1
-    corr = 2.0 / (1.0 + gamrat)
-    return corr[None, :] * block_products(
-        Minv, _residual(z, fval, psi, gamma, True))
+    return _residual_lsolve(z, fval, psi, gamma, gamrat, Minv)
 
 
 def newton_residual_lsolve(z, fval, psi, gamma, gamrat, Minv):
@@ -102,11 +105,21 @@ def newton_residual_lsolve(z, fval, psi, gamma, gamrat, Minv):
     return dz
 
 
-def masked_update_wrms_plain(z, dz, w, mask):
-    masked_update_wrms_plain.calls += 1
+def _residual_lsolve(z, fval, psi, gamma, gamrat, Minv):
+    corr = 2.0 / (1.0 + gamrat)
+    return corr[None, :] * block_products(
+        Minv, _residual(z, fval, psi, gamma, True))
+
+
+def _masked_update(z, dz, w, mask):
     z_new = torch.where(mask.bool()[None, :], z + dz, z)
     t = dz * w
     return z_new, torch.sqrt(torch.mean(t * t, dim=0))
+
+
+def masked_update_wrms_plain(z, dz, w, mask):
+    masked_update_wrms_plain.calls += 1
+    return _masked_update(z, dz, w, mask)
 
 
 def masked_update_wrms(z, dz, w, mask):
@@ -127,6 +140,43 @@ def masked_update_wrms(z, dz, w, mask):
                   mask.data_ptr(), z_new.data_ptr(), dn.data_ptr(), n, nb,
                   _build.stream(z.device))
     masked_update_wrms.launches += 1
+    return z_new, dn
+
+
+def newton_update_plain(z, fval, psi, gamma, gamrat, Minv, w, mask):
+    newton_update_plain.calls += 1
+    return _masked_update(z, _residual_lsolve(z, fval, psi, gamma, gamrat,
+                                              Minv), w, mask)
+
+
+def newton_update(z, fval, psi, gamma, gamrat, Minv, w, mask):
+    """One Newton iteration of ``BlockDiagGJ(factor_once=True)``:
+    ``masked_update_wrms(z, newton_residual_lsolve(z, fval, psi, gamma,
+    gamrat, Minv), w, mask)`` in one launch that never writes dz ->
+    ``(z_new, dn)``, bit for bit the two kernels.  z/f/psi/w (b, NB),
+    gamma/gamrat (NB,), Minv (b, b, NB), mask (NB,) bool or uint8, b <=
+    :data:`RESIDUAL_MAX_N`."""
+    if _build.on_cpu("newton_update", z):
+        return newton_update_plain(z, fval, psi, gamma, gamrat, Minv, w, mask)
+    b, nb = z.shape
+    if b > RESIDUAL_MAX_N:
+        raise ValueError(f"newton_update: b={b} > {RESIDUAL_MAX_N} is not "
+                         f"supported")
+    dt = (z.dtype,)
+    _build.check("newton_update", z.device, z=(z, (b, nb), _FLOATS),
+                 fval=(fval, (b, nb), dt), psi=(psi, (b, nb), dt),
+                 gamma=(gamma, (nb,), dt), gamrat=(gamrat, (nb,), dt),
+                 Minv=(Minv, (b, b, nb), dt), w=(w, (b, nb), dt),
+                 mask=(mask, (nb,), _MASKS))
+    z_new = torch.empty_like(z)
+    dn = torch.empty((nb,), dtype=z.dtype, device=z.device)
+    _build.launch("newton", "newton_update_" + _build.SUFFIX[z.dtype],
+                  "ppppppppppilp", z.data_ptr(), fval.data_ptr(),
+                  psi.data_ptr(), gamma.data_ptr(), gamrat.data_ptr(),
+                  Minv.data_ptr(), w.data_ptr(), mask.data_ptr(),
+                  z_new.data_ptr(), dn.data_ptr(), b, nb,
+                  _build.stream(z.device))
+    newton_update.launches += 1
     return z_new, dn
 
 
@@ -252,9 +302,9 @@ def wrms_soa(v, w):
 
 
 for _fn in (newton_residual, newton_residual_lsolve, masked_update_wrms,
-            history_rescale, lagrange_rescale, wrms_soa):
+            newton_update, history_rescale, lagrange_rescale, wrms_soa):
     _fn.launches = 0
 for _fn in (newton_residual_plain, newton_residual_lsolve_plain,
-            masked_update_wrms_plain, history_rescale_plain,
-            lagrange_rescale_plain, wrms_soa_plain):
+            masked_update_wrms_plain, newton_update_plain,
+            history_rescale_plain, lagrange_rescale_plain, wrms_soa_plain):
     _fn.calls = 0

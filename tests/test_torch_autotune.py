@@ -356,12 +356,16 @@ def test_window_pattern_has_the_entries_and_the_diagonal():
         autotune.window_pattern(3, 10)
 
 
+#: the port's own ops, in their port_grid order
+PORT_OWN = ("lagrange_rescale_soa", "newton_residual_lsolve_soa",
+            "newton_update_soa", "newton_block_inverse_soa")
+
+
 def test_tune_grid_covers_every_op_and_gives_back_its_keys():
     grid = autotune.tune_grid()
     assert {s.op for s in grid} == set(dv.OP_TABLE)
     assert [s.key() for s in autotune.port_grid()] == \
-        [s.key() for s in grid if s.op in ("lagrange_rescale_soa",
-                                           "newton_residual_lsolve_soa")]
+        [s.key() for s in grid if s.op in PORT_OWN]
     for sig in grid:
         args = autotune.args_for(sig, "meta")
         assert opcost.signature(sig.op, args) == sig
@@ -521,8 +525,8 @@ def test_auto_main_path_on_the_cpu_is_the_torch_run_bit_for_bit():
     assert rep["device"] == "cpu" and rep["cache_entries"] == 0
     decs = rep["decisions"]
     assert {d["op"] for d in decs} == {
-        "newton_residual_lsolve_soa", "masked_update_wrms_soa",
-        "lagrange_rescale_soa", "wrms_soa", "block_inverse_soa"}
+        "newton_update_soa", "lagrange_rescale_soa", "wrms_soa",
+        "newton_block_inverse_soa"}
     assert all((d["source"], d["backend"]) == ("cpu", "torch") for d in decs)
     assert sum(d["hits"] for d in decs) == plain_calls > 0
 

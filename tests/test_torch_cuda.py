@@ -20,6 +20,9 @@ from repro_torch.kernels import (block_solve, blockdiag_spmv, newton, sparse,
                                  vecops)
 
 NBS = [7, 130, 516]
+#: the Newton iteration's and lsetup's fused kernels (b <= 8) are also
+#: checked at the main path's batch
+FUSED_NBS = NBS + [1 << 20]
 #: block sizes of the Gauss-Jordan and SpMV cases: the register bodies
 #: (b <= 8), the warp forms (9 <= b <= 32: its edges, the SpMV's
 #: templated 16 and 24, and path B's and K's 32) and the forms above (33)
@@ -162,6 +165,121 @@ def test_newton_residual_lsolve_bit_for_bit_at_the_main_paths_batch_on_card(
     two = (2.0 / (1.0 + gamrat))[None, :] * blockdiag_spmv.blockdiag_spmv_soa(
         Minv, newton.newton_residual(z, f, psi, gam, negate=True))
     assert torch.equal(got, two)
+
+
+def _same_bits(got, want):
+    """Equal values, NaN where NaN (what ``torch.equal`` says of finite
+    tensors)."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _nonfinite_systems(t):
+    """Systems (the last axis) with a non-finite entry."""
+    return (~t.isfinite()).reshape(-1, t.shape[-1]).any(dim=0)
+
+
+def _newton_update_inputs(b, nb, dtype):
+    """The fused Newton iteration's inputs over nb systems (random mask),
+    with non-finite systems planted where nb allows: a NaN in z, an inf
+    in f, a NaN in Minv, an inf gamma."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 * b + nb % 1000)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    z, f, psi, w = rnd(b, nb), rnd(b, nb), rnd(b, nb), rnd(b, nb).abs() + 0.1
+    gam, gamrat = rnd(nb).abs(), 0.7 + 0.6 * rnd(nb).abs().clamp(max=1)
+    Minv = rnd(b, b, nb) / b + torch.eye(b, device="cuda",
+                                         dtype=dtype)[:, :, None]
+    mask = torch.rand(nb, generator=gen, device="cuda") > 0.4
+    if nb >= 7:
+        z[0, 1] = float("nan")
+        f[b - 1, 3] = float("inf")
+        Minv[b - 1, 0, 4] = float("nan")
+        gam[5] = float("inf")
+    return z, f, psi, gam, gamrat, Minv, w, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nb", FUSED_NBS)
+@pytest.mark.parametrize("b", LSOLVE_BS)
+def test_newton_update_bit_for_bit_on_card(b, nb, dtype):
+    """Row 1+2+3f, one launch: z' equals its plain version's bit for bit
+    and both outputs equal rows 1+2f and 3's (the launches it replaces)
+    bit for bit, planted non-finite systems included; the norm is held
+    to the plain version's as row 3's is (PyTorch's mean sums in its own
+    order and multiplies by 1/b)."""
+    _need_card()
+    args = _newton_update_inputs(b, nb, dtype)
+    kernels.reset_counts()
+    z_new, dn = newton.newton_update(*args)
+    assert kernels.counts()["newton_update"] == (1, 0)
+    z_two, dn_two = newton.masked_update_wrms(
+        args[0], newton.newton_residual_lsolve(*args[:6]), *args[6:])
+    z_plain, dn_plain = newton.newton_update_plain(*args)
+    torch.cuda.synchronize()
+    _same_bits(z_new, z_two)
+    _same_bits(dn, dn_two)
+    _same_bits(z_new, z_plain)
+    assert torch.equal(dn.isnan(), dn_plain.isnan())
+    fin = dn_plain.isfinite()
+    scale = max(1.0, dn_plain[fin].abs().max().item())
+    assert (dn[fin] - dn_plain[fin]).abs().max().item() <= TOL[dtype] * scale
+    if nb >= 7:
+        assert torch.equal(_nonfinite_systems(z_new) | ~dn.isfinite(),
+                           _nonfinite_systems(z_plain) | ~dn_plain.isfinite())
+        assert bool(~dn[[1, 3, 4, 5]].isfinite().all())
+
+
+def _newton_jacobian_inputs(b, nb, dtype):
+    """Jacobians J (b, b, nb) whose Newton blocks I - gamma*J are
+    diagonally dominant, gamma (nb,), with a zero column in every fourth
+    system and, where nb allows, non-finite and singular systems planted:
+    a NaN entry, an inf entry, an inf gamma, a block whose row 0 is zero
+    (gamma 1, J's row 0 the unit row) and one whose last pivot is zero."""
+    gen = torch.Generator(device="cuda").manual_seed(2000 * b + nb % 1000)
+    gam = torch.rand(nb, generator=gen, device="cuda", dtype=dtype) + 0.01
+    J = torch.randn(b, b, nb, generator=gen, device="cuda", dtype=dtype) \
+        / (b * (gam + 1.0))
+    J[:, -1, ::4] = 0.0
+    if nb >= 7:
+        J[b - 1, 0, 1] = float("nan")
+        J[0, b - 1, 2] = float("inf")
+        gam[3] = float("inf")
+        gam[4] = 1.0
+        J[0, :, 4] = 0.0
+        J[0, 0, 4] = 1.0
+        gam[5] = 1.0
+        J[:, :, 5] = torch.eye(b, device="cuda", dtype=dtype)
+    return J, gam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nb", FUSED_NBS)
+@pytest.mark.parametrize("b", LSOLVE_BS)
+def test_newton_block_inverse_bit_for_bit_on_card(b, nb, dtype):
+    """Row 6f, one launch: equal to its plain version and to row 6 on the
+    plain Newton blocks bit for bit, with a non-finite output on exactly
+    the systems where the plain version has one (the planted NaN, inf
+    and singular blocks) and the plain version's bits on every other."""
+    _need_card()
+    from repro_torch.core.linsol import newton_blocks_soa
+    J, gam = _newton_jacobian_inputs(b, nb, dtype)
+    kernels.reset_counts()
+    got = block_solve.newton_block_inverse_soa(J, gam)
+    assert kernels.counts()["newton_block_inverse"] == (1, 0)
+    plain = block_solve.newton_block_inverse_soa_plain(J, gam)
+    row6 = block_solve.block_inverse_soa(newton_blocks_soa(J, gam))
+    torch.cuda.synchronize()
+    _same_bits(got, plain)
+    _same_bits(got, row6)
+    bad = _nonfinite_systems(plain)
+    assert torch.equal(_nonfinite_systems(got), bad)
+    assert torch.equal(got[:, :, ~bad], plain[:, :, ~bad])
+    if nb >= 7:
+        assert bool(bad[[1, 2, 3, 4, 5]].all())
 
 
 @pytest.mark.cuda
@@ -794,8 +912,7 @@ def test_server_bundles_match_a_direct_kernel_run_on_card():
                       **tol) for k in kdec]
     kernels.reset_counts()
     srv.drain()
-    for name in ("newton_residual_lsolve", "masked_update_wrms",
-                 "lagrange_rescale", "wrms_soa", "block_inverse"):
+    for name in BDF_KERNELS:
         launches, calls = kernels.counts()[name]
         assert launches > 0 and calls == 0, name
     rob, dec = [f.result() for f in rob], [f.result() for f in dec]
@@ -893,10 +1010,11 @@ def test_a_kernel_refusing_its_inputs_fails_the_bundle_on_card():
 
 NSHARD = 1 << 12
 #: the BDF loop's kernels under BlockDiagGJ(): the fused Newton
-#: iteration; under a pin of row 2 the residual takes its place
-BDF_KERNELS = ("newton_residual_lsolve", "masked_update_wrms",
-               "lagrange_rescale", "wrms_soa", "block_inverse")
-PINNED_KERNELS = ("newton_residual",) + BDF_KERNELS[1:]
+#: iteration and lsetup; under a pin of row 2 the residual and the
+#: masked update take the iteration's place
+BDF_KERNELS = ("newton_update", "lagrange_rescale", "wrms_soa",
+               "newton_block_inverse")
+PINNED_KERNELS = ("newton_residual", "masked_update_wrms") + BDF_KERNELS[1:]
 
 
 def _robertson_family_problem(nsys):
@@ -956,10 +1074,10 @@ def test_sharded_world_of_one_is_the_unsharded_run_on_card(tmp_path):
 
 @pytest.mark.cuda
 def test_a_pinned_run_launches_all_but_the_pinned_kernel_on_card():
-    """``override(blockdiag_spmv_soa="torch")``: rows 1, 3, 4f, 5, 6 on
+    """``override(blockdiag_spmv_soa="torch")``: rows 1, 3, 4f, 5, 6f on
     their kernels, row 2 on its plain version only, the fused Newton
-    iteration never; y within 10*(rtol*|y|+atol) of the kernel run,
-    retcodes equal."""
+    iterations (rows 1+2f, 1+2+3f) never; y within 10*(rtol*|y|+atol) of
+    the kernel run, retcodes equal."""
     _need_card()
     from repro_torch.core import ivp
     from repro_torch.core.arkode import ODEOptions
@@ -975,7 +1093,8 @@ def test_a_pinned_run_launches_all_but_the_pinned_kernel_on_card():
     counts = kernels.counts()
     launched, plain = counts["blockdiag_spmv"]
     assert launched == 0 and plain > 0
-    assert counts["newton_residual_lsolve"] == (0, 0)
+    assert counts["newton_residual_lsolve"] == counts["newton_update"] == \
+        (0, 0)
     for name in PINNED_KERNELS:
         assert counts[name][0] > 0 and counts[name][1] == 0, name
     assert torch.equal(sol.retcodes, ref.retcodes)
@@ -985,10 +1104,13 @@ def test_a_pinned_run_launches_all_but_the_pinned_kernel_on_card():
 
 @pytest.mark.cuda
 def test_the_fused_newton_iteration_is_the_composed_route_on_card():
-    """``BlockDiagGJ()`` takes the fused Newton iteration; a pin of
-    ``newton_residual_soa`` to its plain version (which rounds as row 1)
-    takes the residual and row 2 instead.  The two runs agree bit for
-    bit: y, every stats field, host syncs and trips."""
+    """``BlockDiagGJ()`` takes the fused Newton iteration (row 1+2+3f)
+    and lsetup (row 6f); a pin of ``masked_update_wrms_soa`` to its
+    kernel takes rows 1+2f and 3; a pin of ``newton_residual_soa`` to its
+    plain version (which rounds as row 1) and of ``block_inverse_soa``
+    to its kernel the residual, rows 2, 3 and 6.  The three runs agree
+    bit for bit: y, every stats field, host syncs and trips, one fused
+    launch a Newton trip and a lsetup."""
     _need_card()
     from repro_torch.core import batched
     from repro_torch.core.arkode import ODEOptions
@@ -997,22 +1119,35 @@ def test_the_fused_newton_iteration_is_the_composed_route_on_card():
     opts = ODEOptions(rtol=1e-5, atol=1e-10, max_steps=100_000)
     runs = []
     for policy in (ExecPolicy(),
-                   ExecPolicy().override(newton_residual_soa="torch")):
+                   ExecPolicy().override(masked_update_wrms_soa="cuda"),
+                   ExecPolicy().override(newton_residual_soa="torch",
+                                         block_inverse_soa="cuda")):
         kernels.reset_counts()
         batched.reset_loop_counts()
         y, st = batched.ensemble_bdf_integrate(
             lambda t, y: f(t, y, params), lambda t, y: jac(t, y, params), y0,
             0.0, 10.0, opts=opts, policy=policy)
         runs.append((y, st, dict(batched.loop_counts), kernels.counts()))
-    (y, st, loops, c), (y2, st2, loops2, c2) = runs
-    assert c["newton_residual_lsolve"][0] == loops["newton_trips"] > 0
-    assert c["newton_residual"] == c["blockdiag_spmv"] == (0, 0)
-    assert c2["newton_residual_lsolve"] == (0, 0)
+    (y, st, loops, c), (y1, st1, loops1, c1), (y2, st2, loops2, c2) = runs
+    trips, lsetups = loops["newton_trips"], loops["lsetups"]
+    assert c["newton_update"][0] == trips > 0
+    assert c["newton_block_inverse"][0] == lsetups > 0
+    for name in ("newton_residual", "blockdiag_spmv", "newton_residual_lsolve",
+                 "masked_update_wrms", "block_inverse"):
+        assert c[name] == (0, 0), name
+    assert c1["newton_residual_lsolve"][0] == c1["masked_update_wrms"][0] == \
+        trips and c1["newton_update"] == (0, 0)
+    assert c1["newton_residual"] == c1["blockdiag_spmv"] == (0, 0)
+    assert c1["newton_block_inverse"][0] == lsetups
     assert c2["blockdiag_spmv"][0] == c2["newton_residual"][1] == \
-        loops2["newton_trips"]
-    assert loops == loops2 and torch.equal(y, y2)
-    for name, a, b in zip(st._fields, st, st2):
-        assert (a is None and b is None) or torch.equal(a, b), name
+        c2["masked_update_wrms"][0] == trips
+    assert c2["block_inverse"][0] == lsetups
+    assert c2["newton_update"] == c2["newton_block_inverse"] == \
+        c2["newton_residual_lsolve"] == (0, 0)
+    for y_, st_, loops_ in ((y1, st1, loops1), (y2, st2, loops2)):
+        assert loops == loops_ and torch.equal(y, y_)
+        for name, a, b in zip(st._fields, st, st_):
+            assert (a is None and b is None) or torch.equal(a, b), name
 
 
 @pytest.mark.cuda

@@ -177,8 +177,9 @@ def _decay_chain(nsys, n):
 @pytest.mark.parametrize("case", ["robertson", "decay6", "decay8"])
 def test_ensemble_bdf_takes_the_fused_op_and_matches_the_reference(case):
     """Robertson (b = 3) to t = 10 and decay chains (b = 6, 8) to t = 5,
-    64 systems: the fused op's plain version runs once a Newton trip and
-    neither composed op runs; y within 10*(rtol*|y|+atol) of the
+    64 systems: the fused Newton iteration's plain version (the whole
+    iteration, ``newton_update_soa``, which holds this op) runs once a
+    Newton trip and no composed op runs; y within 10*(rtol*|y|+atol) of the
     reference's ``ensemble_bdf_integrate``, success masks and retcodes
     equal; bit for bit the run with the residual pinned to its plain
     version (the composition), with the same counters."""
@@ -193,7 +194,8 @@ def test_ensemble_bdf_takes_the_fused_op_and_matches_the_reference(case):
                                            policy=CPU)
     c = kernels.counts()
     trips = batched.loop_counts["newton_trips"]
-    assert c["newton_residual_lsolve"] == (0, trips) and trips > 0
+    assert c["newton_update"] == (0, trips) and trips > 0
+    assert c["newton_residual_lsolve"] == c["masked_update_wrms"] == (0, 0)
     assert c["newton_residual"] == c["blockdiag_spmv"] == (0, 0)
     y_ref, st_ref = ref_batched.ensemble_bdf_integrate(
         rf, rj, ry0, 0.0, tf, opts=RefOptions(rtol=RTOL, atol=ATOL,
@@ -234,8 +236,8 @@ def test_ensemble_bdf_on_wide_rates_is_as_accurate_as_the_reference(seed):
     their mean; and its largest component) is within 10 % of the
     reference's, whose largest errors lie 2.7x (seed 2) and 4.3x (seed 8)
     that gate from the exact solution (``tools/decay_chain_witness.py``);
-    success and retcodes equal; the fused op taken and bit for bit the
-    pinned two-op run."""
+    success and retcodes equal; the fused Newton iteration taken and bit
+    for bit the pinned two-op run."""
     n, nsys, tf = 8, 64, 5.0
     k = 10.0 ** np.random.default_rng(seed).uniform(-1.0, 2.0, size=(nsys, n))
     y0 = np.zeros((nsys, n))
@@ -255,7 +257,8 @@ def test_ensemble_bdf_on_wide_rates_is_as_accurate_as_the_reference(seed):
     y, st = port(CPU)
     c = kernels.counts()
     trips = batched.loop_counts["newton_trips"]
-    assert c["newton_residual_lsolve"] == (0, trips) and trips > 0
+    assert c["newton_update"] == (0, trips) and trips > 0
+    assert c["newton_residual_lsolve"] == c["masked_update_wrms"] == (0, 0)
     assert c["newton_residual"] == c["blockdiag_spmv"] == (0, 0)
     y_ref, st_ref = ref_batched.ensemble_bdf_integrate(
         lambda t, y: F(t, y, rp), lambda t, y: J(t, y, rp), jnp.asarray(y0),

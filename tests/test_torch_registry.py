@@ -16,7 +16,8 @@ from repro_torch.core.arkode import ODEOptions
 from repro_torch.core.policies import ExecPolicy
 from repro_torch.kernels import blockdiag_spmv, newton
 
-PORT_OWN = {"lagrange_rescale_soa", "newton_residual_lsolve_soa"}
+PORT_OWN = {"lagrange_rescale_soa", "newton_residual_lsolve_soa",
+            "newton_update_soa", "newton_block_inverse_soa"}
 
 
 def test_op_names_are_the_references_and_the_ports_own():
@@ -217,14 +218,15 @@ RATES = np.linspace(10.0, 80.0, NSYS)
 def test_a_pin_reaches_the_bdf_loop(monkeypatch):
     """``override(blockdiag_spmv_soa="torch")`` sends the BDF lsolve to
     the plain version and nothing else: the SpMV's kernel wrapper is
-    never entered, the other wrappers are (the residual's alone, not
-    the fused residual and lsolve that the unpinned run enters instead);
-    y equals the unpinned run's and lies within 10*(rtol*|y|+atol) of
-    the reference's."""
+    never entered, the other wrappers are (the residual's and the
+    masked update's alone, not the fused Newton iteration that the
+    unpinned run enters instead); y equals the unpinned run's and lies
+    within 10*(rtol*|y|+atol) of the reference's."""
     entered = []
     for mod, name in ((blockdiag_spmv, "blockdiag_spmv_soa"),
                       (newton, "newton_residual"),
                       (newton, "newton_residual_lsolve"),
+                      (newton, "newton_update"),
                       (newton, "masked_update_wrms"),
                       (newton, "lagrange_rescale"), (newton, "wrms_soa")):
         real = getattr(mod, name)
@@ -248,14 +250,15 @@ def test_a_pin_reaches_the_bdf_loop(monkeypatch):
     pinned = ExecPolicy(device="cpu").override(blockdiag_spmv_soa="torch")
     y, st = batched.ensemble_bdf_integrate(f, jac, y0, 0.0, 2.0, opts=opts,
                                            policy=pinned)
-    assert {"blockdiag_spmv_soa", "newton_residual_lsolve"}.isdisjoint(
-        entered)
+    assert {"blockdiag_spmv_soa", "newton_residual_lsolve",
+            "newton_update"}.isdisjoint(entered)
     assert {"newton_residual", "masked_update_wrms", "lagrange_rescale",
             "wrms_soa"} <= set(entered)
     entered.clear()
     y1, st1 = batched.ensemble_bdf_integrate(f, jac, y0, 0.0, 2.0, opts=opts)
-    assert "newton_residual_lsolve" in entered
-    assert {"blockdiag_spmv_soa", "newton_residual"}.isdisjoint(entered)
+    assert "newton_update" in entered
+    assert {"blockdiag_spmv_soa", "newton_residual", "newton_residual_lsolve",
+            "masked_update_wrms"}.isdisjoint(entered)
     assert torch.equal(y, y1) and torch.equal(st.retcodes, st1.retcodes)
     r = jnp.asarray(RATES)
     y_ref, st_ref = ref_batched.ensemble_bdf_integrate(

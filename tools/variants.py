@@ -1,7 +1,8 @@
-"""Helpers of the kernel-candidate tools ``tools/spmv_variants.py`` and
-``tools/rescale_variants.py``: candidate sources made by text edits of a
-port source, their build (all ``nvcc`` at once, with the compiler's
-register report), and the CUDA-event time of one call."""
+"""Helpers of the kernel-candidate tools ``tools/spmv_variants.py``,
+``tools/rescale_variants.py`` and ``tools/newton_fused_variants.py``:
+candidate sources made by text edits of a port source, their build (all
+``nvcc`` at once, with the compiler's register report), and the
+CUDA-event time of one call."""
 from __future__ import annotations
 
 import ctypes
