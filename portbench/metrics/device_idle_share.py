@@ -1,0 +1,9 @@
+"""Percent of the profiled window (first call span's start to the last's
+end) in which no operation ran on the device."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
